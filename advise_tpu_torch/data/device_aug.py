@@ -1,16 +1,20 @@
 """On-device augmentation (counterpart of ``advise_tpu/data/device_aug.py``):
-the 'aa' pipeline with AUG.FUSED_RA.
+the 'aa' pipeline with AUG.FUSED_RA, and the 'simple' pipeline with
+TPU.PALLAS_AUG.
 
-uint8 ``[B, K, T, H, W, C]`` at the ingest geometry goes in; per clip the
-pipeline runs RandomResizedCrop, RandAugment (one composed bilinear warp,
-then the color ops), the horizontal flip (inside the warp), RandomErasing
-and normalize, and emits float32 or, with TPU.AUG_COMPUTE_OUT under bf16,
-bfloat16. All frames of a clip share its parameters.
+uint8 ``[B, K, T, H, W, C]`` at the ingest geometry goes in, and float32
+or, with TPU.AUG_COMPUTE_OUT under bf16, bfloat16 comes out. All frames of
+a clip share its parameters.
 
-Each stage is split into sampling (:meth:`AAAug.sample`, from an explicit
-``torch.Generator`` on the clips' device) and applying
-(:meth:`AAAug.apply`), so a test can hand the apply the parameters the JAX
-code drew.
+- 'aa': per clip, RandomResizedCrop, RandAugment (one composed bilinear
+  warp, then the color ops), the horizontal flip (inside the warp),
+  RandomErasing and normalize.
+- 'simple': the fixed Resize happened at ingest; per clip, a random crop,
+  the colour jitter and normalize, in one kernel (``ops/fused_aug.py``).
+
+Each pipeline is split into sampling (``sample``, from an explicit
+``torch.Generator`` on the clips' device) and applying (``apply``), so a
+test can hand the apply the parameters the JAX code drew.
 """
 
 from __future__ import annotations
@@ -169,13 +173,50 @@ class AAAug:
         return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
 
 
+class SimpleAug:
+    """AUG.TYPE 'simple' with TPU.PALLAS_AUG: ``aug(batch_u8, generator)``,
+    or ``apply(batch_u8, sample(...))`` with parameters from elsewhere. The
+    XLA path of the JAX package (TPU.PALLAS_AUG off) draws its parameters
+    from other key splits and rotates hue for real; it is not ported yet."""
+
+    def __init__(self, cfg):
+        if not cfg.TPU.PALLAS_AUG:
+            raise NotImplementedError("the simple aug without TPU.PALLAS_AUG is not ported yet")
+        self.size = int(cfg.AUG.TARGET_SIZE)
+        self.color = tuple(cfg.AUG.COLOR)
+        self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+        self.out_dtype = aug_out_dtype(cfg)
+
+    def sample(self, n: int, t: int, h: int, w: int, c: int,
+               generator: torch.Generator) -> Dict[str, Any]:
+        """Parameters for n clips of [t, h, w, c]."""
+        from advise_tpu_torch.ops.fused_aug import sample_simple_aug
+
+        return sample_simple_aug(n, h, w, self.size, self.color, generator)
+
+    def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+        from advise_tpu_torch.ops.fused_aug import fused_simple_aug
+
+        b, k = batch_u8.shape[:2]
+        flat = batch_u8.reshape(b * k, *batch_u8.shape[2:])
+        out = fused_simple_aug(flat, params, self.size, self.mean, self.std, self.out_dtype)
+        return out.reshape(b, k, *out.shape[1:])
+
+    def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        b, k, t, h, w, c = batch_u8.shape
+        return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
+
+
+_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug}
+
+
 def build_device_aug(cfg, mode: str = "train"):
-    """The train-mode 'aa' pipeline (other AUG.TYPEs and modes are not
-    ported yet). DATA.REVERSE_INPUT_CHANNEL flips the channel axis of the
-    raw batch first."""
-    if mode != "train" or cfg.AUG.TYPE != "aa":
+    """The train-mode pipeline of AUG.TYPE 'aa' or 'simple' (other AUG.TYPEs
+    and modes are not ported yet). DATA.REVERSE_INPUT_CHANNEL flips the
+    channel axis of the raw batch first."""
+    if mode != "train" or cfg.AUG.TYPE not in _TRAIN_AUGS:
         raise NotImplementedError(f"device aug mode={mode} AUG.TYPE={cfg.AUG.TYPE} is not ported yet")
-    aug = AAAug(cfg)
+    aug = _TRAIN_AUGS[cfg.AUG.TYPE](cfg)
     if not cfg.DATA.REVERSE_INPUT_CHANNEL:
         return aug
 
@@ -186,10 +227,13 @@ def build_device_aug(cfg, mode: str = "train"):
 
 
 def ingest_geometry(cfg, mode: str = "train") -> Tuple[int, int]:
-    """Fixed (W, H) decode geometry of the train-mode RRC pipelines: a 4:3
-    canvas around AUG.TARGET_SIZE, so crops have material to sample (the
-    other modes of the JAX ``ingest_geometry`` are not ported yet)."""
-    if mode != "train" or cfg.AUG.TYPE == "simple":
-        raise NotImplementedError(f"ingest geometry mode={mode} AUG.TYPE={cfg.AUG.TYPE} is not ported yet")
+    """Fixed (W, H) decode geometry in train mode: AUG.RESIZE verbatim for
+    'simple' (the reference resizes to this exact size), else a 4:3 canvas
+    around AUG.TARGET_SIZE, so crops have material to sample (the other
+    modes of the JAX ``ingest_geometry`` are not ported yet)."""
+    if mode != "train":
+        raise NotImplementedError(f"ingest geometry mode={mode} is not ported yet")
+    if cfg.AUG.TYPE == "simple":
+        return (int(cfg.AUG.RESIZE[0]), int(cfg.AUG.RESIZE[1]))
     s = int(cfg.AUG.TARGET_SIZE)
     return (s * 4 // 3, s)

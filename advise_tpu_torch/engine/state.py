@@ -18,5 +18,5 @@ class TrainState:
     model: nn.Module             # online parameters + BN running statistics
     opt_state: Dict[str, Any]    # the optimizer's state ({'trace': {name: tensor}})
     step: int = 0
-    # BYOL: {'ema_model': momentum encoder, 'knn_mem': kNN bank}
+    # BYOL: {'ema_model': momentum encoder, 'knn_mem': kNN bank}; {} on the task step
     ssl: Dict[str, Any] = field(default_factory=dict)

@@ -1,23 +1,29 @@
-"""The contrastive train step (counterpart of ``advise_tpu/engine/steps.py``
-``make_contrastive_train_step``) on one device.
+"""The train steps (counterpart of ``advise_tpu/engine/steps.py``) on one
+device: the contrastive step and the task step (TASK speed).
 
-Order inside the step, as in the JAX package: augmentation -> cast to
-TPU.COMPUTE_DTYPE -> EMA update -> BYOL loss (online views with per-view BN,
-momentum-encoder keys, kNN scatter) -> backward -> BN running statistics
-committed once -> global grad norm -> LARS-SGD direction -> parameters
-updated. With one device the JAX step's ``pmean``/``all_gather`` are
-identities. The step runs eagerly and updates ``state`` in place.
+Order inside the contrastive step, as in the JAX package: augmentation ->
+cast to TPU.COMPUTE_DTYPE -> EMA update -> BYOL loss (online views with
+per-view BN, momentum-encoder keys, kNN scatter) -> backward -> BN running
+statistics committed once -> global grad norm -> LARS-SGD direction ->
+parameters updated. The task step: augmentation -> cast -> forward (all
+B*K clips as one batch, head dropout) -> task loss -> backward -> BN commit
+-> global grad norm -> SGD direction -> update. With one device the JAX
+step's ``pmean``/``all_gather`` are identities. The steps run eagerly and
+update ``state`` in place.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from advise_tpu_torch.engine.contrastive import CONTRASTIVE_LOSSES, momentum_at, update_ema
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.models import compute_dtype as cfg_compute_dtype
+from advise_tpu_torch.models import losses as L
 from advise_tpu_torch.models.layers.norm import commit_bn_stats
 from advise_tpu_torch.solver.optimizer import (
     OptimizerBundle,
@@ -68,9 +74,82 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
     return step
 
 
+def speed_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
+                    infos: Dict[str, torch.Tensor],
+                    generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Speed-pretext loss: clips [B, K, T, H, W, C] run as one [B*K] batch,
+    speed labels ``infos['spd_label']`` [B, K]. One statistic per (SSL.STAT,
+    SSL.METRIC) pair, keyed by the STAT name; the loss is the one named
+    ``loss_spd``. ``generator`` draws the head's dropout mask."""
+    b, k = clips.shape[:2]
+    labels = infos["spd_label"].reshape(b * k).long()
+    logits = model(clips.reshape(b * k, *clips.shape[2:]), generator=generator)
+    stats: Dict[str, torch.Tensor] = {}
+    for stat, met in zip(cfg.SSL.STAT, cfg.SSL.METRIC):
+        if met == "ce":
+            if cfg.SSL.SMOOTHING > 0:
+                c = logits.shape[-1]
+                soft = F.one_hot(labels, c).float() * (1.0 - cfg.SSL.SMOOTHING) + cfg.SSL.SMOOTHING / c
+                stats[stat] = L.soft_cross_entropy(logits, soft)
+            else:
+                stats[stat] = L.cross_entropy(logits, labels)
+        elif met in ("bce_logit", "smoothing_bce_logit"):
+            onehot = F.one_hot(labels, logits.shape[-1]).float()
+            smoothing = cfg.SSL.SMOOTHING if met == "smoothing_bce_logit" else 0.0
+            stats[stat] = L.bce_logit(logits, onehot, smoothing=smoothing)
+        elif met == "margin":
+            stats[stat] = L.margin_ranking_intra(
+                logits.reshape(b, k, -1), infos["spd_label"].reshape(b, k), cfg.SSL.MARGIN)
+        elif met == "acc@1":
+            stats[stat] = L.top_k_accuracy(logits, labels, k=1)
+        elif met == "acc@5":
+            stats[stat] = L.top_k_accuracy(logits, labels, k=5)
+        else:
+            raise NotImplementedError(f"SSL.METRIC={met!r} for TASK=speed")
+    return stats["loss_spd"], stats
+
+
+TASK_LOSSES = {"speed": speed_task_loss}
+
+
+def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):
+    """Returns ``step(state, clips_u8, infos, generator, lr) -> stats`` for
+    cfg.TASK: ``clips_u8`` [B, K, T, H, W, 3] uint8 at ingest geometry (or
+    already-augmented float clips when ``device_aug`` is None), ``generator``
+    drawing the augmentation and then the dropout mask on the clips'
+    device. ``state.ssl`` stays {}."""
+    if cfg.TRAIN.SEQUENTIAL:
+        raise NotImplementedError("TRAIN.SEQUENTIAL is not ported yet")
+    if cfg.TASK not in TASK_LOSSES:
+        raise NotImplementedError(f"TASK={cfg.TASK} train step is not ported yet")
+    task_loss = TASK_LOSSES[cfg.TASK]
+    dtype = cfg_compute_dtype(cfg)
+
+    def step(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator], lr: float) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.train()
+        clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
+        clips = clips.to(dtype)
+        with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            loss, stats = task_loss(cfg, model, clips, infos, generator)
+        params = dict(model.named_parameters())
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        commit_bn_stats(model)
+        stats = {name: v.detach() for name, v in stats.items()}
+        stats["grad_norm"] = global_grad_norm(grads)
+        direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
+        apply_direction(params, direction, lr, bundle.lr_scales)
+        state.step += 1
+        return stats
+
+    return step
+
+
 def make_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):
-    """Dispatch on the model (the JAX ``make_train_step``); the port has the
-    contrastive step only."""
-    if cfg.MODEL.MODEL_NAME != "ContrastiveModel":
-        raise NotImplementedError(f"{cfg.MODEL.MODEL_NAME} train step is not ported yet")
-    return make_contrastive_train_step(cfg, bundle, device_aug)
+    """Dispatch on the model, as the JAX ``make_train_step`` does:
+    ContrastiveModel takes the contrastive step, every other model the
+    task step of cfg.TASK."""
+    if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
+        return make_contrastive_train_step(cfg, bundle, device_aug)
+    return make_task_train_step(cfg, bundle, device_aug)

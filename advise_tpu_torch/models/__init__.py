@@ -1,32 +1,43 @@
-"""Model builder (counterpart of ``advise_tpu/models/__init__.py``), for
-MODEL_NAME ContrastiveModel with ARCH slowfast."""
+"""Model registry and builder (counterpart of ``advise_tpu/models/__init__.py``):
+MODEL_NAME ResNet (the single-pathway 3D ResNets) and ContrastiveModel
+(ARCH slowfast)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from advise_tpu_torch.models.contrastive import ContrastiveModel
 from advise_tpu_torch.models.layers.common import init_weights
 from advise_tpu_torch.models.layers.norm import get_norm
+from advise_tpu_torch.models.resnet3d import ResNet3D
+
+MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "ResNet": ResNet3D,
+    "ContrastiveModel": ContrastiveModel,
+}
 
 
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16" else torch.float32
 
 
-def build_model(cfg, device: torch.device | str = "cpu", seed: int = 0,
-                generator: Optional[torch.Generator] = None) -> ContrastiveModel:
+def build_model(cfg, device: torch.device | str = "cuda", seed: int = 0,
+                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Construct the configured model with weights drawn from ``generator``
     (a CPU generator seeded with ``seed`` when none is given), on
-    ``device``. On a CUDA device the conv weights take the channels-last
-    layout the activations use."""
-    if cfg.MODEL.MODEL_NAME != "ContrastiveModel":
-        raise NotImplementedError(f"MODEL.MODEL_NAME={cfg.MODEL.MODEL_NAME} is not ported yet")
+    ``device``: the card unless the caller asks for another. On a CUDA
+    device the conv weights take the channels-last layout the activations
+    use."""
+    name = cfg.MODEL.MODEL_NAME
+    if name not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"MODEL.MODEL_NAME={name} is not ported yet; ported: {sorted(MODEL_REGISTRY)}")
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
-    model = ContrastiveModel(cfg, get_norm(cfg), compute_dtype(cfg))
+    model = MODEL_REGISTRY[name](cfg, get_norm(cfg), compute_dtype(cfg))
     init_weights(model, generator)
     model = model.to(device)
     if torch.device(device).type == "cuda":

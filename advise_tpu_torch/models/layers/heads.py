@@ -3,7 +3,7 @@ projector and the BYOL predictor stack on the ResNet basic head."""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -39,10 +39,21 @@ class MLPHead(nn.Module):
         return getattr(self, f"fc{self.num_layers - 1}")(x)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout`` in training: keep each value with probability
+    1 - rate and scale it by 1 / (1 - rate), the mask drawn from
+    ``generator`` on its device (never the global RNG)."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ResNetBasicHead(nn.Module):
-    """Global average pool of each pathway -> concat -> projection (linear
-    or MLP) -> BYOL predictors. In training it returns [proj, pred, ...]
-    when predictors exist, else the projection."""
+    """Global average pool of each pathway -> concat -> dropout (training
+    only) -> projection (linear or MLP) -> BYOL predictors. In training it
+    returns [proj, pred, ...] when predictors exist, else the projection."""
 
     def __init__(self, dim_in: int, num_classes: int,
                  dropout_rate: float = 0.0, act_func: str = "softmax",
@@ -52,8 +63,7 @@ class ResNetBasicHead(nn.Module):
                  predictor_mlp_dim: int = 2048, predictor_bn: bool = False,
                  fc_init_std: float = 0.01):
         super().__init__()
-        if dropout_rate > 0.0:
-            raise NotImplementedError("head dropout is not ported yet")
+        self.dropout_rate = dropout_rate
         self.act_func = act_func
         self.detach_final_fc = detach_final_fc
         self.l2norm = l2norm
@@ -69,9 +79,14 @@ class ResNetBasicHead(nn.Module):
                 bn_on=predictor_bn,
             ))
 
-    def forward(self, inputs: Sequence[torch.Tensor], views: int = 1):
+    def forward(self, inputs: Sequence[torch.Tensor], views: int = 1,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout mask in training (MODEL.DROPOUT_RATE
+        > 0); it is not read otherwise."""
         pooled = [v.mean(dim=(2, 3, 4)) for v in inputs]  # NCDHW -> [B, C]
         x = torch.cat(pooled, dim=-1) if len(pooled) > 1 else pooled[0]
+        if self.training and self.dropout_rate > 0.0:
+            x = dropout(x, self.dropout_rate, generator)
         if self.detach_final_fc:
             x = x.detach()
         if self.l2norm:

@@ -1,5 +1,5 @@
 """3D-ResNet internals (counterpart of ``advise_tpu/models/layers/resnet.py``):
-the bottleneck transform, the residual block and the stage, with
+the basic and bottleneck transforms, the residual block and the stage, with
 TPU.REMAT as ``torch.utils.checkpoint`` per stage or per block.
 
 Checkpointing recomputes the forward in the backward. The BN modules
@@ -17,6 +17,28 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from advise_tpu_torch.models.layers.common import conv3d, msra_init, zeros_init
+
+
+class BasicTransform(nn.Module):
+    """(tk x 3 x 3) -> (1 x 3 x 3); the stride sits on the first conv."""
+
+    def __init__(self, dim_in: int, dim_out: int, temp_kernel_size: int,
+                 stride: int, norm: Callable, dilation: int = 1,
+                 zero_init_final_bn: bool = False,
+                 zero_init_final_conv: bool = False):
+        super().__init__()
+        tk = temp_kernel_size
+        self.a = conv3d(dim_in, dim_out, (tk, 3, 3), stride=(1, stride, stride),
+                        padding=(tk // 2, 1, 1))
+        self.a_bn = norm(dim_out)
+        self.b = conv3d(dim_out, dim_out, (1, 3, 3), padding=(0, dilation, dilation),
+                        dilation=(1, dilation, dilation),
+                        init=zeros_init if zero_init_final_conv else msra_init)
+        self.b_bn = norm(dim_out, zero_init_scale=zero_init_final_bn)
+
+    def forward(self, x: torch.Tensor, views: int = 1) -> torch.Tensor:
+        x = F.relu(self.a_bn(self.a(x), views))
+        return self.b_bn(self.b(x), views)
 
 
 class BottleneckTransform(nn.Module):
@@ -59,7 +81,7 @@ class ResBlock(nn.Module):
                  zero_init_final_bn: bool = False,
                  zero_init_final_conv: bool = False):
         super().__init__()
-        if trans_func_name != "bottleneck_transform":
+        if trans_func_name not in ("bottleneck_transform", "basic_transform"):
             raise NotImplementedError(f"RESNET.TRANS_FUNC={trans_func_name}")
         if drop_connect_rate > 0.0:
             raise NotImplementedError("drop-connect is not ported yet")
@@ -67,12 +89,19 @@ class ResBlock(nn.Module):
         if dim_in != dim_out or stride != 1:
             self.branch1 = conv3d(dim_in, dim_out, 1, stride=(1, stride, stride))
             self.branch1_bn = norm(dim_out)
-        self.branch2 = BottleneckTransform(
-            dim_in, dim_out, dim_inner, temp_kernel_size, stride, norm,
-            num_groups=num_groups, stride_1x1=stride_1x1, dilation=dilation,
-            zero_init_final_bn=zero_init_final_bn,
-            zero_init_final_conv=zero_init_final_conv,
-        )
+        if trans_func_name == "basic_transform":
+            self.branch2 = BasicTransform(
+                dim_in, dim_out, temp_kernel_size, stride, norm, dilation=dilation,
+                zero_init_final_bn=zero_init_final_bn,
+                zero_init_final_conv=zero_init_final_conv,
+            )
+        else:
+            self.branch2 = BottleneckTransform(
+                dim_in, dim_out, dim_inner, temp_kernel_size, stride, norm,
+                num_groups=num_groups, stride_1x1=stride_1x1, dilation=dilation,
+                zero_init_final_bn=zero_init_final_bn,
+                zero_init_final_conv=zero_init_final_conv,
+            )
 
     def forward(self, x: torch.Tensor, views: int = 1) -> torch.Tensor:
         shortcut = x

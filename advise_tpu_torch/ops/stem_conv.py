@@ -21,65 +21,24 @@ Layouts follow the JAX package: clips ``[B, T, H, W, 3]``, the weight
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+
+from advise_tpu_torch.ops import build
 
 CHANNELS_IN = 3
 FEATURES = 8
 KSIZE = 7
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "stem_conv.cu"
-# build outputs live beside the package, in the repo's ignored build/ dir
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+SOURCE = "stem_conv.cu"
 _lib = None
-
-
-def find_nvcc() -> str:
-    """Path of nvcc: CUDA_HOME's, else the one on PATH."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the stem kernels need the CUDA toolkit")
-    return found
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/stem_conv.cu`` for sm_90a into ``build/`` (once per
-    source content) and return the shared library's path."""
-    src = _CSRC.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    out = _BUILD_DIR / f"stem_conv-{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(_CSRC),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())
-    os.replace(tmp, out)
-    return out
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
+        lib = build.load(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.stem_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.stem_fwd.restype = ci

@@ -56,7 +56,7 @@ def setup():
 
 def _port(tcfg, params, batch_stats, ssl):
     conv = convert_train_state(params, batch_stats, ssl=ssl)
-    model = build_model(tcfg)
+    model = build_model(tcfg, "cpu")
     model.load_state_dict(conv["model"])
     tssl = tc.init_ssl_state(tcfg, model, torch.Generator().manual_seed(0))
     tssl["ema_model"].load_state_dict(conv["ema"])
@@ -164,7 +164,7 @@ def test_param_labels_and_weight_decay_match_jax(setup):
     jcfg, tcfg, _, params, _, _ = setup
     want = params_to_torch(jax.tree_util.tree_map(
         lambda w: np.float32(w), jopt.wd_tree(jcfg, params)))
-    model = build_model(tcfg)
+    model = build_model(tcfg, "cpu")
     got = topt.wd_tree(tcfg, dict(model.named_parameters()))
     assert set(got) == set(want)
     for k in got:

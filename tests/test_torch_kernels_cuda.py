@@ -1,16 +1,19 @@
-"""The stem CUDA kernels (advise_tpu_torch/csrc/stem_conv.cu) against their
-plain PyTorch versions, on the card. Every test here needs an NVIDIA card
-and nvcc, and skips without a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the stem kernels (advise_tpu_torch/csrc/stem_conv.cu) and the fused
+simple aug (advise_tpu_torch/csrc/fused_aug.cu). Every test here needs an
+NVIDIA card and nvcc, and skips without a card.
 
 This file imports no JAX, so a machine without it runs the file without the
 repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py -q
 
-Tolerances: the forward accumulates in float32 and rounds once to bf16, so
-it is held to one bf16 ulp of the largest output of the float32 plain conv
-on the same bf16 inputs (TF32 off); the weight gradient is a float32 sum
-in another order, held to 1e-3 of its largest entry.
+Tolerances: the stem forward accumulates in float32 and rounds once to
+bf16, so it is held to one bf16 ulp of the largest output of the float32
+plain conv on the same bf16 inputs (TF32 off); the weight gradient is a
+float32 sum in another order, held to 1e-3 of its largest entry. The fused
+aug states every rounding of its chain (the note in fused_aug.cu), so it is
+held EQUAL to its plain version, in float32 and in bf16.
 """
 
 import math
@@ -18,6 +21,7 @@ import math
 import pytest
 import torch
 
+from advise_tpu_torch.ops import fused_aug as fa
 from advise_tpu_torch.ops import stem_conv as sc
 
 torch.set_num_threads(1)
@@ -98,3 +102,43 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         sc.stem_conv_fwd(x.transpose(2, 3), w)
     with pytest.raises(ValueError):
         sc.stem_conv_fwd(x, w[..., :4].contiguous())
+
+
+MEAN = (0.485, 0.456, 0.406)
+STD = (0.229, 0.224, 0.225)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size,tops", [
+    ((2, 3, 40, 48, 3), 32, None),
+    ((3, 2, 37, 43, 3), 29, (3, 5, 7)),        # ragged: W*3 = 129, odd crop, tops not 8-aligned
+    ((4, 8, 256, 320, 3), 224, None),          # SpeedPro's ingest and crop
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fused_aug_matches_plain(cuda, shape, size, tops, out_dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    clips = torch.randint(0, 256, shape, generator=g, device=cuda, dtype=torch.uint8)
+    clips[:, 0, :, : shape[3] // 3] = clips[:, 0, :, : shape[3] // 3, :1]  # gray
+    prm = fa.sample_simple_aug(shape[0], shape[2], shape[3], size, (1.0, 0.4, 0.4, 0.4, 0.2), g)
+    if tops is not None:
+        prm["tops"] = torch.tensor(tops, dtype=torch.int32, device=cuda)
+    launches = fa.fused_simple_aug.launches
+    got = fa.fused_simple_aug(clips, prm, size, MEAN, STD, out_dtype)
+    want = fa.fused_simple_aug_plain(clips, prm, size, MEAN, STD, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert fa.fused_simple_aug.launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_fused_aug_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    clips = torch.zeros((2, 2, 20, 24, 3), dtype=torch.uint8, device=cuda)
+    prm = fa.sample_simple_aug(2, 20, 24, 16, (0.8, 0.2, 0.2, 0.2, 0.1),
+                               torch.Generator(device=cuda).manual_seed(0))
+    with pytest.raises(TypeError):
+        fa.fused_simple_aug(clips.float(), prm, 16, MEAN, STD)
+    with pytest.raises(ValueError):
+        fa.fused_simple_aug(clips.transpose(2, 3), prm, 16, MEAN, STD)
+    with pytest.raises(ValueError):
+        fa.fused_simple_aug(clips, prm, 21, MEAN, STD)

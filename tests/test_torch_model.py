@@ -134,7 +134,7 @@ def models():
     jcfg, tcfg = both_cfgs()
     jm = jbuild_model(jcfg, sync_axes=())
     params, batch_stats = jax_variables(jm)
-    tm = build_model(tcfg)
+    tm = build_model(tcfg, "cpu")
     return jm, params, batch_stats, tm
 
 
@@ -181,7 +181,7 @@ def test_initializers_match_jax(zero_final_bn):
     sampling noise of a std is ~2 %)."""
     jcfg, tcfg = both_cfgs(**{"RESNET.ZERO_INIT_FINAL_BN": zero_final_bn})
     params, _ = jax_variables(jbuild_model(jcfg, sync_axes=()))
-    own = {k: p.detach() for k, p in build_model(tcfg, seed=1).named_parameters()}
+    own = {k: p.detach() for k, p in build_model(tcfg, "cpu", seed=1).named_parameters()}
     ref = flax_to_state_dict(params, {})
     assert set(ref) == set(own)
     for k, want in ref.items():
@@ -196,8 +196,8 @@ def test_initializers_match_jax(zero_final_bn):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a CPU forward and backward loads no
-    jax or flax module."""
+    """Importing the port and running a CPU forward and backward of each
+    model, and the simple aug, loads no jax or flax module."""
     code = (
         "import sys, torch\n"
         "from advise_tpu_torch.config import get_cfg, assert_and_infer_cfg\n"
@@ -205,13 +205,26 @@ def test_port_imports_no_jax():
         "from advise_tpu_torch.data import build_device_aug\n"
         "from advise_tpu_torch.engine.steps import make_train_step\n"
         "from advise_tpu_torch.utils import convert\n"
+        "from advise_tpu_torch.ops import fused_aug\n"
+        "from advise_tpu_torch.models import resnet3d, losses\n"
+        "from advise_tpu_torch.solver import lr_policy\n"
         "cfg = get_cfg(); cfg.merge_from_file('configs/pretrain/SlowFast_R50_K400.yaml')\n"
         "cfg.RESNET.DEPTH = 10; cfg.RESNET.WIDTH_PER_GROUP = 16; cfg.SLOWFAST.BETA_INV = 2\n"
         "cfg.CONTRASTIVE.MLP_DIM = 32; cfg.TPU.COMPUTE_DTYPE = 'float32'\n"
         "cfg = assert_and_infer_cfg(cfg)\n"
-        "m = build_model(cfg)\n"
+        "m = build_model(cfg, 'cpu')\n"
         "out = m(torch.zeros(2, 8, 32, 32, 3))\n"
         "out[1].sum().backward()\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/pretrain/SpeedPro_R50.yaml')\n"
+        "cfg.RESNET.DEPTH = 10; cfg.RESNET.WIDTH_PER_GROUP = 8; cfg.SSL.MLP_DIM = 32\n"
+        "cfg.AUG.RESIZE = [40, 36]; cfg.AUG.TARGET_SIZE = 32; cfg.TPU.COMPUTE_DTYPE = 'float32'\n"
+        "cfg = assert_and_infer_cfg(cfg)\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "clips = build_device_aug(cfg)(torch.zeros(2, 1, 4, 36, 40, 3, dtype=torch.uint8), g)[:, 0]\n"
+        "m = build_model(cfg, 'cpu')\n"
+        "logits = m(clips, generator=g)\n"
+        "losses.bce_logit(logits, torch.eye(4)[:2]).backward()\n"
+        "assert lr_policy.get_lr_at_epoch(cfg, 1.0) > 0\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

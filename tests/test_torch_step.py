@@ -76,7 +76,7 @@ def _item_ids(i):
 
 def _port_state(tcfg, params, batch_stats, ssl):
     conv = convert_train_state(params, batch_stats, ssl=ssl)
-    model = build_model(tcfg)
+    model = build_model(tcfg, "cpu")
     model.load_state_dict(conv["model"])
     tssl = init_ssl_state(tcfg, model, torch.Generator().manual_seed(0))
     tssl["ema_model"].load_state_dict(conv["ema"])
@@ -139,7 +139,7 @@ def test_bn_statistics_move_once_per_step_under_remat():
     results = []
     for remat in (False, True):
         tcfg = small_cfg(tconfig, remat=remat)
-        model = build_model(tcfg, seed=3)
+        model = build_model(tcfg, "cpu", seed=3)
         ssl = init_ssl_state(tcfg, model, torch.Generator().manual_seed(0))
         bundle = build_tx(tcfg, dict(model.named_parameters()))
         state = TrainState(model, bundle.tx.init(dict(model.named_parameters())), 0, ssl)
@@ -162,7 +162,7 @@ def test_step_with_device_aug_on_cpu():
     tcfg = small_cfg(tconfig, remat=True)
     w, h = ingest_geometry(tcfg, "train")
     assert (w, h) == (S * 4 // 3, S)
-    model = build_model(tcfg)
+    model = build_model(tcfg, "cpu")
     gen = torch.Generator().manual_seed(0)
     ssl = init_ssl_state(tcfg, model, gen)
     bundle = build_tx(tcfg, dict(model.named_parameters()))

@@ -68,3 +68,60 @@ def rel_err(got, want):
     want = np.asarray(want, np.float32)
     got = np.asarray(got, np.float32)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+# the speed pretext's presets, cut to CPU size: (yaml, overrides). Slow
+# R50 and I3D at RESNET.DEPTH 10 with narrow widths, and the R18 smoke
+# preset (basic transform) as it is
+SPEED_PRESETS = {
+    "slow_r10": ("configs/pretrain/SpeedPro_R50.yaml", {
+        "RESNET.DEPTH": 10, "RESNET.WIDTH_PER_GROUP": 8, "SSL.MLP_DIM": 32,
+        "RESNET.NUM_BLOCK_TEMP_KERNEL": [[1], [1], [1], [1]]}),
+    "i3d_r10": ("configs/pretrain/SpeedPro_R50.yaml", {
+        "MODEL.ARCH": "i3d", "RESNET.DEPTH": 10, "RESNET.WIDTH_PER_GROUP": 8,
+        "SSL.MLP_DIM": 32, "RESNET.NUM_BLOCK_TEMP_KERNEL": [[1], [1], [1], [1]]}),
+    "r18_basic": ("configs/smoke/speed_r18_synth.yaml", {}),
+}
+SPEED_B, SPEED_K, SPEED_T, SPEED_S = 2, 2, 4, 32  # videos, clips per video, frames, crop
+
+
+def _override(cfg, overrides):
+    for key, value in overrides.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node[p]
+        node[leaf] = value
+
+
+def speed_cfg(mod=jconfig, preset="slow_r10", **overrides):
+    """A speed preset on one device in float32, without head dropout or
+    REMAT unless ``overrides`` set them, at SPEED_* sizes."""
+    yaml, cut = SPEED_PRESETS[preset]
+    cfg = mod.get_cfg()
+    cfg.merge_from_file(yaml)
+    cfg.NUM_WORLDS = 1
+    cfg.NUM_GPUS = 1
+    cfg.TPU.MESH_SYNC = 1
+    cfg.BN.NUM_SYNC_DEVICES = 1
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.REMAT = False
+    cfg.TPU.DONATE = False
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    cfg.DATA.NUM_FRAMES = SPEED_T
+    cfg.DATA.BATCHSIZE_PER_GPU = SPEED_B
+    cfg.DATA.NUM_CLIP = SPEED_K
+    cfg.AUG.TARGET_SIZE = SPEED_S
+    cfg.AUG.RESIZE = [SPEED_S * 3 // 2, SPEED_S * 5 // 4]
+    _override(cfg, cut)
+    _override(cfg, overrides)
+    return mod.assert_and_infer_cfg(cfg)
+
+
+def speed_variables(model, seed=0):
+    """The JAX speed model's initial params and batch_stats, as numpy trees."""
+    v = jax.jit(lambda: model.init(
+        {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed + 1)},
+        jnp.zeros((1, SPEED_T, SPEED_S, SPEED_S, 3), jnp.float32), train=False,
+    ))()
+    return jax.device_get(v["params"]), jax.device_get(v["batch_stats"])
