@@ -1,6 +1,6 @@
 """On-device augmentation (counterpart of ``advise_tpu/data/device_aug.py``):
-the 'aa' pipeline with AUG.FUSED_RA, and the 'simple' pipeline with
-TPU.PALLAS_AUG.
+the 'aa' pipeline with AUG.FUSED_RA, the 'simple' pipeline with
+TPU.PALLAS_AUG, and 'OnlyCrop' (RandomResizedCrop + normalize).
 
 uint8 ``[B, K, T, H, W, C]`` at the ingest geometry goes in, and float32
 or, with TPU.AUG_COMPUTE_OUT under bf16, bfloat16 comes out. All frames of
@@ -11,6 +11,9 @@ a clip share its parameters.
   RandomErasing and normalize.
 - 'simple': the fixed Resize happened at ingest; per clip, a random crop,
   the colour jitter and normalize, in one kernel (``ops/fused_aug.py``).
+- 'OnlyCrop': per clip, RandomResizedCrop with scale (AUG.MIN_AREA, 1) as
+  ``jax.image.scale_and_translate`` computes it (linear, antialiased: one
+  weight matrix per axis), clip to [0, 255], normalize.
 
 Each pipeline is split into sampling (``sample``, from an explicit
 ``torch.Generator`` on the clips' device) and applying (``apply``), so a
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 LUMA = (0.299, 0.587, 0.114)
@@ -207,12 +211,75 @@ class SimpleAug:
         return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
 
 
-_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug}
+def resize_weights(in_size: int, out_size: int, scale: torch.Tensor,
+                   translation: torch.Tensor) -> torch.Tensor:
+    """Per-clip [N, in_size, out_size] weights of ``jax.image``'s
+    ``compute_weight_mat`` with the triangle kernel and antialiasing: the
+    kernel widened by the downscale factor, columns normalised, and zero
+    where the sample falls outside the input. ``scale`` and ``translation``
+    are float32 [N]."""
+    dev = scale.device
+    inv_scale = 1.0 / scale
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    out_pos = torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5
+    sample_f = out_pos[None, :] * inv_scale[:, None] - (translation * inv_scale)[:, None] - 0.5
+    in_pos = torch.arange(in_size, dtype=torch.float32, device=dev)
+    x = torch.abs(sample_f[:, None, :] - in_pos[None, :, None]) / kernel_scale[:, None, None]
+    weights = torch.clamp(1.0 - x, min=0.0)
+    total = torch.sum(weights, dim=1, keepdim=True)
+    weights = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                          weights / torch.where(total != 0, total, torch.ones_like(total)),
+                          torch.zeros_like(weights))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[:, None, :], weights, torch.zeros_like(weights))
+
+
+def resized_crop_clips(clips: torch.Tensor, boxes: torch.Tensor, size: int) -> torch.Tensor:
+    """float32 clips [N, T, H, W, C] -> [N, T, size, size, C]: each clip's box
+    (top, left, height, width) resized as ``jax.image.scale_and_translate``
+    with scale (size / height, size / width) and translation -(top, left) *
+    scale, linear and antialiased."""
+    top, left, bh, bw = (boxes[:, i].to(clips.device, torch.float32) for i in range(4))
+    wh = resize_weights(clips.shape[2], size, size / bh, -top * size / bh)
+    ww = resize_weights(clips.shape[3], size, size / bw, -left * size / bw)
+    out = torch.einsum("nthwc,nhy->ntywc", clips, wh)
+    return torch.einsum("ntywc,nwx->ntyxc", out, ww)
+
+
+class RRCAug:
+    """AUG.TYPE 'OnlyCrop' (``make_rrc_aug`` with scale (AUG.MIN_AREA, 1), no
+    flip): ``aug(batch_u8, generator)``, or ``apply(batch_u8, sample(...))``
+    with boxes from elsewhere."""
+
+    def __init__(self, cfg):
+        self.size = int(cfg.AUG.TARGET_SIZE)
+        self.scale = (cfg.AUG.MIN_AREA, 1.0)
+        self.ratio = tuple(cfg.AUG.RAND_CROP_RATIO)
+        self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+        self.out_dtype = aug_out_dtype(cfg)
+
+    def sample(self, n: int, t: int, h: int, w: int, c: int,
+               generator: torch.Generator) -> Dict[str, Any]:
+        return {"box": sample_rrc_box(n, h, w, self.scale, self.ratio, generator)}
+
+    def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+        b, k = batch_u8.shape[:2]
+        flat = batch_u8.reshape(b * k, *batch_u8.shape[2:]).float()
+        clips = torch.clamp(resized_crop_clips(flat, params["box"], self.size), 0.0, 255.0)
+        out = normalize(clips, self.mean, self.std).to(self.out_dtype)
+        return out.reshape(b, k, *out.shape[1:])
+
+    def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        b, k, t, h, w, c = batch_u8.shape
+        return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
+
+
+_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug, "OnlyCrop": RRCAug}
 
 
 def build_device_aug(cfg, mode: str = "train"):
-    """The train-mode pipeline of AUG.TYPE 'aa' or 'simple' (other AUG.TYPEs
-    and modes are not ported yet). DATA.REVERSE_INPUT_CHANNEL flips the
+    """The train-mode pipeline of AUG.TYPE 'aa', 'simple' or 'OnlyCrop'
+    (other AUG.TYPEs and modes are not ported yet). DATA.REVERSE_INPUT_CHANNEL flips the
     channel axis of the raw batch first."""
     if mode != "train" or cfg.AUG.TYPE not in _TRAIN_AUGS:
         raise NotImplementedError(f"device aug mode={mode} AUG.TYPE={cfg.AUG.TYPE} is not ported yet")

@@ -1,5 +1,6 @@
 """The train steps (counterpart of ``advise_tpu/engine/steps.py``) on one
-device: the contrastive step and the task step (TASK speed).
+device: the contrastive step and the task step (TASK speed; MaskMViT's
+masked step).
 
 Order inside the contrastive step, as in the JAX package: augmentation ->
 cast to TPU.COMPUTE_DTYPE -> EMA update -> BYOL loss (online views with
@@ -7,9 +8,11 @@ per-view BN, momentum-encoder keys, kNN scatter) -> backward -> BN running
 statistics committed once -> global grad norm -> LARS-SGD direction ->
 parameters updated. The task step: augmentation -> cast -> forward (all
 B*K clips as one batch, head dropout) -> task loss -> backward -> BN commit
--> global grad norm -> SGD direction -> update. With one device the JAX
-step's ``pmean``/``all_gather`` are identities. The steps run eagerly and
-update ``state`` in place.
+-> global grad norm -> SGD direction -> update; MaskMViT's task step runs
+the masked MSE over the pretrain depths plus, with MASK.JOINT_CONTRASTIVE,
+the NT-Xent between the two views' projections, then AdamW. With one device
+the JAX step's ``pmean``/``all_gather`` are identities. The steps run
+eagerly and update ``state`` in place.
 """
 
 from __future__ import annotations
@@ -109,20 +112,63 @@ def speed_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
     return stats["loss_spd"], stats
 
 
-TASK_LOSSES = {"speed": speed_task_loss}
+def masked_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
+                     infos: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """MaskFeat loss: the weighted masked MSE over MASK.PRETRAIN_DEPTH, with
+    the loader's block masks ``infos['mask']`` [B, K, t, h, w]; with
+    MASK.JOINT_CONTRASTIVE plus JOINT_WEIGHT times the NT-Xent between the
+    l2-normalized projections of views 0 and 1 (temperature CONTRASTIVE.T,
+    negatives: every other projection of the batch; with one video the only
+    other projection is the positive, and the term is identically 0).
+    ``generator`` draws the drop-path masks."""
+    from advise_tpu_torch.engine.contrastive import l2_normalize
+    from advise_tpu_torch.models.masked import masked_mse
+
+    b, k = clips.shape[:2]
+    out = model(clips.reshape(b * k, *clips.shape[2:]),
+                loader_mask=infos["mask"].reshape(b * k, -1), generator=generator)
+    joint = cfg.MASK.JOINT_CONTRASTIVE
+    preds, labels, masks, weights = out[:4]
+    loss = 0.0
+    for p, lab, m, w in zip(preds, labels, masks, weights):
+        loss = loss + w * masked_mse(p, lab, m)
+    stats = {"loss_mask": loss}
+    if joint:
+        if k < 2:
+            raise ValueError("MASK.JOINT_CONTRASTIVE needs DATA.NUM_CLIP >= 2")
+        proj = out[4].reshape(b, k, -1)
+        with torch.autocast(clips.device.type, enabled=False):  # float32, as JAX casts
+            q1 = l2_normalize(proj[:, 0].float())
+            q2 = l2_normalize(proj[:, 1].float())
+            t = cfg.CONTRASTIVE.T
+            cat = torch.cat([q1, q2], dim=0)
+            sim = torch.exp(cat @ cat.T / t)
+            off_diag = 1.0 - torch.eye(sim.shape[0], dtype=sim.dtype, device=sim.device)
+            denom = torch.sum(sim * off_diag, dim=-1)
+            pos = torch.exp(torch.sum(q1 * q2, dim=-1) / t)
+            pos = torch.cat([pos, pos], dim=0)
+            loss_nce = (-torch.log(pos / denom)).mean()
+        loss = loss + cfg.MASK.JOINT_WEIGHT * loss_nce
+        stats = {"loss_mask": stats["loss_mask"], "loss_nce": loss_nce, "loss_total": loss}
+    return loss, stats
+
+
+TASK_LOSSES = {"speed": speed_task_loss, "masked": masked_task_loss}
 
 
 def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):
     """Returns ``step(state, clips_u8, infos, generator, lr) -> stats`` for
-    cfg.TASK: ``clips_u8`` [B, K, T, H, W, 3] uint8 at ingest geometry (or
+    cfg.TASK (MaskMViT: the masked loss, whatever TASK says): ``clips_u8`` [B, K, T, H, W, 3] uint8 at ingest geometry (or
     already-augmented float clips when ``device_aug`` is None), ``generator``
     drawing the augmentation and then the dropout mask on the clips'
-    device. ``state.ssl`` stays {}."""
+    device (the masked step: the drop-path masks). ``state.ssl`` stays {}."""
     if cfg.TRAIN.SEQUENTIAL:
         raise NotImplementedError("TRAIN.SEQUENTIAL is not ported yet")
-    if cfg.TASK not in TASK_LOSSES:
-        raise NotImplementedError(f"TASK={cfg.TASK} train step is not ported yet")
-    task_loss = TASK_LOSSES[cfg.TASK]
+    task = "masked" if cfg.MODEL.MODEL_NAME == "MaskMViT" else cfg.TASK
+    if task not in TASK_LOSSES:
+        raise NotImplementedError(f"TASK={task} train step is not ported yet")
+    task_loss = TASK_LOSSES[task]
     dtype = cfg_compute_dtype(cfg)
 
     def step(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
@@ -148,8 +194,8 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
 
 def make_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):
     """Dispatch on the model, as the JAX ``make_train_step`` does:
-    ContrastiveModel takes the contrastive step, every other model the
-    task step of cfg.TASK."""
+    ContrastiveModel takes the contrastive step, MaskMViT the task step with
+    the masked loss, every other model the task step of cfg.TASK."""
     if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
         return make_contrastive_train_step(cfg, bundle, device_aug)
     return make_task_train_step(cfg, bundle, device_aug)

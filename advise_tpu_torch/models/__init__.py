@@ -1,6 +1,6 @@
 """Model registry and builder (counterpart of ``advise_tpu/models/__init__.py``):
-MODEL_NAME ResNet (the single-pathway 3D ResNets) and ContrastiveModel
-(ARCH slowfast)."""
+MODEL_NAME ResNet (the single-pathway 3D ResNets), ContrastiveModel (ARCH
+slowfast), MViT and MaskMViT (MaskFeat)."""
 
 from __future__ import annotations
 
@@ -12,11 +12,15 @@ from torch import nn
 from advise_tpu_torch.models.contrastive import ContrastiveModel
 from advise_tpu_torch.models.layers.common import init_weights
 from advise_tpu_torch.models.layers.norm import get_norm
+from advise_tpu_torch.models.masked import MaskMViT
+from advise_tpu_torch.models.mvit import MViT
 from advise_tpu_torch.models.resnet3d import ResNet3D
 
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "ResNet": ResNet3D,
     "ContrastiveModel": ContrastiveModel,
+    "MViT": MViT,
+    "MaskMViT": MaskMViT,
 }
 
 

@@ -1,14 +1,23 @@
-"""Initializers (counterpart of ``advise_tpu/models/layers/common.py``).
+"""Initializers and the common transformer blocks (counterpart of
+``advise_tpu/models/layers/common.py``): DropPath, Mlp, TwoStreamFusion.
 
-Modules record how their weights are initialized (``weight_init``) when they
-are built; :func:`init_weights` then draws every weight from one explicit
-``torch.Generator``, so a model is a function of its seed.
+Modules record how their weights are initialized (``weight_init``, and
+``bias_value`` for a constant bias; ``param_inits`` for free parameters)
+when they are built; :func:`init_weights` then draws every weight from one
+explicit ``torch.Generator``, so a model is a function of its seed.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+# the std of a unit normal truncated to [-2, 2] (Flax's truncated_normal
+# divides by it so that the truncated draw keeps the requested std)
+_TRUNC_STD = 0.87962566103423978
 
 
 def msra_init(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -34,6 +43,27 @@ def fc_init(std: float):
     return init
 
 
+def trunc_normal_init(std: float):
+    """Flax ``truncated_normal(stddev=std)``: normal truncated at two
+    standard deviations, widened so that the truncated draw has std ``std``."""
+
+    def init(w: torch.Tensor, generator: torch.Generator) -> None:
+        s = std / _TRUNC_STD
+        nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
+
+    return init
+
+
+def lecun_normal_init(w: torch.Tensor, generator: torch.Generator) -> None:
+    """Flax's default kernel init: truncated normal with variance 1 / fan_in
+    (fan_in over the input channels and the kernel window)."""
+    fan_in, _ = nn.init._calculate_fan_in_and_fan_out(w)
+    trunc_normal_init((1.0 / fan_in) ** 0.5)(w, generator)
+
+
+trunc02 = trunc_normal_init(0.02)
+
+
 def conv3d(dim_in: int, dim_out: int, kernel, stride=1, padding=0,
            dilation=1, groups: int = 1, init=msra_init) -> nn.Conv3d:
     """Bias-free Conv3d whose weight is drawn by ``init`` (MSRA by default;
@@ -46,23 +76,97 @@ def conv3d(dim_in: int, dim_out: int, kernel, stride=1, padding=0,
     return conv
 
 
-def dense(dim_in: int, dim_out: int, bias: bool = True, init=xavier_init) -> nn.Linear:
+def dense(dim_in: int, dim_out: int, bias: bool = True, init=xavier_init,
+          bias_value: float = 0.0) -> nn.Linear:
     fc = nn.Linear(dim_in, dim_out, bias=bias)
     fc.weight_init = init
+    fc.bias_value = bias_value
     return fc
+
+
+def layer_norm(dim: int) -> nn.LayerNorm:
+    """Flax ``nn.LayerNorm()``: epsilon 1e-6, scale and bias."""
+    return nn.LayerNorm(dim, eps=1e-6)
+
+
+def draw_keep(batch: int, rate: float, generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+    """A stochastic-depth keep mask [batch] (True with probability 1 - rate)
+    from ``generator`` on its device; None when ``rate`` is 0."""
+    if rate <= 0.0:
+        return None
+    if generator is None:
+        raise ValueError("drop path in training needs a torch.Generator")
+    return torch.rand(batch, generator=generator, device=generator.device) < (1.0 - rate)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample with its keep mask [B] given from outside
+    (:func:`draw_keep`), so a recomputation (REMAT, the reversible backward)
+    replays it bit for bit. ``keep`` None is the identity."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+        if keep is None or self.rate == 0.0:
+            return x
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        return torch.where(keep.to(x.device).view(shape), x / (1.0 - self.rate), zero)
+
+
+class Mlp(nn.Module):
+    """Transformer MLP: fc1 -> GELU (tanh approximation, Flax's ``nn.gelu``)
+    -> fc2, both with Flax's default init."""
+
+    def __init__(self, dim_in: int, hidden: int, dim_out: int):
+        super().__init__()
+        self.fc1 = dense(dim_in, hidden, init=lecun_normal_init)
+        self.fc2 = dense(hidden, dim_out, init=lecun_normal_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class TwoStreamFusion(nn.Module):
+    """Fuse the two halves of a channel-concatenated stream: add / max / min /
+    avg, or concat (the identity). The concat_linear modes are not ported
+    yet."""
+
+    def __init__(self, mode: str):
+        super().__init__()
+        if mode not in ("add", "max", "min", "avg", "concat"):
+            raise NotImplementedError(f"TwoStreamFusion mode {mode} is not ported yet")
+        self.mode = mode
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "concat":
+            return x
+        a, b = torch.chunk(x, 2, dim=-1)
+        if self.mode == "add":
+            return a + b
+        if self.mode == "max":
+            return torch.maximum(a, b)
+        if self.mode == "min":
+            return torch.minimum(a, b)
+        return (a + b) / 2.0
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every recorded weight from ``generator`` in module order; biases
-    start at zero and norms at their own reset (ones, or zeros for a final
-    BN under RESNET.ZERO_INIT_FINAL_BN)."""
+    start at their ``bias_value`` (zero unless recorded), free parameters
+    from their ``param_inits``, and norms at their own reset (ones, or zeros
+    for a final BN under RESNET.ZERO_INIT_FINAL_BN)."""
     for m in model.modules():
+        for name, param_init in getattr(m, "param_inits", {}).items():
+            param_init(getattr(m, name), generator)
         init = getattr(m, "weight_init", None)
         if init is not None:
             init(m.weight, generator)
             if m.bias is not None:
-                nn.init.zeros_(m.bias)
+                nn.init.constant_(m.bias, getattr(m, "bias_value", 0.0))
         elif hasattr(m, "reset_parameters") and not isinstance(m, (nn.Conv3d, nn.Linear)):
             m.reset_parameters()
     return model

@@ -1,5 +1,6 @@
-"""Heads (counterpart of ``advise_tpu/models/layers/heads.py``): the BN-MLP
-projector and the BYOL predictor stack on the ResNet basic head."""
+"""Heads (counterpart of ``advise_tpu/models/layers/heads.py``): the MLP
+projector (with or without BN), the BYOL predictor stack on the ResNet
+basic head, and the transformer head."""
 
 from __future__ import annotations
 
@@ -108,3 +109,28 @@ class ResNetBasicHead(nn.Module):
             else:
                 raise NotImplementedError(self.act_func)
         return out
+
+
+class TransformerBasicHead(nn.Module):
+    """The ViT head on pooled features: dropout (training only) -> linear
+    projection (normal(0, 0.01), zero bias) -> softmax in evaluation when
+    ``act_func`` says so. The contrastive MLP projector form is not ported
+    yet."""
+
+    def __init__(self, dim_in: int, num_classes: int, dropout_rate: float = 0.0,
+                 act_func: str = "softmax", detach_final_fc: bool = False):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.act_func = act_func
+        self.detach_final_fc = detach_final_fc
+        self.projection = dense(dim_in, num_classes, init=fc_init(0.01))
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.training and self.dropout_rate > 0.0:
+            x = dropout(x, self.dropout_rate, generator)
+        if self.detach_final_fc:
+            x = x.detach()
+        x = self.projection(x)
+        if not self.training and self.act_func == "softmax":
+            x = torch.softmax(x, dim=-1)
+        return x

@@ -1,5 +1,6 @@
-"""The ResNet basic stem (counterpart of ``advise_tpu/models/layers/stem.py``
-ResNetBasicStem and the SpaceToDepthStemConv routing).
+"""The ResNet basic stem and MViT's PatchEmbed (counterpart of
+``advise_tpu/models/layers/stem.py`` ResNetBasicStem with the
+SpaceToDepthStemConv routing, and PatchEmbed).
 
 Tensors inside the model are NCDHW in shape with a channels-last
 (NDHWC) memory layout, so the stem kernel reads and writes its NDHWC
@@ -14,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from advise_tpu_torch.models.layers.common import conv3d
+from advise_tpu_torch.models.layers.common import conv3d, lecun_normal_init
 from advise_tpu_torch.ops.stem_conv import kernel_eligible, stem_conv
 
 
@@ -48,3 +49,21 @@ class ResNetBasicStem(nn.Module):
             x = self.conv(x)
         x = F.relu(self.bn(x, views))
         return F.max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+
+
+class PatchEmbed(nn.Module):
+    """MViT's conv patchify: a (kt, kh, kw) conv with bias, 3 -> ``dim_out``
+    channels (a cuDNN conv, as the JAX package leaves it to XLA), flattened
+    to tokens. Takes clips [B, T, H, W, 3] and returns ([B, t*h*w, C],
+    (t, h, w))."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel, stride, padding):
+        super().__init__()
+        self.proj = nn.Conv3d(dim_in, dim_out, tuple(kernel), stride=tuple(stride),
+                              padding=tuple(padding))
+        self.proj.weight_init = lecun_normal_init
+
+    def forward(self, x: torch.Tensor):
+        x = self.proj(x.permute(0, 4, 1, 2, 3))
+        b, c, t, h, w = x.shape
+        return x.permute(0, 2, 3, 4, 1).reshape(b, t * h * w, c), (t, h, w)

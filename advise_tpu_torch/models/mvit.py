@@ -1,0 +1,450 @@
+"""MViT v2 video transformer (counterpart of ``advise_tpu/models/mvit.py``):
+the block schedule, the plain walk of MultiScaleBlocks and the reversible
+walk (MVIT.REV.ENABLE).
+
+In the reversible walk each uniform segment (consecutive blocks with no
+width change and no Q pooling) runs the two-stream coupling ``y1 = x1 +
+F(x2); y2 = x2 + G(y1)`` with one attention sub-block (F) and one MLP
+sub-block (G) per block, under ``parallel/reversible.py`` when
+MVIT.REV.O1_SCAN (activation memory O(1) in depth) or plain autograd
+otherwise; stage transitions fuse the streams and run a StageTransitionBlock,
+under ``torch.utils.checkpoint`` with TPU.REMAT. Where the JAX package
+stacks a segment's parameters on a leading axis (``rev_seg{n}_f`` /
+``rev_seg{n}_g``), the port keeps one module per block in a ModuleList of
+the same name.
+
+Stochastic depth draws its keep masks once per forward, from the caller's
+generator, before any block runs; a recomputation (checkpoint, the
+reversible backward) replays them. Under bf16 autocast the residual
+streams stay float32 (the token embedding plus the float32 position
+embeddings), where the JAX bf16 model keeps them in bf16. Knobs that are
+not ported yet raise (:func:`check_ported`).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from advise_tpu_torch.models.layers.attention import MultiScaleAttention, MultiScaleBlock
+from advise_tpu_torch.models.layers.common import (
+    DropPath,
+    Mlp,
+    TwoStreamFusion,
+    dense,
+    draw_keep,
+    layer_norm,
+    trunc02,
+)
+from advise_tpu_torch.models.layers.heads import TransformerBasicHead
+from advise_tpu_torch.models.layers.stem import PatchEmbed
+from advise_tpu_torch.models.utils import round_width
+from advise_tpu_torch.parallel.reversible import reversible_block_scan
+
+
+def mvit_block_schedule(cfg, patch_dims=None):
+    """Per-depth dict of dim, dim_out, num_heads, input_size, kernel_q,
+    kernel_kv, stride_q, stride_kv, and the final width: the JAX package's
+    schedule, including its head count, which does not carry the previous
+    block's heads forward."""
+    depth = cfg.MVIT.DEPTH
+    embed_dim = cfg.MVIT.EMBED_DIM
+    num_heads = cfg.MVIT.NUM_HEADS
+    dim_mul = np.ones(depth + 1)
+    head_mul = np.ones(depth + 1)
+    for d, m in cfg.MVIT.DIM_MUL:
+        dim_mul[d] = m
+    for d, m in cfg.MVIT.HEAD_MUL:
+        head_mul[d] = m
+
+    pool_q = [[] for _ in range(depth)]
+    pool_kv = [[] for _ in range(depth)]
+    stride_q = [[] for _ in range(depth)]
+    stride_kv = [[] for _ in range(depth)]
+    for entry in cfg.MVIT.POOL_Q_STRIDE:
+        i = entry[0]
+        stride_q[i] = list(entry[1:])
+        pool_q[i] = (
+            list(cfg.MVIT.POOL_KVQ_KERNEL)
+            if cfg.MVIT.POOL_KVQ_KERNEL is not None
+            else [s + 1 if s > 1 else s for s in entry[1:]]
+        )
+    kv_entries = list(cfg.MVIT.POOL_KV_STRIDE)
+    if cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE is not None:
+        _stride_kv = list(cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE)
+        kv_entries = []
+        for i in range(depth):
+            if len(stride_q[i]) > 0:
+                _stride_kv = [max(_stride_kv[d] // stride_q[i][d], 1) for d in range(len(_stride_kv))]
+            kv_entries.append([i] + _stride_kv)
+    for entry in kv_entries:
+        i = entry[0]
+        stride_kv[i] = list(entry[1:])
+        pool_kv[i] = (
+            list(cfg.MVIT.POOL_KVQ_KERNEL)
+            if cfg.MVIT.POOL_KVQ_KERNEL is not None
+            else [s + 1 if s > 1 else s for s in entry[1:]]
+        )
+
+    patch_stride = list(cfg.MVIT.PATCH_STRIDE)
+    if cfg.MVIT.PATCH_2D:
+        patch_stride = [1] + patch_stride
+    if patch_dims is not None:
+        input_size = list(patch_dims)
+    else:
+        input_size = [
+            cfg.DATA.NUM_FRAMES // patch_stride[0],
+            cfg.DATA.TRAIN_CROP_SIZE // patch_stride[1],
+            cfg.DATA.TRAIN_CROP_SIZE // patch_stride[2],
+        ]
+
+    blocks = []
+    dim = embed_dim
+    for i in range(depth):
+        heads = round_width(num_heads, head_mul[i])
+        if cfg.MVIT.DIM_MUL_IN_ATT:
+            dim_out = round_width(dim, dim_mul[i], divisor=heads)
+        else:
+            dim_out = round_width(dim, dim_mul[i + 1],
+                                  divisor=round_width(num_heads, head_mul[i + 1]))
+        blocks.append(dict(dim=dim, dim_out=dim_out, num_heads=heads,
+                           input_size=list(input_size), kernel_q=pool_q[i],
+                           kernel_kv=pool_kv[i], stride_q=stride_q[i], stride_kv=stride_kv[i]))
+        if len(stride_q[i]) > 0:
+            # the conv-arithmetic grid (pad k // 2), not size // stride
+            input_size = [(size + 2 * (k // 2) - k) // s + 1
+                          for size, k, s in zip(input_size, pool_q[i], stride_q[i])]
+        dim = dim_out
+    return blocks, dim
+
+
+def pooled_thw(thw, kernel, stride) -> Tuple[int, int, int]:
+    """Conv-arithmetic output grid of a padded pool (pad k // 2)."""
+    if not stride:
+        return tuple(thw)
+    return tuple((n + 2 * (k // 2) - k) // s + 1 for n, k, s in zip(thw, kernel, stride))
+
+
+def patch_grid(cfg) -> Tuple[int, int, int]:
+    """The PatchEmbed conv's output grid for DATA.NUM_FRAMES x
+    DATA.TRAIN_CROP_SIZE^2 clips."""
+    size = (cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.TRAIN_CROP_SIZE)
+    return tuple((n + 2 * p - k) // s + 1 for n, k, s, p in zip(
+        size, cfg.MVIT.PATCH_KERNEL, cfg.MVIT.PATCH_STRIDE, cfg.MVIT.PATCH_PADDING))
+
+
+def fused_width(mode: str, dim: int) -> int:
+    """Width of TwoStreamFusion(mode) applied to two streams of width dim."""
+    return 2 * dim if mode == "concat" else dim
+
+
+def check_ported(cfg) -> None:
+    """Raise NotImplementedError on an MViT knob the port does not carry yet."""
+    m = cfg.MVIT
+    unported = {
+        "MVIT.REL_POS_SPATIAL/TEMPORAL": m.REL_POS_SPATIAL or m.REL_POS_TEMPORAL,
+        "MVIT.POOL_FIRST": m.POOL_FIRST, f"MVIT.MODE={m.MODE}": m.MODE != "conv",
+        "MVIT.SEPARATE_QKV": m.SEPARATE_QKV, "MVIT.RESIDUAL_POOLING": m.RESIDUAL_POOLING,
+        "MVIT.DIM_MUL_IN_ATT": m.DIM_MUL_IN_ATT,
+        "MVIT.LAYER_SCALE_INIT_VALUE": m.LAYER_SCALE_INIT_VALUE > 0,
+        "MVIT.DROPOUT_RATE": m.DROPOUT_RATE > 0, "MVIT.NORM_STEM": m.NORM_STEM,
+        "MVIT.USE_FIXED_SINCOS_POS": m.USE_FIXED_SINCOS_POS, "MVIT.PATCH_2D": m.PATCH_2D,
+        "MVIT.HEAD_INIT_SCALE": m.HEAD_INIT_SCALE != 1.0,
+        f"MVIT.REV.RES_PATH={m.REV.RES_PATH}": m.REV.ENABLE and m.REV.RES_PATH != "conv",
+        "MASK.SCALE_INIT_BY_DEPTH": cfg.MASK.ENABLE and cfg.MASK.SCALE_INIT_BY_DEPTH,
+        "TPU.MESH_PIPE (GPipe)": int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1) > 1,
+    }
+    named = [name for name, on in unported.items() if on]
+    if named:
+        raise NotImplementedError(f"not ported yet: {', '.join(named)}")
+
+
+def _attention_kwargs(cfg, spec, dtype) -> dict:
+    return dict(qkv_bias=cfg.MVIT.QKV_BIAS, kernel_q=spec["kernel_q"], kernel_kv=spec["kernel_kv"],
+                stride_q=spec["stride_q"], stride_kv=spec["stride_kv"],
+                flash=bool(cfg.TPU.FLASH_ATTENTION),
+                flash_native_dim_only=bool(cfg.TPU.FLASH_NATIVE_DIM_ONLY), dtype=dtype)
+
+
+class RevAttnSub(nn.Module):
+    """F of the reversible coupling: norm1 -> pooled attention (width kept,
+    no Q pooling, no cls token) -> drop path."""
+
+    def __init__(self, spec: dict, drop_path: float, **kw):
+        super().__init__()
+        dim = spec["dim"]
+        self.norm1 = layer_norm(dim)
+        self.attn = MultiScaleAttention(dim, dim, spec["num_heads"], has_cls_embed=False, **kw)
+        self.thw = tuple(spec["input_size"])
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.drop_path(self.attn(self.norm1(x), self.thw)[0], keep)
+
+
+class RevMlpSub(nn.Module):
+    """G of the reversible coupling: norm2 -> MLP -> drop path."""
+
+    def __init__(self, dim: int, mlp_ratio: float, drop_path: float):
+        super().__init__()
+        self.norm2 = layer_norm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.drop_path(self.mlp(self.norm2(x)), keep)
+
+
+class StageTransitionBlock(nn.Module):
+    """The non-reversible block between segments: fuse the two streams
+    (MVIT.REV.PRE_Q_FUSION), project the residual when the width changes,
+    pool it through the attention's own pool_q and norm_q (RES_PATH 'conv'),
+    add attention, then the MLP; drop path on the whole output."""
+
+    def __init__(self, spec: dict, mlp_ratio: float, drop_path: float, pre_q_fusion: str, **kw):
+        super().__init__()
+        dim, dim_out = spec["dim"], spec["dim_out"]
+        self.pre_q_fuse = TwoStreamFusion(pre_q_fusion)
+        if dim != dim_out:
+            self.res_proj = dense(dim, dim_out, init=trunc02)
+        self.norm1 = layer_norm(dim)
+        self.attn = MultiScaleAttention(dim, dim_out, spec["num_heads"], has_cls_embed=False, **kw)
+        self.norm2 = layer_norm(dim_out)
+        self.mlp = Mlp(dim_out, int(dim_out * mlp_ratio), dim_out)
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x: torch.Tensor, thw: Sequence[int], keep: Optional[torch.Tensor] = None):
+        x = self.pre_q_fuse(x)
+        x_res = self.res_proj(x) if hasattr(self, "res_proj") else x
+        x_block, thw_new, x_res = self.attn(self.norm1(x), thw, x_res=x_res)
+        x = x_res + x_block
+        x = x + self.mlp(self.norm2(x))
+        return self.drop_path(x, keep), thw_new
+
+
+def _call_sub(mods: nn.ModuleList, keeps: List[Optional[torch.Tensor]], k: int, x: torch.Tensor):
+    return mods[k](x, keeps[k])
+
+
+def _call_first(blk: nn.Module, thw, keeps, x: torch.Tensor):
+    return blk(x, thw, keeps)[0]
+
+
+class MViT(nn.Module):
+    """PatchEmbed -> (mask tokens) -> cls token / position embeddings ->
+    blocks (plain or reversible walk) -> pooled LayerNorm -> head.
+
+    ``return_intermediate`` (MaskMViT's pretrain depths) makes the forward
+    return [(tokens, thw)] at those depths instead; in the reversible walk a
+    depth must end a uniform segment or be a transition, and the two streams
+    fuse through MVIT.REV.RESPATH_FUSE. ``intermediate_dims`` holds their
+    widths."""
+
+    def __init__(self, cfg, norm=None, dtype: Optional[torch.dtype] = None,
+                 include_head: bool = True, depth_override: Optional[int] = None,
+                 return_intermediate: Sequence[int] = ()):
+        super().__init__()
+        check_ported(cfg)
+        m = cfg.MVIT
+        self.include_head = include_head
+        self.return_intermediate = tuple(return_intermediate)
+        depth = depth_override or m.DEPTH
+        embed_dim = m.EMBED_DIM
+        self.cls_on = m.CLS_EMBED_ON
+        self.patch_embed = PatchEmbed(cfg.DATA.INPUT_CHANNEL_NUM[0], embed_dim, m.PATCH_KERNEL,
+                                      m.PATCH_STRIDE, m.PATCH_PADDING)
+        t, h, w = patch_grid(cfg)
+        schedule, final_dim = mvit_block_schedule(cfg, (t, h, w))
+        self.schedule = schedule[:depth]
+        if depth_override:
+            final_dim = self.schedule[-1]["dim_out"]
+        self.dpr = [float(r) for r in np.linspace(0, m.DROPPATH_RATE, m.DEPTH)]
+
+        self.param_inits = {}
+        n_cls = 1 if self.cls_on else 0
+
+        def free_param(name, shape):
+            setattr(self, name, nn.Parameter(torch.zeros(shape)))
+            self.param_inits[name] = trunc02
+
+        if self.cls_on:
+            free_param("cls_token", (1, 1, embed_dim))
+        self.abs_pos, self.sep_pos = bool(m.USE_ABS_POS), bool(m.SEP_POS_EMBED)
+        if self.abs_pos:
+            if self.sep_pos:
+                free_param("pos_embed_spatial", (1, h * w, embed_dim))
+                free_param("pos_embed_temporal", (1, t, embed_dim))
+                if self.cls_on:
+                    free_param("pos_embed_class", (1, 1, embed_dim))
+            else:
+                free_param("pos_embed", (1, t * h * w + n_cls, embed_dim))
+
+        self.rev = bool(m.REV.ENABLE)
+        self.o1_scan = bool(m.REV.O1_SCAN)
+        self.remat = bool(cfg.TPU.REMAT or cfg.MODEL.ACT_CHECKPOINT)
+        self.plan: List[tuple] = []
+        self.intermediate_dims: Dict[int, int] = {}
+        ri = self.return_intermediate
+        if self.rev:
+            if self.cls_on:
+                raise ValueError("reversible MViT requires CLS_EMBED_ON=False")
+            buffer_layers = {int(b) for b in m.REV.BUFFER_LAYERS}
+            i = seg_id = 0
+            while i < len(self.schedule):
+                spec = self.schedule[i]
+                uniform = (spec["dim"] == spec["dim_out"]
+                           and (len(spec["stride_q"]) == 0 or math.prod(spec["stride_q"]) == 1)
+                           and i not in buffer_layers)
+                kw = _attention_kwargs(cfg, spec, dtype)
+                if not uniform:
+                    self.add_module(f"blocks_{i}", StageTransitionBlock(
+                        spec, m.MLP_RATIO, self.dpr[i], m.REV.PRE_Q_FUSION, **kw))
+                    self.plan.append(("transition", i))
+                    if i in ri:
+                        self.intermediate_dims[i] = spec["dim_out"]
+                    i += 1
+                    continue
+                j = i
+                while j < len(self.schedule) and self.schedule[j] == spec and j not in buffer_layers:
+                    j += 1
+                inside = [d for d in ri if i <= d < j - 1]
+                if inside:
+                    raise ValueError(
+                        f"return_intermediate depths {inside} fall inside the reversible "
+                        f"segment [{i},{j}); with MVIT.REV.ENABLE only segment-boundary "
+                        "depths are materialized")
+                self.add_module(f"rev_seg{seg_id}_f", nn.ModuleList([
+                    RevAttnSub(spec, self.dpr[d], **kw) for d in range(i, j)]))
+                self.add_module(f"rev_seg{seg_id}_g", nn.ModuleList([
+                    RevMlpSub(spec["dim"], m.MLP_RATIO, self.dpr[d]) for d in range(i, j)]))
+                if j - 1 in ri:
+                    self.add_module(f"fuse_inter_{seg_id}", TwoStreamFusion(m.REV.RESPATH_FUSE))
+                    self.intermediate_dims[j - 1] = fused_width(m.REV.RESPATH_FUSE, spec["dim"])
+                self.plan.append(("segment", seg_id, i, j))
+                seg_id += 1
+                i = j
+            if not ri:
+                self.fuse = TwoStreamFusion(m.REV.RESPATH_FUSE)
+                final_dim = fused_width(m.REV.RESPATH_FUSE, final_dim)
+                self.norm = layer_norm(final_dim)
+        else:
+            for i, spec in enumerate(self.schedule):
+                self.add_module(f"blocks_{i}", MultiScaleBlock(
+                    spec["dim"], spec["dim_out"], spec["num_heads"], m.MLP_RATIO,
+                    drop_path=self.dpr[i], has_cls_embed=self.cls_on,
+                    **_attention_kwargs(cfg, spec, dtype)))
+                self.plan.append(("block", i))
+                if i in ri:
+                    self.intermediate_dims[i] = spec["dim_out"]
+            self.use_mean_pooling = bool(m.USE_MEAN_POOLING)
+            if not ri and include_head:
+                self.norm = layer_norm(final_dim)
+        if not ri and include_head:
+            self.head = TransformerBasicHead(
+                final_dim, cfg.MODEL.NUM_CLASSES, dropout_rate=cfg.MODEL.DROPOUT_RATE,
+                act_func=cfg.MODEL.HEAD_ACT, detach_final_fc=cfg.MODEL.DETACH_FINAL_FC)
+
+    def _keeps(self, b: int, generator: Optional[torch.Generator]) -> Dict[int, tuple]:
+        """The stochastic-depth keep masks of this forward, in block order:
+        one per transition, two (attention, MLP) per other block."""
+        if not self.training:
+            return {}
+        out = {}
+        for item in self.plan:
+            if item[0] == "segment":
+                blocks = range(item[2], item[3])
+            else:
+                blocks = [item[1]]
+            for i in blocks:
+                n = 1 if item[0] == "transition" else 2
+                out[i] = tuple(draw_keep(b, self.dpr[i], generator) for _ in range(n))
+        return out
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                token_mask: Optional[torch.Tensor] = None,
+                mask_token: Optional[torch.Tensor] = None):
+        """x: clips [B, T, H, W, 3]; ``generator`` draws the drop-path masks
+        in training; ``token_mask`` [B, t*h*w] (True = masked) replaces those
+        tokens with ``mask_token`` before the position embeddings."""
+        x, (t, h, w) = self.patch_embed(x)
+        b = x.shape[0]
+        if token_mask is not None and mask_token is not None:
+            x = torch.where(token_mask[..., None], mask_token.to(x.dtype), x)
+        if self.cls_on:
+            x = torch.cat([self.cls_token.expand(b, -1, -1).to(x.dtype), x], dim=1)
+        if self.abs_pos:
+            if self.sep_pos:
+                pe = (self.pos_embed_spatial.repeat(1, t, 1)
+                      + torch.repeat_interleave(self.pos_embed_temporal, h * w, dim=1))
+                if self.cls_on:
+                    pe = torch.cat([self.pos_embed_class, pe], dim=1)
+            else:
+                pe = self.pos_embed
+            x = x + pe
+        keeps = self._keeps(b, generator)
+        thw = (t, h, w)
+        inter = []
+        if self.rev:
+            x1 = x2 = x
+            for item in self.plan:
+                if item[0] == "transition":
+                    i = item[1]
+                    spec = self.schedule[i]
+                    blk = getattr(self, f"blocks_{i}")
+                    run = functools.partial(_call_first, blk, thw, keeps.get(i, (None,))[0])
+                    inp = torch.cat([x1, x2], dim=-1)
+                    out = checkpoint(run, inp, use_reentrant=False) if self.remat else run(inp)
+                    x1 = x2 = out
+                    thw = pooled_thw(thw, spec["kernel_q"], spec["stride_q"])
+                    if i in self.return_intermediate:
+                        inter.append((out, thw))
+                    continue
+                _, seg_id, i, j = item
+                fs = getattr(self, f"rev_seg{seg_id}_f")
+                gs = getattr(self, f"rev_seg{seg_id}_g")
+                kf = [keeps.get(d, (None, None))[0] for d in range(i, j)]
+                kg = [keeps.get(d, (None, None))[1] for d in range(i, j)]
+                f = functools.partial(_call_sub, fs, kf)
+                g = functools.partial(_call_sub, gs, kg)
+                if self.o1_scan:
+                    params = [list(fs[k].parameters()) + list(gs[k].parameters())
+                              for k in range(j - i)]
+                    x1, x2 = reversible_block_scan(f, g, params, x1, x2)
+                else:  # plain autograd through the same coupling
+                    for k in range(j - i):
+                        x1 = x1 + f(k, x2)
+                        x2 = x2 + g(k, x1)
+                if j - 1 in self.return_intermediate:
+                    fuse = getattr(self, f"fuse_inter_{seg_id}")
+                    inter.append((fuse(torch.cat([x1, x2], dim=-1)), thw))
+            if self.return_intermediate:
+                return inter
+            x = self.norm(self.fuse(torch.cat([x1, x2], dim=-1)).mean(dim=1))
+        else:
+            for _, i in self.plan:
+                spec = self.schedule[i]
+                blk = getattr(self, f"blocks_{i}")
+                run = functools.partial(_call_first, blk, thw, keeps.get(i, (None, None)))
+                x = checkpoint(run, x, use_reentrant=False) if self.remat else run(x)
+                thw = pooled_thw(thw, spec["kernel_q"], spec["stride_q"])
+                if i in self.return_intermediate:
+                    inter.append((x, thw))
+            if self.return_intermediate:
+                return inter
+            if not self.include_head:
+                return x, thw
+            if self.use_mean_pooling:
+                x = self.norm((x[:, 1:] if self.cls_on else x).mean(dim=1))
+            elif self.cls_on:
+                x = self.norm(x)[:, 0]
+            else:
+                x = self.norm(x).mean(dim=1)
+        if not self.include_head:
+            return x
+        return self.head(x, generator=generator)

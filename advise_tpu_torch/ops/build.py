@@ -33,6 +33,7 @@ _COMMON_FLAGS = (
 SOURCES: Dict[str, Tuple[str, ...]] = {
     "stem_conv.cu": (),
     "fused_aug.cu": ("-fmad=false",),
+    "flash_attention.cu": (),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

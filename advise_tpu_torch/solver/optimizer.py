@@ -1,9 +1,9 @@
-"""SGD + LARS on named parameters (counterpart of
-``advise_tpu/solver/optimizer.py``, the SGD/LARS subset).
+"""SGD + LARS and AdamW on named parameters (counterpart of
+``advise_tpu/solver/optimizer.py``, those two chains).
 
 As in the JAX package the transformation produces an lr-free *direction*
 and the step applies ``p -= lr * lr_scale * direction``, so momentum
-buffers accumulate unscaled directions. The chain, in order:
+buffers accumulate unscaled directions. The SGD chain, in order:
 
 1. clip by global norm (SOLVER.CLIP_GRAD_NORM > 0);
 2. coupled weight decay, ``g += wd * p`` with per-parameter wd;
@@ -14,19 +14,30 @@ buffers accumulate unscaled directions. The chain, in order:
    Nesterov, ``g + momentum * t``.
 
 This is not torch's usual LARS: the trust ratio sits after the weight decay
-and before the momentum, and the lr comes last.
+and before the momentum, and the lr comes last. The AdamW chain (optax's
+``clip_by_global_norm`` -> ``scale_by_adam`` -> ``+ wd * param``) is
+:class:`AdamW`.
+
+Weight-decay groups follow the JAX tree: its reversible MViT stacks a
+segment's parameters on a leading axis, so a LayerNorm scale or a bias there
+is 2-D and decays under SOLVER.ZERO_WD_1D_PARAM; the port's per-block copies
+(``rev_seg{n}_f.{k}.``) are counted with that axis.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+import re
+from typing import Dict, NamedTuple, Union
 
+import numpy as np
 import torch
 
 Tensors = Dict[str, torch.Tensor]
 
 # parameter-path fragments that never receive weight decay
 _NO_DECAY_PATTERNS = ("pos_embed", "cls_token", "rel_pos", "mask_token")
+# a block of a reversible segment, whose JAX parameter has a stacking axis
+_STACKED = re.compile(r"(^|\.)rev_seg\d+_[fg]\.\d+\.")
 
 
 def _path_str(name: str) -> str:
@@ -47,7 +58,8 @@ def classify_params(cfg, params: Tensors) -> Dict[str, str]:
             return "bn"
         if cfg.MVIT.ZERO_DECAY_POS_CLS and any(pat in s for pat in _NO_DECAY_PATTERNS):
             return "no_decay"
-        if p.ndim <= 1 and cfg.SOLVER.ZERO_WD_1D_PARAM:
+        ndim = p.ndim + (1 if _STACKED.search(name) else 0)
+        if ndim <= 1 and cfg.SOLVER.ZERO_WD_1D_PARAM:
             return "one_d"
         return "default"
 
@@ -119,22 +131,69 @@ class SGDLars:
         return direction, {"trace": trace}
 
 
+class AdamW:
+    """optax's chain for SOLVER.OPTIMIZING_METHOD adamw, as ``init(params)
+    -> state`` and ``update(grads, state, params) -> (direction, state)``:
+
+    1. clip by global norm (SOLVER.CLIP_GRAD_NORM > 0): g / ||g|| * clip
+       when ||g|| >= clip;
+    2. Adam moments mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, and
+       the direction mu_hat / (sqrt(nu_hat) + eps), each bias-corrected by
+       1 - b^count in float32;
+    3. decoupled weight decay: direction += wd * param (the lr multiplies
+       both later).
+
+    The state is {'mu': {...}, 'nu': {...}, 'count': int}."""
+
+    def __init__(self, wds: Dict[str, float], b1: float, b2: float, eps: float = 1e-8,
+                 clip_norm: float = 0.0):
+        self.wds = wds
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.clip_norm = clip_norm
+
+    def init(self, params: Tensors) -> Dict[str, Union[Tensors, int]]:
+        return {"mu": {n: torch.zeros_like(p) for n, p in params.items()},
+                "nu": {n: torch.zeros_like(p) for n, p in params.items()}, "count": 0}
+
+    @torch.no_grad()
+    def update(self, grads: Tensors, state, params: Tensors):
+        g = dict(grads)
+        if self.clip_norm > 0:
+            norm = global_grad_norm(g)
+            keep = norm < self.clip_norm
+            g = {n: torch.where(keep, v, v / norm.to(v.dtype) * self.clip_norm) for n, v in g.items()}
+        count = state["count"] + 1
+        b1, b2 = self.b1, self.b2
+        mu = {n: (1 - b1) * v + b1 * state["mu"][n] for n, v in g.items()}
+        nu = {n: (1 - b2) * (v * v) + b2 * state["nu"][n] for n, v in g.items()}
+        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        direction = {n: (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + self.eps) + self.wds[n] * params[n]
+                     for n in g}
+        return direction, {"mu": mu, "nu": nu, "count": count}
+
+
 class OptimizerBundle(NamedTuple):
-    tx: SGDLars  # grads -> lr-free direction
+    tx: Union[SGDLars, AdamW]  # grads -> lr-free direction
     lr_scales: Dict[str, float]  # per-parameter lr multipliers
 
 
 def build_tx(cfg, params: Tensors) -> OptimizerBundle:
-    """SOLVER.OPTIMIZING_METHOD sgd (with LARS_ON) over named parameters."""
+    """SOLVER.OPTIMIZING_METHOD sgd (with LARS_ON) or adamw over named
+    parameters."""
     method = cfg.SOLVER.OPTIMIZING_METHOD
-    if method not in ("sgd", "simple_sgd"):
+    wds = wd_tree(cfg, params)
+    if method in ("sgd", "simple_sgd"):
+        if cfg.SOLVER.DAMPENING != 0.0:
+            raise NotImplementedError("dampening unsupported")
+        tx = SGDLars(wds, cfg.SOLVER.MOMENTUM, cfg.SOLVER.NESTEROV, cfg.SOLVER.LARS_ON,
+                     cfg.SOLVER.CLIP_GRAD_NORM)
+    elif method in ("adamw", "simple_adamw", "mt_adamw"):
+        if cfg.SOLVER.LARS_ON:
+            raise NotImplementedError("LARS over AdamW is not ported yet")
+        tx = AdamW(wds, cfg.SOLVER.BETAS[0], cfg.SOLVER.BETAS[1], 1e-8, cfg.SOLVER.CLIP_GRAD_NORM)
+    else:
         raise NotImplementedError(f"SOLVER.OPTIMIZING_METHOD={method} is not ported yet")
-    if cfg.SOLVER.DAMPENING != 0.0:
-        raise NotImplementedError("dampening unsupported")
-    tx = SGDLars(
-        wd_tree(cfg, params), cfg.SOLVER.MOMENTUM, cfg.SOLVER.NESTEROV,
-        cfg.SOLVER.LARS_ON, cfg.SOLVER.CLIP_GRAD_NORM,
-    )
     return OptimizerBundle(tx=tx, lr_scales=lr_scales(cfg, params))
 
 

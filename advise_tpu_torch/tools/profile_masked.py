@@ -1,0 +1,232 @@
+"""Where the time of the masked train step goes, on one NVIDIA card, and how
+its steps move under config variants.
+
+    python3 -m advise_tpu_torch.tools.profile_masked [--steps N]
+    python3 -m advise_tpu_torch.tools.profile_masked --variants "" \\
+        MVIT.REV.O1_SCAN=False MVIT.DROPPATH_RATE=0.0 [--steps N]
+
+Both build the path of ``chip_smoke.py`` phase 7 (``MViT_L_32x312_joint.yaml``
+at full width and depth: one video x 2 views of uint8 clips, OnlyCrop, the
+reversible MViT-L with flash attention, masked MSE + NT-Xent, AdamW) with
+the same seeds.
+
+Without ``--variants`` it runs 2 warm-up steps, then:
+
+1. phases with barriers: the step's pieces run apart, each ended by
+   ``torch.cuda.synchronize()`` and timed on the host clock (median over
+   ``--steps`` steps): augmentation, forward + loss, backward, optimizer
+   (grad norm, AdamW direction, update);
+2. ``torch.profiler`` over ``--steps`` whole steps: the device time by
+   kernel (the top 25, and the flash kernels' and the GEMMs' shares), and
+   the device busy share of the window (the union of kernel intervals over
+   the wall time).
+
+With ``--variants`` (each a comma-separated list of KEY=VALUE config
+overrides, "" for the preset) it runs ``--steps`` steps of each variant from
+the same seeds and prints, per step, loss_mask, the grad norm, the stage
+transitions whose drop path zeroed a view, and the peak memory.
+
+No card, no run: it exits non-zero. Prints the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import statistics
+import subprocess
+import time
+
+CONFIG = "configs/pretrain/MViT_L_32x312_joint.yaml"
+
+
+def _busy_ms(events) -> float:
+    """Length of the union of the kernels' [start, end) intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3  # us -> ms
+
+
+def _value(text: str):
+    try:
+        return ast.literal_eval(text)
+    except (ValueError, SyntaxError):
+        return text
+
+
+def masked_path(overrides: str, n_steps: int):
+    """The masked path of the preset with ``overrides`` ("KEY=VALUE,..."):
+    (cfg, model, bundle, state, aug, step, clips, masks, generator, lr)."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch import config as tconfig
+    from advise_tpu_torch.data import build_device_aug, ingest_geometry
+    from advise_tpu_torch.data.masking import build_mask_generator
+    from advise_tpu_torch.engine.state import TrainState
+    from advise_tpu_torch.engine.steps import make_train_step
+    from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.solver.lr_policy import get_lr_at_epoch
+    from advise_tpu_torch.solver.optimizer import build_tx
+
+    dev = torch.device("cuda", 0)
+    cfg = tconfig.get_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.NUM_WORLDS = 1
+    cfg.TPU.MESH_SYNC = 1
+    for item in filter(None, overrides.split(",")):
+        key, value = item.split("=", 1)
+        node = cfg
+        *path, leaf = key.strip().split(".")
+        for p in path:
+            node = node[p]
+        node[leaf] = _value(value.strip())
+    cfg = tconfig.assert_and_infer_cfg(cfg)
+    model = build_model(cfg, dev, seed=0)
+    params = dict(model.named_parameters())
+    bundle = build_tx(cfg, params)
+    state = TrainState(model, bundle.tx.init(params), 0)
+    aug = build_device_aug(cfg, "train")
+    step = make_train_step(cfg, bundle, aug)
+    b, k, t = cfg.DATA.BATCHSIZE_PER_GPU, cfg.DATA.NUM_CLIP, cfg.DATA.NUM_FRAMES
+    w, h = ingest_geometry(cfg, "train")
+    rng = np.random.default_rng(2)
+    clips = torch.from_numpy(rng.integers(0, 256, (b, k, t, h, w, 3), dtype=np.uint8)).to(dev)
+    gen = build_mask_generator(cfg)
+    grid = (gen.temporal, gen.height, gen.width)
+    masks = [torch.from_numpy(np.stack([gen(rng) for _ in range(b * k)])).reshape(b, k, *grid).to(dev)
+             for _ in range(n_steps)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    return cfg, model, bundle, state, aug, step, clips, masks, g, get_lr_at_epoch(cfg, 1.0)
+
+
+def run_variants(variants, n_steps: int) -> None:
+    import torch
+
+    for overrides in variants:
+        cfg, model, bundle, state, aug, step, clips, masks, g, lr = masked_path(overrides, n_steps)
+        encoder = model.encoder
+        transitions = {item[1] for item in encoder.plan if item[0] == "transition"}
+        draws = []
+        draw = encoder._keeps
+
+        def recording(b, generator):
+            keeps = draw(b, generator)
+            draws.append({i: [int((~m).sum()) for m in ks if m is not None]
+                          for i, ks in keeps.items() if i in transitions})
+            return keeps
+
+        encoder._keeps = recording
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n_steps):
+            stats = step(state, clips, {"mask": masks[i]}, g, lr)
+            dropped = {blk: n[0] for blk, n in draws[-1].items() if n and n[0]}
+            print(f"[variant {overrides or 'preset'}] step {i}: loss_mask {float(stats['loss_mask'])} "
+                  f"grad_norm {float(stats['grad_norm'])} views zeroed at transitions {dropped} "
+                  f"peak {torch.cuda.max_memory_allocated()} bytes")
+        del model, bundle, state, step
+        torch.cuda.empty_cache()
+
+
+def profile(n_steps: int) -> None:
+    import torch
+
+    from advise_tpu_torch.engine.steps import masked_task_loss
+    from advise_tpu_torch.models import compute_dtype
+    from advise_tpu_torch.solver.optimizer import apply_direction, global_grad_norm
+
+    cfg, model, bundle, state, aug, step, clips, masks, g, lr = masked_path("", 2 + 2 * n_steps)
+    params = dict(model.named_parameters())
+    dtype = compute_dtype(cfg)
+    for i in range(2):
+        step(state, clips, {"mask": masks[i]}, g, lr)
+    torch.cuda.synchronize()
+
+    phases = {"aug": [], "forward + loss": [], "backward": [], "optimizer": []}
+    for i in range(n_steps):
+        marks = [time.perf_counter()]
+        model.train()
+        x = aug(clips, g).to(dtype)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        with torch.autocast("cuda", dtype=dtype):
+            loss, _ = masked_task_loss(cfg, model, x, {"mask": masks[2 + i]}, g)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        global_grad_norm(grads)
+        direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
+        apply_direction(params, direction, lr, bundle.lr_scales)
+        del grads, direction
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for name, a, z in zip(phases, marks, marks[1:]):
+            phases[name].append((z - a) * 1e3)
+    total = sum(statistics.median(v) for v in phases.values())
+    for name, v in phases.items():
+        med = statistics.median(v)
+        print(f"[phase] {name}: {med} ms median of {len(v)} ({100 * med / total} % of {total} ms)")
+
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            step(state, clips, {"mask": masks[2 + n_steps + i]}, g, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_ms(kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    device_ms = sum(by_name.values())
+    print(f"[profile] {n_steps} steps: wall {wall_ms} ms, kernels {len(kernels)}, device busy "
+          f"{busy} ms ({100 * busy / wall_ms} % of the wall; idle {100 - 100 * busy / wall_ms} %), "
+          f"summed kernel time {device_ms} ms (overlapping kernels count each)")
+    groups = {"flash attention (K4)": ("flash_",), "GEMMs": ("gemm", "Gemm", "cutlass", "sm90_xmma"),
+              "convolutions": ("conv", "Conv", "implicit"), "elementwise": ("elementwise", "Elementwise"),
+              "reductions": ("reduce", "Reduce"), "layer norm": ("layer_norm", "LayerNorm")}
+    for gname, keys in groups.items():
+        ms = sum(v for kname, v in by_name.items() if any(key in kname for key in keys))
+        print(f"[profile] {gname}: {ms} ms ({100 * ms / device_ms} % of kernel time)")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+        print(f"[profile] {ms:10.3f} ms {100 * ms / device_ms:6.2f} %  {kname[:110]}")
+
+
+def main() -> None:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--variants", nargs="*", default=None,
+                        help='config overrides "KEY=VALUE,...", one argument a variant ("" = preset)')
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_masked: no CUDA card; the measurement runs on a card only")
+    from advise_tpu_torch.ops import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"[env] card: {card}, torch {torch.__version__}")
+    build.build_all()
+    if args.variants is not None:
+        run_variants(args.variants, args.steps)
+    else:
+        profile(args.steps)
+    print(card)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,8 +7,14 @@ The port names its modules as the Flax modules are named, so a Flax path
 
 - conv ``kernel`` DHWIO ``[kt, kh, kw, I, O]`` -> ``weight`` OIDHW;
 - Dense ``kernel`` ``[in, out]`` -> Linear ``weight`` ``[out, in]``;
-- BN ``scale``/``bias`` -> ``weight``/``bias``, and the batch statistics
-  ``mean``/``var`` -> ``running_mean``/``running_var``.
+- BN and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``, and the batch
+  statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
+- a free parameter (``mask_token``, ``pos_embed_spatial``, ...) keeps its
+  name and layout;
+- the reversible MViT's stacked segment parameters (``rev_seg{n}_f`` /
+  ``rev_seg{n}_g``, one slice per block on axis 0) -> one module per block,
+  ``rev_seg{n}_f.{k}.`` ...; the depthwise pool convs' DHWIO kernels
+  ``[k, k, k, 1, C]`` map like every conv.
 
 The stem's weight is the plain ``[kt, 7, 7, C, O]`` ``conv/kernel`` on the
 space-to-depth path too, so it maps like every other conv.
@@ -16,6 +22,7 @@ space-to-depth path too, so it maps like every other conv.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -23,6 +30,7 @@ import torch
 
 _PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+_STACKED = re.compile(r"^rev_seg\d+_[fg]$")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -43,15 +51,27 @@ def _param_leaf(name: str, arr: np.ndarray) -> np.ndarray:
 
 def param_key(path: Tuple[str, ...]) -> str:
     """Torch name of the Flax param at ``path``."""
-    return ".".join(path[:-1] + (_PARAM_NAMES[path[-1]],))
+    return ".".join(path[:-1] + (_PARAM_NAMES.get(path[-1], path[-1]),))
+
+
+def _unstack(path: Tuple[str, ...], arr: np.ndarray):
+    """(path, leaf) pairs of one Flax leaf: itself, or one per block when it
+    lies under a stacked reversible segment."""
+    at = next((i for i, p in enumerate(path) if _STACKED.match(p)), None)
+    if at is None:
+        yield path, arr
+        return
+    for k in range(arr.shape[0]):
+        yield path[: at + 1] + (str(k),) + path[at + 1:], arr[k]
 
 
 def params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """A Flax params tree (or any tree shaped like it, such as the momentum
-    trace) -> {torch param name: tensor} in torch layouts."""
+    trace or Adam's moments) -> {torch param name: tensor} in torch layouts."""
     return {
-        param_key(path): torch.from_numpy(np.array(_param_leaf(path[-1], np.asarray(v))))
+        param_key(p): torch.from_numpy(np.array(_param_leaf(p[-1], a)))
         for path, v in _flatten(params)
+        for p, a in _unstack(path, np.asarray(v))
     }
 
 

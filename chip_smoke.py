@@ -6,26 +6,38 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA and
    nvcc versions. No card, no run: there is no CPU fallback;
-2. build: every kernel source of advise_tpu_torch/csrc/ (the stem conv and
-   the fused simple aug), one nvcc each, started together, each timed;
+2. build: every kernel source of advise_tpu_torch/csrc/ (the stem conv, the
+   fused simple aug, flash attention), one nvcc each, started together, each
+   timed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs (TF32 off): the stem kernels at the BYOL path's stem shape
    and a ragged small shape, the fused aug at SpeedPro's shape (float32 and
    bf16 outputs, the preset's colour probability and p = 1) and a ragged
-   one. Times are CUDA events, median of 20 in the order plain, kernel,
-   kernel, plain; beside them the least time the card could take (bytes or
-   operations over the card's peak rates) and, where one PyTorch call
-   computes the same function, that call's time;
+   one, flash attention forward and backward at every distinct attention
+   shape of MViT-L 32x312 (2 views) and a ragged one. Times are CUDA
+   events, median of 20 in the order plain, kernel, kernel, plain; beside
+   them the least time the card could take (bytes or operations over the
+   card's peak rates) and, where one PyTorch call computes the same
+   function, that call's time (flash attention: scaled_dot_product_attention
+   in bf16, with the backend that served it);
 4. small input: each full-width model's forward on the card (bf16) against
-   the same weights' float32 forward on the CPU: SlowFast-R50 BYOL and the
-   Slow-R50 speed model;
+   the same weights' float32 forward on the CPU: SlowFast-R50 BYOL, the
+   Slow-R50 speed model, and the full-depth MViT-L MaskFeat model at 4
+   frames x 64^2;
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
    clips through the 'aa' augmentation, 2 warm-up and 5 timed steps;
 6. the speed path: the Slow-R50 speed-pretext step of
    configs/pretrain/SpeedPro_R50.yaml at full width on one card, uint8 clips
    through the 'simple' augmentation (the fused aug kernel), the lr from the
-   port's lr policy, 2 warm-up and 5 timed steps.
+   port's lr policy, 2 warm-up and 5 timed steps;
+7. the masked path: the MViT-L MaskFeat + NT-Xent step of
+   configs/pretrain/MViT_L_32x312_joint.yaml at full width and depth on one
+   card (reversible, flash attention, AdamW with grad clipping), one video x
+   2 views of uint8 clips through the 'OnlyCrop' augmentation, block masks
+   from the port's MaskingGenerator3D, the lr from the port's lr policy in
+   the warm-up, 2 warm-up and 5 timed steps; the flash kernels' launches
+   are checked against the count the block schedule implies.
 
 Each path's kernel launch counts are reset just before its steps and read
 just after. The line before the last is nvidia-smi's name and power limit;
@@ -38,12 +50,15 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 BYOL_CONFIG = "configs/pretrain/SlowFast_R50_K400.yaml"
 SPEED_CONFIG = "configs/pretrain/SpeedPro_R50.yaml"
+MASKED_CONFIG = "configs/pretrain/MViT_L_32x312_joint.yaml"
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 LR, EPOCH_EXACT = 1e-3, 1.0
 SPEED_EPOCH = 1.0  # inside SpeedPro's 10 warm-up epochs
+MASKED_EPOCH = 1.0  # inside the MViT-L preset's 10 warm-up epochs
 SLOW_R50_SPEED_PARAMS = 40_047_684  # the JAX package's oracle (tests/test_models.py)
 
 # H100 SXM (NVIDIA's data sheet): device memory rate, dense bf16 tensor
@@ -76,6 +91,41 @@ def one_card_cfg(tconfig, path):
     return tconfig.assert_and_infer_cfg(cfg)
 
 
+def attention_shapes(cfg, batch: int):
+    """(b, heads, nq, nk, head_dim) of each block's attention in the
+    reversible MViT encoder of ``cfg``, in block order."""
+    from advise_tpu_torch.models.mvit import mvit_block_schedule, patch_grid, pooled_thw
+
+    thw = patch_grid(cfg)
+    schedule, _ = mvit_block_schedule(cfg, thw)
+    shapes = []
+    for spec in schedule[: cfg.MASK.PRETRAIN_DEPTH[-1] + 1]:
+        q_thw = pooled_thw(thw, spec["kernel_q"], spec["stride_q"])
+        kv_thw = pooled_thw(thw, spec["kernel_kv"], spec["stride_kv"])
+        shapes.append((batch, spec["num_heads"], math.prod(q_thw), math.prod(kv_thw),
+                       spec["dim_out"] // spec["num_heads"]))
+        thw = q_thw
+    return shapes
+
+
+def sdpa_backend(q, k, v, scale):
+    """The first scaled_dot_product_attention backend that takes these
+    inputs, in the dispatcher's order of preference."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # each refusal warns its reason
+                F.scaled_dot_product_attention(q, k, v, scale=scale)
+            return backend
+        except RuntimeError:
+            continue
+    raise RuntimeError("chip_smoke: no SDPA backend takes these inputs")
+
+
 def bound(nbytes: float, ops: float, kind: str):
     """The least time (ms) the card could take: the larger of the bytes over
     the memory rate and the operations over the peak rate of ``kind``."""
@@ -98,7 +148,9 @@ def main() -> None:
     from advise_tpu_torch.engine.state import TrainState
     from advise_tpu_torch.engine.steps import make_train_step
     from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.data.masking import build_mask_generator
     from advise_tpu_torch.ops import build
+    from advise_tpu_torch.ops import flash_attention as fl
     from advise_tpu_torch.ops import fused_aug as fa
     from advise_tpu_torch.ops import stem_conv as sc
     from advise_tpu_torch.solver.lr_policy import get_lr_at_epoch
@@ -256,6 +308,84 @@ def main() -> None:
     results["fused_simple_aug"]["max_abs_err"] = aug_err
     torch.cuda.empty_cache()
 
+    # flash attention at every distinct shape of the masked path's encoder (2
+    # views as one batch), each weighted by the blocks that run it, and a
+    # ragged shape; bounds stated with the card tests' reasoning
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    mvcfg = one_card_cfg(tconfig, MASKED_CONFIG)
+    mk = mvcfg.DATA.NUM_CLIP * mvcfg.DATA.BATCHSIZE_PER_GPU
+    per_block = attention_shapes(mvcfg, mk)
+    uses = {sh: per_block.count(sh) for sh in per_block}
+    totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=[0.0, 0.0], max_abs_err=0.0)
+              for name in ("flash_mha_fwd", "flash_mha_bwd")}
+    for shape in sorted(uses, key=lambda sh: -uses[sh]) + [(2, 2, 1001, 77, 72)]:
+        b_, h_, nq, nk, d = shape
+        scale = d ** -0.5
+        q = torch.randn((b_, h_, nq, d), device=dev, generator=g).bfloat16()
+        k_, v = (torch.randn((b_, h_, nk, d), device=dev, generator=g).bfloat16() for _ in range(2))
+        do = torch.randn((b_, h_, nq, d), device=dev, generator=g).bfloat16()
+        o, lse = fl.flash_mha_fwd(q, k_, v, scale)
+        dq, dk, dv = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
+        qr, kr, vr = (t.float().requires_grad_() for t in (q, k_, v))
+        ref = fl.flash_mha_plain(qr, kr, vr, scale)
+        grads = torch.autograd.grad(ref, (qr, kr, vr), do.float(), retain_graph=True)
+        torch.cuda.synchronize()
+        errs = {"o": (o, ref.detach(), 2 ** -7)}
+        errs.update({f"d{n}": (a, r, 2 ** -6) for n, a, r in zip("qkv", (dq, dk, dv), grads)})
+        for name, (a, r, tol) in errs.items():
+            err = float((a.float() - r).abs().max())
+            top = float(r.abs().max())
+            print(f"[kernel] flash {shape} {name}: max_abs_err {err} (bound: {tol} of max|ref| "
+                  f"{top} = {tol * top})")
+            check(math.isfinite(err) and err <= tol * top, f"flash attention {name} disagrees at {shape}")
+            key = "flash_mha_fwd" if name == "o" else "flash_mha_bwd"
+            totals[key]["max_abs_err"] = max(totals[key]["max_abs_err"], err)
+        again = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
+        check(all(torch.equal(a, bb) for a, bb in zip(again, (dq, dk, dv))),
+              "flash attention backward is not deterministic")
+        n_use = uses.get(shape, 0)  # 0: the ragged check, timed but not in the totals
+        fwd_ms, fwd_plain_ms = in_turns(lambda: fl.flash_mha_fwd(q, k_, v, scale),
+                                        lambda: fl.flash_mha_plain(qr, kr, vr, scale))
+        bwd_ms, bwd_plain_ms = in_turns(
+            lambda: fl.flash_mha_bwd(q, k_, v, o, lse, do, scale),
+            lambda: torch.autograd.grad(ref, (qr, kr, vr), do.float(), retain_graph=True))
+        backend = sdpa_backend(q, k_, v, scale)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k_, v))
+        with sdpa_kernel([backend]):
+            lib_fwd_ms = alone(lambda: F.scaled_dot_product_attention(q, k_, v, scale=scale))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            lib_bwd_ms = alone(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                           retain_graph=True))
+        work = b_ * h_ * nq * nk * d
+        io = 2.0 * (b_ * h_ * (2 * nq + 2 * nk) * d)  # q, k, v, o in bf16
+        fwd_bound = bound(io + 4.0 * b_ * h_ * nq, 4.0 * work, "bf16")
+        bwd_bound = bound(io + 2.0 * b_ * h_ * (2 * nq + 2 * nk) * d + 4.0 * b_ * h_ * nq,
+                          10.0 * work, "bf16")
+        print(f"[kernel] flash {shape} x{n_use} blocks: fwd {fwd_ms} ms (plain {fwd_plain_ms}, "
+              f"SDPA {lib_fwd_ms}, bound {fwd_bound[0]} {fwd_bound[1]}); bwd {bwd_ms} ms (plain "
+              f"{bwd_plain_ms}, SDPA {lib_bwd_ms}, bound {bwd_bound[0]} {bwd_bound[1]}); SDPA fwd+bwd "
+              f"{lib_fwd_ms + lib_bwd_ms} ms by {backend.name}; tiles {fl.tile_config(d)}")
+        for key, vals in (("flash_mha_fwd", (fwd_ms, fwd_plain_ms, lib_fwd_ms, fwd_bound)),
+                          ("flash_mha_bwd", (bwd_ms, bwd_plain_ms, lib_bwd_ms, bwd_bound))):
+            tot = totals[key]
+            tot["ms"] += n_use * vals[0]
+            tot["plain_ms"] += n_use * vals[1]
+            tot["library_ms"] += n_use * vals[2]
+            tot["bound"][0] += n_use * vals[3][0]
+            tot["bound"][1] += n_use * (1.0 if vals[3][1] == "operations" else 0.0)
+        del q, k_, v, do, o, lse, dq, dk, dv, qr, kr, vr, ref, grads, again, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    for key, tot in totals.items():
+        # one pass of the 48-block encoder over both views: per-shape medians
+        # times the blocks that run the shape
+        tot["bound"] = (tot["bound"][0], "operations" if tot["bound"][1] * 2 >= len(per_block) else "bytes")
+        print(f"[kernel] {key} over the encoder's {len(per_block)} blocks: {tot['ms']} ms, plain "
+              f"{tot['plain_ms']} ms, SDPA {tot['library_ms']} ms, bound {tot['bound'][0]} ms "
+              f"({tot['bound'][1]}), max_abs_err {tot['max_abs_err']}")
+        results[key] = tot
+
     # -- 4. small input: the card's bf16 forward against a CPU float32 one --------
     small = torch.from_numpy(
         np.random.default_rng(1).standard_normal((2, t, 64, 64, 3)).astype(np.float32))
@@ -281,6 +411,33 @@ def main() -> None:
         del ref_model, card_model, got, want
     torch.cuda.empty_cache()
 
+    small_cfg = mvcfg.clone()
+    small_cfg.DATA.NUM_FRAMES = 4
+    small_cfg.DATA.TRAIN_CROP_SIZE = small_cfg.DATA.TEST_CROP_SIZE = small_cfg.AUG.TARGET_SIZE = 64
+    ref_cfg = small_cfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    ref_model = build_model(ref_cfg, "cpu", seed=0).eval()
+    card_model = build_model(small_cfg, dev, seed=0).eval()
+    x_small = small[:, :4]
+    mask_small = torch.from_numpy(np.stack(
+        [build_mask_generator(small_cfg)(np.random.default_rng(i)) for i in range(2)]))
+    with torch.no_grad():
+        want = ref_model(x_small, loader_mask=mask_small)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = card_model(x_small.to(dev).bfloat16(), loader_mask=mask_small.to(dev))
+    # the HOG label is not compared: it follows the input's dtype (bf16 on the
+    # card, as in JAX), whose coarse phase moves pixels across orientation
+    # bins; the CPU parity tests hold it to JAX in float32
+    for out_name, a, r in (("HOG prediction", got[0][0], want[0][0]),
+                           ("joint projection", got[4], want[4])):
+        check(tuple(a.shape) == tuple(r.shape), f"MViT-L {out_name} has shape {tuple(a.shape)}")
+        rel = float((a.float().cpu() - r).abs().max() / r.abs().max())
+        print(f"[small] MViT-L MaskFeat {out_name} {tuple(a.shape)}: max rel err vs CPU float32 {rel} "
+              f"(bound 5e-2)")
+        check(math.isfinite(rel) and rel <= 5e-2, f"the card's MViT-L {out_name} disagrees with the CPU")
+    del ref_model, card_model, got, want
+    torch.cuda.empty_cache()
+
     # -- 5. the BYOL path ---------------------------------------------------------
     model = build_model(cfg, dev, seed=0)
     params = dict(model.named_parameters())
@@ -303,6 +460,8 @@ def main() -> None:
     sc.stem_conv_fwd.launches = 0
     sc.stem_conv_wgrad.launches = 0
     fa.fused_simple_aug.launches = 0
+    fl.flash_mha_fwd.launches = 0
+    fl.flash_mha_bwd.launches = 0
     step_ms = []
     for i in range(WARMUP_STEPS + TIMED_STEPS):
         t0 = time.perf_counter()
@@ -380,6 +539,76 @@ def main() -> None:
           f"stem kernels {speed_stem} (the slow stem is a plain conv)")
     check(launches["fused_simple_aug"] == WARMUP_STEPS + TIMED_STEPS,
           "fused_simple_aug was not launched once per speed step")
+    del model, params, bundle, state, step, clips, stats
+    torch.cuda.empty_cache()
+
+    # -- 7. the masked path -------------------------------------------------------
+    model = build_model(mvcfg, dev, seed=0)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    bundle = build_tx(mvcfg, params)
+    state = TrainState(model, bundle.tx.init(params), 0)
+    step = make_train_step(mvcfg, bundle, build_device_aug(mvcfg, "train"))
+    mb, mk_, mt = mvcfg.DATA.BATCHSIZE_PER_GPU, mvcfg.DATA.NUM_CLIP, mvcfg.DATA.NUM_FRAMES
+    mw_in, mh_in = ingest_geometry(mvcfg, "train")
+    rng = np.random.default_rng(2)
+    clips = torch.from_numpy(
+        rng.integers(0, 256, size=(mb, mk_, mt, mh_in, mw_in, 3), dtype=np.uint8)).to(dev)
+    mask_gen = build_mask_generator(mvcfg)  # the loader's, one block mask per clip and step
+    grid = (mask_gen.temporal, mask_gen.height, mask_gen.width)
+    masks = [torch.from_numpy(np.stack([mask_gen(rng) for _ in range(mb * mk_)])).reshape(
+        mb, mk_, *grid).to(dev) for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lr = get_lr_at_epoch(mvcfg, MASKED_EPOCH)
+    plan = model.encoder.plan
+    n_transition = sum(1 for item in plan if item[0] == "transition")
+    n_uniform = sum(item[3] - item[2] for item in plan if item[0] == "segment")
+    # a uniform block's attention runs in the forward and again in the
+    # reversible backward; a transition's again under REMAT's checkpoint
+    fwd_per_step = 2 * n_uniform + (2 if mvcfg.TPU.REMAT else 1) * n_transition
+    bwd_per_step = n_uniform + n_transition
+    print(f"[masked] MViT-L MaskFeat + NT-Xent, {n_params} params, clips {tuple(clips.shape)} uint8 "
+          f"-> OnlyCrop {mvcfg.AUG.TARGET_SIZE}, {mvcfg.TPU.COMPUTE_DTYPE}, REV {mvcfg.MVIT.REV.ENABLE} "
+          f"(O1_SCAN {mvcfg.MVIT.REV.O1_SCAN}), REMAT {mvcfg.TPU.REMAT}, {n_transition} transitions + "
+          f"{n_uniform} reversible blocks, mask ratio {float(masks[0].float().mean())}, "
+          f"drop path {mvcfg.MVIT.DROPPATH_RATE}, lr {lr} at epoch {MASKED_EPOCH}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sc.stem_conv_fwd.launches = 0
+    sc.stem_conv_wgrad.launches = 0
+    fa.fused_simple_aug.launches = 0
+    fl.flash_mha_fwd.launches = 0
+    fl.flash_mha_bwd.launches = 0
+    step_ms = []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        stats = step(state, clips, {"mask": masks[i]}, gen, lr)
+        vals = {name: float(v) for name, v in stats.items()}
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[masked] step {i}: loss_mask {vals['loss_mask']} loss_nce {vals['loss_nce']} "
+              f"grad_norm {vals['grad_norm']} ({step_ms[-1]} ms)")
+        check(all(math.isfinite(vals[k]) for k in ("loss_mask", "loss_nce", "grad_norm")),
+              f"masked step {i} is not finite")
+    launches["flash_mha_fwd"] = fl.flash_mha_fwd.launches
+    launches["flash_mha_bwd"] = fl.flash_mha_bwd.launches
+    other = (sc.stem_conv_fwd.launches, sc.stem_conv_wgrad.launches, fa.fused_simple_aug.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(state.step == WARMUP_STEPS + TIMED_STEPS, "the masked state did not advance")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "masked params not finite")
+    median_ms = statistics.median(step_ms[WARMUP_STEPS:])
+    print(f"[masked] median step {median_ms} ms over {TIMED_STEPS} steps, "
+          f"{mb * mk_ * 1e3 / median_ms} clip-views/s ({mb} video x {mk_} views), "
+          f"peak allocated {peak} bytes")
+    steps = WARMUP_STEPS + TIMED_STEPS
+    print(f"[masked] launches during the steps: flash_mha_fwd {launches['flash_mha_fwd']} "
+          f"(expected {fwd_per_step * steps}), flash_mha_bwd {launches['flash_mha_bwd']} "
+          f"(expected {bwd_per_step * steps}), stem and aug kernels {other}")
+    check(launches["flash_mha_fwd"] == fwd_per_step * steps > 0,
+          "flash_mha_fwd launches differ from the schedule's count")
+    check(launches["flash_mha_bwd"] == bwd_per_step * steps > 0,
+          "flash_mha_bwd launches differ from the schedule's count")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -393,7 +622,11 @@ def main() -> None:
             ("stem_conv_wgrad", "advise_tpu_torch/csrc/stem_conv.cu",
              "advise_tpu/ops/pallas/stem_conv.py:126"),
             ("fused_simple_aug", "advise_tpu_torch/csrc/fused_aug.cu",
-             "advise_tpu/ops/pallas/fused_aug.py:57"))
+             "advise_tpu/ops/pallas/fused_aug.py:57"),
+            ("flash_mha_fwd", "advise_tpu_torch/csrc/flash_attention.cu",
+             "advise_tpu/ops/flash_attention.py:75"),
+            ("flash_mha_bwd", "advise_tpu_torch/csrc/flash_attention.cu",
+             "advise_tpu/ops/flash_attention.py:75"))
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

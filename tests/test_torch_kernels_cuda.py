@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the stem kernels (advise_tpu_torch/csrc/stem_conv.cu) and the fused
-simple aug (advise_tpu_torch/csrc/fused_aug.cu). Every test here needs an
-NVIDIA card and nvcc, and skips without a card.
+card: the stem kernels (advise_tpu_torch/csrc/stem_conv.cu), the fused
+simple aug (advise_tpu_torch/csrc/fused_aug.cu) and flash attention, forward
+and backward (advise_tpu_torch/csrc/flash_attention.cu). Every test here
+needs an NVIDIA card and nvcc, and skips without a card.
 
 This file imports no JAX, so a machine without it runs the file without the
 repo's conftest:
@@ -13,7 +14,13 @@ bf16, so it is held to one bf16 ulp of the largest output of the float32
 plain conv on the same bf16 inputs (TF32 off); the weight gradient is a
 float32 sum in another order, held to 1e-3 of its largest entry. The fused
 aug states every rounding of its chain (the note in fused_aug.cu), so it is
-held EQUAL to its plain version, in float32 and in bf16.
+held EQUAL to its plain version, in float32 and in bf16. Flash attention
+takes bf16 q, k, v and is held against the float32 dense chain on the same
+bf16 values: the forward rounds the probabilities to bf16 for P V and the
+output once, so it is held to 2^-7 of the largest output; the backward
+rounds P, dS and its outputs to bf16, and D comes from the bf16 output, so
+dq, dk and dv are held to 2^-6 of their largest entries (the H100 measured
+2e-3 to 5e-3 of them at every shape below).
 """
 
 import math
@@ -21,6 +28,7 @@ import math
 import pytest
 import torch
 
+from advise_tpu_torch.ops import flash_attention as fl
 from advise_tpu_torch.ops import fused_aug as fa
 from advise_tpu_torch.ops import stem_conv as sc
 
@@ -142,3 +150,62 @@ def test_fused_aug_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         fa.fused_simple_aug(clips.transpose(2, 3), prm, 16, MEAN, STD)
     with pytest.raises(ValueError):
         fa.fused_simple_aug(clips, prm, 21, MEAN, STD)
+
+
+FLASH_SHAPES = [  # (b, h, nq, nk, d)
+    (2, 3, 37, 45, 36),       # ragged: partial tiles both ways, d % 8 != 0 (scalar loads)
+    (1, 2, 300, 100, 72),     # MViT-L stage 1's head dim
+    (1, 4, 200, 130, 144),
+    (1, 2, 150, 110, 288),
+    (1, 2, 100, 90, 576),     # the 32 x 32 / 16 x 32 tiles
+    (2, 2, 130, 98, 48),
+    (1, 2, 97, 64, 192),
+]
+
+
+def _flash_inputs(shape, device, seed=0):
+    b, h, nq, nk, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, do = (torch.randn((b, h, nq, d), device=device, generator=g).bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, h, nk, d), device=device, generator=g).bfloat16() for _ in range(2))
+    return q, k, v, do
+
+
+def _rel(a, ref):
+    return float((a.float() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_matches_plain(cuda, shape):
+    q, k, v, do = _flash_inputs(shape, cuda)
+    scale = shape[-1] ** -0.5
+    launches = (fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches)
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fl.flash_mha(*qk, scale)
+    o.backward(do)
+    qr = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = fl.flash_mha_plain(*qr, scale)
+    ref.backward(do.float())
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o.shape == ref.shape
+    assert _rel(o.detach(), ref.detach()) <= 2 ** -7
+    for got, want in zip(qk, qr):
+        assert got.grad.dtype == torch.bfloat16
+        assert _rel(got.grad, want.grad) <= 2 ** -6
+    assert (fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    # no atomics: the backward is deterministic
+    o2, lse = fl.flash_mha_fwd(q, k, v, scale)
+    again = fl.flash_mha_bwd(q, k, v, o2, lse, do, scale)
+    assert all(torch.equal(a, t.grad) for a, t in zip(again, qk))
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q, k, v, _ = _flash_inputs((1, 2, 16, 16, 32), cuda)
+    with pytest.raises(TypeError):
+        fl.flash_mha_fwd(q.float(), k.float(), v.float(), 0.1)
+    with pytest.raises(ValueError):
+        fl.flash_mha_fwd(q, k[:, :, :, :16], v, 0.1)
+    with pytest.raises(ValueError):
+        fl.flash_mha_fwd(q, k.cpu(), v, 0.1)

@@ -197,7 +197,9 @@ def test_initializers_match_jax(zero_final_bn):
 
 def test_port_imports_no_jax():
     """Importing the port and running a CPU forward and backward of each
-    model, and the simple aug, loads no jax or flax module."""
+    model (MaskMViT through flash_mha's CPU path), the simple and OnlyCrop
+    augs and a MaskingGenerator3D draw loads no jax, flax, optax or
+    advise_tpu module."""
     code = (
         "import sys, torch\n"
         "from advise_tpu_torch.config import get_cfg, assert_and_infer_cfg\n"
@@ -225,9 +227,47 @@ def test_port_imports_no_jax():
         "logits = m(clips, generator=g)\n"
         "losses.bce_logit(logits, torch.eye(4)[:2]).backward()\n"
         "assert lr_policy.get_lr_at_epoch(cfg, 1.0) > 0\n"
+        "import numpy as np\n"
+        "from advise_tpu_torch.data.masking import build_mask_generator\n"
+        "from advise_tpu_torch.ops import flash_attention\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/pretrain/MViT_L_32x312_joint.yaml')\n"
+        "cfg.MVIT.EMBED_DIM = 8; cfg.MVIT.DEPTH = 6; cfg.MVIT.DIM_MUL = [[2, 2.0]]\n"
+        "cfg.MVIT.HEAD_MUL = [[2, 2.0]]; cfg.MVIT.POOL_Q_STRIDE = [[2, 1, 2, 2]]\n"
+        "cfg.MASK.PRETRAIN_DEPTH = [5]; cfg.CONTRASTIVE.MLP_DIM = 32; cfg.TPU.COMPUTE_DTYPE = 'float32'\n"
+        "cfg.DATA.NUM_FRAMES = 4; cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = cfg.AUG.TARGET_SIZE = 32\n"
+        "cfg = assert_and_infer_cfg(cfg)\n"
+        "mask = build_mask_generator(cfg)(np.random.default_rng(0))\n"
+        "clips = build_device_aug(cfg)(torch.zeros(1, 2, 4, 32, 42, 3, dtype=torch.uint8), g)[0]\n"
+        "m = build_model(cfg, 'cpu').train()\n"
+        "n = [0]\n"
+        "plain = flash_attention.flash_fwd_plain\n"
+        "def counted(*a):\n"
+        "    n[0] += 1\n"
+        "    return plain(*a)\n"
+        "flash_attention.flash_fwd_plain = counted\n"
+        "out = m(clips, loader_mask=torch.from_numpy(np.stack([mask, mask])), generator=g)\n"
+        "assert n[0] == 6  # one attention a block\n"
+        "(out[0][0].sum() + out[4].sum()).backward()\n"
+        "assert all(p.grad is not None for p in m.parameters())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
+def test_port_calls_no_library_attention():
+    """No source of the port calls PyTorch's fused attention, cuDNN's
+    attention or torch.compile: its attention is the flash kernel K4 (or,
+    off the flash path, the dense chain written out)."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1] / "advise_tpu_torch"
+    sources = sorted(root.rglob("*.py")) + sorted(root.rglob("*.cu"))
+    assert len(sources) > 20
+    for path in sources:
+        text = path.read_text()
+        for banned in ("scaled_dot_product_attention", "cudnn_attention", "torch.compile",
+                       "sdpa_kernel", "flash_attn"):
+            assert banned not in text, (str(path), banned)

@@ -125,3 +125,75 @@ def speed_variables(model, seed=0):
         jnp.zeros((1, SPEED_T, SPEED_S, SPEED_S, 3), jnp.float32), train=False,
     ))()
     return jax.device_get(v["params"]), jax.device_get(v["batch_stats"])
+
+
+# MViT-L 32x312 joint MaskFeat + NT-Xent, cut to CPU size: 6 blocks at
+# width 16 with one dim-doubling transition (block 1), one Q-pooling
+# transition (block 2) and uniform reversible segments of length 1 (block 0)
+# and 3 (blocks 3-5); 4 frames at 28^2, whose patch grid (2 x 7 x 7) pools
+# to 2 x 4 x 4, so the HOG label frames are edge-padded to 32 and the token
+# mask max-pooled on a non-tiling grid
+MASK_B, MASK_K, MASK_T, MASK_S = 2, 2, 4, 28  # videos, views, frames, crop
+
+
+def masked_cfg(mod=jconfig, **overrides):
+    cfg = mod.get_cfg()
+    cfg.merge_from_file("configs/pretrain/MViT_L_32x312_joint.yaml")
+    cfg.NUM_GPUS = 1
+    cfg.NUM_WORLDS = 1
+    cfg.TPU.MESH_SYNC = 1
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.DONATE = False
+    cfg.MVIT.EMBED_DIM = 8
+    cfg.MVIT.DEPTH = 6
+    cfg.MVIT.DIM_MUL = [[2, 2.0]]
+    cfg.MVIT.HEAD_MUL = [[2, 2.0]]
+    cfg.MVIT.POOL_Q_STRIDE = [[2, 1, 2, 2]]
+    cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = [1, 4, 4]
+    cfg.MVIT.DROPPATH_RATE = 0.0
+    cfg.MASK.PRETRAIN_DEPTH = [5]
+    cfg.CONTRASTIVE.DIM = 16
+    cfg.CONTRASTIVE.MLP_DIM = 32
+    cfg.DATA.NUM_FRAMES = MASK_T
+    cfg.DATA.TRAIN_CROP_SIZE = MASK_S
+    cfg.DATA.TEST_CROP_SIZE = MASK_S
+    cfg.AUG.TARGET_SIZE = MASK_S
+    cfg.DATA.BATCHSIZE_PER_GPU = MASK_B
+    _override(cfg, overrides)
+    return mod.assert_and_infer_cfg(cfg)
+
+
+def masked_variables(model, seed=0):
+    """The JAX MaskMViT's initial params, as a numpy tree."""
+    v = jax.jit(lambda: model.init(
+        {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed + 1),
+         "mask": jax.random.PRNGKey(seed + 2)},
+        jnp.zeros((1, MASK_T, MASK_S, MASK_S, 3), jnp.float32), train=False,
+    ))()
+    return jax.device_get(v["params"])
+
+
+def loader_masks(cfg, n, seed=0):
+    """n block masks [n, t, h, w] from the port's MaskingGenerator3D on the
+    loader's grid."""
+    from advise_tpu_torch.data.masking import build_mask_generator
+
+    gen = build_mask_generator(cfg)
+    rng = np.random.default_rng(seed)
+    return np.stack([gen(rng) for _ in range(n)]).astype(np.int32)
+
+
+def grads_agree(got, want, tol):
+    """Names of the gradients where |got - want| exceeds ``tol`` of max|want|
+    plus ``tol`` / 100 of the largest value of the whole tree: a gradient
+    that is zero in exact arithmetic (a key bias under softmax) is float32
+    noise on both sides, which only the tree's scale can bound."""
+    assert set(got) == set(want), set(got) ^ set(want)
+    top = max(float(np.abs(np.asarray(w)).max()) for w in want.values())
+    bad = []
+    for k, w in want.items():
+        w = np.asarray(w, np.float32)
+        g = np.asarray(got[k], np.float32)
+        if float(np.abs(g - w).max()) > tol * float(np.abs(w).max()) + tol * 1e-2 * top:
+            bad.append(k)
+    return bad
