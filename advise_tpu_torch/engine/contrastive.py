@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -120,3 +120,39 @@ def byol_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
 
 
 CONTRASTIVE_LOSSES = {"byol": byol_loss}
+
+
+def eval_knn(ssl: Dict[str, Any], q: torch.Tensor, knn_k: int = 200):
+    """Top-k similarities of ``q`` [N, dim] against the kNN bank and their
+    rows (reference eval_knn :233-241)."""
+    dist = q @ ssl["knn_mem"].T
+    return torch.topk(dist, min(knn_k, dist.shape[1]), dim=1)
+
+
+def knn_probe(cfg, ssl: Dict[str, Any], labels_bank: torch.Tensor, feats: torch.Tensor,
+              labels: torch.Tensor, knn_k: int = 200, t: float = 0.07,
+              num_classes: Optional[int] = None) -> torch.Tensor:
+    """Online kNN top-1 accuracy against the kNN bank
+    (``advise_tpu/engine/contrastive.py:865``): a vote over the top-k
+    neighbours weighted by exp(similarity / t). ``labels_bank`` [LENGTH]
+    holds each bank row's class, -1 for a row with no vote; ``feats`` [N,
+    dim] are l2-normalized query features, ``labels`` [N] their classes."""
+    yd, yi = eval_knn(ssl, feats, knn_k)
+    neigh = labels_bank.to(yi.device)[yi]  # [N, k]
+    w = torch.exp(yd / t) * (neigh >= 0)  # a row labelled -1 casts no vote
+    if num_classes is None:
+        num_classes = int(labels_bank.max()) + 1
+    votes = torch.zeros((feats.shape[0], num_classes), dtype=w.dtype, device=w.device)
+    votes.scatter_add_(1, neigh.clamp(min=0).long(), w)
+    pred = torch.argmax(votes, dim=-1)
+    return (pred == labels.to(pred.device)).float().mean()
+
+
+def knn_labels_from_dataset(dataset, length: int) -> torch.Tensor:
+    """Label bank of the online kNN monitor (``advise_tpu/engine/
+    contrastive.py:888``): row i holds the class of item i, rows past the
+    dataset -1 (no vote); int32 on the CPU."""
+    labels = torch.full((length,), -1, dtype=torch.int32)
+    n = min(len(dataset.items), length)
+    labels[:n] = torch.tensor([cls for _, cls in dataset.items[:n]], dtype=torch.int32)
+    return labels

@@ -199,3 +199,37 @@ def make_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]
     if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
         return make_contrastive_train_step(cfg, bundle, device_aug)
     return make_task_train_step(cfg, bundle, device_aug)
+
+
+def make_knn_probe_step(cfg, device_aug: Optional[Callable], num_classes: Optional[int] = None):
+    """The epoch-end online kNN monitor (``advise_tpu/engine/steps.py:701``):
+    returns ``probe(state, clips_u8, infos, generator) -> acc``, the eval
+    forward of the first view -> l2-normalized float32 projection -> top-k
+    vote against ``state.ssl['knn_mem']`` with ``state.ssl['knn_labels']``,
+    top-1 accuracy against ``infos['cls_id']``. ``num_classes`` is the
+    dataset's label range (MODEL.NUM_CLASSES when None)."""
+    from advise_tpu_torch.engine.contrastive import knn_probe, l2_normalize
+
+    if cfg.CONTRASTIVE.KNN_BATCH_STATS:
+        raise NotImplementedError("CONTRASTIVE.KNN_BATCH_STATS is not ported yet")
+    dtype = cfg_compute_dtype(cfg)
+    knn_k = int(cfg.CONTRASTIVE.KNN_K)
+    if num_classes is None:
+        num_classes = int(cfg.MODEL.NUM_CLASSES)
+
+    @torch.no_grad()
+    def probe(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        model = state.model
+        model.eval()
+        clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
+        clips = clips.to(dtype)
+        with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            out = model(clips[:, 0])  # the first view
+        proj = out[0] if isinstance(out, (list, tuple)) else out
+        q = l2_normalize(proj.float())
+        ssl = state.ssl
+        return knn_probe(cfg, ssl, ssl["knn_labels"], q, infos["cls_id"], knn_k=knn_k,
+                         t=cfg.CONTRASTIVE.T, num_classes=num_classes)
+
+    return probe

@@ -1,0 +1,261 @@
+"""Trainer: the epoch and iteration loop on one card, the counterpart of
+``advise_tpu/engine/train.py:43-265`` (reference ``tools/train.py:250-344``).
+
+Per iteration: the host loader's batch -> the card (pinned, prefetched on a
+side stream, TPU.PREFETCH batches in flight) -> one train step -> meters.
+The lr comes from the lr policy at ``epoch + (it + 1) / iters`` (the
+PlateauController's after the warm-up under the plateau policy). At each
+epoch's end: the online kNN probe on CONTRASTIVE.KNN_EVAL_BATCHES batches of
+a fresh shuffle (epoch + 999983), then the epoch summary and ``ckpt.save``.
+
+Random streams. JAX folds the run's key with ``jax.random.fold_in``; the
+port seeds one ``torch.Generator`` on the card per use from a numpy
+``SeedSequence`` of integers (:func:`seeded_generator`):
+
+- model weights: ``build_model(seed=TRAIN.SEED)``;
+- the SSL state (the kNN bank's init): ``(TRAIN.SEED, 7)``;
+- iteration ``it`` of epoch ``epoch`` (augmentation, then dropout or drop
+  path): ``(TRAIN.SEED, epoch, it)``;
+- kNN probe batch ``i`` after epoch ``epoch``: ``(TRAIN.SEED, 2**31 - 1 -
+  epoch, i)``, as JAX's probe key is ``fold_in(rng, 2**31 - 1 - epoch)``.
+
+So a resumed run draws what the uninterrupted run would have drawn.
+
+TPU.PROFILE_DIR runs ``torch.profiler`` over the steps
+(PROFILE_START, PROFILE_START + PROFILE_STEPS] of the step counter, writes
+``trace.json`` there and logs the device's busy and idle shares of that
+window. Not ported (they raise, naming the ROADMAP.md item):
+TPU.PARTITION_MODE 'auto' (A11), VIS_MASK (A12), the TemporalModel and its
+CLIP tower loading (A10).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from advise_tpu_torch.data import build_device_aug, build_loader, prefetch_to_device
+from advise_tpu_torch.data.prefetch import device_put_batch
+from advise_tpu_torch.engine.checkpoint import (
+    CheckpointManager,
+    auto_resume,
+    load_pretrained,
+    tensors_digest,
+)
+from advise_tpu_torch.engine.meters import TrainingHelper, busy_ms
+from advise_tpu_torch.engine.state import TrainState
+from advise_tpu_torch.engine.steps import make_knn_probe_step, make_train_step
+from advise_tpu_torch.models import build_model
+from advise_tpu_torch.solver.lr_policy import PlateauController, get_lr_at_epoch
+from advise_tpu_torch.solver.optimizer import OptimizerBundle, adjust_base_lr, build_tx
+from advise_tpu_torch.utils.host_times import HOST_TIMES
+
+logger = logging.getLogger(__name__)
+
+# infos fields each task needs on the card
+TASK_INFO_FIELDS = {
+    "speed": ("spd_label",),
+    "action_recog": ("cls_id",),
+    "tmodeling": ("spd_label", "speeds"),
+    "contrastive": ("item_id",),
+    "masked": ("mask",),
+}
+
+
+def select_infos(cfg, infos: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
+        fields = ("item_id", "time_idx", "cls_id")  # cls_id feeds the kNN probe
+    else:
+        fields = TASK_INFO_FIELDS.get(cfg.TASK, ())
+    return {k: infos[k] for k in fields if k in infos}
+
+
+def seeded_generator(device, *keys: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``SeedSequence(keys)``."""
+    seed = int(np.random.SeedSequence(list(keys)).generate_state(1, np.uint64)[0] >> np.uint64(1))
+    return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
+def check_ported(cfg) -> None:
+    """Raise for the trainer options the port does not carry yet."""
+    if cfg.TPU.PARTITION_MODE == "auto":
+        raise NotImplementedError("TPU.PARTITION_MODE 'auto' is not ported yet (ROADMAP A11)")
+    if cfg.VIS_MASK.ENABLE:
+        raise NotImplementedError("VIS_MASK is not ported yet (ROADMAP A12)")
+    if cfg.MODEL.MODEL_NAME == "TemporalModel" or cfg.MODEL.SPATIAL_MODEL_PATH:
+        raise NotImplementedError(
+            "the TemporalModel and its CLIP tower loading are not ported yet (ROADMAP A10)")
+
+
+def build_train_state(cfg, device) -> Tuple[TrainState, OptimizerBundle]:
+    """The model (weights from TRAIN.SEED) on ``device``, its optimizer and
+    state; for ContrastiveModel the SSL state too."""
+    model = build_model(cfg, device, seed=cfg.TRAIN.SEED)
+    params = dict(model.named_parameters())
+    bundle = build_tx(cfg, params)
+    state = TrainState(model, bundle.tx.init(params), 0)
+    if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
+        from advise_tpu_torch.engine.contrastive import init_ssl_state
+
+        state.ssl = init_ssl_state(cfg, model, seeded_generator(device, cfg.TRAIN.SEED, 7))
+    return state, bundle
+
+
+class ProfileWindow:
+    """``torch.profiler`` over the steps (start, start + steps] of the
+    post-increment step counter, as the JAX trainer's ``_maybe_profile``."""
+
+    def __init__(self, cfg):
+        self.dir = cfg.TPU.PROFILE_DIR
+        self.start, self.end = cfg.TPU.PROFILE_START, cfg.TPU.PROFILE_START + cfg.TPU.PROFILE_STEPS
+        self.prof = None
+        self.t0, self.first = 0.0, 0
+        self.result: Optional[Dict[str, float]] = None
+
+    def after_step(self, step: int) -> None:
+        if not self.dir:
+            return
+        if self.prof is None and self.result is None and self.start < step <= self.end:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+                torch.cuda.synchronize()
+            self.prof = profile(activities=activities)
+            self.prof.start()
+            self.t0, self.first = time.perf_counter(), step
+            logger.info("profiler trace started -> %s", self.dir)
+        elif self.prof is not None and step > self.end:
+            self.close(step)
+
+    def close(self, step: int) -> None:
+        """Stop an open window after ``step``: write the trace, log and keep
+        the device's busy and idle shares of the window's wall time."""
+        if self.prof is None:
+            return
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - self.t0) * 1e3
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        kernels = [e for e in self.prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+        self.result = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+                       "steps": step - self.first}
+        logger.info("profiler trace stopped: %d steps, wall %.3f ms, device busy %.3f ms, "
+                    "idle share %.4f", self.result["steps"], wall_ms, busy, self.result["idle_share"])
+        self.prof = None
+
+
+def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]] = None) -> TrainState:
+    """Train on ``device`` (the card unless the caller asks for the CPU).
+    ``record``, when given, receives per-iteration lists ``iter_s`` (batch
+    ready to stats read back), ``wait_s`` (the wait for the batch) and the
+    step's stats, and at the start ``start_epoch``, ``start_step`` and
+    ``model_sha256`` (:func:`tensors_digest` of the model's parameters and
+    BN buffers after any resume), and at the end ``model_sha256_end`` and
+    ``host_s``, the input pipeline's stages over the run
+    (:meth:`HostTimes.snapshot`, the kNN probe's batches included)."""
+    check_ported(cfg)
+    HOST_TIMES.reset()
+    device = torch.device(device)
+    cfg.NUM_WORLDS = 1  # one process drives one card
+    adjust_base_lr(cfg)
+
+    loader = build_loader(cfg, "train")
+    state, bundle = build_train_state(cfg, device)
+    contrastive = cfg.MODEL.MODEL_NAME == "ContrastiveModel"
+    if contrastive and cfg.CONTRASTIVE.KNN_ON:
+        from advise_tpu_torch.engine.contrastive import knn_labels_from_dataset
+
+        state.ssl["knn_labels"] = knn_labels_from_dataset(
+            loader.dataset, cfg.CONTRASTIVE.LENGTH).to(device)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    logger.info("model %s params: %s", cfg.MODEL.MODEL_NAME, f"{n_params:,}")
+
+    ckpt = CheckpointManager(cfg)
+    state, start_epoch, resumed = auto_resume(cfg, ckpt, state)
+    if not resumed and cfg.RESUME:
+        state, _, _ = load_pretrained(cfg.RESUME, state)
+    digest = tensors_digest(state.model.state_dict())
+    logger.info("start: epoch %d, step %d, model sha256 %s%s", start_epoch, state.step, digest,
+                " (resumed)" if resumed else "")
+    if record is not None:
+        record.update(start_epoch=start_epoch, start_step=state.step, model_sha256=digest,
+                      iter_s=[], wait_s=[], stats=[])
+
+    device_aug = build_device_aug(cfg, "train")
+    step_fn = make_train_step(cfg, bundle, device_aug)
+    knn_probe_fn = None
+    if contrastive and cfg.CONTRASTIVE.KNN_ON and cfg.CONTRASTIVE.KNN_EVAL_BATCHES > 0:
+        knn_probe_fn = make_knn_probe_step(
+            cfg, device_aug, num_classes=int(state.ssl["knn_labels"].max()) + 1)
+
+    helper = TrainingHelper(cfg, tb_logger)
+    plateau = PlateauController(cfg.SOLVER.BASE_LR) if cfg.SOLVER.LR_POLICY == "plateau" else None
+    profile = ProfileWindow(cfg)
+    n_prefetch = int(cfg.TPU.PREFETCH or 0)
+
+    for epoch in range(start_epoch, cfg.SOLVER.MAX_EPOCH):
+        epoch_iters = loader.steps_per_epoch(epoch)
+        helper.epoch_start(epoch, epoch_iters)
+        batches = ((clips, select_infos(cfg, infos)) for clips, infos in loader.epoch(epoch))
+        if n_prefetch > 1:
+            device_iter = prefetch_to_device(batches, device, size=n_prefetch)
+        else:
+            device_iter = (device_put_batch(c, i, device)[:2] for c, i in batches)
+        t_prev = time.perf_counter()
+        for it, (clips_d, infos_d) in enumerate(device_iter):
+            t_ready = time.perf_counter()
+            helper.iter_start()
+            epoch_exact = epoch + (it + 1) / max(epoch_iters, 1)
+            if plateau is not None and epoch_exact > cfg.SOLVER.WARMUP_EPOCHS:
+                lr = plateau.lr
+            else:
+                lr = get_lr_at_epoch(cfg, epoch_exact)
+            helper.rt["curr_lr"] = lr
+            gen = seeded_generator(device, cfg.TRAIN.SEED, epoch, it)
+            if contrastive:
+                stats = step_fn(state, clips_d, infos_d, gen, lr, epoch_exact)
+            else:
+                stats = step_fn(state, clips_d, infos_d, gen, lr)
+            stats = {k: float(v) for k, v in stats.items()}  # waits for the step
+            if record is not None:
+                record["iter_s"].append(time.perf_counter() - t_ready)
+                record["wait_s"].append(t_ready - t_prev)
+                record["stats"].append(stats)
+            helper.update_stats(stats)
+            helper.iter_end(it)
+            profile.after_step(state.step)
+            t_prev = time.perf_counter()
+        if knn_probe_fn is not None:
+            accs = []
+            probe_iter = loader.epoch(epoch + 999983)  # a fresh shuffle
+            for i, (clips, infos) in zip(range(cfg.CONTRASTIVE.KNN_EVAL_BATCHES), probe_iter):
+                clips_d, infos_d, _ = device_put_batch(clips, select_infos(cfg, infos), device)
+                gen = seeded_generator(device, cfg.TRAIN.SEED, 2**31 - 1 - epoch, i)
+                accs.append(float(knn_probe_fn(state, clips_d, infos_d, gen)))
+            probe_iter.close()
+            helper.rt["knn_acc"] = float(np.mean(accs))
+            logger.info("epoch %d online kNN top-1: %.4f (%d batches)", epoch,
+                        helper.rt["knn_acc"], len(accs))
+        summary = helper.epoch_end()
+        if knn_probe_fn is not None:
+            summary["knn_acc"] = helper.rt["knn_acc"]
+        if plateau is not None:
+            plateau.step(summary.get("loss_spd", summary.get("loss_cls", 0.0)))
+        ckpt.save(state, epoch, summary)
+    profile.close(state.step)  # a window that outlasts the run ends with it
+    if record is not None:
+        record["model_sha256_end"] = tensors_digest(state.model.state_dict())
+        record["host_s"] = HOST_TIMES.snapshot()
+        if profile.result is not None:
+            record["profile"] = profile.result
+    return state

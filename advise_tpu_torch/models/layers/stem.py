@@ -16,7 +16,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from advise_tpu_torch.models.layers.common import conv3d, lecun_normal_init
-from advise_tpu_torch.ops.stem_conv import kernel_eligible, stem_conv
+from advise_tpu_torch.ops.stem_conv import (
+    kernel_eligible,
+    stem_conv_chunked,
+    stem_conv_wgrad_only,
+)
 
 
 class ResNetBasicStem(nn.Module):
@@ -25,12 +29,17 @@ class ResNetBasicStem(nn.Module):
     ``kernel`` (TPU.PALLAS_STEM) routes the conv through the stem kernel
     (``ops/stem_conv.py``) in ``dtype`` when the shape is one the kernel
     takes (3 -> 8 channels: the SlowFast fast stem); the slow stem stays a
-    plain conv, as in the JAX package. The weight keeps the plain conv's
-    parameter either way."""
+    plain conv, as in the JAX package. With the kernel, ``wgrad_only``
+    (TPU.PALLAS_STEM_WGRAD_ONLY) takes the dense forward and the kernel
+    weight gradient, else ``chunk`` > 0 (TPU.PALLAS_STEM_CHUNK) launches
+    both kernels per batch chunk, in that order of precedence
+    (advise_tpu/models/layers/stem.py:135-142); without it both are inert.
+    The weight keeps the plain conv's parameter either way."""
 
     def __init__(self, dim_in: int, dim_out: int, temp_kernel: int,
                  norm: Callable, kernel: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 wgrad_only: bool = False, chunk: int = 0):
         super().__init__()
         self.conv = conv3d(
             dim_in, dim_out, (temp_kernel, 7, 7), stride=(1, 2, 2),
@@ -39,11 +48,17 @@ class ResNetBasicStem(nn.Module):
         self.bn = norm(dim_out)
         self.kernel = kernel and kernel_eligible(dim_in, dim_out)
         self.dtype = dtype
+        self.wgrad_only = wgrad_only
+        self.chunk = int(chunk)
 
     def forward(self, x: torch.Tensor, views: int = 1) -> torch.Tensor:
         if self.kernel:
             w = self.conv.weight.permute(2, 3, 4, 1, 0)  # [kt,7,7,C,F]
-            y = stem_conv(x.permute(0, 2, 3, 4, 1), w, self.dtype or x.dtype)
+            x_ndhwc, dtype = x.permute(0, 2, 3, 4, 1), self.dtype or x.dtype
+            if self.wgrad_only:
+                y = stem_conv_wgrad_only(x_ndhwc, w, dtype)
+            else:
+                y = stem_conv_chunked(x_ndhwc, w, dtype, self.chunk)
             x = y.permute(0, 4, 1, 2, 3)
         else:
             x = self.conv(x)

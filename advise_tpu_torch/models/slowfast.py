@@ -79,6 +79,8 @@ class SlowFast(nn.Module):
         self.s1_fast = ResNetBasicStem(
             c_in, w // beta_inv, tk[0][1][0], norm,
             kernel=bool(cfg.TPU.PALLAS_STEM), dtype=dtype,
+            wgrad_only=bool(cfg.TPU.PALLAS_STEM_WGRAD_ONLY),
+            chunk=int(cfg.TPU.PALLAS_STEM_CHUNK),
         )
         self.s1_fuse = FuseFastToSlow(w // beta_inv, fuse_ratio, fuse_k, alpha, norm)
 

@@ -34,6 +34,7 @@ SOURCES: Dict[str, Tuple[str, ...]] = {
     "stem_conv.cu": (),
     "fused_aug.cu": ("-fmad=false",),
     "flash_attention.cu": (),
+    "window_probe.cu": (),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

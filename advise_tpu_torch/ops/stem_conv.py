@@ -8,6 +8,16 @@ kernels' space-to-depth repack and Toeplitz column packing exist to fill
 the TPU's 128-lane MXU, and the source note in the ``.cu`` file says what
 bounds the CUDA version instead.
 
+Two other launch schedules of the same kernels, the counterparts of the JAX
+package's TPU.PALLAS_STEM_CHUNK and TPU.PALLAS_STEM_WGRAD_ONLY entry points
+(``pallas_s2d_stem_chunked``, ``pallas_s2d_stem_wgrad_only``):
+:func:`stem_conv_chunked` runs K1 and K2 once per batch chunk, and
+:func:`stem_conv_wgrad_only` keeps the dense conv forward and runs K2 over
+chunks of :data:`WGRAD_CHUNK` samples. On the TPU the chunks bounded the
+packed input buffer; the CUDA kernels read the raw clip and have no pack
+buffer, so here the chunks only change the launch schedule and the order
+of the float32 sum of dW.
+
 Routing: every wrapper takes its plain version for a tensor on the CPU
 (the tests), launches its kernel for a CUDA tensor, and raises otherwise.
 There is no fallback from a CUDA tensor to the plain version. Each kernel
@@ -21,6 +31,7 @@ Layouts follow the JAX package: clips ``[B, T, H, W, 3]``, the weight
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +41,9 @@ from advise_tpu_torch.ops import build
 CHANNELS_IN = 3
 FEATURES = 8
 KSIZE = 7
+# samples per K2 launch of the wgrad-only backward
+# (advise_tpu/ops/pallas/stem_conv.py:230)
+WGRAD_CHUNK = 16
 
 SOURCE = "stem_conv.cu"
 _lib = None
@@ -106,12 +120,15 @@ def stem_dgrad_plain(g: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
 # -- kernel wrappers -----------------------------------------------------------
 
 
-def stem_conv_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def stem_conv_fwd(x: torch.Tensor, w: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stem conv forward: the CUDA kernel for a CUDA tensor (bf16 in, bf16
-    out), the plain conv for a CPU tensor."""
+    out), the plain conv for a CPU tensor. With ``out`` (contiguous, of the
+    output's shape) the result is written there and ``out`` returned."""
     if x.device.type != "cuda":
         _raise_unless_cpu(x)
-        return stem_conv_plain(x, w)
+        y = stem_conv_plain(x, w)
+        return y if out is None else out.copy_(y)
     b, t, h, wd, _ = x.shape
     kt = w.shape[0]
     _check_cuda("x", x, (b, t, h, wd, CHANNELS_IN))
@@ -119,7 +136,13 @@ def stem_conv_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.device != x.device:
         raise ValueError("x and w must be on one device")
     ho, wo = out_hw(h, wd)
-    y = torch.empty((b, t, ho, wo, FEATURES), dtype=torch.bfloat16, device=x.device)
+    if out is None:
+        y = torch.empty((b, t, ho, wo, FEATURES), dtype=torch.bfloat16, device=x.device)
+    else:
+        _check_cuda("out", out, (b, t, ho, wo, FEATURES))
+        if out.device != x.device:
+            raise ValueError("x and out must be on one device")
+        y = out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().stem_fwd(
@@ -178,32 +201,99 @@ def kernel_eligible(c: int, f: int) -> bool:
     return c == CHANNELS_IN and f == FEATURES
 
 
-class StemConv(torch.autograd.Function):
-    """The stem conv with the kernel forward and the kernel weight gradient
-    (the custom VJP ``pallas_s2d_stem`` of the JAX package). The input
-    gradient goes through the plain conv's, and only when something asks
-    for it: on the main path the input is the augmentation output, which
-    carries no gradient."""
+# -- the autograd Functions: one launch, per chunk (K1'), wgrad-only (K2') -----
+
+
+def largest_divisor(b: int, chunk: int) -> int:
+    """Samples per launch: the largest divisor of ``b`` that is <= ``chunk``
+    (``_largest_divisor``, advise_tpu/ops/pallas/stem_conv.py:300); ``b``
+    (one launch) for ``chunk <= 0``."""
+    if chunk <= 0:
+        return b
+    cb = min(chunk, b)
+    while b % cb:
+        cb -= 1
+    return cb
+
+
+def stem_conv_fwd_chunked(x: torch.Tensor, w: torch.Tensor, cb: int) -> torch.Tensor:
+    """K1 once per chunk of ``cb`` samples (``cb`` divides B), each launch
+    writing its slice of one output tensor."""
+    b, t, h, wd, _ = x.shape
+    ho, wo = out_hw(h, wd)
+    y = torch.empty((b, t, ho, wo, w.shape[-1]), dtype=x.dtype, device=x.device)
+    for s in range(0, b, cb):
+        stem_conv_fwd(x[s:s + cb], w, out=y[s:s + cb])
+    return y
+
+
+def stem_conv_wgrad_chunked(x: torch.Tensor, g: torch.Tensor, kt: int, cb: int) -> torch.Tensor:
+    """K2 once per chunk of ``cb`` samples, the float32 dW of the chunks
+    summed in chunk order (the ``lax.scan`` of ``_wgrad``)."""
+    dw = stem_conv_wgrad(x[:cb], g[:cb], kt)
+    for s in range(cb, x.shape[0], cb):
+        dw = dw + stem_conv_wgrad(x[s:s + cb], g[s:s + cb], kt)
+    return dw
+
+
+def _stem_backward(ctx, g, cb):
+    """dx through the plain conv's input gradient when asked for, dW from
+    K2 over chunks of ``cb`` samples."""
+    x, w = ctx.saved_tensors
+    g = g.to(x.dtype).contiguous()
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx = stem_dgrad_plain(g, w, x.shape)
+    if ctx.needs_input_grad[1]:
+        dw = stem_conv_wgrad_chunked(x, g, w.shape[0], cb).to(w.dtype)
+    return dx, dw
+
+
+class StemConvChunked(torch.autograd.Function):
+    """``pallas_s2d_stem_chunked``: K1 and K2 over batch chunks of the
+    largest divisor of B that is <= ``chunk``; ``chunk <= 0`` is one launch
+    of each, the custom VJP ``pallas_s2d_stem``. The input gradient goes
+    through the plain conv's, and only when something asks for it: on the
+    main path the input is the augmentation output, which carries no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, chunk):
+        ctx.save_for_backward(x, w)
+        ctx.cb = largest_divisor(x.shape[0], chunk)
+        return stem_conv_fwd_chunked(x, w, ctx.cb)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_stem_backward(ctx, g, ctx.cb), None)
+
+
+class StemConvWgradOnly(torch.autograd.Function):
+    """``pallas_s2d_stem_wgrad_only``: the dense conv forward (cuDNN, as the
+    JAX package keeps XLA's conv there) and K2 over chunks of
+    :data:`WGRAD_CHUNK` samples in the backward."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return stem_conv_fwd(x, w)
+        return stem_conv_plain(x, w).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype).contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = stem_dgrad_plain(g, w, x.shape)
-        if ctx.needs_input_grad[1]:
-            dw = stem_conv_wgrad(x, g, w.shape[0]).to(w.dtype)
-        return dx, dw
+        x = ctx.saved_tensors[0]
+        return _stem_backward(ctx, g, largest_divisor(x.shape[0], WGRAD_CHUNK))
 
 
-def stem_conv(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def stem_conv_chunked(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype,
+                      chunk: int) -> torch.Tensor:
     """NDHWC clip x [kt,7,7,3,8] weight -> NDHWC stem output, computed in
     ``dtype`` (x and w are cast first, as the JAX module does, so the
-    Function behaves the same under autocast)."""
-    return StemConv.apply(x.to(dtype).contiguous(), w.to(dtype).contiguous())
+    Function behaves the same under autocast), with K1 and K2 launched per
+    batch chunk (TPU.PALLAS_STEM_CHUNK); ``chunk <= 0`` is one launch."""
+    return StemConvChunked.apply(x.to(dtype).contiguous(), w.to(dtype).contiguous(), int(chunk))
+
+
+def stem_conv_wgrad_only(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`stem_conv_chunked` with the dense conv forward and the K2 backward
+    (TPU.PALLAS_STEM_WGRAD_ONLY)."""
+    return StemConvWgradOnly.apply(x.to(dtype).contiguous(), w.to(dtype).contiguous())

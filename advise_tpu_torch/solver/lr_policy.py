@@ -1,7 +1,8 @@
 """Learning-rate policy (the port's own copy of the cosine policy of
 ``advise_tpu/solver/lr_policy.py``, which is pure Python; a test holds the
-two equal). Every preset of the repo uses it; the step and plateau
-policies are not ported yet.
+two equal), with the warm-up of the plateau policy and its
+:class:`PlateauController`. Every preset of the repo uses the cosine
+policy; the relative-step policy is not ported yet.
 
 The reference schedule math (reference ``utils/lr_policy.py:9-94``):
 cosine with linear warmup and an optional cosine-after-warmup offset,
@@ -34,7 +35,13 @@ def lr_func_cosine(cfg, cur_epoch: float) -> float:
 
 def get_lr_at_epoch(cfg, cur_epoch: float) -> float:
     """Policy value with linear warmup below WARMUP_EPOCHS (reference
-    lr_policy.py:9-28)."""
+    lr_policy.py:9-28). Under the plateau policy: the linear warm-up to
+    BASE_LR, then BASE_LR (the trainer's PlateauController takes over)."""
+    if cfg.SOLVER.LR_POLICY == "plateau":
+        if cur_epoch <= cfg.SOLVER.WARMUP_EPOCHS:
+            alpha = (cfg.SOLVER.BASE_LR - cfg.SOLVER.WARMUP_START_LR) / cfg.SOLVER.WARMUP_EPOCHS
+            return cur_epoch * alpha + cfg.SOLVER.WARMUP_START_LR
+        return cfg.SOLVER.BASE_LR
     if cfg.SOLVER.LR_POLICY != "cosine":
         raise NotImplementedError(f"SOLVER.LR_POLICY={cfg.SOLVER.LR_POLICY} is not ported yet")
     lr = lr_func_cosine(cfg, cur_epoch)
@@ -44,3 +51,28 @@ def get_lr_at_epoch(cfg, cur_epoch: float) -> float:
         alpha = (lr_end - lr_start) / cfg.SOLVER.WARMUP_EPOCHS
         lr = cur_epoch * alpha + lr_start
     return lr
+
+
+class PlateauController:
+    """ReduceLROnPlateau with torch semantics (reference utils/solver.py:
+    71-99: mode=min, factor=0.5, patience=5, threshold=1e-4), stepped once
+    per epoch after warmup (``advise_tpu/solver/lr_policy.py:75``)."""
+
+    def __init__(self, base_lr, factor=0.5, patience=5, threshold=1e-4):
+        self.lr = base_lr
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.best = float("inf")
+        self.num_bad = 0
+
+    def step(self, metric: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                self.lr *= self.factor
+                self.num_bad = 0
+        return self.lr

@@ -26,6 +26,7 @@ is 2-D and decays under SOLVER.ZERO_WD_1D_PARAM; the port's per-block copies
 
 from __future__ import annotations
 
+import logging
 import re
 from typing import Dict, NamedTuple, Union
 
@@ -33,11 +34,27 @@ import numpy as np
 import torch
 
 Tensors = Dict[str, torch.Tensor]
+logger = logging.getLogger(__name__)
 
 # parameter-path fragments that never receive weight decay
 _NO_DECAY_PATTERNS = ("pos_embed", "cls_token", "rel_pos", "mask_token")
 # a block of a reversible segment, whose JAX parameter has a stacking axis
 _STACKED = re.compile(r"(^|\.)rev_seg\d+_[fg]\.\d+\.")
+
+
+def adjust_base_lr(cfg) -> None:
+    """In place: linear lr scaling of BASE_LR, COSINE_END_LR and
+    WARMUP_START_LR by the global batch over 64, DATA.BATCHSIZE_PER_GPU x
+    NUM_WORLDS (``advise_tpu/solver/optimizer.py:34``, reference
+    utils/solver.py:7-16)."""
+    scale = cfg.DATA.BATCHSIZE_PER_GPU * cfg.NUM_WORLDS / 64.0
+    old = (cfg.SOLVER.BASE_LR, cfg.SOLVER.COSINE_END_LR, cfg.SOLVER.WARMUP_START_LR)
+    cfg.SOLVER.BASE_LR *= scale
+    cfg.SOLVER.COSINE_END_LR *= scale
+    cfg.SOLVER.WARMUP_START_LR *= scale
+    logger.info("Adjusting (BASE_LR, COSINE_END_LR, WARMUP_START_LR) from %s to %s (scale %.3f)",
+                old, (cfg.SOLVER.BASE_LR, cfg.SOLVER.COSINE_END_LR, cfg.SOLVER.WARMUP_START_LR),
+                scale)
 
 
 def _path_str(name: str) -> str:

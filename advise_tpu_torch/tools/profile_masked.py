@@ -37,23 +37,9 @@ import statistics
 import subprocess
 import time
 
+from advise_tpu_torch.engine.meters import busy_ms
+
 CONFIG = "configs/pretrain/MViT_L_32x312_joint.yaml"
-
-
-def _busy_ms(events) -> float:
-    """Length of the union of the kernels' [start, end) intervals, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3  # us -> ms
 
 
 def _value(text: str):
@@ -187,7 +173,7 @@ def profile(n_steps: int) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_ms(kernels)
+    busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3

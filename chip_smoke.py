@@ -7,8 +7,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA and
    nvcc versions. No card, no run: there is no CPU fallback;
 2. build: every kernel source of advise_tpu_torch/csrc/ (the stem conv, the
-   fused simple aug, flash attention), one nvcc each, started together, each
-   timed;
+   fused simple aug, flash attention, the window probe), one nvcc each,
+   started together, each timed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs (TF32 off): the stem kernels at the BYOL path's stem shape
    and a ragged small shape, the fused aug at SpeedPro's shape (float32 and
@@ -19,14 +19,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    them the least time the card could take (bytes or operations over the
    card's peak rates) and, where one PyTorch call computes the same
    function, that call's time (flash attention: scaled_dot_product_attention
-   in bf16, with the backend that served it);
+   in bf16, with the backend that served it). Also the stem kernels on their
+   other launch schedules at the BYOL stem shape: K1' (TPU.PALLAS_STEM_CHUNK:
+   K1 and K2 per batch chunk, chunk 8 and 12 -> 8) and K2' (TPU.
+   PALLAS_STEM_WGRAD_ONLY: K2 over 16-sample chunks); and the window
+   kernel of the nine Mosaic probes (P1-P9) at each probe's shape, exactly
+   equal to its plain version, then the probe tool
+   (advise_tpu_torch/tools/probe_windows.py) as its path;
 4. small input: each full-width model's forward on the card (bf16) against
    the same weights' float32 forward on the CPU: SlowFast-R50 BYOL, the
    Slow-R50 speed model, and the full-depth MViT-L MaskFeat model at 4
    frames x 64^2;
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
-   clips through the 'aa' augmentation, 2 warm-up and 5 timed steps;
+   clips through the 'aa' augmentation, 2 warm-up and 5 timed steps; then
+   two short variants (1 warm-up and 2 timed steps each) with
+   TPU.PALLAS_STEM_CHUNK 8 and with TPU.PALLAS_STEM_WGRAD_ONLY, whose K1/K2
+   launches must equal their chunk schedules;
 6. the speed path: the Slow-R50 speed-pretext step of
    configs/pretrain/SpeedPro_R50.yaml at full width on one card, uint8 clips
    through the 'simple' augmentation (the fused aug kernel), the lr from the
@@ -37,7 +46,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    2 views of uint8 clips through the 'OnlyCrop' augmentation, block masks
    from the port's MaskingGenerator3D, the lr from the port's lr policy in
    the warm-up, 2 warm-up and 5 timed steps; the flash kernels' launches
-   are checked against the count the block schedule implies.
+   are checked against the count the block schedule implies;
+8. the entry point: ``python -m advise_tpu_torch.tools.run`` on the BYOL
+   preset at full width with synthetic videos (48 of them: 3 iterations an
+   epoch), 2 epochs with a kNN probe and a checkpoint each, then the same
+   command with 3 epochs and TRAIN.AUTO_RESUME, which must resume at epoch 2
+   from Model_Epoch_0001 with the saved model bit for bit and run 3 more
+   iterations (a torch.profiler window over two of them gives the device's
+   idle share); checked: the files, finite losses, the step counter, the
+   model's digests, the K1/K2 launches.
 
 Each path's kernel launch counts are reset just before its steps and read
 just after. The line before the last is nvidia-smi's name and power limit;
@@ -60,6 +77,18 @@ LR, EPOCH_EXACT = 1e-3, 1.0
 SPEED_EPOCH = 1.0  # inside SpeedPro's 10 warm-up epochs
 MASKED_EPOCH = 1.0  # inside the MViT-L preset's 10 warm-up epochs
 SLOW_R50_SPEED_PARAMS = 40_047_684  # the JAX package's oracle (tests/test_models.py)
+VARIANT_WARMUP, VARIANT_TIMED = 1, 2  # the BYOL step's stem-schedule variants
+# phase 8: the entry point on the BYOL preset, into a directory .gitignore lists
+RUN_DIR = "build/chip_smoke_run"
+RUN_VIDEOS = 48  # 3 iterations an epoch at the preset's 16 clips
+RUN_KNN_BATCHES = 1  # kNN probe batches an epoch
+RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(RUN_VIDEOS),
+                 "TRAIN.SAVE_FREQ", "1", "CONTRASTIVE.KNN_EVAL_BATCHES", str(RUN_KNN_BATCHES)]
+RUN_TIMEOUT_S = 600
+# the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
+PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
+               "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
+               "flat_u8": 263}
 
 # H100 SXM (NVIDIA's data sheet): device memory rate, dense bf16 tensor
 # cores, float32 on the CUDA cores
@@ -134,6 +163,112 @@ def bound(nbytes: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def stem_schedules(sc, x, w, y, gy, kt, alone, results) -> None:
+    """K1' (K1 and K2 once per batch chunk, TPU.PALLAS_STEM_CHUNK) at chunk 8
+    and 12 (-> 8, the largest divisor of the batch below it) and K2' (K2 over
+    WGRAD_CHUNK-sample chunks, TPU.PALLAS_STEM_WGRAD_ONLY) at the BYOL stem
+    shape, against the plain versions with K1's and K2's bounds; their plain
+    and library times are K1's and K2's of this run (the same functions)."""
+    import torch
+
+    ref = sc.stem_conv_plain(x.float(), w.float())
+    dref = sc.stem_wgrad_plain(x, gy, kt)
+    torch.cuda.synchronize()
+    top, wg_top = float(ref.abs().max()), float(dref.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    n = x.shape[0]
+    for chunk in (8, 12):
+        cb = sc.largest_divisor(n, chunk)
+        yc = sc.stem_conv_fwd_chunked(x, w, cb)
+        dwc = sc.stem_conv_wgrad_chunked(x, gy, kt, cb)
+        torch.cuda.synchronize()
+        f_err = float((yc.float() - ref).abs().max())
+        w_err = float((dwc - dref).abs().max())
+        print(f"[kernel] K1' chunk {chunk} -> {cb} ({n // cb} launches each way): fwd max_abs_err "
+              f"{f_err} (bound {ulp}), bit-equal to one K1 launch {torch.equal(yc, y)}; wgrad "
+              f"max_abs_err {w_err} (bound 1e-3 * max|dW| = {1e-3 * wg_top})")
+        check(math.isfinite(f_err) and f_err <= ulp, f"chunked stem forward disagrees at chunk {chunk}")
+        check(math.isfinite(w_err) and w_err <= 1e-3 * wg_top,
+              f"chunked stem weight gradient disagrees at chunk {chunk}")
+        if chunk == 8:
+            fwd, wg = results["stem_conv_fwd"], results["stem_conv_wgrad"]
+            results["stem_conv_fwd_chunked"] = dict(
+                fwd, max_abs_err=f_err, ms=alone(lambda: sc.stem_conv_fwd_chunked(x, w, cb)))
+            results["stem_conv_wgrad_chunked"] = dict(
+                wg, max_abs_err=w_err, ms=alone(lambda: sc.stem_conv_wgrad_chunked(x, gy, kt, cb)))
+    cb = sc.largest_divisor(n, sc.WGRAD_CHUNK)
+    dwo = sc.stem_conv_wgrad_chunked(x, gy, kt, cb)
+    torch.cuda.synchronize()
+    o_err = float((dwo - dref).abs().max())
+    print(f"[kernel] K2' wgrad-only backward, {cb}-sample chunks ({n // cb} launches): max_abs_err "
+          f"{o_err} (bound {1e-3 * wg_top})")
+    check(math.isfinite(o_err) and o_err <= 1e-3 * wg_top, "wgrad-only stem gradient disagrees")
+    results["stem_conv_wgrad_only"] = dict(
+        results["stem_conv_wgrad"], max_abs_err=o_err,
+        ms=alone(lambda: sc.stem_conv_wgrad_chunked(x, gy, kt, cb)))
+    for name in ("stem_conv_fwd_chunked", "stem_conv_wgrad_chunked", "stem_conv_wgrad_only"):
+        r = results[name]
+        print(f"[kernel] {name}: {r['ms']} ms, plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
+              f"bound {r['bound'][0]} ms ({r['bound'][1]})")
+
+
+def window_probes(wp, dev, in_turns, results):
+    """The window kernel at each Mosaic probe's shape and offset, exactly
+    equal to its plain version and timed beside it; then the probe tool
+    (tools/probe_windows.py), the probes' own path, with the counts set to 0
+    just before it. Returns the tool's launches."""
+    import torch
+    from advise_tpu_torch.tools import probe_windows
+
+    inputs = probe_windows.probe_inputs(dev)
+    for name, o in probe_windows.probe_offsets().items():
+        win, x, entry = wp.WINDOWS[name], inputs[name], wp.ENTRIES[name]
+        got = entry(o, x)
+        want = wp.window_plain(win, x, (o, o))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"window probe {name} differs from its plain version")
+        ms, plain_ms = in_turns(lambda: entry(o, x), lambda: wp.window_plain(win, x, (o, o)))
+        reads = got.numel() * (win.out[0] if win.sum_axis0 else 1)
+        b = bound(reads * x.element_size() + 4.0 * got.numel(),
+                  float(reads - got.numel()), "f32")
+        print(f"[kernel] window {name} {tuple(x.shape)} {x.dtype} o={o} -> {tuple(got.shape)}: equal, "
+              f"{ms} ms, plain {plain_ms} ms, bound {b[0]} ms ({b[1]})")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound=b)
+    for entry in wp.ENTRIES.values():
+        entry.launches = 0
+    check(probe_windows.main() == 0, "the probe tool failed")
+    launches = {name: entry.launches for name, entry in wp.ENTRIES.items()}
+    print(f"[kernel] window probe launches by the probe tool: {launches}")
+    check(all(n == 1 for n in launches.values()), "the probe tool did not launch each probe once")
+    return launches
+
+
+def run_entry_point(extra, label):
+    """``python -m advise_tpu_torch.tools.run`` on the BYOL preset with the
+    phase's overrides and ``extra``; returns its run record."""
+    cmd = [sys.executable, "-m", "advise_tpu_torch.tools.run", "--cfg", BYOL_CONFIG,
+           "--output", RUN_DIR] + RUN_OVERRIDES + extra
+    print(f"[run] {label}: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if any(key in line for key in ("device:", "start:", "Epoch", "kNN", "saved", "best",
+                                       "resuming", "profiler trace stopped")):
+            print(f"[run]   {line}")
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, f"the entry point exited with {proc.returncode} ({label})")
+    records = [line.split("run record: ", 1)[1] for line in lines if "run record: " in line]
+    check(len(records) == 1, f"the entry point printed no run record ({label})")
+    record = json.loads(records[0])
+    record["seconds"] = seconds
+    return record
+
+
 def main() -> None:
     import torch
 
@@ -153,6 +288,7 @@ def main() -> None:
     from advise_tpu_torch.ops import flash_attention as fl
     from advise_tpu_torch.ops import fused_aug as fa
     from advise_tpu_torch.ops import stem_conv as sc
+    from advise_tpu_torch.ops import window_probe as wp
     from advise_tpu_torch.solver.lr_policy import get_lr_at_epoch
     from advise_tpu_torch.solver.optimizer import build_tx
 
@@ -260,8 +396,10 @@ def main() -> None:
             results["stem_conv_wgrad"] = dict(max_abs_err=wg_err, ms=wg_ms, plain_ms=wg_plain_ms,
                                               library_ms=wg_lib_ms, bound=wg_bound)
             del x_ncdhw, g_ncdhw
+            stem_schedules(sc, x, w, y, gy, kt, alone, results)
         del x, y, gy, dw, dref
     torch.cuda.empty_cache()
+    probe_launches = window_probes(wp, dev, in_turns, results)
 
     scfg = one_card_cfg(tconfig, SPEED_CONFIG)
     sb, sk, st = scfg.DATA.BATCHSIZE_PER_GPU, scfg.DATA.NUM_CLIP, scfg.DATA.NUM_FRAMES
@@ -488,8 +626,49 @@ def main() -> None:
           f"{fa.fused_simple_aug.launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the BYOL path")
-    del model, params, bundle, ssl, state, step, clips, stats
+    del model, params, bundle, ssl, state, step, stats
     torch.cuda.empty_cache()
+
+    # the stem's other launch schedules on the same step: the online forward
+    # and the momentum encoder's each launch K1 once per chunk of the k * b
+    # clips, the backward K2 once per chunk; wgrad-only launches no K1
+    n_stem = k * b
+    n_steps = VARIANT_WARMUP + VARIANT_TIMED
+    for label, key, value, chunk, names in (
+            ("chunk 8", "TPU.PALLAS_STEM_CHUNK", 8, 8,
+             ("stem_conv_fwd_chunked", "stem_conv_wgrad_chunked")),
+            ("wgrad-only", "TPU.PALLAS_STEM_WGRAD_ONLY", True, sc.WGRAD_CHUNK,
+             (None, "stem_conv_wgrad_only"))):
+        chunks = n_stem // sc.largest_divisor(n_stem, chunk)
+        want = ((2 * chunks if names[0] else 0) * n_steps, chunks * n_steps)
+        vcfg = cfg.clone()
+        setattr(vcfg.TPU, key.split(".")[1], value)
+        model = build_model(vcfg, dev, seed=0)
+        params = dict(model.named_parameters())
+        bundle = build_tx(vcfg, params)
+        ssl = init_ssl_state(vcfg, model, torch.Generator(device=dev).manual_seed(7))
+        state = TrainState(model, bundle.tx.init(params), 0, ssl)
+        step = make_train_step(vcfg, bundle, build_device_aug(vcfg, "train"))
+        torch.cuda.synchronize()
+        sc.stem_conv_fwd.launches = 0
+        sc.stem_conv_wgrad.launches = 0
+        step_ms = []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            stats = step(state, clips, infos, aug_gen, LR, EPOCH_EXACT)
+            loss, gnorm = float(stats["loss_byol"]), float(stats["grad_norm"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(math.isfinite(loss) and math.isfinite(gnorm), f"{label} step {i} is not finite")
+        got = (sc.stem_conv_fwd.launches, sc.stem_conv_wgrad.launches)
+        median_ms = statistics.median(step_ms[VARIANT_WARMUP:])
+        print(f"[byol] {label} ({key} {value}): median step {median_ms} ms over {VARIANT_TIMED} steps "
+              f"(all: {step_ms}), loss {loss}, K1/K2 launches {got} (schedule: {want})")
+        check(got == want, f"the {label} variant's K1/K2 launches differ from its chunk schedule")
+        launches.update({name: n for name, n in zip(names, got) if name})
+        del model, params, bundle, ssl, state, step, stats
+        torch.cuda.empty_cache()
+    del clips
 
     # -- 6. the speed path --------------------------------------------------------
     model = build_model(scfg, dev, seed=0)
@@ -610,6 +789,60 @@ def main() -> None:
     check(launches["flash_mha_bwd"] == bwd_per_step * steps > 0,
           "flash_mha_bwd launches differ from the schedule's count")
 
+    del model, params, bundle, state, step, clips, masks, stats
+    torch.cuda.empty_cache()
+
+    # -- 8. the entry point ---------------------------------------------------------
+    import shutil
+    from pathlib import Path
+
+    from advise_tpu_torch.engine.checkpoint import STATE_FILE, tensors_digest
+
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    first = run_entry_point(["SOLVER.MAX_EPOCH", "2"], "2 epochs")
+    ckpt_dir = Path(RUN_DIR) / "checkpoints"
+    for name in ("Model_Epoch_0000", "Model_Epoch_0001", "Model_Best"):
+        check((ckpt_dir / name / STATE_FILE).is_file() and (ckpt_dir / f"{name}.meta.npy").is_file(),
+              f"the entry point did not write {name}")
+    check((Path(RUN_DIR) / "log.txt").is_file(), "the entry point wrote no log.txt")
+    saved = tensors_digest(torch.load(ckpt_dir / "Model_Epoch_0001" / STATE_FILE, map_location="cpu",
+                                      weights_only=False)["model"])
+    second = run_entry_point(["SOLVER.MAX_EPOCH", "3", "TRAIN.AUTO_RESUME", "True",
+                              "TPU.PROFILE_DIR", f"{RUN_DIR}/profile", "TPU.PROFILE_START", "6",
+                              "TPU.PROFILE_STEPS", "2"], "resume to 3 epochs")
+    check((ckpt_dir / "Model_Epoch_0002" / STATE_FILE).is_file(), "the resumed run wrote no Model_Epoch_0002")
+    iters = RUN_VIDEOS // b
+    for rec, epochs, start_step, label in ((first, 2, 0, "first run"), (second, 1, 2 * iters, "resumed run")):
+        losses = [st["loss_byol"] for st in rec["stats"]]
+        n_iter = len(rec["iter_s"])
+        want = (2 * n_iter + epochs * RUN_KNN_BATCHES, n_iter)  # + the probe batch's forward
+        got = (rec["launches"]["stem_conv_fwd"], rec["launches"]["stem_conv_wgrad"])
+        print(f"[run] {label}: start epoch {rec['start_epoch']} step {rec['start_step']}, {n_iter} "
+              f"iterations, losses {losses}, median iteration {statistics.median(rec['iter_s']) * 1e3} ms "
+              f"(all: {[t * 1e3 for t in rec['iter_s']]}), loader wait per iteration median "
+              f"{statistics.median(rec['wait_s']) * 1e3} ms (all: {[t * 1e3 for t in rec['wait_s']]}), "
+              f"peak allocated {rec['peak_allocated_bytes']} bytes, K1/K2 launches {got} (expected "
+              f"{want}), {rec['seconds']} s with start-up")
+        # the input pipeline by stage (utils/host_times.py): the workers'
+        # items (of which the resize) in thread-seconds, and the main
+        # thread's wait for items, collate and pinned copy, per call
+        split = {stage: f"{s * 1e3 / n} ms x {n} ({s * 1e3} ms in all)"
+                 for stage, (s, n) in rec["host_s"].items()}
+        print(f"[run] {label}: host stages {split}")
+        check(n_iter == epochs * iters and rec["start_step"] == start_step, f"{label}: wrong schedule")
+        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label}: a loss is not finite")
+        check(got == want, f"{label}: K1/K2 launches differ from the schedule")
+    check(second["start_epoch"] == 2, "the resumed run did not start at epoch 2")
+    print(f"[run] model sha256: end of the first run {first['model_sha256_end']}, Model_Epoch_0001 "
+          f"{saved}, start of the resumed run {second['model_sha256']}")
+    check(first["model_sha256_end"] == saved == second["model_sha256"],
+          "the resumed model differs from the saved one")
+    prof = second.get("profile")
+    check(prof is not None, "the resumed run's profile window did not close")
+    print(f"[run] profile window ({prof['steps']} iterations of the resumed run): wall {prof['wall_ms']} ms, "
+          f"device busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
+
+    launches.update(probe_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
@@ -621,12 +854,20 @@ def main() -> None:
              "advise_tpu/ops/pallas/stem_conv.py:99"),
             ("stem_conv_wgrad", "advise_tpu_torch/csrc/stem_conv.cu",
              "advise_tpu/ops/pallas/stem_conv.py:126"),
+            ("stem_conv_fwd_chunked", "advise_tpu_torch/csrc/stem_conv.cu",
+             "advise_tpu/ops/pallas/stem_conv.py:322"),
+            ("stem_conv_wgrad_chunked", "advise_tpu_torch/csrc/stem_conv.cu",
+             "advise_tpu/ops/pallas/stem_conv.py:322"),
+            ("stem_conv_wgrad_only", "advise_tpu_torch/csrc/stem_conv.cu",
+             "advise_tpu/ops/pallas/stem_conv.py:353"),
             ("fused_simple_aug", "advise_tpu_torch/csrc/fused_aug.cu",
              "advise_tpu/ops/pallas/fused_aug.py:57"),
             ("flash_mha_fwd", "advise_tpu_torch/csrc/flash_attention.cu",
              "advise_tpu/ops/flash_attention.py:75"),
             ("flash_mha_bwd", "advise_tpu_torch/csrc/flash_attention.cu",
-             "advise_tpu/ops/flash_attention.py:75"))
+             "advise_tpu/ops/flash_attention.py:75"),
+            *((name, "advise_tpu_torch/csrc/window_probe.cu", f"scripts/probe_mosaic_aot.py:{line}")
+              for name, line in PROBE_LINES.items()))
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

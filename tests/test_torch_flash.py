@@ -44,7 +44,7 @@ def _jax_grads(fn, q, k, v, scale):
         o = fn(q, k, v, scale)
         return jnp.sum(o * jnp.cos(o)), o
 
-    (_, o), g = jax.value_and_grad(loss, (0, 1, 2), has_aux=True)(
+    (_, o), g = jax.jit(jax.value_and_grad(loss, (0, 1, 2), has_aux=True))(
         *(jnp.asarray(a) for a in (q, k, v)))
     return [np.asarray(a) for a in (o, *g)]
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the stem kernels (advise_tpu_torch/csrc/stem_conv.cu), the fused
-simple aug (advise_tpu_torch/csrc/fused_aug.cu) and flash attention, forward
-and backward (advise_tpu_torch/csrc/flash_attention.cu). Every test here
-needs an NVIDIA card and nvcc, and skips without a card.
+card: the stem kernels (advise_tpu_torch/csrc/stem_conv.cu) on their three
+launch schedules (one launch, per batch chunk, wgrad-only), the fused
+simple aug (advise_tpu_torch/csrc/fused_aug.cu), flash attention, forward
+and backward (advise_tpu_torch/csrc/flash_attention.cu), and the window
+gather of the nine Mosaic probes (advise_tpu_torch/csrc/window_probe.cu).
+Every test here needs an NVIDIA card and nvcc, and skips without a card.
 
 This file imports no JAX, so a machine without it runs the file without the
 repo's conftest:
@@ -20,7 +22,8 @@ bf16 values: the forward rounds the probabilities to bf16 for P V and the
 output once, so it is held to 2^-7 of the largest output; the backward
 rounds P, dS and its outputs to bf16, and D comes from the bf16 output, so
 dq, dk and dv are held to 2^-6 of their largest entries (the H100 measured
-2e-3 to 5e-3 of them at every shape below).
+2e-3 to 5e-3 of them at every shape below). The window gather moves and
+casts values (P1 adds two float32 values), so it is held EQUAL.
 """
 
 import math
@@ -31,6 +34,7 @@ import torch
 from advise_tpu_torch.ops import flash_attention as fl
 from advise_tpu_torch.ops import fused_aug as fa
 from advise_tpu_torch.ops import stem_conv as sc
+from advise_tpu_torch.ops import window_probe as wp
 
 torch.set_num_threads(1)
 
@@ -82,8 +86,65 @@ def test_kernels_match_plain(cuda, shape, kt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [2, 4, 16])
+def test_chunked_schedules_match_plain(cuda, chunk):
+    """K1' and K2': K1 and K2 once per chunk of the largest divisor of B <=
+    chunk, the forward bit-equal to one K1 launch (each output is computed
+    alone), dW held as K2's; and the autograd Functions of the chunked and
+    wgrad-only schedules against the plain conv's autograd, as the one-launch schedule's."""
+    x, w, g = _inputs((6, 5, 40, 48, 3), 5, cuda)
+    cb = sc.largest_divisor(6, chunk)
+    launches = (sc.stem_conv_fwd.launches, sc.stem_conv_wgrad.launches)
+    y = sc.stem_conv_fwd_chunked(x, w, cb)
+    assert torch.equal(y, sc.stem_conv_fwd(x, w))
+    gy = torch.randn(y.shape, device=cuda, generator=g).bfloat16()
+    dw = sc.stem_conv_wgrad_chunked(x, gy, 5, cb)
+    dref = sc.stem_wgrad_plain(x, gy, 5)
+    assert float((dw - dref).abs().max()) <= 1e-3 * float(dref.abs().max())
+    torch.cuda.synchronize()
+    assert (sc.stem_conv_fwd.launches, sc.stem_conv_wgrad.launches) == (
+        launches[0] + 6 // cb + 1, launches[1] + 6 // cb)
+
+    xr = x.float().requires_grad_()
+    wr = w.float().requires_grad_()
+    gf = gy.float()
+    torch.sum(sc.stem_conv_plain(xr, wr) * gf).backward()
+    for fn in (lambda a, b: sc.stem_conv_chunked(a, b, torch.bfloat16, chunk),
+               lambda a, b: sc.stem_conv_wgrad_only(a, b, torch.bfloat16)):
+        xk = xr.detach().clone().requires_grad_()
+        wk = wr.detach().clone().requires_grad_()
+        torch.sum(fn(xk, wk).float() * gf).backward()
+        for got, want in ((wk.grad, wr.grad), (xk.grad, xr.grad)):
+            assert float((got - want).abs().max()) <= 2 ** -7 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o", [0, 6, 8, 13])
+@pytest.mark.parametrize("name", list(wp.WINDOWS))
+def test_window_probe_equals_plain(cuda, name, o):
+    """Each Mosaic probe's window through the CUDA gather, equal to its plain
+    version; a window out of range raises before any launch."""
+    win = wp.WINDOWS[name]
+    g = torch.Generator(device=cuda).manual_seed(o)
+    if win.dtype == torch.uint8:
+        x = torch.randint(0, 256, win.shape, device=cuda, generator=g, dtype=torch.uint8)
+    else:
+        x = torch.randn(win.shape, device=cuda, generator=g)
+    entry = wp.ENTRIES[name]
+    before = entry.launches
+    if name == "lead_dyn" and o > 6:
+        with pytest.raises(IndexError):
+            entry(o, x)
+        assert entry.launches == before
+        return
+    got = entry(o, x)
+    assert torch.equal(got, wp.window_plain(win, x, (o, o)))
+    assert entry.launches == before + 1
+
+
+@pytest.mark.cuda
 def test_autograd_function_on_card(cuda):
-    """StemConv on the card: the kernel forward and weight gradient, the
+    """StemConvChunked at one launch on the card: the kernel forward and weight gradient, the
     input gradient through the plain conv's when asked, against autograd of
     the float32 plain conv on the same bf16-rounded inputs. The gradients
     pass through bf16 (the cotangent and dW are rounded as in the JAX custom
@@ -95,7 +156,7 @@ def test_autograd_function_on_card(cuda):
     wk = wr.detach().clone().requires_grad_()
     gy = torch.randn((2, 6, 20, 24, 8), device=cuda, generator=g)
     torch.sum(sc.stem_conv_plain(xr, wr) * gy).backward()
-    torch.sum(sc.stem_conv(xk, wk, torch.bfloat16).float() * gy).backward()
+    torch.sum(sc.stem_conv_chunked(xk, wk, torch.bfloat16, 0).float() * gy).backward()
     for got, want in ((wk.grad, wr.grad), (xk.grad, xr.grad)):
         assert got.dtype == torch.float32
         assert float((got - want).abs().max()) <= 2 ** -7 * float(want.abs().max())

@@ -50,7 +50,7 @@ from advise_tpu_torch.utils.convert import params_to_torch
 
 from torch_port_common import (
     MASK_B, MASK_K, MASK_S, MASK_T, grads_agree, loader_masks, masked_cfg,
-    masked_variables, rel_err,
+    masked_variables, on_mesh, rel_err,
 )
 
 torch.set_num_threads(1)
@@ -155,7 +155,8 @@ def test_maskmvit_loss_and_grads_match_jax(masked_models):
     jm = jbuild_model(jcfg, sync_axes=())
     rngs = {"dropout": jax.random.PRNGKey(0), "mask": jax.random.PRNGKey(1)}
     with pltpu.force_tpu_interpret_mode():
-        out_j = jm.apply({"params": params}, x, train=True, rngs=rngs, loader_mask=lm)
+        out_j = jax.jit(lambda p: jm.apply({"params": p}, x, train=True, rngs=rngs,
+                                           loader_mask=lm))(params)
     dense = jcfg.clone()
     dense.TPU.FLASH_ATTENTION = False
     jd = jbuild_model(dense, sync_axes=())
@@ -168,7 +169,7 @@ def test_maskmvit_loss_and_grads_match_jax(masked_models):
                                              train=False)
         return loss, stats
 
-    (loss_j, stats_j), g_j = jax.value_and_grad(jloss, has_aux=True)(params)
+    (loss_j, stats_j), g_j = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
 
     tm = build_model(tcfg, "cpu")
     tm.load_state_dict(params_to_torch(params))
@@ -206,8 +207,8 @@ def test_masked_step_trajectory_matches_jax(masked_models):
     dense.TPU.FLASH_ATTENTION = False  # differentiable under the transitions' remat
     mesh = build_mesh(dense, jax.devices()[:1])
     bundle = jbuild_tx(dense, params)
-    jstate = JState(params=params, batch_stats={}, opt_state=bundle.tx.init(params),
-                    step=jnp.zeros((), jnp.int32), ssl={})
+    jstate = on_mesh(JState(params=params, batch_stats={}, opt_state=bundle.tx.init(params),
+                            step=jnp.zeros((), jnp.int32), ssl={}), mesh)
     jstep = jmake_step(dense, mesh, jbuild_model(dense), bundle, None)
 
     tm = build_model(tcfg, "cpu")

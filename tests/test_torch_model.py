@@ -196,10 +196,11 @@ def test_initializers_match_jax(zero_final_bn):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a CPU forward and backward of each
-    model (MaskMViT through flash_mha's CPU path), the simple and OnlyCrop
-    augs and a MaskingGenerator3D draw loads no jax, flax, optax or
-    advise_tpu module."""
+    """Importing the port (its entry point, trainer, data pipeline and probe
+    tool among it) and running a CPU forward and backward of each model
+    (MaskMViT through flash_mha's CPU path), the simple and OnlyCrop augs
+    and a MaskingGenerator3D draw loads no jax, flax, optax or advise_tpu
+    module."""
     code = (
         "import sys, torch\n"
         "from advise_tpu_torch.config import get_cfg, assert_and_infer_cfg\n"
@@ -210,6 +211,9 @@ def test_port_imports_no_jax():
         "from advise_tpu_torch.ops import fused_aug\n"
         "from advise_tpu_torch.models import resnet3d, losses\n"
         "from advise_tpu_torch.solver import lr_policy\n"
+        "import advise_tpu_torch.data\n"
+        "from advise_tpu_torch.tools import run, probe_windows\n"
+        "from advise_tpu_torch.engine import train, checkpoint, meters\n"
         "cfg = get_cfg(); cfg.merge_from_file('configs/pretrain/SlowFast_R50_K400.yaml')\n"
         "cfg.RESNET.DEPTH = 10; cfg.RESNET.WIDTH_PER_GROUP = 16; cfg.SLOWFAST.BETA_INV = 2\n"
         "cfg.CONTRASTIVE.MLP_DIM = 32; cfg.TPU.COMPUTE_DTYPE = 'float32'\n"

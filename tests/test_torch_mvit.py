@@ -6,7 +6,8 @@ TPU interpret mode; the port's runs the kernels' plain versions on the CPU.
 
 Tolerances (float32): a module's output and gradients agree to float32
 rounding of sums taken in another order, 1e-5 of the largest value for a
-module and 1e-4 for the whole model (12 attention and MLP sub-blocks deep);
+module and 1e-4 for the whole model (JAX's side is jitted: compiled once,
+it runs in seconds where op-by-op dispatch took minutes) (12 attention and MLP sub-blocks deep);
 each gradient also gets 1e-2 of that tolerance times the largest gradient of
 the model, for gradients that are zero in exact arithmetic
 (``torch_port_common.grads_agree``).
@@ -99,10 +100,10 @@ def test_multiscale_attention_matches_jax(flash, cls, res):
     if res:
         x_res = rng.standard_normal((2, n, 16)).astype(np.float32)
         jkw = {"x_res": jnp.asarray(x_res)}
-        params = jax.device_get(jmod.init(jax.random.PRNGKey(3), jnp.asarray(x), thw, **jkw))["params"]
     else:
         jkw = {}
-        params = jax.device_get(jmod.init(jax.random.PRNGKey(3), jnp.asarray(x), thw))["params"]
+    params = jax.device_get(jax.jit(lambda: jmod.init(jax.random.PRNGKey(3), jnp.asarray(x), thw,
+                                                      **jkw))())["params"]
 
     def jloss(p, xx):
         out = jmod.apply({"params": p}, xx, thw, **jkw)
@@ -111,7 +112,8 @@ def test_multiscale_attention_matches_jax(flash, cls, res):
 
     ctx = pltpu.force_tpu_interpret_mode() if flash else _null()
     with ctx:
-        (_, out_j), (gp, gx) = jax.value_and_grad(jloss, (0, 1), has_aux=True)(params, jnp.asarray(x))
+        (_, out_j), (gp, gx) = jax.jit(jax.value_and_grad(jloss, (0, 1), has_aux=True))(
+            params, jnp.asarray(x))
     tmod.load_state_dict(params_to_torch(params))
     xt = torch.from_numpy(x).requires_grad_()
     out_t = tmod(xt, thw, torch.from_numpy(x_res)) if res else tmod(xt, thw)
@@ -137,7 +139,7 @@ def test_multiscale_block_matches_jax(flash, cls):
               stride_q=(1, 2, 2), stride_kv=(1, 2, 2), has_cls_embed=cls, flash=flash)
     jmod = JBlock(dim=8, dim_out=16, input_size=thw, **kw)
     tmod = MultiScaleBlock(8, 16, **kw)
-    params = jax.device_get(jmod.init(jax.random.PRNGKey(4), jnp.asarray(x), thw))["params"]
+    params = jax.device_get(jax.jit(lambda: jmod.init(jax.random.PRNGKey(4), jnp.asarray(x), thw))())["params"]
 
     def jloss(p, xx):
         out = jmod.apply({"params": p}, xx, thw)
@@ -145,7 +147,8 @@ def test_multiscale_block_matches_jax(flash, cls):
 
     ctx = pltpu.force_tpu_interpret_mode() if flash else _null()
     with ctx:
-        (_, out_j), (gp, gx) = jax.value_and_grad(jloss, (0, 1), has_aux=True)(params, jnp.asarray(x))
+        (_, out_j), (gp, gx) = jax.jit(jax.value_and_grad(jloss, (0, 1), has_aux=True))(
+            params, jnp.asarray(x))
     tmod.load_state_dict(params_to_torch(params))
     xt = torch.from_numpy(x).requires_grad_()
     out_t = tmod(xt, thw)
@@ -179,13 +182,14 @@ def test_plain_mvit_matches_jax():
     tcfg = _port_cfg(jcfg)
     jm = jbuild_model(jcfg, sync_axes=())
     x = np.random.default_rng(6).standard_normal((2, 4, 32, 32, 3)).astype(np.float32)
-    params = jax.device_get(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False)["params"])
+    params = jax.device_get(jax.jit(lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                                    train=False))()["params"])
 
     def jloss(p):
         out = jm.apply({"params": p}, jnp.asarray(x), train=True, rngs={"dropout": jax.random.PRNGKey(1)})
         return jnp.sum(jnp.tanh(out)), out
 
-    (_, out_j), g_j = jax.value_and_grad(jloss, has_aux=True)(params)
+    (_, out_j), g_j = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
     tm = build_model(tcfg, "cpu")
     assert hasattr(tm, "cls_token") and hasattr(tm, "pos_embed") and hasattr(tm, "blocks_3")
     tm.load_state_dict(params_to_torch(params))
@@ -211,11 +215,11 @@ def jax_rev_value_and_grad(jcfg, loss_fn, params):
     1e-5 on a whole MViT, forward and gradients."""
     jm = jbuild_model(jcfg, sync_axes=())
     with pltpu.force_tpu_interpret_mode():
-        out_flash = loss_fn(jm, params)[1]
+        out_flash = jax.jit(lambda p: loss_fn(jm, p)[1])(params)
     dense = jcfg.clone()
     dense.TPU.FLASH_ATTENTION = False
-    (val, out), grads = jax.value_and_grad(
-        lambda p: loss_fn(jbuild_model(dense, sync_axes=()), p), has_aux=True)(params)
+    (val, out), grads = jax.jit(jax.value_and_grad(
+        lambda p: loss_fn(jbuild_model(dense, sync_axes=()), p), has_aux=True))(params)
     return out_flash, val, out, grads
 
 

@@ -51,6 +51,7 @@ from torch_port_common import (
     SPEED_K,
     SPEED_S,
     SPEED_T,
+    on_mesh,
     speed_cfg,
     speed_variables,
 )
@@ -84,8 +85,8 @@ def test_three_step_trajectory_matches_jax():
     mesh = build_mesh(jcfg, jax.devices()[:1])
     params, batch_stats = speed_variables(jbuild_model(jcfg, sync_axes=()))
     bundle = jbuild_tx(jcfg, params)
-    jstate = JState(params=params, batch_stats=batch_stats, opt_state=bundle.tx.init(params),
-                    step=jnp.zeros((), jnp.int32))
+    jstate = on_mesh(JState(params=params, batch_stats=batch_stats, opt_state=bundle.tx.init(params),
+                            step=jnp.zeros((), jnp.int32)), mesh)
     tstate, tbundle = _port_state(tcfg, params, batch_stats)
     jstep = jmake_step(jcfg, mesh, jbuild_model(jcfg), bundle, None)
     tstep = make_train_step(tcfg, tbundle, None)

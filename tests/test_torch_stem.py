@@ -39,7 +39,7 @@ def test_stem_forward_matches_pallas(kt):
     x, w = _data(kt=kt)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(_jax_stem(jnp.asarray(x), jnp.asarray(w), kt))
-    got = sc.StemConv.apply(torch.from_numpy(x), torch.from_numpy(w))
+    got = sc.StemConvChunked.apply(torch.from_numpy(x), torch.from_numpy(w), 0)
     assert got.shape == want.shape == (2, 6, 16, 16, 8)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
 
@@ -59,7 +59,7 @@ def test_stem_weight_grad_matches_pallas():
         gx_j, gw_j = jax.grad(loss, (0, 1))(jnp.asarray(x), jnp.asarray(w))
     xt = torch.from_numpy(x).requires_grad_()
     wt = torch.from_numpy(w).requires_grad_()
-    y = sc.StemConv.apply(xt, wt)
+    y = sc.StemConvChunked.apply(xt, wt, 0)
     torch.sum(y * torch.cos(y)).backward()
     for got, want in ((wt.grad, gw_j), (xt.grad, gx_j)):
         want = np.asarray(want)
@@ -70,7 +70,7 @@ def test_stem_input_grad_only_when_asked():
     """On the main path the stem input is the aug output: no input grad."""
     x, w = _data(b=1, t=3)
     wt = torch.from_numpy(w).requires_grad_()
-    y = sc.StemConv.apply(torch.from_numpy(x), wt)
+    y = sc.StemConvChunked.apply(torch.from_numpy(x), wt, 0)
     gx, = torch.autograd.grad(y.sum(), [wt])
     assert gx.shape == wt.shape
 

@@ -48,7 +48,7 @@ from advise_tpu_torch.utils.convert import (
     params_to_torch,
 )
 
-from torch_port_common import B, S, T, jax_variables, rel_err, small_cfg
+from torch_port_common import B, S, T, jax_variables, on_mesh, rel_err, small_cfg
 
 torch.set_num_threads(1)
 
@@ -93,8 +93,8 @@ def test_three_step_trajectory_matches_jax():
     params, batch_stats = jax_variables(jbuild_model(jcfg, sync_axes=()))
     ssl = jinit_ssl(jcfg, params, batch_stats, jax.random.PRNGKey(7))
     bundle = jbuild_tx(jcfg, params)
-    jstate = JState(params=params, batch_stats=batch_stats, opt_state=bundle.tx.init(params),
-                    step=jnp.zeros((), jnp.int32), ssl=ssl)
+    jstate = on_mesh(JState(params=params, batch_stats=batch_stats, opt_state=bundle.tx.init(params),
+                            step=jnp.zeros((), jnp.int32), ssl=ssl), mesh)
     tstate, tbundle = _port_state(tcfg, params, batch_stats, jax.device_get(ssl))
 
     jstep = jmake_step(jcfg, mesh, jbuild_model(jcfg), bundle, None)

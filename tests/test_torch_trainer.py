@@ -1,0 +1,297 @@
+"""The port's engine around the step (advise_tpu_torch/engine: checkpoint,
+meters, train, the kNN probe; solver: the plateau policy and
+adjust_base_lr; tools/run.py) on the CPU.
+
+- Checkpoint: a save/restore round trip of the whole state is bit-exact;
+  auto_resume takes the newest epoch; load_pretrained strips ``backbone.``,
+  drops ``head`` and skips a shape mismatch.
+- PlateauController, adjust_base_lr and the plateau warm-up EQUAL the JAX
+  package's.
+- knn_probe and knn_labels_from_dataset against the JAX package's on the
+  same bank, features and labels: the same accuracy (the vote weights
+  exp(s / 0.07) are float32 sums in another order, so the features are
+  drawn apart enough that no vote is near a tie).
+- The trainer on the small BYOL preset (tests/torch_port_common.py, depth
+  10) with the synthetic backend: 2 epochs x 2 iterations, the checkpoints,
+  then a resume to 3 epochs that starts at epoch 2, step 4, with the saved
+  model bit for bit. Its first-step loss EQUALS one call of the ported step
+  on the same batch and the same generator (the same code on the same
+  inputs). A 3-epoch run cut after epoch 1 and resumed EQUALS the same run
+  uncut, in every iteration's loss and grad norm and in the end state.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from advise_tpu import config as jconfig
+from advise_tpu.engine import contrastive as jcontrastive
+from advise_tpu.solver import lr_policy as jlr
+from advise_tpu.solver import optimizer as joptim
+from advise_tpu_torch import config as tconfig
+from advise_tpu_torch.data import build_device_aug, build_loader
+from advise_tpu_torch.engine import checkpoint as ck
+from advise_tpu_torch.engine import contrastive as tcontrastive
+from advise_tpu_torch.engine.meters import AverageMeter, busy_ms
+from advise_tpu_torch.engine.steps import make_train_step
+from advise_tpu_torch.engine.train import (
+    build_train_state,
+    check_ported,
+    seeded_generator,
+    select_infos,
+    trainer,
+)
+from advise_tpu_torch.solver import lr_policy as tlr
+from advise_tpu_torch.solver import optimizer as toptim
+
+from torch_port_common import small_cfg
+
+torch.set_num_threads(1)
+
+RUN = {"DATA.DECODE_BACKEND": "synthetic", "DATA.SYNTHETIC_SIZE": 8, "DATA.SYNTHETIC_RES": 48,
+       "DATA.WORKERS": 2, "TRAIN.SAVE_FREQ": 1, "CONTRASTIVE.KNN_EVAL_BATCHES": 1,
+       "CONTRASTIVE.LENGTH": 16}
+
+
+def _run_cfg(logdir, **overrides):
+    cfg = small_cfg(tconfig, **{**RUN, **overrides})
+    cfg.LOGDIR = str(logdir)
+    return cfg
+
+
+def _state(cfg, seed_shift=0):
+    cfg = cfg.clone()
+    cfg.TRAIN.SEED += seed_shift
+    state, bundle = build_train_state(cfg, "cpu")
+    return state, bundle
+
+
+def _all_tensors(state):
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in state.ssl["ema_model"].state_dict().items()})
+    out["knn_mem"] = state.ssl["knn_mem"]
+    out.update({f"trace.{k}": v for k, v in state.opt_state["trace"].items()})
+    return out
+
+
+def test_checkpoint_round_trip_is_bit_exact(tmp_path):
+    cfg = _run_cfg(tmp_path)
+    state, bundle = _state(cfg)
+    step = make_train_step(cfg, bundle, None)
+    clips = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 2, 8, 32, 32, 3)).astype(np.float32))
+    step(state, clips, {"item_id": torch.arange(4)}, None, 1e-3, 0.5)
+    mgr = ck.CheckpointManager(cfg)
+    mgr.save(state, 0, {"loss_byol": 3.0})
+    meta = np.load(tmp_path / "checkpoints" / "Model_Epoch_0000.meta.npy", allow_pickle=True)[0]
+    assert meta == {"epoch": 0, "summary": {"loss_byol": 3.0}}
+    fresh, _ = _state(cfg, seed_shift=1)
+    assert not all(torch.equal(a, b) for a, b in zip(_all_tensors(fresh).values(),
+                                                      _all_tensors(state).values()))
+    mgr.restore(str(tmp_path / "checkpoints" / "Model_Epoch_0000"), fresh)
+    want, got = _all_tensors(state), _all_tensors(fresh)
+    assert want.keys() == got.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert fresh.step == state.step == 1
+    assert ck.tensors_digest(fresh.model.state_dict()) == ck.tensors_digest(state.model.state_dict())
+    saved = torch.load(tmp_path / "checkpoints" / "Model_Epoch_0000" / ck.STATE_FILE, weights_only=False)
+    assert saved["epoch"] == 0 and saved["step"] == 1
+
+
+def test_save_policy_and_auto_resume_take_the_newest_epoch(tmp_path):
+    cfg = _run_cfg(tmp_path, **{"TRAIN.SAVE_FREQ": 2, "SOLVER.MAX_EPOCH": 6})
+    state, _ = _state(cfg)
+    mgr = ck.CheckpointManager(cfg)
+    for epoch, loss in enumerate([5.0, 4.0, 4.5, 3.0, 3.5, 3.8]):
+        mgr.save(state, epoch, {"loss_byol": loss, "grad_norm": 1.0})
+    names = sorted(p.name for p in (tmp_path / "checkpoints").iterdir())
+    assert names == ["Model_Best", "Model_Best.meta.npy", "Model_Epoch_0001", "Model_Epoch_0001.meta.npy",
+                     "Model_Epoch_0003", "Model_Epoch_0003.meta.npy", "Model_Epoch_0005",
+                     "Model_Epoch_0005.meta.npy"]
+    best = np.load(tmp_path / "checkpoints" / "Model_Best.meta.npy", allow_pickle=True)[0]
+    assert best["epoch"] == 3 and best["best"] == 3.0
+    assert ck.CheckpointManager(cfg).best == 3.0  # the sidecar survives a restart
+    assert ck.default_criteria({"grad_norm": 1.0, "loss_b": 2.0, "loss_a": 4.0}) == 4.0
+    cfg.TRAIN.AUTO_RESUME = True
+    _, start, resumed = ck.auto_resume(cfg, mgr, state)
+    assert (start, resumed) == (6, True)
+    cfg.TRAIN.RESUME = str(tmp_path / "checkpoints" / "Model_Epoch_0003")
+    assert ck.auto_resume(cfg, mgr, state)[1:] == (4, True)
+    cfg.TRAIN.RESUME, cfg.TRAIN.AUTO_RESUME = None, False
+    assert ck.auto_resume(cfg, mgr, state)[1:] == (0, False)
+    cfg.TRAIN.SAVE_FREQ = 0
+    ck.CheckpointManager(cfg).save(state, 9, {"loss_byol": 0.0})
+    assert not (tmp_path / "checkpoints" / "Model_Epoch_0009").exists()
+    cfg.TRAIN.CHECKPOINT_REMOTE = "s3://bucket/run"
+    with pytest.raises(NotImplementedError, match="CHECKPOINT_REMOTE"):
+        ck.CheckpointManager(cfg)
+
+
+def test_load_pretrained_strips_backbone_and_drops_head(tmp_path, caplog):
+    """A ContrastiveModel-style checkpoint (keys under ``backbone.``, a
+    projector under ``head``) into a model with the bare keys."""
+    cfg = _run_cfg(tmp_path)
+    target, _ = _state(cfg)
+    source, _ = _state(cfg, seed_shift=5)
+    sd = {f"backbone.{k}": v.clone() for k, v in source.model.state_dict().items()}
+    bare = [k for k in source.model.state_dict() if "head" not in k]
+    wrong = bare[0]
+    sd[f"backbone.{wrong}"] = torch.zeros(3, 3)
+    (tmp_path / "pre").mkdir()
+    torch.save({"model": sd}, tmp_path / "pre" / ck.STATE_FILE)
+    before = {k: v.clone() for k, v in target.model.state_dict().items()}
+    with caplog.at_level("WARNING"):
+        _, loaded, skipped = ck.load_pretrained(str(tmp_path / "pre"), target)
+    after = target.model.state_dict()
+    assert wrong in caplog.text
+    assert set(loaded) == set(bare) - {wrong}
+    for k in after:
+        if k in loaded:
+            assert torch.equal(after[k], source.model.state_dict()[k]), k
+        else:
+            assert torch.equal(after[k], before[k]), k
+    assert any("head" in s and "dropped" in s for s in skipped)
+    assert any(s.startswith(wrong) and "shape" in s for s in skipped)
+    assert target.step == 0
+
+
+def test_plateau_and_adjust_base_lr_equal_jax():
+    metrics = [5.0, 4.0, 4.0, 4.1, 3.9996, 4.0, 4.0, 4.0, 4.0, 3.0, 3.0, 3.0, 3.0, 3.0, 3.0, 3.0,
+               2.9999, 3.1]
+    jp, tp = jlr.PlateauController(0.4), tlr.PlateauController(0.4)
+    for m in metrics:
+        assert tp.step(m) == jp.step(m)
+        assert (tp.lr, tp.best, tp.num_bad) == (jp.lr, jp.best, jp.num_bad)
+    assert tp.lr < 0.4
+    for preset in ("configs/pretrain/SlowFast_R50_K400.yaml", "configs/pretrain/SpeedPro_R50.yaml"):
+        jcfg, tcfg = jconfig.get_cfg(), tconfig.get_cfg()
+        for cfg in (jcfg, tcfg):
+            cfg.merge_from_file(preset)
+            cfg.NUM_WORLDS = 3
+        joptim.adjust_base_lr(jcfg)
+        toptim.adjust_base_lr(tcfg)
+        for key in ("BASE_LR", "COSINE_END_LR", "WARMUP_START_LR"):
+            assert tcfg.SOLVER[key] == jcfg.SOLVER[key]
+        jcfg.SOLVER.LR_POLICY = tcfg.SOLVER.LR_POLICY = "plateau"
+        for epoch in np.linspace(0.0, 2 * jcfg.SOLVER.WARMUP_EPOCHS, 23):
+            assert tlr.get_lr_at_epoch(tcfg, float(epoch)) == jlr.get_lr_at_epoch(jcfg, float(epoch))
+
+
+@pytest.mark.parametrize("knn_k", [3, 200])
+def test_knn_probe_matches_jax(knn_k):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(knn_k)
+    centers = rng.standard_normal((4, 16)).astype(np.float32) * 3
+    bank_cls = rng.integers(0, 4, 40)
+    bank = centers[bank_cls] + rng.standard_normal((40, 16)).astype(np.float32)
+    bank /= np.linalg.norm(bank, axis=1, keepdims=True)
+    labels = np.where(np.arange(40) < 32, bank_cls, -1).astype(np.int32)  # 8 rows with no vote
+    q_cls = rng.integers(0, 4, 40)
+    q = centers[q_cls] + 5 * rng.standard_normal((40, 16)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    want = jcontrastive.knn_probe(None, {"knn_mem": jnp.asarray(bank)}, jnp.asarray(labels),
+                                  jnp.asarray(q), jnp.asarray(q_cls), knn_k=knn_k, t=0.07)
+    got = tcontrastive.knn_probe(None, {"knn_mem": torch.from_numpy(bank)}, torch.from_numpy(labels),
+                                 torch.from_numpy(q), torch.from_numpy(q_cls), knn_k=knn_k, t=0.07)
+    assert 0.0 < float(want) < 1.0
+    assert float(got) == float(want)
+
+    class _DS:
+        items = [(f"v{i}", i % 5) for i in range(7)]
+
+    np.testing.assert_array_equal(tcontrastive.knn_labels_from_dataset(_DS, 10).numpy(),
+                                  np.asarray(jcontrastive.knn_labels_from_dataset(_DS, 10)))
+
+
+def test_trainer_runs_saves_resumes_and_matches_one_step(tmp_path, monkeypatch):
+    cfg = _run_cfg(tmp_path, **{"SOLVER.MAX_EPOCH": 2})
+    # the first step's inputs, as the trainer draws them: the loader's first
+    # batch of epoch 0 and the generator of (SEED, 0, 0), on a state built
+    # from the same seeds
+    ref_cfg = cfg.clone()
+    ref_cfg.NUM_WORLDS = 1
+    toptim.adjust_base_lr(ref_cfg)
+    clips, infos = next(iter(build_loader(ref_cfg).epoch(0)))
+    state, bundle = build_train_state(ref_cfg, "cpu")
+    state.ssl["knn_labels"] = torch.arange(16) % 4
+    ref_step = make_train_step(ref_cfg, bundle, build_device_aug(ref_cfg, "train"))
+    lr = tlr.get_lr_at_epoch(ref_cfg, 0.5)
+    want = ref_step(state, torch.from_numpy(clips),
+                    {k: torch.from_numpy(v) for k, v in select_infos(ref_cfg, infos).items()},
+                    seeded_generator("cpu", ref_cfg.TRAIN.SEED, 0, 0), lr, 0.5)
+
+    record = {}
+    trainer(cfg, device="cpu", record=record)
+    assert record["stats"][0]["loss_byol"] == float(want["loss_byol"])
+    assert record["stats"][0]["grad_norm"] == float(want["grad_norm"])
+    assert (record["start_epoch"], record["start_step"], len(record["iter_s"])) == (0, 0, 4)
+    assert all(np.isfinite(v) for st in record["stats"] for v in st.values())
+    # the input pipeline's stages: 2 epochs x (2 batches + 1 probe batch) of 4
+    # (the probe's lookahead may start more items than it takes)
+    host = record["host_s"]
+    assert host["collate"][1] == 6 and host["wait_items"][1] == 6 * 4
+    assert host["item"][1] >= host["wait_items"][1] and host["resize"][1] == host["item"][1]
+    assert all(s >= 0 for s, _ in host.values())
+    ckpts = tmp_path / "checkpoints"
+    for name in ("Model_Epoch_0000", "Model_Epoch_0001", "Model_Best"):
+        assert (ckpts / name / ck.STATE_FILE).is_file() and (ckpts / f"{name}.meta.npy").is_file()
+    saved = torch.load(ckpts / "Model_Epoch_0001" / ck.STATE_FILE, weights_only=False)
+    assert saved["step"] == 4 and ck.tensors_digest(saved["model"]) == record["model_sha256_end"]
+
+    resumed = {}
+    trainer(_run_cfg(tmp_path, **{"SOLVER.MAX_EPOCH": 3, "TRAIN.AUTO_RESUME": True}), device="cpu",
+            record=resumed)
+    assert (resumed["start_epoch"], resumed["start_step"], len(resumed["iter_s"])) == (2, 4, 2)
+    assert resumed["model_sha256"] == record["model_sha256_end"]
+    assert (ckpts / "Model_Epoch_0002" / ck.STATE_FILE).is_file()
+
+    # a 3-epoch run cut after epoch 1 and resumed EQUALS the same run never
+    # cut: the same batches, generators, lr, EMA momentum and state (the lr
+    # and momentum schedules run to MAX_EPOCH, so both runs have 3)
+    straight, cut = {}, {}
+    trainer(_run_cfg(tmp_path / "straight", **{"SOLVER.MAX_EPOCH": 3}), device="cpu", record=straight)
+    kept = tmp_path / "cut" / "checkpoints"
+    kept.mkdir(parents=True)
+    for name in ("Model_Epoch_0001", "Model_Epoch_0001.meta.npy"):
+        (tmp_path / "straight" / "checkpoints" / name).rename(kept / name)
+    trainer(_run_cfg(tmp_path / "cut", **{"SOLVER.MAX_EPOCH": 3, "TRAIN.AUTO_RESUME": True}),
+            device="cpu", record=cut)
+    assert (cut["start_epoch"], cut["start_step"], len(cut["stats"])) == (2, 4, 2)
+    assert cut["stats"] == straight["stats"][4:]
+    assert cut["model_sha256_end"] == straight["model_sha256_end"]
+
+
+def test_trainer_pieces():
+    cfg = small_cfg(tconfig)
+    infos = {"item_id": 1, "time_idx": 2, "cls_id": 3, "length": 4}
+    assert select_infos(cfg, infos) == {"item_id": 1, "time_idx": 2, "cls_id": 3}
+    a, b = seeded_generator("cpu", 0, 1, 2), seeded_generator("cpu", 0, 1, 2)
+    assert torch.equal(torch.rand(4, generator=a), torch.rand(4, generator=b))
+    assert not torch.equal(torch.rand(4, generator=seeded_generator("cpu", 0, 1, 3)),
+                           torch.rand(4, generator=seeded_generator("cpu", 0, 2, 2)))
+    for key, value, item in (("TPU.PARTITION_MODE", "auto", "A11"), ("VIS_MASK.ENABLE", True, "A12"),
+                             ("MODEL.SPATIAL_MODEL_PATH", "/x", "A10")):
+        bad = cfg.clone()
+        section, leaf = key.split(".")
+        bad[section][leaf] = value
+        with pytest.raises(NotImplementedError, match=item):
+            check_ported(bad)
+    m = AverageMeter(window=2)
+    for v in (1.0, 2.0, 6.0):
+        m.update(v)
+    assert (m.avg, m.local_avg, m.val) == (3.0, 4.0, 6.0)
+    assert busy_ms([(0, 1000), (500, 1500), (3000, 4000)]) == 2.5
+
+
+def test_run_needs_a_card(tmp_path):
+    """The CLI parses its arguments and then refuses to run without a card:
+    it has no CPU switch."""
+    from advise_tpu_torch.tools import run
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        run.main(["--cfg", "configs/pretrain/SlowFast_R50_K400.yaml", "--output", str(tmp_path),
+                  "SOLVER.MAX_EPOCH", "1"])
+    assert (tmp_path / "log.txt").is_file()

@@ -48,6 +48,15 @@ def both_cfgs(**kw):
     return small_cfg(jconfig, **kw), small_cfg(tconfig, **kw)
 
 
+def on_mesh(tree, mesh):
+    """``tree`` placed replicated on ``mesh``, where the jitted JAX train step
+    leaves its outputs: the step then compiles once, not once for the host
+    arrays of the first call and again for its own outputs."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    return jax.device_put(tree, NamedSharding(mesh, PartitionSpec()))
+
+
 def jax_variables(model, seed=0):
     """The JAX model's initial params and batch_stats, as numpy trees."""
     v = jax.jit(lambda: model.init(
