@@ -1,5 +1,8 @@
-// Flash attention, forward and backward, hand-written for Hopper (sm_90a)
-// tensor cores through nvcuda::wmma (bf16 16x16x16, float32 accumulation).
+// Flash attention, forward and backward, hand-written for Hopper (sm_90a):
+// the forward and the dQ kernel multiply with wgmma (warpgroup, bf16 in,
+// float32 accumulators in registers), the dK/dV kernel with mma.sync
+// m16n8k16 and ldmatrix; K/V (forward, dQ) and Q/dO (dK/dV) tiles are copied
+// by cp.async into a two-stage ring while the previous tile is multiplied.
 //
 // Replaces the TPU kernel K4 of advise_tpu/ops/flash_attention.py flash_mha:
 // JAX's library Pallas TPU flash attention and its custom-VJP backward
@@ -14,37 +17,50 @@
 // bf16 in and out, float32 accumulation and float32 lse and D. The TPU
 // wrapper pads nq and nk to 128 (masking the padded keys with SegmentIds)
 // and d to a 128 multiple above 128; none of that is carried over: these
-// kernels mask the ragged nq and nk edges themselves and take d as it is,
-// zero-padding it to Dp = 16 * ceil(d / 16) inside shared memory only
-// (exact: zero columns add nothing to Q K^T and are not stored).
+// kernels mask the ragged nq and nk edges themselves (copies past an edge
+// are zero-filled, scores of keys >= nk are -inf exactly) and take d as it
+// is, zero-padding it inside shared memory to the template width DP, the
+// least of 64, 80, 144, 192, 288, 576 that holds it (exact: zero columns add
+// nothing to Q K^T and are not stored).
 //
 // Bound on the card: 4 nq nk d FLOP forward and 10 nq nk d backward per
-// slice (the backward recomputes S and P), against reading Q, K, V (and O,
-// dO) once. At MViT-L 32x312's shapes (nq 1,600-97,344, nk 1,600-6,400, d
-// 72-576) that is 200-1,000+ FLOP per byte: tensor-core bound, at ~16 ms
-// per train step at the bf16 peak (989 TFLOP/s).
+// slice, against reading Q, K, V (and O, dO) once. At MViT-L 32x312's shapes
+// (nq 1,600-97,344, nk 1,600-6,400, d 72-576) that is 200-1,000+ FLOP per
+// byte: tensor-core bound.
 //
-// Design, a simple one that is right first (wgmma, TMA and warp
-// specialisation are later work):
-//  - eight warps per block: a block's shared memory leaves room for one or
-//    two blocks on an SM, so the warps of one block must hide the latency;
-//    every product is wmma 16x16x16 on tiles staged in shared memory, with
-//    row pitches of Dp + 8 (bf16) and Dp + 4 (float32) to keep wmma's
-//    32-byte alignment and spread the banks;
-//  - forward: one block per (slice, BQ query rows) loops over BK-key tiles
-//    with the online softmax (running max and sum per row, in base 2); the
-//    float32 O accumulator lives in shared memory and is rescaled there,
-//    since wmma does not expose its accumulator's layout;
-//  - backward: a preprocess kernel computes D; the dK/dV kernel takes one
-//    block per (slice, BK keys) and loops over the query tiles; the dQ kernel
-//    takes one block per (slice, BQ queries) and loops over the key tiles.
-//    Both recompute P from lse. Each output element is owned by one block:
-//    no atomics, so the backward is deterministic;
-//  - the tile sizes follow d (tile_config): the largest of 64x64, 32x64,
-//    32x32, 16x32, 16x16 whose shared memory fits the 227 KB a block may use.
-//    At d 576 a 64-row float32 accumulator alone is 147 KB, so the forward
-//    takes 32 x 32 there, the dK/dV kernel 16 keys x 32 queries and the dQ
-//    kernel 16 queries x 32 keys; d <= 288 takes 64 x 64 forward.
+// Design:
+//  - every product's float32 result stays in its accumulator registers; a
+//    warp holds 16 of its rows in the m16n8 layout (a wgmma's 64 rows are
+//    its warpgroup's four warps'). The forward's online softmax (row max,
+//    exp2, row sum, rescale of O) and the backward's P and dS run there with
+//    quad shuffles, and P (dS) becomes the A operand of the next product in
+//    registers, as that layout is the A layout of the next k-step. No
+//    float32 tile goes through shared memory;
+//  - forward and dQ: one block of two warpgroups per (query tile, slice)
+//    loops over BK-key tiles. S = Q K^T (and dP = dO V^T) by wgmma from
+//    shared memory; P V (dS K) by wgmma with P (dS) from the registers, in
+//    chunks of at most 256 columns. Their tiles sit in 32-column atoms of
+//    64-byte rows with the 64-byte swizzle (sw64), which the descriptors
+//    name. Each warpgroup takes 64 query rows and all of d; at DP 576, where
+//    a 64 x 576 float32 O would not fit the registers, both take the same 64
+//    rows and half of d each, and each computes the rows' scores itself (the
+//    same instructions on the same data, so the same P);
+//  - dK/dV: one block of 8 warps per (BKV keys, slice, split), each split
+//    walking a contiguous range of the query tiles. Its warps own 16 keys and
+//    a 1/WC share of the query columns for S^T and dP^T, write P^T and dS^T
+//    to shared memory as bf16, and then own 16 keys and a 1/WC share of d
+//    for dV += P^T dO and dK += dS^T Q (ldmatrix, .trans for the row-major
+//    B, from tiles whose row pitch DP + 8 bf16 puts each 8x8 matrix's rows on
+//    distinct banks). With one split it writes dK and dV; with more it
+//    writes float32 partials to scratch, which a reduce kernel sums in split
+//    order, so a grid of few key tiles still fills the card. A preprocess
+//    kernel computes D. Each output element is written by one thread of one
+//    block and sums in a fixed order: no atomics, so the backward is
+//    deterministic;
+//  - copies: cp.async, 16 bytes a thread, zero-filled past the tensor's
+//    edge; a d that is not a multiple of 8 takes plain loads (its rows are
+//    not 16-byte aligned). Each loop tile goes into the ring's other stage
+//    while the current one is multiplied.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC. Each C entry point launches on the given stream and
@@ -53,200 +69,681 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
-constexpr int NCFG = 5;
-constexpr int CFG_ROWS[NCFG] = {64, 32, 32, 16, 16};  // the block's own rows
-constexpr int CFG_INNER[NCFG] = {64, 64, 32, 32, 16};  // rows of the loop's tiles
+constexpr int MAX_WARPS = 8;
 
-__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int pitch(int cols) { return cols + 8; }  // bf16 row pitch
 
-__device__ inline float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// ---------------------------------------------------------------------------
+// tile widths per padded head dim (ops/flash_attention.py TILES holds the same)
+// ---------------------------------------------------------------------------
+template <int DP> struct Tiles;
+//   forward and dQ: BK keys a loop tile, DSPLIT warpgroups sharing 64 rows
+//   (their columns split); dK/dV: BKV keys a block, BQ queries a loop tile,
+//   WC warps per 16 keys (8 warps in all)
+#define FLASH_TILES(DP_, FBK, FSPLIT, QBK, KROWS, KBQ, KWC)                      \
+  template <> struct Tiles<DP_> {                                              \
+    static constexpr int FWD_BK = FBK, SPLIT = FSPLIT, DQ_BK = QBK;            \
+    static constexpr int KV_ROWS = KROWS, KV_BQ = KBQ, KV_WC = KWC;            \
+  };
+FLASH_TILES(64, 64, 1, 64, 128, 64, 1)
+FLASH_TILES(80, 64, 1, 64, 128, 64, 1)
+FLASH_TILES(144, 64, 1, 64, 64, 64, 2)
+FLASH_TILES(192, 64, 1, 64, 64, 64, 2)
+FLASH_TILES(288, 64, 1, 32, 64, 32, 2)
+FLASH_TILES(576, 32, 2, 16, 32, 32, 4)
+#undef FLASH_TILES
+
+// a warpgroup's columns in wgmma chunks of at most 256 (160 + 128 for 288)
+template <int DP, int SPLIT>
+struct Chunks {
+  static constexpr int W = DP / SPLIT, N0 = W <= 256 ? W : 160, N1 = W - N0;
+};
+
+// the forward and dQ: 32-column atoms of 64-byte rows, and 1 KB to align them
+size_t fwd_smem(int DP, int BQ, int BK) {
+  return 1024 + 64 * (size_t)ceil_div(DP, 32) * (BQ + 4 * BK);
+}
+size_t dq_smem(int DP, int BQ, int BK) {
+  return 1024 + 64 * (size_t)ceil_div(DP, 32) * (2 * BQ + 4 * BK);
+}
+size_t dkdv_smem(int DP, int BKV, int BQ) {
+  return 2 * (size_t)(2 * BKV + 4 * BQ) * pitch(DP) + 2 * 2 * (size_t)BKV * pitch(BQ) +
+         2 * 2 * 4 * (size_t)BQ;
 }
 
-__device__ inline float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// ---------------------------------------------------------------------------
+// PTX
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// rows x Dp tile of a row-major [n, d] bf16 matrix into shared memory of
-// pitch ld, from row row0; rows past n and columns past d are zeros.
-__device__ inline void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
-                                 int row0, int rows, int n, int d, int Dp) {
-  if ((d & 7) == 0) {  // 16-byte vectors (the wrapper checks alignment)
-    const int vecs = Dp / 8;
-    for (int i = threadIdx.x; i < rows * vecs; i += THREADS) {
-      const int r = i / vecs;
-      const int c = (i - r * vecs) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < n && c < d)
-        val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+// 16 bytes global -> shared; valid == false writes 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b, m16n8k16, bf16 in, float32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// 2^x in one MUFU instruction (ex2.approx: 2 ulp; 2^-inf = 0; results below
+// 2^-126 flush to 0, which no sum here can tell from their value)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (the forward and dQ). A warpgroup (4 warps) multiplies 64
+// rows; its accumulator holds, per warp, 16 rows in the m16n8 layout below.
+// Operands in shared memory sit in 32-column atoms of 64-byte rows, 16-byte
+// chunk c of row r stored at chunk c ^ ((r >> 1) & 3) (the 64-byte swizzle):
+// K-major (Q, K: a row's d values along the row) or N-major (V as the B of
+// P V: a key's d values along the row). A descriptor gives the start, the
+// stride between 32-column atoms (LBO, N-major only) and between 8-row
+// groups (SBO, 512 B). The wrappers below, one per width the kernels use,
+// name each accumulator register of the instruction.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)(512 >> 4) << 32 | (uint64_t)2 << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// makes this thread's shared-memory writes visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of 16-byte chunk j of row r in a swizzled tile of `rows` rows
+__device__ __forceinline__ int sw64(int r, int j, int rows) {
+  return (j >> 2) * rows * 64 + r * 64 + (((j & 3) ^ ((r >> 1) & 3)) << 4);
+}
+
+// d (64 x 64) = (scale_d ? d : 0) + A B, A and B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32) = (scale_d ? d : 0) + A B, A and B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 16) = (scale_d ? d : 0) + A B, A and B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[2][4], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A B, A from registers, B from shared memory (N-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 80) += A B, A from registers, B from shared memory (N-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[10][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, 1, 1, 1, 1;\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
+        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 128) += A B, A from registers, B from shared memory (N-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
+        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
+        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
+        "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
+        "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 144) += A B, A from registers, B from shared memory (N-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[18][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71}, "
+      "{%72, %73, %74, %75}, %76, 1, 1, 1, 1;\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
+        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
+        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
+        "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
+        "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]),
+        "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]),
+        "+f"(d[17][2]), "+f"(d[17][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 160) += A B, A from registers, B from shared memory (N-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[20][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, 1, 1, 1, 1;\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
+        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
+        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
+        "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
+        "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]),
+        "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]),
+        "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]),
+        "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// d (64 x 192) += A B, A from registers, B from shared memory (N-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[24][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, 1, 1, 1, 1;\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
+        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
+        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
+        "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
+        "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]),
+        "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]),
+        "+f"(d[17][2]), "+f"(d[17][3]), "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]),
+        "+f"(d[18][3]), "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]),
+        "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]),
+        "+f"(d[22][2]), "+f"(d[22][3]), "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]),
+        "+f"(d[23][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+
+// ---------------------------------------------------------------------------
+// fragments. A lane holds, of a 16 x 8 accumulator tile, rows lane / 4 (c0,
+// c1) and lane / 4 + 8 (c2, c3) at columns 2 (lane % 4) + {0, 1}.
+// ---------------------------------------------------------------------------
+
+// A operand, rows m0..m0+15 and columns k0..k0+15 of a row-major tile
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base, int ld, int m0,
+                                       int k0, int lane) {
+  ldsm_x4(a, base + (m0 + (lane & 15)) * ld + k0 + ((lane >> 4) << 3));
+}
+
+// acc[n] += a B over NT n-tiles of 8 columns, where B (k x n) is stored
+// transposed: rows n0 + 8 n + .. of a row-major [n][k] tile, columns k0..k0+15
+template <int NT>
+__device__ __forceinline__ void mma_bt(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                       const bf16* base, int ld, int n0, int k0, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; n += 2) {
+    if (n + 1 < NT) {
+      uint32_t b[4];
+      ldsm_x4(b, base + (n0 + n * 8 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
+                     (((lane >> 3) & 1) << 3));
+      mma(acc[n], a, b[0], b[1]);
+      mma(acc[n + 1], a, b[2], b[3]);
+    } else {
+      uint32_t b[2];
+      ldsm_x2(b, base + (n0 + n * 8 + (lane & 7)) * ld + k0 + (((lane >> 3) & 1) << 3));
+      mma(acc[n], a, b[0], b[1]);
+    }
+  }
+}
+
+// the same where B (k x n) is stored as is: rows k0..k0+15 of a row-major
+// [k][n] tile, columns n0 + 8 n + ..
+template <int NT>
+__device__ __forceinline__ void mma_b(float (&acc)[NT][4], const uint32_t (&a)[4],
+                                      const bf16* base, int ld, int k0, int n0, int lane) {
+  const bf16* row = base + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * ld + n0;
+#pragma unroll
+  for (int n = 0; n < NT; n += 2) {
+    if (n + 1 < NT) {
+      uint32_t b[4];
+      ldsm_x4_t(b, row + n * 8 + ((lane >> 4) << 3));
+      mma(acc[n], a, b[0], b[1]);
+      mma(acc[n + 1], a, b[2], b[3]);
+    } else {
+      uint32_t b[2];
+      ldsm_x2_t(b, row + n * 8);
+      mma(acc[n], a, b[0], b[1]);
+    }
+  }
+}
+
+// the A operand of k-step j (columns 16 j..16 j+15) from an accumulator
+template <int NT>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[NT][4], int j) {
+  a[0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+  a[1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+  a[2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
+  a[3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.0f;
+}
+
+// rows row0..row0+rows-1 of a row-major [n, d] bf16 matrix into a [rows, DP]
+// tile of pitch pitch(DP): cp.async where rows are 16-byte aligned (the
+// wrapper checks the base), plain loads otherwise; zeros past n and d
+template <int DP>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int row0,
+                                          int rows, int n, int d) {
+  constexpr int LD = pitch(DP);
+  const int nthreads = blockDim.x;
+  if ((d & 7) == 0) {
+    constexpr int CH = DP / 8;
+    for (int i = threadIdx.x; i < rows * CH; i += nthreads) {
+      const int r = i / CH;
+      const int c = (i - r * CH) * 8;
+      const bool valid = row0 + r < n && c < d;
+      cp_async16(dst + r * LD + c, valid ? src + (size_t)(row0 + r) * d + c : src, valid);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * Dp; i += THREADS) {
-      const int r = i / Dp;
-      const int c = i - r * Dp;
+    for (int i = threadIdx.x; i < rows * DP; i += nthreads) {
+      const int r = i / DP;
+      const int c = i - r * DP;
       bf16 val = __float2bfloat16(0.0f);
       if (row0 + r < n && c < d) val = src[(size_t)(row0 + r) * d + c];
-      dst[r * ld + c] = val;
+      dst[r * LD + c] = val;
     }
   }
 }
 
-// C[M x N] (float32, pitch ldc) = A B over K, each warp taking 16x16 output
-// tiles in turn. A is [M, K] row-major (pitch lda) or, with A_COL, given as
-// its transpose [K, M] row-major; B is [K, N] row-major (pitch ldb) or,
-// with B_COL, given as its transpose [N, K] row-major. ACC adds to C.
-template <bool A_COL, bool B_COL, bool ACC>
-__device__ inline void mma_tiles(float* C, int ldc, const bf16* A, int lda,
-                                 const bf16* B, int ldb, int M, int N, int K) {
-  typedef typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type LA;
-  typedef typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type LB;
-  const int warp = threadIdx.x / 32;
-  const int tn = N / 16;
-  for (int t = warp; t < (M / 16) * tn; t += WARPS) {
-    const int m0 = (t / tn) * 16;
-    const int n0 = (t % tn) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (ACC)
-      wmma::load_matrix_sync(acc, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.0f);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, A_COL ? A + k0 * lda + m0 : A + m0 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B_COL ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-      wmma::mma_sync(acc, a, b, acc);
+// load_rows into the swizzled layout of the wgmma kernels
+template <int DP>
+__device__ __forceinline__ void load_rows_sw(unsigned char* dst, const bf16* __restrict__ src,
+                                             int row0, int rows, int n, int d) {
+  const int nthreads = blockDim.x;
+  if ((d & 7) == 0) {
+    constexpr int CH = DP / 8;
+    for (int i = threadIdx.x; i < rows * CH; i += nthreads) {
+      const int r = i / CH;
+      const int j = i - r * CH;
+      const bool valid = row0 + r < n && j * 8 < d;
+      cp_async16(dst + sw64(r, j, rows), valid ? src + (size_t)(row0 + r) * d + j * 8 : src,
+                 valid);
     }
-    wmma::store_matrix_sync(C + m0 * ldc + n0, acc, ldc, wmma::mem_row_major);
+  } else {
+    for (int i = threadIdx.x; i < rows * DP; i += nthreads) {
+      const int r = i / DP;
+      const int c = i - r * DP;
+      bf16 val = __float2bfloat16(0.0f);
+      if (row0 + r < n && c < d) val = src[(size_t)(row0 + r) * d + c];
+      *reinterpret_cast<bf16*>(dst + sw64(r, c >> 3, rows) + (c & 7) * 2) = val;
+    }
   }
 }
 
-// shared-memory pitches
-__host__ __device__ inline int pitch_h(int cols) { return cols + 8; }  // bf16
-__host__ __device__ inline int pitch_f(int cols) { return cols + 4; }  // float32
-
-size_t fwd_smem(int BQ, int BK, int Dp) {
-  return 2 * (size_t)(BQ + 2 * BK) * pitch_h(Dp) + 4 * (size_t)BQ * pitch_f(Dp) +
-         4 * (size_t)BQ * pitch_f(BK) + 2 * (size_t)BQ * pitch_h(BK) + 4 * 3 * (size_t)BQ;
+// two neighbouring outputs of row `row` (columns col, col + 1) of a [*, d] matrix
+__device__ __forceinline__ void store2(bf16* out, size_t row, int col, int d, float x, float y) {
+  bf16* p = out + row * d + col;
+  if (col + 1 < d) {
+    if ((d & 1) == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+    } else {
+      p[0] = __float2bfloat16(x);
+      p[1] = __float2bfloat16(y);
+    }
+  } else if (col < d) {
+    p[0] = __float2bfloat16(x);
+  }
 }
-
-size_t dkdv_smem(int BK, int BQ, int Dp) {
-  return 2 * 2 * (size_t)BK * pitch_h(Dp) + 2 * 4 * (size_t)BK * pitch_f(Dp) +
-         2 * 2 * (size_t)BQ * pitch_h(Dp) + 2 * 4 * (size_t)BQ * pitch_f(BK) +
-         2 * 2 * (size_t)BQ * pitch_h(BK) + 2 * 4 * (size_t)BQ;
-}
-
-size_t dq_smem(int BQ, int BK, int Dp) {
-  return 2 * 2 * (size_t)BQ * pitch_h(Dp) + 4 * (size_t)BQ * pitch_f(Dp) +
-         2 * 2 * (size_t)BK * pitch_h(Dp) + 2 * 4 * (size_t)BQ * pitch_f(BK) +
-         2 * (size_t)BQ * pitch_h(BK) + 2 * 4 * (size_t)BQ;
-}
-
-// the first configuration whose shared memory fits, or -1
-int pick(size_t (*smem)(int, int, int), int Dp) {
-  for (int i = 0; i < NCFG; ++i)
-    if (smem(CFG_ROWS[i], CFG_INNER[i], Dp) <= (size_t)SMEM_LIMIT) return i;
-  return -1;
+__device__ __forceinline__ void store2(float* out, size_t row, int col, int d, float x, float y) {
+  float* p = out + row * d + col;
+  if (col + 1 < d) {
+    if ((d & 1) == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(x, y);
+    } else {
+      p[0] = x;
+      p[1] = y;
+    }
+  } else if (col < d) {
+    p[0] = x;
+  }
 }
 
 // ---------------------------------------------------------------------------
-// forward: one block per (BQ query rows, slice)
+// forward: one block of two warpgroups per (query tile, slice). S = Q K^T by
+// wgmma from shared memory; P V by wgmma with P from the registers, in
+// chunks N0 + N1 of a warpgroup's columns (a wgmma is at most 256 wide: 160
+// + 128 for 288 columns). With DSPLIT 1 the warpgroups take 64 query rows
+// each and all of d; with DSPLIT 2 (d 576) both take the same 64 rows, each
+// half of d, and each computes the rows' scores itself (the same
+// instructions on the same data, so the same P)
 // ---------------------------------------------------------------------------
-template <int BQ, int BK>
-__global__ void __launch_bounds__(THREADS)
+template <int DP, int BK, int DSPLIT, int N0, int N1>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int nq, int nk, int d, int Dp,
-                 float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldh = pitch_h(Dp), ldf = pitch_f(Dp), lds = pitch_f(BK), ldp = pitch_h(BK);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * ldh;
-  bf16* sV = sK + BK * ldh;
-  float* sO = reinterpret_cast<float*>(sV + BK * ldh);
-  float* sS = sO + BQ * ldf;
-  bf16* sP = reinterpret_cast<bf16*>(sS + BQ * lds);
-  float* sM = reinterpret_cast<float*>(sP + BQ * ldp);
-  float* sL = sM + BQ;
-  float* sA = sL + BQ;
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int nq, int nk, int d, float scale_log2) {
+  constexpr int AT = ceil_div(DP, 32);  // 32-column atoms
+  constexpr int BQ = 128 / DSPLIT;      // query rows of the block
+  constexpr int NT = BK / 8;            // key n-tiles of S
+  constexpr int T0 = N0 / 8, T1 = N1 > 0 ? N1 / 8 : 1;
+  // a warpgroup's columns and its second chunk start on whole atoms
+  static_assert((N1 == 0 || N0 % 32 == 0) && N0 <= 256 && N1 <= 256 &&
+                    (N0 + N1) * DSPLIT == DP && (DSPLIT == 1 || (DP / DSPLIT) % 32 == 0),
+                "chunks");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + AT * BQ * 64;  // [2][AT][BK][64 B]
+  unsigned char* sV = sK + 2 * AT * BK * 64;
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;                      // this warp's warpgroup
+  const int rows0 = DSPLIT == 1 ? 64 * wg : 0;  // its rows of the tile
+  const int col0 = DSPLIT == 1 ? 0 : wg * (DP / 2);  // and its first column
   const size_t bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bf16* kb = k + bh * nk * d;
   const bf16* vb = v + bh * nk * d;
 
-  load_tile(sQ, ldh, q + bh * nq * d, q0, BQ, nq, d, Dp);
-  for (int i = threadIdx.x; i < BQ * ldf; i += THREADS) sO[i] = 0.0f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    sM[i] = -INFINITY;
-    sL[i] = 0.0f;
-  }
+  load_rows_sw<DP>(sQ, q + bh * nq * d, q0, BQ, nq, d);
+  load_rows_sw<DP>(sK, kb, 0, BK, nk, d);
+  load_rows_sw<DP>(sV, vb, 0, BK, nk, d);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    __syncthreads();  // the previous tile's sK, sV and sP are free
-    load_tile(sK, ldh, kb, k0, BK, nk, d, Dp);
-    load_tile(sV, ldh, vb, k0, BK, nk, d, Dp);
-    __syncthreads();
-    mma_tiles<false, true, false>(sS, lds, sQ, ldh, sK, ldh, BQ, BK, Dp);  // S = Q K^T
-    __syncthreads();
-    for (int r = warp; r < BQ; r += WARPS) {  // online softmax, one warp a row
-      float mx = -INFINITY;
-      for (int c = lane; c < BK; c += 32) {
-        const float s = (k0 + c < nk) ? sS[r * lds + c] * scale_log2 : -INFINITY;
-        sS[r * lds + c] = s;
-        mx = fmaxf(mx, s);
-      }
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(mx));  // finite: column k0 is a key
-      float sum = 0.0f;
-      for (int c = lane; c < BK; c += 32) {
-        const float p = exp2f(sS[r * lds + c] - m_new);
-        sP[r * ldp + c] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = exp2f(m_old - m_new);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-      }
+  const bool active = q0 + rows0 < nq;  // the same for the whole warpgroup
+  const uint32_t qa = smem_addr(sQ) + rows0 * 64;
+  float acc0[T0][4], acc1[T1][4];
+  zero(acc0);
+  zero(acc1);
+  // running max and sum of rows lane/4 and lane/4 + 8 of this warp's 16
+  float m[2] = {-3.402823466e38f, -3.402823466e38f}, l[2] = {0.0f, 0.0f};
+  const int ntiles = ceil_div(nk, BK);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < ntiles) {
+      load_rows_sw<DP>(sK + (st ^ 1) * AT * BK * 64, kb, (j + 1) * BK, BK, nk, d);
+      load_rows_sw<DP>(sV + (st ^ 1) * AT * BK * 64, vb, (j + 1) * BK, BK, nk, d);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    fence_async_shared();
     __syncthreads();
-    for (int i = threadIdx.x; i < BQ * Dp; i += THREADS) {
-      const int r = i / Dp;
-      sO[r * ldf + (i - r * Dp)] *= sA[r];
+    if (active) {
+      const uint32_t ka = smem_addr(sK + st * AT * BK * 64);
+      const uint32_t va = smem_addr(sV + st * AT * BK * 64);
+      float s[NT][4];
+      zero(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks)  // S = Q K^T
+        wgmma_ss(s, wgmma_desc(qa + (ks >> 1) * BQ * 64 + (ks & 1) * 32, 16),
+                 wgmma_desc(ka + (ks >> 1) * BK * 64 + (ks & 1) * 32, 16), ks > 0);
+      wgmma_commit();
+      wgmma_wait();
+      const int k0 = j * BK;
+      if (k0 + BK > nk) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + n * 8 + 2 * (lane & 3) + (e & 1) >= nk) s[n][e] = -INFINITY;
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float alpha[2], neg[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = quad_max(mx[i]);
+        alpha[i] = ex2((m[i] - mx[i]) * scale_log2);
+        m[i] = mx[i];
+        l[i] *= alpha[i];
+        neg[i] = -mx[i] * scale_log2;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[n][e], scale_log2, neg[e >> 1]));
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+      if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+        for (int n = 0; n < T0; ++n) {
+          acc0[n][0] *= alpha[0];
+          acc0[n][1] *= alpha[0];
+          acc0[n][2] *= alpha[1];
+          acc0[n][3] *= alpha[1];
+        }
+        if constexpr (N1 > 0) {
+#pragma unroll
+          for (int n = 0; n < T1; ++n) {
+            acc1[n][0] *= alpha[0];
+            acc1[n][1] *= alpha[0];
+            acc1[n][2] *= alpha[1];
+            acc1[n][3] *= alpha[1];
+          }
+        }
+      }
+      uint32_t a[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(a[kk], s, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {  // O += P V
+        const uint32_t vk = va + (col0 / 32) * BK * 64 + kk * 16 * 64;
+        wgmma_rs(acc0, a[kk], wgmma_desc(vk, BK * 64));
+        if constexpr (N1 > 0) wgmma_rs(acc1, a[kk], wgmma_desc(vk + (N0 / 32) * BK * 64, BK * 64));
+      }
+      wgmma_commit();
+      wgmma_wait();
     }
-    __syncthreads();
-    mma_tiles<false, false, true>(sO, ldf, sP, ldp, sV, ldh, BQ, Dp, BK);  // O += P V
+    __syncthreads();  // this stage is free for the tile after next
   }
-  __syncthreads();
+  if (!active) return;
   bf16* ob = o + bh * nq * d;
-  for (int i = threadIdx.x; i < BQ * d; i += THREADS) {
-    const int r = i / d;
-    const int c = i - r * d;
-    if (q0 + r < nq) ob[(size_t)(q0 + r) * d + c] = __float2bfloat16(sO[r * ldf + c] / sL[r]);
+  const int r0 = q0 + rows0 + 16 * (warp % 4) + lane / 4;  // rows r0, r0 + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    const float sum = quad_sum(l[i]);
+    if (row >= nq) continue;
+    const float inv = 1.0f / sum;
+#pragma unroll
+    for (int n = 0; n < T0; ++n)
+      store2(ob, row, col0 + n * 8 + 2 * (lane & 3), d, acc0[n][2 * i] * inv,
+             acc0[n][2 * i + 1] * inv);
+    if constexpr (N1 > 0) {
+#pragma unroll
+      for (int n = 0; n < T1; ++n)
+        store2(ob, row, col0 + N0 + n * 8 + 2 * (lane & 3), d, acc1[n][2 * i] * inv,
+               acc1[n][2 * i + 1] * inv);
+    }
+    if (col0 == 0 && (lane & 3) == 0) lse[bh * nq + row] = m[i] * scale_log2 + log2f(sum);
   }
-  for (int r = threadIdx.x; r < BQ; r += THREADS)
-    if (q0 + r < nq) lse[bh * nq + q0 + r] = sM[r] + log2f(sL[r]);
 }
 
 // ---------------------------------------------------------------------------
@@ -254,235 +751,439 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 // D = rowsum(dO o O), one warp a row
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_bwd_pre_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                      float* __restrict__ delta, int rows, int d) {
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
+  const int row = blockIdx.x * MAX_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const bf16* orow = o + (size_t)row * d;
   const bf16* grow = dout + (size_t)row * d;
   float s = 0.0f;
   for (int c = lane; c < d; c += 32) s += __bfloat162float(orow[c]) * __bfloat162float(grow[c]);
-  s = warp_sum(s);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
 }
 
-// P (and dS when dp is given) of one [BQ, BK] tile from S and dP in place:
-// p = exp2(S * scale_log2 - lse), zero outside the nq x nk grid.
-template <int BQ, int BK>
-__device__ inline void probs(const float* sS, const float* sdP, int lds, bf16* sP,
-                             bf16* sdS, int ldp, const float* sLse, const float* sD,
-                             int q0, int k0, int nq, int nk, float scale_log2) {
-  for (int i = threadIdx.x; i < BQ * BK; i += THREADS) {
-    const int r = i / BK;
-    const int c = i - r * BK;
-    const bool valid = (q0 + r < nq) && (k0 + c < nk);
-    const float p = valid ? exp2f(sS[r * lds + c] * scale_log2 - sLse[r]) : 0.0f;
-    if (sP != nullptr) sP[r * ldp + c] = __float2bfloat16(p);
-    sdS[r * ldp + c] = __float2bfloat16(p * (sdP[r * lds + c] - sD[r]));
-  }
-}
-
-// dK, dV: one block per (BK key rows, slice), looping over the query tiles
-template <int BK, int BQ>
-__global__ void __launch_bounds__(THREADS)
+// dK, dV: one block per (BKV keys, slice, split), walking the split's query
+// tiles; 8 warps as (BKV / 16 key groups) x WC
+template <int DP, int BKV, int BQ, int WC>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk,
-                      int d, int Dp, float scale, float scale_log2) {
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part_k,
+                      float* __restrict__ part_v, int nq, int nk, int d, float scale,
+                      float scale_log2) {
+  constexpr int LD = pitch(DP), LP = pitch(BQ);
+  constexpr int QW = BQ / WC, QNT = QW / 8;  // S^T, dP^T: query columns of a warp
+  constexpr int DW = DP / WC, DNT = DW / 8;  // dK, dV: columns of a warp
+  static_assert((BKV / 16) * WC == MAX_WARPS, "8 warps a block");
+  static_assert(QW % 8 == 0 && DW % 8 == 0, "whole n-tiles");
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldh = pitch_h(Dp), ldf = pitch_f(Dp), lds = pitch_f(BK), ldp = pitch_h(BK);
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BK * ldh;
-  float* sdK = reinterpret_cast<float*>(sV + BK * ldh);
-  float* sdV = sdK + BK * ldf;
-  bf16* sQ = reinterpret_cast<bf16*>(sdV + BK * ldf);
-  bf16* sdO = sQ + BQ * ldh;
-  float* sS = reinterpret_cast<float*>(sdO + BQ * ldh);
-  float* sdP = sS + BQ * lds;
-  bf16* sP = reinterpret_cast<bf16*>(sdP + BQ * lds);
-  bf16* sdS = sP + BQ * ldp;
-  float* sLse = reinterpret_cast<float*>(sdS + BQ * ldp);
-  float* sD = sLse + BQ;
+  bf16* sV = sK + BKV * LD;
+  bf16* sQ = sV + BKV * LD;         // [2][BQ][LD]
+  bf16* sdO = sQ + 2 * BQ * LD;     // [2][BQ][LD]
+  bf16* sPt = sdO + 2 * BQ * LD;    // [BKV][LP]
+  bf16* sdSt = sPt + BKV * LP;      // [BKV][LP]
+  float* sL = reinterpret_cast<float*>(sdSt + BKV * LP);  // [2][BQ]
+  float* sD = sL + 2 * BQ;                                // [2][BQ]
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp / WC, cg = warp % WC;
   const size_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * BKV;
+  const int splits = gridDim.z, z = blockIdx.z;
+  const int ntq = ceil_div(nq, BQ);
+  const int t_begin = (int)((long long)z * ntq / splits);
+  const int t_end = (int)((long long)(z + 1) * ntq / splits);
   const bf16* qb = q + bh * nq * d;
   const bf16* gb = dout + bh * nq * d;
   const float* lb = lse + bh * nq;
   const float* db = delta + bh * nq;
 
-  load_tile(sK, ldh, k + bh * nk * d, k0, BK, nk, d, Dp);
-  load_tile(sV, ldh, v + bh * nk * d, k0, BK, nk, d, Dp);
-  for (int i = threadIdx.x; i < BK * ldf; i += THREADS) {
-    sdK[i] = 0.0f;
-    sdV[i] = 0.0f;
-  }
-  for (int q0 = 0; q0 < nq; q0 += BQ) {
-    __syncthreads();
-    load_tile(sQ, ldh, qb, q0, BQ, nq, d, Dp);
-    load_tile(sdO, ldh, gb, q0, BQ, nq, d, Dp);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      sLse[r] = q0 + r < nq ? lb[q0 + r] : 0.0f;
-      sD[r] = q0 + r < nq ? db[q0 + r] : 0.0f;
+  auto load_q_tile = [&](int t, int st) {
+    load_rows<DP>(sQ + st * BQ * LD, qb, t * BQ, BQ, nq, d);
+    load_rows<DP>(sdO + st * BQ * LD, gb, t * BQ, BQ, nq, d);
+    for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
+      const int row = t * BQ + i;
+      sL[st * BQ + i] = row < nq ? lb[row] : 0.0f;
+      sD[st * BQ + i] = row < nq ? db[row] : 0.0f;
+    }
+  };
+  load_rows<DP>(sK, k + bh * nk * d, k0, BKV, nk, d);
+  load_rows<DP>(sV, v + bh * nk * d, k0, BKV, nk, d);
+  load_q_tile(t_begin, 0);
+  cp_async_commit();
+
+  const bool active = k0 + rg * 16 < nk;
+  float dka[DNT][4], dva[DNT][4];
+  zero(dka);
+  zero(dva);
+  const int kr0 = k0 + rg * 16 + lane / 4;  // this lane's keys: kr0, kr0 + 8
+  for (int t = t_begin; t < t_end; ++t) {
+    const int st = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      load_q_tile(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    mma_tiles<false, true, false>(sS, lds, sQ, ldh, sK, ldh, BQ, BK, Dp);    // S = Q K^T
-    mma_tiles<false, true, false>(sdP, lds, sdO, ldh, sV, ldh, BQ, BK, Dp);  // dP = dO V^T
+    const bf16* tQ = sQ + st * BQ * LD;
+    const bf16* tdO = sdO + st * BQ * LD;
+    const float* tL = sL + st * BQ;
+    const float* tD = sD + st * BQ;
+    if (active) {  // S^T = K Q^T and dP^T = V dO^T for 16 keys x QW queries
+      float s[QNT][4], dp[QNT][4];
+      zero(s);
+      zero(dp);
+#pragma unroll 2
+      for (int kk = 0; kk < DP; kk += 16) {
+        uint32_t a[4];
+        load_a(a, sK, LD, rg * 16, kk, lane);
+        mma_bt<QNT>(s, a, tQ, LD, cg * QW, kk, lane);
+        load_a(a, sV, LD, rg * 16, kk, lane);
+        mma_bt<QNT>(dp, a, tdO, LD, cg * QW, kk, lane);
+      }
+      const bool edge = t * BQ + BQ > nq || k0 + rg * 16 + 16 > nk;
+#pragma unroll
+      for (int n = 0; n < QNT; ++n) {
+        const int c = cg * QW + n * 8 + 2 * (lane & 3);  // query column in the tile
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cc = c + (e & 1);
+          float p = ex2(fmaf(s[n][e], scale_log2, -tL[cc]));
+          if (edge && (t * BQ + cc >= nq || kr0 + 8 * (e >> 1) >= nk)) p = 0.0f;
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - tD[cc]);
+        }
+        const int r = rg * 16 + lane / 4;
+        *reinterpret_cast<uint32_t*>(sPt + r * LP + c) = pack_bf16(s[n][0], s[n][1]);
+        *reinterpret_cast<uint32_t*>(sPt + (r + 8) * LP + c) = pack_bf16(s[n][2], s[n][3]);
+        *reinterpret_cast<uint32_t*>(sdSt + r * LP + c) = pack_bf16(dp[n][0], dp[n][1]);
+        *reinterpret_cast<uint32_t*>(sdSt + (r + 8) * LP + c) = pack_bf16(dp[n][2], dp[n][3]);
+      }
+    }
     __syncthreads();
-    probs<BQ, BK>(sS, sdP, lds, sP, sdS, ldp, sLse, sD, q0, k0, nq, nk, scale_log2);
-    __syncthreads();
-    mma_tiles<true, false, true>(sdV, ldf, sP, ldp, sdO, ldh, BK, Dp, BQ);  // dV += P^T dO
-    mma_tiles<true, false, true>(sdK, ldf, sdS, ldp, sQ, ldh, BK, Dp, BQ);  // dK += dS^T Q
+    if (active) {  // dV += P^T dO, dK += dS^T Q for 16 keys x DW columns
+#pragma unroll 2
+      for (int kk = 0; kk < BQ; kk += 16) {
+        uint32_t a[4];
+        load_a(a, sPt, LP, rg * 16, kk, lane);
+        mma_b<DNT>(dva, a, tdO, LD, kk, cg * DW, lane);
+        load_a(a, sdSt, LP, rg * 16, kk, lane);
+        mma_b<DNT>(dka, a, tQ, LD, kk, cg * DW, lane);
+      }
+    }
+    __syncthreads();  // this stage and sPt, sdSt are free
   }
-  __syncthreads();
-  bf16* dkb = dk + bh * nk * d;
-  bf16* dvb = dv + bh * nk * d;
-  for (int i = threadIdx.x; i < BK * d; i += THREADS) {
-    const int r = i / d;
-    const int c = i - r * d;
-    if (k0 + r < nk) {
-      dkb[(size_t)(k0 + r) * d + c] = __float2bfloat16(sdK[r * ldf + c] * scale);
-      dvb[(size_t)(k0 + r) * d + c] = __float2bfloat16(sdV[r * ldf + c]);
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = kr0 + 8 * i;
+    if (key >= nk) continue;
+#pragma unroll
+    for (int n = 0; n < DNT; ++n) {
+      const int col = cg * DW + n * 8 + 2 * (lane & 3);
+      if (splits == 1) {
+        store2(dk, bh * nk + key, col, d, dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
+        store2(dv, bh * nk + key, col, d, dva[n][2 * i], dva[n][2 * i + 1]);
+      } else {
+        const size_t row = ((size_t)z * gridDim.y + bh) * nk + key;
+        store2(part_k, row, col, d, dka[n][2 * i], dka[n][2 * i + 1]);
+        store2(part_v, row, col, d, dva[n][2 * i], dva[n][2 * i + 1]);
+      }
     }
   }
 }
 
-// dQ: one block per (BQ query rows, slice), looping over the key tiles
-template <int BQ, int BK>
-__global__ void __launch_bounds__(THREADS)
+// dK = scale * sum_z part_k[z], dV = sum_z part_v[z], summed in split order
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+flash_bwd_reduce_kernel(const float* __restrict__ part_k, const float* __restrict__ part_v,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, size_t n, int splits,
+                        float scale) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float a = 0.0f, b = 0.0f;
+    for (int z = 0; z < splits; ++z) {
+      a += part_k[z * n + i];
+      b += part_v[z * n + i];
+    }
+    dk[i] = __float2bfloat16(a * scale);
+    dv[i] = __float2bfloat16(b);
+  }
+}
+
+// dQ: one block of two warpgroups per (query tile, slice), over the key
+// tiles, rows and columns as the forward's: S = Q K^T and dP = dO V^T by
+// wgmma from shared memory, dS on the registers, dQ += dS K by wgmma with dS
+// from the registers
+template <int DP, int BK, int DSPLIT, int N0, int N1>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int nq, int nk, int d, int Dp, float scale,
+                    bf16* __restrict__ dq, int nq, int nk, int d, float scale,
                     float scale_log2) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldh = pitch_h(Dp), ldf = pitch_f(Dp), lds = pitch_f(BK), ldp = pitch_h(BK);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BQ * ldh;
-  float* sdQ = reinterpret_cast<float*>(sdO + BQ * ldh);
-  bf16* sK = reinterpret_cast<bf16*>(sdQ + BQ * ldf);
-  bf16* sV = sK + BK * ldh;
-  float* sS = reinterpret_cast<float*>(sV + BK * ldh);
-  float* sdP = sS + BQ * lds;
-  bf16* sdS = reinterpret_cast<bf16*>(sdP + BQ * lds);
-  float* sLse = reinterpret_cast<float*>(sdS + BQ * ldp);
-  float* sD = sLse + BQ;
+  constexpr int AT = ceil_div(DP, 32);
+  constexpr int BQ = 128 / DSPLIT;
+  constexpr int NT = BK / 8;
+  constexpr int T0 = N0 / 8, T1 = N1 > 0 ? N1 / 8 : 1;
+  static_assert((N1 == 0 || N0 % 32 == 0) && N0 <= 256 && N1 <= 256 &&
+                    (N0 + N1) * DSPLIT == DP && (DSPLIT == 1 || (DP / DSPLIT) % 32 == 0),
+                "chunks");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sdO = sQ + AT * BQ * 64;
+  unsigned char* sK = sdO + AT * BQ * 64;  // [2][AT][BK][64 B]
+  unsigned char* sV = sK + 2 * AT * BK * 64;
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4;
+  const int rows0 = DSPLIT == 1 ? 64 * wg : 0;
+  const int col0 = DSPLIT == 1 ? 0 : wg * (DP / 2);
   const size_t bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const bf16* kb = k + bh * nk * d;
   const bf16* vb = v + bh * nk * d;
 
-  load_tile(sQ, ldh, q + bh * nq * d, q0, BQ, nq, d, Dp);
-  load_tile(sdO, ldh, dout + bh * nq * d, q0, BQ, nq, d, Dp);
-  for (int i = threadIdx.x; i < BQ * ldf; i += THREADS) sdQ[i] = 0.0f;
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    sLse[r] = q0 + r < nq ? lse[bh * nq + q0 + r] : 0.0f;
-    sD[r] = q0 + r < nq ? delta[bh * nq + q0 + r] : 0.0f;
+  load_rows_sw<DP>(sQ, q + bh * nq * d, q0, BQ, nq, d);
+  load_rows_sw<DP>(sdO, dout + bh * nq * d, q0, BQ, nq, d);
+  load_rows_sw<DP>(sK, kb, 0, BK, nk, d);
+  load_rows_sw<DP>(sV, vb, 0, BK, nk, d);
+  cp_async_commit();
+
+  const bool active = q0 + rows0 < nq;
+  const uint32_t qa = smem_addr(sQ) + rows0 * 64, ga = smem_addr(sdO) + rows0 * 64;
+  const int r0 = q0 + rows0 + 16 * (warp % 4) + lane / 4;  // rows r0, r0 + 8
+  float rl[2], rd[2];  // their lse and D
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    rl[i] = row < nq ? lse[bh * nq + row] : 0.0f;
+    rd[i] = row < nq ? delta[bh * nq + row] : 0.0f;
   }
-  for (int k0 = 0; k0 < nk; k0 += BK) {
+  float acc0[T0][4], acc1[T1][4];
+  zero(acc0);
+  zero(acc1);
+  const int ntiles = ceil_div(nk, BK);
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < ntiles) {
+      load_rows_sw<DP>(sK + (st ^ 1) * AT * BK * 64, kb, (j + 1) * BK, BK, nk, d);
+      load_rows_sw<DP>(sV + (st ^ 1) * AT * BK * 64, vb, (j + 1) * BK, BK, nk, d);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
     __syncthreads();
-    load_tile(sK, ldh, kb, k0, BK, nk, d, Dp);
-    load_tile(sV, ldh, vb, k0, BK, nk, d, Dp);
+    if (active) {
+      const uint32_t ka = smem_addr(sK + st * AT * BK * 64);
+      const uint32_t va = smem_addr(sV + st * AT * BK * 64);
+      float s[NT][4], dp[NT][4];
+      zero(s);
+      zero(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {  // S = Q K^T, dP = dO V^T
+        const uint32_t off = (ks >> 1) * BQ * 64 + (ks & 1) * 32;
+        const uint32_t koff = (ks >> 1) * BK * 64 + (ks & 1) * 32;
+        wgmma_ss(s, wgmma_desc(qa + off, 16), wgmma_desc(ka + koff, 16), ks > 0);
+        wgmma_ss(dp, wgmma_desc(ga + off, 16), wgmma_desc(va + koff, 16), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      const int k0 = j * BK;
+      const bool edge = k0 + BK > nk;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(s[n][e], scale_log2, -rl[e >> 1]));
+          if (edge && k0 + n * 8 + 2 * (lane & 3) + (e & 1) >= nk) p = 0.0f;
+          dp[n][e] = p * (dp[n][e] - rd[e >> 1]);  // dS
+        }
+      }
+      uint32_t a[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(a[kk], dp, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {  // dQ += dS K
+        const uint32_t kk_addr = ka + (col0 / 32) * BK * 64 + kk * 16 * 64;
+        wgmma_rs(acc0, a[kk], wgmma_desc(kk_addr, BK * 64));
+        if constexpr (N1 > 0)
+          wgmma_rs(acc1, a[kk], wgmma_desc(kk_addr + (N0 / 32) * BK * 64, BK * 64));
+      }
+      wgmma_commit();
+      wgmma_wait();
+    }
     __syncthreads();
-    mma_tiles<false, true, false>(sS, lds, sQ, ldh, sK, ldh, BQ, BK, Dp);    // S = Q K^T
-    mma_tiles<false, true, false>(sdP, lds, sdO, ldh, sV, ldh, BQ, BK, Dp);  // dP = dO V^T
-    __syncthreads();
-    probs<BQ, BK>(sS, sdP, lds, nullptr, sdS, ldp, sLse, sD, q0, k0, nq, nk, scale_log2);
-    __syncthreads();
-    mma_tiles<false, false, true>(sdQ, ldf, sdS, ldp, sK, ldh, BQ, Dp, BK);  // dQ += dS K
   }
-  __syncthreads();
+  if (!active) return;
   bf16* dqb = dq + bh * nq * d;
-  for (int i = threadIdx.x; i < BQ * d; i += THREADS) {
-    const int r = i / d;
-    const int c = i - r * d;
-    if (q0 + r < nq) dqb[(size_t)(q0 + r) * d + c] = __float2bfloat16(sdQ[r * ldf + c] * scale);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= nq) continue;
+#pragma unroll
+    for (int n = 0; n < T0; ++n)
+      store2(dqb, row, col0 + n * 8 + 2 * (lane & 3), d, acc0[n][2 * i] * scale,
+             acc0[n][2 * i + 1] * scale);
+    if constexpr (N1 > 0) {
+#pragma unroll
+      for (int n = 0; n < T1; ++n)
+        store2(dqb, row, col0 + N0 + n * 8 + 2 * (lane & 3), d, acc1[n][2 * i] * scale,
+               acc1[n][2 * i + 1] * scale);
+    }
   }
 }
 
-// launch kernel<CFG_ROWS[cfg], CFG_INNER[cfg]> with its dynamic shared memory
-#define FLASH_DISPATCH(cfg, KERNEL, SMEM, GRID_X, ...)                               \
-  do {                                                                               \
-    switch (cfg) {                                                                   \
-      case 0: FLASH_LAUNCH(KERNEL, 64, 64, SMEM, GRID_X, __VA_ARGS__); break;        \
-      case 1: FLASH_LAUNCH(KERNEL, 32, 64, SMEM, GRID_X, __VA_ARGS__); break;        \
-      case 2: FLASH_LAUNCH(KERNEL, 32, 32, SMEM, GRID_X, __VA_ARGS__); break;        \
-      case 3: FLASH_LAUNCH(KERNEL, 16, 32, SMEM, GRID_X, __VA_ARGS__); break;        \
-      default: FLASH_LAUNCH(KERNEL, 16, 16, SMEM, GRID_X, __VA_ARGS__); break;       \
-    }                                                                                \
-  } while (0)
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 
-#define FLASH_LAUNCH(KERNEL, R, I, SMEM, GRID_X, ...)                                \
-  do {                                                                               \
-    const size_t bytes = SMEM(R, I, Dp);                                             \
-    cudaFuncSetAttribute(KERNEL<R, I>, cudaFuncAttributeMaxDynamicSharedMemorySize,  \
-                         (int)bytes);                                                \
-    KERNEL<R, I><<<dim3(ceil_div(GRID_X, R), bh), THREADS, bytes, st>>>(__VA_ARGS__); \
-  } while (0)
+template <int DP>
+int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int bh, int nq,
+               int nk, int d, float scale_log2, cudaStream_t st) {
+  typedef Tiles<DP> T;
+  typedef Chunks<DP, T::SPLIT> C;
+  const int bq = 128 / T::SPLIT;
+  const size_t bytes = fwd_smem(DP, bq, T::FWD_BK);
+  auto kernel = flash_fwd_kernel<DP, T::FWD_BK, T::SPLIT, C::N0, C::N1>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  kernel<<<dim3(ceil_div(nq, bq), bh), MAX_WARPS * 32, bytes, st>>>(q, k, v, o, lse, nq, nk, d,
+                                                                    scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+               const float* delta, bf16* dq, bf16* dk, bf16* dv, float* part_k, float* part_v,
+               int bh, int nq, int nk, int d, float scale, float scale_log2, int splits,
+               cudaStream_t st) {
+  typedef Tiles<DP> T;
+  typedef Chunks<DP, T::SPLIT> C;
+  if (splits < 1 || splits > ceil_div(nq, T::KV_BQ) || (splits > 1 && (!part_k || !part_v)))
+    return (int)cudaErrorInvalidValue;
+  const size_t kv_bytes = dkdv_smem(DP, T::KV_ROWS, T::KV_BQ);
+  auto kv_kernel = flash_bwd_dkdv_kernel<DP, T::KV_ROWS, T::KV_BQ, T::KV_WC>;
+  cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_bytes);
+  kv_kernel<<<dim3(ceil_div(nk, T::KV_ROWS), bh, splits), MAX_WARPS * 32, kv_bytes, st>>>(
+      q, k, v, dout, lse, delta, dk, dv, part_k, part_v, nq, nk, d, scale, scale_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (splits > 1) {
+    const size_t n = (size_t)bh * nk * d;
+    const int blocks = (int)(n / 256 + 1 < 132 * 8 ? n / 256 + 1 : 132 * 8);
+    flash_bwd_reduce_kernel<<<blocks, 256, 0, st>>>(part_k, part_v, dk, dv, n, splits, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int bq = 128 / T::SPLIT;
+  const size_t q_bytes = dq_smem(DP, bq, T::DQ_BK);
+  auto q_kernel = flash_bwd_dq_kernel<DP, T::DQ_BK, T::SPLIT, C::N0, C::N1>;
+  cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_bytes);
+  q_kernel<<<dim3(ceil_div(nq, bq), bh), MAX_WARPS * 32, q_bytes, st>>>(
+      q, k, v, dout, lse, delta, dq, nq, nk, d, scale, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+void tiles_of(int* out) {
+  typedef Tiles<DP> T;
+  const int vals[6] = {T::FWD_BK, T::SPLIT, T::DQ_BK, T::KV_ROWS, T::KV_BQ, T::KV_WC};
+  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+}
+
+// call FN<DP>(args) for the template width dp; -1 if there is none
+#define FLASH_BY_DP(dp, FN, ...)                 \
+  switch (dp) {                                  \
+    case 64: return FN<64>(__VA_ARGS__);         \
+    case 80: return FN<80>(__VA_ARGS__);         \
+    case 144: return FN<144>(__VA_ARGS__);       \
+    case 192: return FN<192>(__VA_ARGS__);       \
+    case 288: return FN<288>(__VA_ARGS__);       \
+    case 576: return FN<576>(__VA_ARGS__);       \
+    default: return -1;                          \
+  }
+
+template <int DP>
+int tiles_ret(int* out) {
+  tiles_of<DP>(out);
+  return 0;
+}
+
+// blocks of each kernel (8 warps) that one SM holds at once
+template <int DP>
+int occupancy(int* out) {
+  typedef Tiles<DP> T;
+  typedef Chunks<DP, T::SPLIT> C;
+  const size_t bytes[3] = {fwd_smem(DP, 128 / T::SPLIT, T::FWD_BK),
+                           dkdv_smem(DP, T::KV_ROWS, T::KV_BQ),
+                           dq_smem(DP, 128 / T::SPLIT, T::DQ_BK)};
+  auto fwd = flash_fwd_kernel<DP, T::FWD_BK, T::SPLIT, C::N0, C::N1>;
+  auto kv = flash_bwd_dkdv_kernel<DP, T::KV_ROWS, T::KV_BQ, T::KV_WC>;
+  auto dq = flash_bwd_dq_kernel<DP, T::DQ_BK, T::SPLIT, C::N0, C::N1>;
+  cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes[0]);
+  cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes[1]);
+  cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes[2]);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fwd, MAX_WARPS * 32, bytes[0]);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kv, MAX_WARPS * 32, bytes[1]);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], dq, MAX_WARPS * 32, bytes[2]);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// The tile configuration of each kernel for head dim d, as (rows, inner)
-// pairs: out[0..1] forward (BQ, BK), out[2..3] dK/dV (BK, BQ), out[4..5] dQ
-// (BQ, BK). Returns 0, or -1 when no configuration fits shared memory.
-int flash_tiles(int d, int* out) {
-  const int Dp = ceil_div(d, 16) * 16;
-  const int cfg[3] = {pick(fwd_smem, Dp), pick(dkdv_smem, Dp), pick(dq_smem, Dp)};
-  for (int i = 0; i < 3; ++i) {
-    if (cfg[i] < 0) return -1;
-    out[2 * i] = CFG_ROWS[cfg[i]];
-    out[2 * i + 1] = CFG_INNER[cfg[i]];
-  }
-  return 0;
-}
+// The tile widths compiled for template width dp: out[0..5] = forward BK,
+// DSPLIT (forward and dQ), dQ BK, dK/dV keys a block, queries a loop tile
+// and warps per 16 keys. Returns 0, or -1 for a width not compiled.
+int flash_tiles(int dp, int* out) { FLASH_BY_DP(dp, tiles_ret, out) }
+
+// Blocks an SM holds at once: out[0] forward, out[1] dK/dV, out[2] dQ, at
+// template width dp. Returns the CUDA error, or -1 for a width not compiled.
+int flash_occupancy(int dp, int* out) { FLASH_BY_DP(dp, occupancy, out) }
 
 // q [bh, nq, d], k and v [bh, nk, d] bf16, contiguous, 16-byte aligned when
-// d % 8 == 0 -> o [bh, nq, d] bf16, lse [bh, nq] float32 (base 2).
-int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-              int nq, int nk, int d, float scale, void* stream) {
-  const int Dp = ceil_div(d, 16) * 16;
-  const int cfg = pick(fwd_smem, Dp);
-  if (cfg < 0) return (int)cudaErrorInvalidValue;
+// d % 8 == 0 -> o [bh, nq, d] bf16, lse [bh, nq] float32 (base 2). dp is
+// the template width (the least compiled width >= d); scale >= 0.
+int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int nq,
+              int nk, int d, int dp, float scale, void* stream) {
+  if (d > dp || !(scale >= 0.0f)) return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
-  cudaStream_t st = (cudaStream_t)stream;
-  FLASH_DISPATCH(cfg, flash_fwd_kernel, fwd_smem, nq, (const bf16*)q, (const bf16*)k,
-                 (const bf16*)v, (bf16*)o, (float*)lse, nq, nk, d, Dp, scale_log2);
-  return (int)cudaGetLastError();
+  FLASH_BY_DP(dp, launch_fwd, (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
+              (float*)lse, bh, nq, nk, d, scale_log2, (cudaStream_t)stream)
 }
 
 // The gradients of flash_fwd: from q, k, v, its o and lse and the output
 // gradient dout (all as flash_fwd's) -> dq, dk, dv bf16 in q's, k's and v's
-// shapes, through delta [bh, nq] float32 scratch.
-int flash_bwd(const void* q, const void* k, const void* v, const void* o,
-              const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
-              int bh, int nq, int nk, int d, float scale, void* stream) {
-  const int Dp = ceil_div(d, 16) * 16;
-  const int cfg_kv = pick(dkdv_smem, Dp);
-  const int cfg_q = pick(dq_smem, Dp);
-  if (cfg_kv < 0 || cfg_q < 0) return (int)cudaErrorInvalidValue;
+// shapes, through delta [bh, nq] float32 scratch and, when splits > 1,
+// part_k and part_v [splits, bh, nk, d] float32 scratch; splits is the
+// dK/dV kernel's query-range splits.
+int flash_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const void* lse, void* delta, void* dq, void* dk, void* dv, void* part_k,
+              void* part_v, int bh, int nq, int nk, int d, int dp, float scale, int splits,
+              void* stream) {
+  if (d > dp) return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = bh * nq;
-  flash_bwd_pre_kernel<<<ceil_div(rows, WARPS), THREADS, 0, st>>>(
+  flash_bwd_pre_kernel<<<ceil_div(rows, MAX_WARPS), MAX_WARPS * 32, 0, st>>>(
       (const bf16*)o, (const bf16*)dout, (float*)delta, rows, d);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  FLASH_DISPATCH(cfg_kv, flash_bwd_dkdv_kernel, dkdv_smem, nk, (const bf16*)q,
-                 (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)lse,
-                 (const float*)delta, (bf16*)dk, (bf16*)dv, nq, nk, d, Dp, scale,
-                 scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  FLASH_DISPATCH(cfg_q, flash_bwd_dq_kernel, dq_smem, nq, (const bf16*)q, (const bf16*)k,
-                 (const bf16*)v, (const bf16*)dout, (const float*)lse, (const float*)delta,
-                 (bf16*)dq, nq, nk, d, Dp, scale, scale_log2);
-  return (int)cudaGetLastError();
+  FLASH_BY_DP(dp, launch_bwd, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+              (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dq, (bf16*)dk,
+              (bf16*)dv, (float*)part_k, (float*)part_v, bh, nq, nk, d, scale, scale_log2,
+              splits, st)
 }
 
 }  // extern "C"

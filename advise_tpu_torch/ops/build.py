@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -84,12 +85,39 @@ def build_all(sources=None, verbose: bool = False) -> Dict[str, Tuple[Path, floa
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}\n{proc.stderr}")
         if verbose:
             print(proc.stderr.strip())
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)  # ptxas -v's report
         os.replace(tmp, out)
         return out, seconds
 
     with ThreadPoolExecutor(len(todo)) as pool:  # each thread waits on its own nvcc
         done.update(zip(todo, pool.map(compile_one, todo)))
     return done
+
+
+def ptxas_usage(source: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of ``source``'s library (mangled name): the registers a
+    thread, the bytes of spill stores and loads, and the static shared
+    memory, from the ``-Xptxas -v`` report its build kept."""
+    log = library_path(source).with_suffix(".log")
+    usage: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$.]+)'?", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {"registers": 0, "spill_stores": 0, "spill_loads": 0, "smem": 0})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage[name]["spill_stores"], usage[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem"] = int(m.group(1)) if m else 0
+    return usage
 
 
 def load(source: str) -> ctypes.CDLL:

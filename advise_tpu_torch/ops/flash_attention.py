@@ -14,8 +14,12 @@ function's: q ``[b, h, nq, d]``, k and v ``[b, h, nk, d]``; the output is
   for a CUDA tensor (bf16 only; it raises on anything else) and runs its plain
   version (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`) for a CPU
   tensor. There is no fallback from a CUDA tensor. Each counts its launches
-  in ``.launches``: one per forward, one per backward (whose three kernels
-  run as one call).
+  in ``.launches``: one per forward, one per backward (whose kernels, D,
+  dK/dV, the split reduce where there are splits, and dQ, run as one call).
+- :func:`plan` is how the kernels run a shape: the template width, each
+  kernel's warps, grid and shared memory, and the dK/dV kernel's query-range
+  splits with their float32 scratch. It is plain arithmetic, so the CPU
+  tests read it.
 - :func:`flash_mha_plain` is the plain dense chain (float32 ``q * scale @
   k^T``, softmax, ``@ v``) that the kernels are held against on the card.
 
@@ -25,7 +29,10 @@ The forward saves the row log-sum-exp in base 2 (``lse = log2 sum_j
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import re
 from typing import Tuple
 
 import torch
@@ -34,6 +41,27 @@ from advise_tpu_torch.ops import build
 
 SOURCE = "flash_attention.cu"
 LOG2E = 1.4426950408889634
+SMS = 132  # streaming multiprocessors of an H100
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use
+MAX_WARPS = 8
+MAX_SPLITS = 16
+# the dK/dV split count's cost model: a block's sustained bf16 rate on one
+# SM (about a third of the 7.5 TFLOP/s peak of an SM) and the scratch's
+# memory rate
+SM_FLOPS = 2.5e12
+HBM_BYTES_PER_S = 3.0e12
+# tile widths per template width DP (csrc/flash_attention.cu Tiles<DP> holds
+# the same; the card tests compare them): forward and dQ (BK keys a loop
+# tile, DSPLIT warpgroups sharing 64 query rows, their columns split), dK/dV
+# (BKV keys a block, BQ queries a loop tile, WC warps sharing 16 keys)
+TILES = {
+    64: {"fwd": (64, 1), "dq": (64, 1), "dkdv": (128, 64, 1)},
+    80: {"fwd": (64, 1), "dq": (64, 1), "dkdv": (128, 64, 1)},
+    144: {"fwd": (64, 1), "dq": (64, 1), "dkdv": (64, 64, 2)},
+    192: {"fwd": (64, 1), "dq": (64, 1), "dkdv": (64, 64, 2)},
+    288: {"fwd": (64, 1), "dq": (32, 1), "dkdv": (64, 32, 2)},
+    576: {"fwd": (32, 2), "dq": (16, 2), "dkdv": (32, 32, 4)},
+}
 _lib = None
 
 
@@ -42,23 +70,110 @@ def _library():
     if _lib is None:
         lib = build.load(SOURCE)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [vp] * 5 + [ci] * 4 + [cf, vp]
+        lib.flash_fwd.argtypes = [vp] * 5 + [ci] * 5 + [cf, vp]
         lib.flash_fwd.restype = ci
-        lib.flash_bwd.argtypes = [vp] * 10 + [ci] * 4 + [cf, vp]
+        lib.flash_bwd.argtypes = [vp] * 12 + [ci] * 5 + [cf, ci, vp]
         lib.flash_bwd.restype = ci
         lib.flash_tiles.argtypes = [ci, ctypes.POINTER(ci)]
         lib.flash_tiles.restype = ci
+        lib.flash_occupancy.argtypes = [ci, ctypes.POINTER(ci)]
+        lib.flash_occupancy.restype = ci
         _lib = lib
     return _lib
 
 
-def tile_config(d: int) -> dict:
-    """The kernels' tiles at head dim ``d`` (built on first use): forward
-    (BQ, BK), dK/dV (BK, BQ) and dQ (BQ, BK)."""
+def compiled_tiles(dp: int) -> dict:
+    """The tile widths the built library holds for template width ``dp``, in
+    :data:`TILES`' form (builds the library on first use)."""
     out = (ctypes.c_int * 6)()
-    if _library().flash_tiles(int(d), out) != 0:
-        raise ValueError(f"flash attention: no tile configuration fits head dim {d}")
-    return {"fwd": (out[0], out[1]), "dkdv": (out[2], out[3]), "dq": (out[4], out[5])}
+    if _library().flash_tiles(int(dp), out) != 0:
+        raise ValueError(f"flash attention: no kernels compiled for width {dp}")
+    return {"fwd": (out[0], out[1]), "dq": (out[2], out[1]), "dkdv": tuple(out[3:6])}
+
+
+def occupancy(p: dict) -> dict:
+    """Blocks of each kernel of plan ``p`` that one SM holds at once, from
+    the CUDA occupancy calculator on the current card."""
+    out = (ctypes.c_int * 3)()
+    err = _library().flash_occupancy(p["dp"], out)
+    if err != 0:
+        raise RuntimeError(f"flash_occupancy failed: CUDA error {err}")
+    return {"fwd": out[0], "dkdv": out[1], "dq": out[2]}
+
+
+def kernel_usage() -> dict:
+    """{(kernel, template width or None): registers a thread, spill bytes
+    and static shared memory} of the built library, from ptxas -v."""
+    usage = {}
+    for name, u in build.ptxas_usage(SOURCE).items():
+        m = re.search(r"(flash_[a-z]+(?:_[a-z]+)*?_kernel)(?:ILi(\d+)E)?", name)
+        if m:
+            usage[(m.group(1), int(m.group(2)) if m.group(2) else None)] = u
+    return usage
+
+
+def padded_dim(d: int) -> int:
+    """The template width the kernels take head dim ``d`` at: the least
+    width of :data:`TILES` that holds it."""
+    for dp in sorted(TILES):
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash attention: head dim {d} is above the widest kernel ({max(TILES)})")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fwd_smem(dp: int, bq: int, bk: int) -> int:
+    # 32-column atoms of 64-byte rows, and 1 KB to align them
+    return 1024 + 64 * _cdiv(dp, 32) * (bq + 4 * bk)
+
+
+def dq_smem(dp: int, bq: int, bk: int) -> int:
+    return 1024 + 64 * _cdiv(dp, 32) * (2 * bq + 4 * bk)
+
+
+def dkdv_smem(dp: int, bkv: int, bq: int) -> int:
+    return 2 * (2 * bkv + 4 * bq) * (dp + 8) + 4 * bkv * (bq + 8) + 16 * bq
+
+
+def _splits(bh: int, nq: int, nk: int, d: int, dp: int) -> int:
+    """Query-range splits of the dK/dV kernel: the count (1 to 16, at most
+    one per query tile) whose waves of blocks plus the float32 partials'
+    write and read take the least time under the SM_FLOPS model."""
+    bkv, bq, _ = TILES[dp]["dkdv"]
+    base = bh * _cdiv(nk, bkv)
+    block_s = 8.0 * nq * bkv * dp / SM_FLOPS  # one block's whole query loop
+    best = None
+    for s in range(1, min(MAX_SPLITS, _cdiv(nq, bq)) + 1):
+        scratch_s = 0.0 if s == 1 else 2 * 2 * s * bh * nk * d * 4 / HBM_BYTES_PER_S
+        cost = _cdiv(base * s, SMS) * block_s / s + scratch_s
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(bh: int, nq: int, nk: int, d: int) -> dict:
+    """How the kernels run ``bh`` slices of (nq, nk, d): per kernel its tile
+    rows, warps, grid (x, y, z) and dynamic shared memory, the dK/dV splits
+    and the bytes of their float32 scratch. Pure arithmetic on the shapes."""
+    dp = padded_dim(d)
+    tiles = TILES[dp]
+    out = {"dp": dp}
+    for name, smem in (("fwd", fwd_smem), ("dq", dq_smem)):
+        bk, dsplit = tiles[name]  # two warpgroups of 64 rows, DSPLIT to a row
+        rows = 128 // dsplit
+        out[name] = {"rows": rows, "bk": bk, "dsplit": dsplit, "warps": MAX_WARPS,
+                     "grid": (_cdiv(nq, rows), bh, 1), "smem": smem(dp, rows, bk)}
+    bkv, bq, wc = tiles["dkdv"]
+    splits = _splits(bh, nq, nk, d, dp)
+    out["dkdv"] = {"rows": bkv, "bq": bq, "wc": wc, "warps": MAX_WARPS,
+                   "grid": (_cdiv(nk, bkv), bh, splits), "smem": dkdv_smem(dp, bkv, bq)}
+    out["splits"] = splits
+    out["scratch_bytes"] = 2 * splits * bh * nk * d * 4 if splits > 1 else 0
+    return out
 
 
 def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,6 +227,13 @@ def _device_kind(*xs: torch.Tensor) -> str:
     return kind
 
 
+def _current(device: torch.device):
+    """Make ``device`` the current card for a launch (a no-op when it is)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [b, h, nq, d] in v's dtype, lse [b, h, nq] float32 in base 2): the
@@ -127,12 +249,15 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v = _check("v", v, (b, h, nk, d))
     if nq == 0 or nk == 0:
         raise ValueError("flash attention: empty query or key set")
+    if scale < 0:  # the kernel takes scale >= 0: the same softmax of (-q) k^T |scale|
+        q, scale = -q, -scale
     o = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
+    p = plan(b * h, nq, nk, d)
+    with _current(q.device):
         err = _library().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b * h, nq, nk, d, float(scale), torch.cuda.current_stream().cuda_stream)
+            b * h, nq, nk, d, p["dp"], float(scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
     flash_mha_fwd.launches += 1
@@ -155,13 +280,20 @@ def flash_mha_bwd(q, k, v, o, lse, do, scale: float):
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, nq):
         raise ValueError(f"flash attention: lse must be float32 [b, h, nq], got {lse.dtype} {tuple(lse.shape)}")
     lse = lse.contiguous()
+    p = plan(b * h, nq, nk, d)
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
+    part = None
+    if p["splits"] > 1:  # float32 partial dK, dV of each query range
+        part = torch.empty((2, p["splits"], b * h, nk, d), dtype=torch.float32, device=q.device)
+    with _current(q.device):
         err = _library().flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, nq, nk, d, float(scale), torch.cuda.current_stream().cuda_stream)
+            None if part is None else part[0].data_ptr(),
+            None if part is None else part[1].data_ptr(),
+            b * h, nq, nk, d, p["dp"], float(scale), p["splits"],
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: CUDA error {err}")
     flash_mha_bwd.launches += 1

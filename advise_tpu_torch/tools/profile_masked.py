@@ -17,9 +17,10 @@ Without ``--variants`` it runs 2 warm-up steps, then:
    ``--steps`` steps): augmentation, forward + loss, backward, optimizer
    (grad norm, AdamW direction, update);
 2. ``torch.profiler`` over ``--steps`` whole steps: the device time by
-   kernel (the top 25, and the flash kernels' and the GEMMs' shares), and
-   the device busy share of the window (the union of kernel intervals over
-   the wall time).
+   kernel (the top 25, and each group's time a step with its share of the
+   summed kernel time and of the busy time), K4's device time a step by
+   kernel, and the device busy share of the window (the union of kernel
+   intervals over the wall time).
 
 With ``--variants`` (each a comma-separated list of KEY=VALUE config
 overrides, "" for the preset) it runs ``--steps`` steps of each variant from
@@ -40,6 +41,9 @@ import time
 from advise_tpu_torch.engine.meters import busy_ms
 
 CONFIG = "configs/pretrain/MViT_L_32x312_joint.yaml"
+# the kernels of csrc/flash_attention.cu, by name in the trace
+K4_KERNELS = ("flash_fwd_kernel", "flash_bwd_pre_kernel", "flash_bwd_dkdv_kernel",
+              "flash_bwd_reduce_kernel", "flash_bwd_dq_kernel")
 
 
 def _value(text: str):
@@ -181,12 +185,19 @@ def profile(n_steps: int) -> None:
     print(f"[profile] {n_steps} steps: wall {wall_ms} ms, kernels {len(kernels)}, device busy "
           f"{busy} ms ({100 * busy / wall_ms} % of the wall; idle {100 - 100 * busy / wall_ms} %), "
           f"summed kernel time {device_ms} ms (overlapping kernels count each)")
-    groups = {"flash attention (K4)": ("flash_",), "GEMMs": ("gemm", "Gemm", "cutlass", "sm90_xmma"),
+    groups = {"flash attention (K4)": K4_KERNELS, "GEMMs": ("gemm", "Gemm", "cutlass", "sm90_xmma"),
               "convolutions": ("conv", "Conv", "implicit"), "elementwise": ("elementwise", "Elementwise"),
               "reductions": ("reduce", "Reduce"), "layer norm": ("layer_norm", "LayerNorm")}
     for gname, keys in groups.items():
         ms = sum(v for kname, v in by_name.items() if any(key in kname for key in keys))
-        print(f"[profile] {gname}: {ms} ms ({100 * ms / device_ms} % of kernel time)")
+        # a group's kernels may overlap other work, so its share of the busy
+        # time is an upper bound on what removing it would save
+        print(f"[profile] {gname}: {ms} ms, {ms / n_steps} ms a step ({100 * ms / device_ms} % of "
+              f"summed kernel time, {100 * ms / busy} % of busy time)")
+    k4 = {kname: v for kname, v in by_name.items() if any(key in kname for key in K4_KERNELS)}
+    for kname, ms in sorted(k4.items(), key=lambda kv: -kv[1]):
+        print(f"[profile] K4 {ms / n_steps:10.3f} ms a step  {kname[:110]}")
+    print(f"[profile] K4 device time a step: {sum(k4.values()) / n_steps} ms ({len(k4)} kernels)")
     for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"[profile] {ms:10.3f} ms {100 * ms / device_ms:6.2f} %  {kname[:110]}")
 

@@ -14,8 +14,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and a ragged small shape, the fused aug at SpeedPro's shape (float32 and
    bf16 outputs, the preset's colour probability and p = 1) and a ragged
    one, flash attention forward and backward at every distinct attention
-   shape of MViT-L 32x312 (2 views) and a ragged one. Times are CUDA
-   events, median of 20 in the order plain, kernel, kernel, plain; beside
+   shape of MViT-L 32x312 (2 views) and a ragged one, each with its kernels'
+   grids, waves, registers and spills (ptxas -v of the build). Times are
+   CUDA events, median of 20 in the order plain, kernel, kernel, plain
+   (flash attention and its SDPA yardstick: each sample 10 calls back to
+   back, so a wrapper's host time overlaps the card's work); beside
    them the least time the card could take (bytes or operations over the
    card's peak rates) and, where one PyTorch call computes the same
    function, that call's time (flash attention: scaled_dot_product_attention
@@ -90,6 +93,8 @@ PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
                "flat_u8": 263}
 
+K4_REPS = 10  # flash attention and SDPA calls back to back in a timing sample
+
 # H100 SXM (NVIDIA's data sheet): device memory rate, dense bf16 tensor
 # cores, float32 on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
@@ -109,6 +114,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+
+
+def card_state() -> str:
+    """The card's SM clock now and at most, power draw and temperature: a
+    card held below its clock shows here, as its times will."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
 
 def one_card_cfg(tconfig, path):
@@ -301,7 +314,7 @@ def main() -> None:
     card = card_line()
     nvcc_version = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                                   text=True, check=True).stdout.strip().splitlines()[-1]
-    print(f"[env] card: {card}")
+    print(f"[env] card: {card}; clocks, power, temperature: {card_state()}")
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, {nvcc_version}, "
           f"python {sys.version.split()[0]}, {torch.cuda.device_count()} device(s)")
 
@@ -319,31 +332,33 @@ def main() -> None:
     kt = 5  # the fast stem's temporal kernel (SLOWFAST_TEMP_KERNELS)
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def times_ms(fn, n=10):
+    def times_ms(fn, n=10, reps=1):
+        # each sample: reps calls back to back between two events, per call
         out = []
         for _ in range(n):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(reps):
+                fn()
             end.record()
             end.synchronize()
-            out.append(start.elapsed_time(end))
+            out.append(start.elapsed_time(end) / reps)
         return out
 
-    def in_turns(kernel, plain):
+    def in_turns(kernel, plain, reps=1):
         kernel()  # warm both
         plain()
         torch.cuda.synchronize()
-        p, kk = times_ms(plain), times_ms(kernel)
-        kk += times_ms(kernel)
+        p, kk = times_ms(plain), times_ms(kernel, reps=reps)
+        kk += times_ms(kernel, reps=reps)
         p += times_ms(plain)
         return statistics.median(kk), statistics.median(p)
 
-    def alone(fn):
+    def alone(fn, reps=1):
         fn()
         torch.cuda.synchronize()
-        return statistics.median(times_ms(fn, 20))
+        return statistics.median(times_ms(fn, 20, reps))
 
     results = {}
     # the BYOL path runs both views as one batch: the stem sees k * b clips
@@ -458,8 +473,33 @@ def main() -> None:
     uses = {sh: per_block.count(sh) for sh in per_block}
     totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=[0.0, 0.0], max_abs_err=0.0)
               for name in ("flash_mha_fwd", "flash_mha_bwd")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    usage = fl.kernel_usage()  # ptxas -v of the build: registers and spills per kernel
     for shape in sorted(uses, key=lambda sh: -uses[sh]) + [(2, 2, 1001, 77, 72)]:
         b_, h_, nq, nk, d = shape
+        kplan = fl.plan(b_ * h_, nq, nk, d)
+        per_sm = fl.occupancy(kplan)
+        grids = {"fwd": kplan["fwd"]["grid"], "bwd_pre": (math.ceil(b_ * h_ * nq / 8), 1, 1),
+                 "dkdv": kplan["dkdv"]["grid"], "dq": kplan["dq"]["grid"]}
+        if kplan["splits"] > 1:
+            grids["reduce"] = (min(b_ * h_ * nk * d // 256 + 1, 132 * 8), 1, 1)
+        for kname, grid in grids.items():
+            blocks = grid[0] * grid[1] * grid[2]
+            resident = per_sm.get(kname)
+            waves = f", {resident} a SM: {blocks / (sms * resident)} waves" if resident else ""
+            kernel = {"fwd": "flash_fwd_kernel", "bwd_pre": "flash_bwd_pre_kernel",
+                      "dkdv": "flash_bwd_dkdv_kernel", "dq": "flash_bwd_dq_kernel",
+                      "reduce": "flash_bwd_reduce_kernel"}[kname]
+            use = usage[(kernel, kplan["dp"] if kname in per_sm else None)]
+            print(f"[kernel] flash {shape} {kname}: grid {grid}, {blocks} blocks{waves}; "
+                  f"{kplan[kname]['warps'] if kname in per_sm else 8} warps, {use['registers']} "
+                  f"registers, spill stores {use['spill_stores']} B, loads {use['spill_loads']} B"
+                  + (f", {kplan[kname]['smem']} B shared" if kname in per_sm else ""))
+            if kplan["dp"] <= 288:
+                check(use["spill_stores"] == use["spill_loads"] == 0,
+                      f"flash kernel {kernel} spills registers at head dim {d}")
+        print(f"[kernel] flash {shape}: width {kplan['dp']}, dK/dV splits {kplan['splits']} "
+              f"(scratch {kplan['scratch_bytes']} B)")
         scale = d ** -0.5
         q = torch.randn((b_, h_, nq, d), device=dev, generator=g).bfloat16()
         k_, v = (torch.randn((b_, h_, nk, d), device=dev, generator=g).bfloat16() for _ in range(2))
@@ -484,27 +524,30 @@ def main() -> None:
         check(all(torch.equal(a, bb) for a, bb in zip(again, (dq, dk, dv))),
               "flash attention backward is not deterministic")
         n_use = uses.get(shape, 0)  # 0: the ragged check, timed but not in the totals
+        # K4 and SDPA: K4_REPS calls back to back a sample, so the wrappers'
+        # host time overlaps the card's work as it does on the path
         fwd_ms, fwd_plain_ms = in_turns(lambda: fl.flash_mha_fwd(q, k_, v, scale),
-                                        lambda: fl.flash_mha_plain(qr, kr, vr, scale))
+                                        lambda: fl.flash_mha_plain(qr, kr, vr, scale), K4_REPS)
         bwd_ms, bwd_plain_ms = in_turns(
             lambda: fl.flash_mha_bwd(q, k_, v, o, lse, do, scale),
-            lambda: torch.autograd.grad(ref, (qr, kr, vr), do.float(), retain_graph=True))
+            lambda: torch.autograd.grad(ref, (qr, kr, vr), do.float(), retain_graph=True), K4_REPS)
         backend = sdpa_backend(q, k_, v, scale)
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k_, v))
         with sdpa_kernel([backend]):
-            lib_fwd_ms = alone(lambda: F.scaled_dot_product_attention(q, k_, v, scale=scale))
+            lib_fwd_ms = alone(lambda: F.scaled_dot_product_attention(q, k_, v, scale=scale), K4_REPS)
             lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
             lib_bwd_ms = alone(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
-                                                           retain_graph=True))
+                                                           retain_graph=True), K4_REPS)
         work = b_ * h_ * nq * nk * d
         io = 2.0 * (b_ * h_ * (2 * nq + 2 * nk) * d)  # q, k, v, o in bf16
         fwd_bound = bound(io + 4.0 * b_ * h_ * nq, 4.0 * work, "bf16")
         bwd_bound = bound(io + 2.0 * b_ * h_ * (2 * nq + 2 * nk) * d + 4.0 * b_ * h_ * nq,
                           10.0 * work, "bf16")
         print(f"[kernel] flash {shape} x{n_use} blocks: fwd {fwd_ms} ms (plain {fwd_plain_ms}, "
-              f"SDPA {lib_fwd_ms}, bound {fwd_bound[0]} {fwd_bound[1]}); bwd {bwd_ms} ms (plain "
-              f"{bwd_plain_ms}, SDPA {lib_bwd_ms}, bound {bwd_bound[0]} {bwd_bound[1]}); SDPA fwd+bwd "
-              f"{lib_fwd_ms + lib_bwd_ms} ms by {backend.name}; tiles {fl.tile_config(d)}")
+              f"SDPA {lib_fwd_ms}, bound {fwd_bound[0]} {fwd_bound[1]}, {fwd_bound[0] / fwd_ms} of "
+              f"it); bwd {bwd_ms} ms (plain {bwd_plain_ms}, SDPA {lib_bwd_ms}, bound {bwd_bound[0]} "
+              f"{bwd_bound[1]}, {bwd_bound[0] / bwd_ms} of it); SDPA fwd+bwd "
+              f"{lib_fwd_ms + lib_bwd_ms} ms by {backend.name}")
         for key, vals in (("flash_mha_fwd", (fwd_ms, fwd_plain_ms, lib_fwd_ms, fwd_bound)),
                           ("flash_mha_bwd", (bwd_ms, bwd_plain_ms, lib_bwd_ms, bwd_bound))):
             tot = totals[key]
@@ -521,8 +564,10 @@ def main() -> None:
         tot["bound"] = (tot["bound"][0], "operations" if tot["bound"][1] * 2 >= len(per_block) else "bytes")
         print(f"[kernel] {key} over the encoder's {len(per_block)} blocks: {tot['ms']} ms, plain "
               f"{tot['plain_ms']} ms, SDPA {tot['library_ms']} ms, bound {tot['bound'][0]} ms "
-              f"({tot['bound'][1]}), max_abs_err {tot['max_abs_err']}")
+              f"({tot['bound'][1]}; {tot['bound'][0] / tot['ms']} of it), max_abs_err "
+              f"{tot['max_abs_err']}")
         results[key] = tot
+    print(f"[kernel] card after the flash timings: {card_state()}")
 
     # -- 4. small input: the card's bf16 forward against a CPU float32 one --------
     small = torch.from_numpy(
@@ -777,6 +822,7 @@ def main() -> None:
     check(state.step == WARMUP_STEPS + TIMED_STEPS, "the masked state did not advance")
     check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "masked params not finite")
     median_ms = statistics.median(step_ms[WARMUP_STEPS:])
+    print(f"[masked] card after the steps: {card_state()}")
     print(f"[masked] median step {median_ms} ms over {TIMED_STEPS} steps, "
           f"{mb * mk_ * 1e3 / median_ms} clip-views/s ({mb} video x {mk_} views), "
           f"peak allocated {peak} bytes")

@@ -21,8 +21,10 @@ takes bf16 q, k, v and is held against the float32 dense chain on the same
 bf16 values: the forward rounds the probabilities to bf16 for P V and the
 output once, so it is held to 2^-7 of the largest output; the backward
 rounds P, dS and its outputs to bf16, and D comes from the bf16 output, so
-dq, dk and dv are held to 2^-6 of their largest entries (the H100 measured
-2e-3 to 5e-3 of them at every shape below). The window gather moves and
+dq, dk and dv are held to 2^-6 of their largest entries (chip_smoke.py
+phase 3 measured 2.0e-3 to 3.2e-3 of the largest output and 2.8e-3 to
+6.1e-3 of the largest gradient at MViT-L's shapes on the H100). The window
+gather moves and
 casts values (P1 adds two float32 values), so it is held EQUAL.
 """
 
@@ -213,14 +215,23 @@ def test_fused_aug_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         fa.fused_simple_aug(clips, prm, 21, MEAN, STD)
 
 
-FLASH_SHAPES = [  # (b, h, nq, nk, d)
-    (2, 3, 37, 45, 36),       # ragged: partial tiles both ways, d % 8 != 0 (scalar loads)
-    (1, 2, 300, 100, 72),     # MViT-L stage 1's head dim
-    (1, 4, 200, 130, 144),
-    (1, 2, 150, 110, 288),
-    (1, 2, 100, 90, 576),     # the 32 x 32 / 16 x 32 tiles
-    (2, 2, 130, 98, 48),
-    (1, 2, 97, 64, 192),
+FLASH_SHAPES = [  # (b, h, nq, nk, d); the dK/dV splits the plan gives in brackets
+    (2, 3, 37, 45, 36),       # ragged: partial tiles both ways, d % 8 != 0 (scalar loads) [1]
+    (1, 2, 300, 100, 72),     # MViT-L stage 1's head dim, width 80, two m-tiles a warp [5]
+    (1, 4, 200, 130, 144),    # [4]
+    (1, 2, 150, 110, 288),    # [5]
+    (1, 2, 100, 90, 576),     # O split across two warps (DSPLIT 2) [3]
+    (2, 2, 130, 98, 48),      # [3]
+    (1, 2, 97, 64, 192),      # [2]
+    (1, 1, 64, 64, 64),       # whole tiles [1]
+    (1, 2, 7, 5, 72),         # nq below one query tile, nk below one key tile [1]
+    (1, 1, 5, 3, 288),        # [1]
+    (1, 1, 9, 20, 576),       # [1]
+    (2, 2, 1001, 77, 72),     # ragged, the most splits [16]
+    (1, 2, 3000, 200, 288),   # ragged [16]
+    (1, 2, 700, 50, 576),     # ragged [12]
+    (1, 2, 40, 3000, 144),    # ragged, many key tiles [1]
+    (2, 4, 200, 900, 576),    # ragged, many key tiles [1]
 ]
 
 
@@ -270,3 +281,30 @@ def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fl.flash_mha_fwd(q, k[:, :, :, :16], v, 0.1)
     with pytest.raises(ValueError):
         fl.flash_mha_fwd(q, k.cpu(), v, 0.1)
+    big = torch.zeros((1, 1, 4, 600), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # above the widest kernel (576)
+        fl.flash_mha_fwd(big, big, big, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp", sorted(fl.TILES))
+def test_flash_tiles_compiled_are_the_plans(cuda, dp):
+    """The tile widths the wrapper plans with (ops/flash_attention.py TILES)
+    are the ones csrc/flash_attention.cu compiled."""
+    assert fl.compiled_tiles(dp) == fl.TILES[dp]
+
+
+@pytest.mark.cuda
+def test_flash_forward_takes_a_negative_scale(cuda):
+    """The kernel orders scores by their raw maximum (scale >= 0); the
+    wrapper runs a negative scale as the same softmax of (-q) k^T |scale|."""
+    q, k, v, do = _flash_inputs((1, 2, 70, 50, 72), cuda)
+    o, lse = fl.flash_mha_fwd(q, k, v, -0.2)
+    ref, ref_lse = fl.flash_fwd_plain(q, k, v, -0.2)
+    torch.cuda.synchronize()
+    assert _rel(o, ref.float()) <= 2 ** -7
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    qr = [t.float().requires_grad_() for t in (q, k, v)]
+    fl.flash_mha_plain(*qr, -0.2).backward(do.float())
+    for got, want in zip(fl.flash_mha_bwd(q, k, v, o, lse, do, -0.2), qr):
+        assert _rel(got, want.grad) <= 2 ** -6
