@@ -8,12 +8,13 @@ coefficients are cv2's (source coordinate ``(d + 0.5) * scale - 0.5`` in
 float32, clamped at the edges, weights rounded to 11-bit fixed point), the
 horizontal pass is exact in integers, and the vertical pass rounds as cv2's
 SIMD kernel does (``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)``, then
-``(v + 2) >> 2``), in numpy on the host. That equals cv2 on every pixel of a downscale (the
-smoke configs' 64 -> 24 x 20 among them) and, on an upscale, on every row
-but the first and the last output row, where cv2 (5.0, with its IPP
-dispatch) rounds otherwise: within 1 there, on about 0.1-0.2 % of the
-pixels of a 128 -> 298 x 224 frame (tests/test_torch_data.py states the
-share it measures).
+``(v + 2) >> 2``), in numpy on the host. The two axes treat a source
+coordinate outside the image differently, as cv2 does: the horizontal taps
+clamp to the edge pixel with the fraction set to 0, while the vertical taps
+keep their fraction and clamp only the two row indices, so an upscale's
+first and last output rows take both truncating taps on the edge row (one
+less than the rounded edge value on some pixels). That equals cv2 (5.0) on
+every pixel, downscales and upscales alike (tests/test_torch_data.py).
 
 Readers: :class:`SyntheticReader` (procedural, no media), :class:`ArrayReader`
 (.npy/.npz/.pt archives) and :class:`CV2Reader`, which decodes .avi/.mp4
@@ -44,27 +45,31 @@ RESIZE_CHUNK = 4
 
 
 @lru_cache(maxsize=64)
-def _coeffs(src: int, dst: int):
+def _coeffs(src: int, dst: int, clamp_fraction: bool = True):
     """cv2's linear-resize taps along one axis: (index 0, index 1, weight 0,
-    weight 1), the weights in 11-bit fixed point."""
+    weight 1), the weights in 11-bit fixed point. Where the source
+    coordinate falls outside the image, ``clamp_fraction`` (cv2's
+    horizontal axis) puts both taps on the edge with the fraction 0; without
+    it (cv2's vertical axis) the fraction stays and only the indices clamp."""
     scale = 1.0 / (dst / src)
     f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = (f - s).astype(np.float32)
-    low = s < 0
-    f[low], s[low] = 0, 0
-    high = s >= src - 1
-    f[high], s[high] = 0, src - 1
+    if clamp_fraction:
+        low = s < 0
+        f[low], s[low] = 0, 0
+        high = s >= src - 1
+        f[high], s[high] = 0, src - 1
     w1 = np.rint(f * np.float32(COEF_SCALE)).astype(np.int32)
     w0 = np.rint((np.float32(1) - f) * np.float32(COEF_SCALE)).astype(np.int32)
-    return s, np.minimum(s + 1, src - 1), w0, w1
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
 
 
 def _resize_chunk(frames: np.ndarray, resize_wh: Tuple[int, int]) -> np.ndarray:
     w, h = resize_wh
     n, src_h, src_w, c = frames.shape
     x0, x1, a0, a1 = _coeffs(src_w, w)
-    y0, y1, b0, b1 = _coeffs(src_h, h)
+    y0, y1, b0, b1 = _coeffs(src_h, h, clamp_fraction=False)
     lanes = np.arange(c)
     rows = frames.reshape(n, src_h, src_w * c)
     # horizontal: exact integer sums of the two taps, [n, H, w * C]

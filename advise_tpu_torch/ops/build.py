@@ -35,6 +35,7 @@ SOURCES: Dict[str, Tuple[str, ...]] = {
     "stem_conv.cu": (),
     "fused_aug.cu": ("-fmad=false",),
     "flash_attention.cu": (),
+    "flash_attention_f32.cu": (),
     "window_probe.cu": (),
 }
 

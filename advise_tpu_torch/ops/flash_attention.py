@@ -10,16 +10,21 @@ function's: q ``[b, h, nq, d]``, k and v ``[b, h, nk, d]``; the output is
 - :func:`flash_mha` is the entry point: a ``torch.autograd.Function`` whose
   forward is :func:`flash_mha_fwd` and whose backward is
   :func:`flash_mha_bwd`.
-- Each of the two wrappers launches its kernels of ``csrc/flash_attention.cu``
-  for a CUDA tensor (bf16 only; it raises on anything else) and runs its plain
+- Each of the two wrappers routes a CUDA tensor by :func:`route`: bf16 at a
+  head dim up to 576 to the tensor-core kernels of ``csrc/flash_attention.cu``,
+  float32 at any head dim and bf16 above 576 to the float32 pair of
+  ``csrc/flash_attention_f32.cu`` (:func:`flash_f32_fwd`,
+  :func:`flash_f32_bwd`), and raises on any other dtype. It runs its plain
   version (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`) for a CPU
-  tensor. There is no fallback from a CUDA tensor. Each counts its launches
-  in ``.launches``: one per forward, one per backward (whose kernels, D,
-  dK/dV, the split reduce where there are splits, and dQ, run as one call).
-- :func:`plan` is how the kernels run a shape: the template width, each
-  kernel's warps, grid and shared memory, and the dK/dV kernel's query-range
-  splits with their float32 scratch. It is plain arithmetic, so the CPU
-  tests read it.
+  tensor. There is no fallback from a CUDA tensor. Each wrapper that
+  launches kernels counts its launches in ``.launches``: one per forward,
+  one per backward (whose kernels, D, dK/dV, the split reduce where there
+  are splits, and dQ, run as one call).
+- :func:`plan` is how the tensor-core kernels run a shape: the template
+  width, each kernel's warps, grid and shared memory, and the dK/dV
+  kernel's query-range splits with their float32 scratch; :func:`f32_plan`
+  the float32 pair's grids and shared memory. Both are plain arithmetic, so
+  the CPU tests read them.
 - :func:`flash_mha_plain` is the plain dense chain (float32 ``q * scale @
   k^T``, softmax, ``@ v``) that the kernels are held against on the card.
 
@@ -40,6 +45,7 @@ import torch
 from advise_tpu_torch.ops import build
 
 SOURCE = "flash_attention.cu"
+SOURCE_F32 = "flash_attention_f32.cu"
 LOG2E = 1.4426950408889634
 SMS = 132  # streaming multiprocessors of an H100
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use
@@ -62,7 +68,16 @@ TILES = {
     288: {"fwd": (64, 1), "dq": (32, 1), "dkdv": (64, 32, 2)},
     576: {"fwd": (32, 2), "dq": (16, 2), "dkdv": (32, 32, 4)},
 }
+# the float32 pair (csrc/flash_attention_f32.cu holds the same): rows a
+# block owns, output columns updated a pass, and the float32 output columns
+# a block holds in shared memory (forward and dQ; dK and dV each)
+F32_ROWS = 32
+F32_VC = 128
+F32_OUT_COLS = 1024
+F32_OUT_COLS_KV = 512
+F32_SCRATCH = 4 * 32 * 33 * 4 + 32 * 128 * 4 + 3 * 32 * 4  # sizeof(Scratch)
 _lib = None
+_lib_f32 = None
 
 
 def _library():
@@ -80,6 +95,21 @@ def _library():
         lib.flash_occupancy.restype = ci
         _lib = lib
     return _lib
+
+
+def _library_f32():
+    global _lib_f32
+    if _lib_f32 is None:
+        lib = build.load(SOURCE_F32)
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_f32_fwd.argtypes = [vp] * 5 + [ci] * 4 + [cf, ci, vp]
+        lib.flash_f32_fwd.restype = ci
+        lib.flash_f32_bwd.argtypes = [vp] * 10 + [ci] * 4 + [cf, ci, vp]
+        lib.flash_f32_bwd.restype = ci
+        lib.flash_f32_cols.argtypes = [ci, ci]
+        lib.flash_f32_cols.restype = ci
+        _lib_f32 = lib
+    return _lib_f32
 
 
 def compiled_tiles(dp: int) -> dict:
@@ -123,6 +153,41 @@ def padded_dim(d: int) -> int:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel pair a CUDA tensor of ``dtype`` at head dim ``d`` takes:
+    "wgmma" (bf16 up to the widest template width) or "f32" (float32 at any
+    head dim, bf16 above it). Raises TypeError for any other dtype."""
+    if dtype == torch.bfloat16 and d <= max(TILES):
+        return "wgmma"
+    if dtype in (torch.bfloat16, torch.float32):
+        return "f32"
+    raise TypeError(f"flash attention: no kernel for {dtype}; it takes torch.bfloat16 or torch.float32")
+
+
+def f32_cols(d: int, limit: int) -> int:
+    """Output columns a block of the float32 pair holds: all of d up to
+    ``limit``, else an equal split of d, in multiples of F32_VC."""
+    return _cdiv(_cdiv(d, _cdiv(d, limit)), F32_VC) * F32_VC
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(bh: int, nq: int, nk: int, d: int) -> dict:
+    """How the float32 pair runs ``bh`` slices of (nq, nk, d): each kernel's
+    grid (x, y, z: d split where a block cannot hold it) and dynamic shared
+    memory, 256 threads a block. Pure arithmetic on the shapes."""
+    cols, kv_cols = f32_cols(d, F32_OUT_COLS), f32_cols(d, F32_OUT_COLS_KV)
+    rows = F32_ROWS
+    return {
+        "fwd": {"grid": (_cdiv(nq, rows), bh, _cdiv(d, cols)), "cols": cols,
+                "smem": F32_SCRATCH + 4 * rows * cols},
+        "bwd_pre": {"grid": (_cdiv(bh * nq, 8), 1, 1), "smem": 0},
+        "dkdv": {"grid": (_cdiv(nk, rows), bh, _cdiv(d, kv_cols)), "cols": kv_cols,
+                 "smem": F32_SCRATCH + 2 * 4 * rows * kv_cols},
+        "dq": {"grid": (_cdiv(nq, rows), bh, _cdiv(d, cols)), "cols": cols,
+               "smem": F32_SCRATCH + 4 * rows * cols},
+    }
 
 
 def fwd_smem(dp: int, bq: int, bk: int) -> int:
@@ -206,13 +271,14 @@ def flash_bwd_plain(q, k, v, o, lse, do, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(name: str, x: torch.Tensor, shape) -> torch.Tensor:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"flash attention: {name} must be torch.bfloat16, got {x.dtype}")
+def _check(name: str, x: torch.Tensor, shape, dtype=torch.bfloat16,
+           aligned: bool = True) -> torch.Tensor:
+    if x.dtype != dtype:
+        raise TypeError(f"flash attention: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"flash attention: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     x = x.contiguous()
-    if x.shape[-1] % 8 == 0 and x.data_ptr() % 16:
+    if aligned and x.shape[-1] % 8 == 0 and x.data_ptr() % 16:
         raise ValueError(f"flash attention: {name} is not 16-byte aligned")
     return x
 
@@ -242,6 +308,8 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_fwd_plain(q, k, v, scale)
     if q.ndim != 4:
         raise ValueError(f"flash attention: q must be [b, h, nq, d], got {tuple(q.shape)}")
+    if route(q.dtype, q.shape[-1]) == "f32":
+        return flash_f32_fwd(q, k, v, scale)
     b, h, nq, d = q.shape
     nk = k.shape[2]
     q = _check("q", q, (b, h, nq, d))
@@ -270,6 +338,8 @@ def flash_mha_bwd(q, k, v, o, lse, do, scale: float):
     tensors."""
     if _device_kind(q, k, v, o, lse, do) == "cpu":
         return flash_bwd_plain(q, k, v, o, lse, do, scale)
+    if route(q.dtype, q.shape[-1]) == "f32":
+        return flash_f32_bwd(q, k, v, o, lse, do, scale)
     b, h, nq, d = q.shape
     nk = k.shape[2]
     q = _check("q", q, (b, h, nq, d))
@@ -302,6 +372,72 @@ def flash_mha_bwd(q, k, v, o, lse, do, scale: float):
 
 flash_mha_fwd.launches = 0
 flash_mha_bwd.launches = 0
+
+
+def _f32_inputs(q, k, v, *more):
+    """Shapes, dtype and contiguity of the float32 pair's inputs: q [b, h,
+    nq, d], k and v [b, h, nk, d], ``more`` of q's shape, all of q's dtype
+    (float32, or bf16 at any head dim)."""
+    if q.ndim != 4:
+        raise ValueError(f"flash attention: q must be [b, h, nq, d], got {tuple(q.shape)}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash attention: the float32 pair takes float32 or bf16, got {q.dtype}")
+    if nq == 0 or nk == 0:
+        raise ValueError("flash attention: empty query or key set")
+    shapes = [(b, h, nq, d), (b, h, nk, d), (b, h, nk, d)] + [(b, h, nq, d)] * len(more)
+    out = [_check(name, x, shape, q.dtype, aligned=False)  # scalar loads: any address
+           for name, x, shape in zip(("q", "k", "v", "o", "do"), (q, k, v, *more), shapes)]
+    return out, (b, h, nq, nk, d)
+
+
+def flash_f32_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of the float32 pair: (o in q's dtype, lse float32 in base
+    2), every product and sum in float32; the plain version for CPU
+    tensors."""
+    if _device_kind(q, k, v) == "cpu":
+        return flash_fwd_plain(q, k, v, scale)
+    (q, k, v), (b, h, nq, nk, d) = _f32_inputs(q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    with _current(q.device):
+        err = _library_f32().flash_f32_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b * h, nq, nk, d, float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_f32_fwd launch failed: CUDA error {err}")
+    flash_f32_fwd.launches += 1
+    return o, lse
+
+
+def flash_f32_bwd(q, k, v, o, lse, do, scale: float):
+    """The backward of the float32 pair (D, dK/dV, dQ kernels as one call):
+    (dq, dk, dv) in q's dtype; the plain version for CPU tensors."""
+    if _device_kind(q, k, v, o, lse, do) == "cpu":
+        return flash_bwd_plain(q, k, v, o, lse, do, scale)
+    (q, k, v, o, do), (b, h, nq, nk, d) = _f32_inputs(q, k, v, o, do)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, nq):
+        raise ValueError(f"flash attention: lse must be float32 [b, h, nq], got {lse.dtype} {tuple(lse.shape)}")
+    lse = lse.contiguous()
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with _current(q.device):
+        err = _library_f32().flash_f32_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, nq, nk, d, float(scale), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_f32_bwd launch failed: CUDA error {err}")
+    flash_f32_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_f32_fwd.launches = 0
+flash_f32_bwd.launches = 0
 
 
 class FlashMHA(torch.autograd.Function):

@@ -3,10 +3,14 @@ versions, and the autograd Function that pairs them.
 
 Counterpart of ``advise_tpu/ops/pallas/stem_conv.py`` (TPU.PALLAS_STEM).
 The kernels (``csrc/stem_conv.cu``) compute the (kt,7,7)/s(1,2,2) conv with
-3 input and 8 output channels directly on the raw NDHWC clip: the JAX
-kernels' space-to-depth repack and Toeplitz column packing exist to fill
-the TPU's 128-lane MXU, and the source note in the ``.cu`` file says what
-bounds the CUDA version instead.
+3 input and 8 output channels (kt odd) from the raw NDHWC clip as
+tensor-core implicit GEMMs: each block stages its tile's frames once, in
+the 2x2 space-to-depth layout, in a ring in shared memory, and walks its
+work items frame by frame (the JAX kernels' Toeplitz column packing exists
+to fill the TPU's 128-lane MXU and is not carried over; the source note in
+the ``.cu`` file says what bounds the CUDA version). :func:`plan` is how
+they run a shape: tile, persistent grid, ring and partials, plain
+arithmetic that the wrappers pass to the kernels and the CPU tests read.
 
 Two other launch schedules of the same kernels, the counterparts of the JAX
 package's TPU.PALLAS_STEM_CHUNK and TPU.PALLAS_STEM_WGRAD_ONLY entry points
@@ -31,6 +35,8 @@ Layouts follow the JAX package: clips ``[B, T, H, W, 3]``, the weight
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 from typing import Optional
 
 import torch
@@ -46,6 +52,15 @@ KSIZE = 7
 WGRAD_CHUNK = 16
 
 SOURCE = "stem_conv.cu"
+# the kernels' geometry (csrc/stem_conv.cu holds the same constants; the
+# card tests compare the shared memory it computes with this module's)
+SMS = 132  # streaming multiprocessors of an H100: one persistent block each
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use
+TILE_W = 16  # output columns of a tile: one m16 tile of positions
+WARP_ROWS = 7  # output rows of a K1 warp
+CELL_BYTES = 32  # a staged space-to-depth cell: 12 channels + 4 zero, bf16
+WGRAD_MAX_TAPS = 5  # temporal taps of a K2 group (its warps: 2 a tap)
+S2D_TAPS = 16  # (ah, aw) taps of the s2d kernel per temporal tap
 _lib = None
 
 
@@ -54,18 +69,92 @@ def _library():
     if _lib is None:
         lib = build.load(SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.stem_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.stem_fwd.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
         lib.stem_fwd.restype = ci
-        lib.stem_wgrad.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.stem_wgrad.argtypes = [vp] * 4 + [ci] * 8 + [vp]
         lib.stem_wgrad.restype = ci
-        lib.stem_wgrad_blocks.argtypes = [ci, ci, ci]
-        lib.stem_wgrad_blocks.restype = ci
+        for name in ("stem_fwd_smem", "stem_wgrad_smem"):
+            getattr(lib, name).argtypes = [ci, ci]
+            getattr(lib, name).restype = ci
         _lib = lib
     return _lib
 
 
 def out_hw(h: int, w: int):
     return (h - 1) // 2 + 1, (w - 1) // 2 + 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def frame_bytes(th: int) -> int:
+    """Shared memory of one staged frame of a tile of ``th`` output rows:
+    (th + 3) x (16 + 3) cells, the halo 2 before and 1 after."""
+    return (th + 3) * (TILE_W + 3) * CELL_BYTES
+
+
+def fwd_smem(th: int, kt: int) -> int:
+    """K1's block: a ring of kt frames and the weight's B fragments (kt x 16
+    taps x 32 lanes x 8 bytes)."""
+    return kt * frame_bytes(th) + kt * S2D_TAPS * 32 * 8
+
+
+def wgrad_smem(th: int, dg: int) -> int:
+    """K2's block: a ring of dg + 1 frames (the dg its warps read and the
+    one in flight) and the output gradient's frame (th x 16 positions x 16
+    bytes)."""
+    return (dg + 1) * frame_bytes(th) + th * TILE_W * 16
+
+
+def _rows(smem) -> int:
+    """Tile rows: the most warps (8, 4, 2 or 1, of WARP_ROWS rows each)
+    whose ring fits."""
+    for nw in (8, 4, 2, 1):
+        if smem(nw * WARP_ROWS) <= SMEM_LIMIT:
+            return nw * WARP_ROWS
+    raise ValueError("stem conv: the temporal kernel is too deep for a block's shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, t: int, h: int, w: int, kt: int) -> dict:
+    """How the kernels run clips [b, t, h, w, 3] with temporal kernel kt:
+    per kernel its tile (output rows x columns), warps, grid, shared memory,
+    ring depth (frames staged), work items ((clip, tile, frame) triples) and
+    items a block, and the waves of its grid on SMS SMs (one persistent
+    block an SM: the ring takes most of its shared memory); for K2 also its
+    temporal-tap groups (one grid row each) and the float32 partials the
+    reduce sums. Pure arithmetic on the shapes."""
+    if kt % 2 == 0 or kt < 1:
+        raise ValueError(f"stem conv: the kernels take an odd temporal kernel, got {kt}")
+    ho, wo = out_hw(h, w)
+    out = {"out": (ho, wo)}
+    groups = _cdiv(kt, WGRAD_MAX_TAPS)
+    dg = _cdiv(kt, groups)
+    fwd_th = _rows(lambda r: fwd_smem(r, kt))
+    wg_th = _rows(lambda r: wgrad_smem(r, dg))
+    for name, th, ring, warps, smem, rows_of in (
+            ("fwd", fwd_th, kt, fwd_th // WARP_ROWS, fwd_smem(fwd_th, kt), 1),
+            ("wgrad", wg_th, dg + 1, 2 * dg, wgrad_smem(wg_th, dg), groups)):
+        tiles = _cdiv(ho, th) * _cdiv(wo, TILE_W)
+        items = b * tiles * t
+        blocks = min(SMS, items)
+        out[name] = {"tile": (th, TILE_W), "warps": warps, "grid": (blocks, rows_of, 1),
+                     "smem": smem, "ring": ring, "tiles": tiles, "items": items,
+                     "items_per_block": _cdiv(items, blocks), "waves": blocks * rows_of / SMS}
+    out["wgrad"].update(groups=groups, taps_per_group=dg, partials=out["wgrad"]["grid"][0])
+    return out
+
+
+def kernel_usage() -> dict:
+    """{kernel name: registers a thread, spill bytes and static shared
+    memory} of the built library, from ptxas -v."""
+    usage = {}
+    for name, u in build.ptxas_usage(SOURCE).items():
+        m = re.search(r"(stem_[a-z_]+_kernel)", name)
+        if m:
+            usage[m.group(1)] = u
+    return usage
 
 
 def _check_cuda(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16):
@@ -80,6 +169,11 @@ def _check_cuda(name: str, t: torch.Tensor, shape, dtype=torch.bfloat16):
 def _raise_unless_cpu(t: torch.Tensor):
     if t.device.type != "cpu":
         raise RuntimeError(f"stem conv: no kernel for device {t.device}")
+
+
+def _check_aligned(name: str, t: torch.Tensor, nbytes: int):
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must be {nbytes}-byte aligned")
 
 
 # -- plain versions ----------------------------------------------------------
@@ -133,6 +227,7 @@ def stem_conv_fwd(x: torch.Tensor, w: torch.Tensor,
     kt = w.shape[0]
     _check_cuda("x", x, (b, t, h, wd, CHANNELS_IN))
     _check_cuda("w", w, (kt, KSIZE, KSIZE, CHANNELS_IN, FEATURES))
+    _check_aligned("x", x, 4)
     if w.device != x.device:
         raise ValueError("x and w must be on one device")
     ho, wo = out_hw(h, wd)
@@ -140,13 +235,16 @@ def stem_conv_fwd(x: torch.Tensor, w: torch.Tensor,
         y = torch.empty((b, t, ho, wo, FEATURES), dtype=torch.bfloat16, device=x.device)
     else:
         _check_cuda("out", out, (b, t, ho, wo, FEATURES))
+        _check_aligned("out", out, 4)
         if out.device != x.device:
             raise ValueError("x and out must be on one device")
         y = out
+    p = plan(b, t, h, wd, kt)["fwd"]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().stem_fwd(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, h, wd, kt, stream
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, h, wd, kt, p["warps"],
+            p["grid"][0], stream
         )
     if err != 0:
         raise RuntimeError(f"stem_fwd launch failed: CUDA error {err}")
@@ -159,8 +257,9 @@ stem_conv_fwd.launches = 0
 
 def stem_conv_wgrad(x: torch.Tensor, g: torch.Tensor, kt: int) -> torch.Tensor:
     """Stem weight gradient [kt,7,7,3,8] float32: the CUDA kernel pair
-    (per-block partials, then a fixed-order sum) for a CUDA tensor, the
-    plain conv weight gradient for a CPU tensor."""
+    (a float32 partial per persistent block, then a fixed-order sum that
+    collapses the s2d taps) for a CUDA tensor, the plain conv weight
+    gradient for a CPU tensor."""
     if x.device.type != "cuda":
         _raise_unless_cpu(x)
         return stem_wgrad_plain(x, g, kt)
@@ -168,24 +267,22 @@ def stem_conv_wgrad(x: torch.Tensor, g: torch.Tensor, kt: int) -> torch.Tensor:
     ho, wo = out_hw(h, wd)
     _check_cuda("x", x, (b, t, h, wd, CHANNELS_IN))
     _check_cuda("g", g, (b, t, ho, wo, FEATURES))
+    _check_aligned("x", x, 4)
+    _check_aligned("g", g, 16)
     if g.device != x.device:
         raise ValueError("x and g must be on one device")
-    if g.data_ptr() % 16:
-        raise ValueError("g must be 16-byte aligned")
-    lib = _library()
-    n = kt * KSIZE * KSIZE * CHANNELS_IN * FEATURES
-    partial = torch.empty(
-        (lib.stem_wgrad_blocks(b, ho, wo), n), dtype=torch.float32, device=x.device
-    )
+    p = plan(b, t, h, wd, kt)["wgrad"]
+    partial = torch.empty((p["partials"], kt * S2D_TAPS * 16 * FEATURES), dtype=torch.float32,
+                          device=x.device)
     dw = torch.empty(
         (kt, KSIZE, KSIZE, CHANNELS_IN, FEATURES), dtype=torch.float32,
         device=x.device,
     )
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stem_wgrad(
+        err = _library().stem_wgrad(
             x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            b, t, h, wd, kt, stream,
+            b, t, h, wd, kt, p["tile"][0], p["taps_per_group"], p["partials"], stream,
         )
     if err != 0:
         raise RuntimeError(f"stem_wgrad launch failed: CUDA error {err}")

@@ -11,7 +11,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    started together, each timed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs (TF32 off): the stem kernels at the BYOL path's stem shape
-   and a ragged small shape, the fused aug at SpeedPro's shape (float32 and
+   and a ragged small shape, each with its plan (ops/stem_conv.py plan():
+   tile, grid, waves, ring, partials) and its registers, spills and shared
+   memory from the build's ptxas -v report (a spill in K1 or K2 fails), the fused aug at SpeedPro's shape (float32 and
    bf16 outputs, the preset's colour probability and p = 1) and a ragged
    one, flash attention forward and backward at every distinct attention
    shape of MViT-L 32x312 (2 views) and a ragged one, each with its kernels'
@@ -22,7 +24,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    them the least time the card could take (bytes or operations over the
    card's peak rates) and, where one PyTorch call computes the same
    function, that call's time (flash attention: scaled_dot_product_attention
-   in bf16, with the backend that served it). Also the stem kernels on their
+   in bf16, with the backend that served it); K4's float32 pair
+   (csrc/flash_attention_f32.cu) in float32 at two MViT-L shapes and a ragged
+   one above head dim 576, and in bf16 at head dim 768, against the plain
+   versions, with SDPA in float32 as its library yardstick. Also the stem kernels on their
    other launch schedules at the BYOL stem shape: K1' (TPU.PALLAS_STEM_CHUNK:
    K1 and K2 per batch chunk, chunk 8 and 12 -> 8) and K2' (TPU.
    PALLAS_STEM_WGRAD_ONLY: K2 over 16-sample chunks); and the window
@@ -32,7 +37,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 4. small input: each full-width model's forward on the card (bf16) against
    the same weights' float32 forward on the CPU: SlowFast-R50 BYOL, the
    Slow-R50 speed model, and the full-depth MViT-L MaskFeat model at 4
-   frames x 64^2;
+   frames x 64^2; then that MViT-L with TPU.COMPUTE_DTYPE float32 on the
+   card (flash attention through K4's float32 pair, its launches counted)
+   against the same CPU forward, and one backward through the pair;
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
    clips through the 'aa' augmentation, 2 warm-up and 5 timed steps; then
@@ -201,6 +208,7 @@ def stem_schedules(sc, x, w, y, gy, kt, alone, results) -> None:
               f"{f_err} (bound {ulp}), bit-equal to one K1 launch {torch.equal(yc, y)}; wgrad "
               f"max_abs_err {w_err} (bound 1e-3 * max|dW| = {1e-3 * wg_top})")
         check(math.isfinite(f_err) and f_err <= ulp, f"chunked stem forward disagrees at chunk {chunk}")
+        check(torch.equal(yc, y), f"the chunked stem forward at chunk {chunk} differs from one K1 launch")
         check(math.isfinite(w_err) and w_err <= 1e-3 * wg_top,
               f"chunked stem weight gradient disagrees at chunk {chunk}")
         if chunk == 8:
@@ -361,10 +369,24 @@ def main() -> None:
         return statistics.median(times_ms(fn, 20, reps))
 
     results = {}
+    # the stem kernels' registers, spills and shared memory (ptxas -v of the
+    # build); K1 and K2 must not spill
+    for name, use in sorted(sc.kernel_usage().items()):
+        print(f"[kernel] {name}: {use['registers']} registers, spill stores {use['spill_stores']} B, "
+              f"loads {use['spill_loads']} B, static shared {use['smem']} B")
+        if name in ("stem_fwd_kernel", "stem_wgrad_partial_kernel"):
+            check(use["spill_stores"] == use["spill_loads"] == 0, f"{name} spills registers")
     # the BYOL path runs both views as one batch: the stem sees k * b clips
     for shape in [(k * b, t, s, s, 3), (2, 7, 37, 45, 3)]:
         x = torch.randn(shape, device=dev, generator=g).bfloat16()
         w = (torch.randn((kt, 7, 7, 3, 8), device=dev, generator=g) * 0.1).bfloat16()
+        splan = sc.plan(*shape[:4], kt)
+        for kname in ("fwd", "wgrad"):
+            kp = splan[kname]
+            print(f"[kernel] stem plan {shape} kt {kt} {kname}: tile {kp['tile']}, {kp['warps']} warps, grid "
+                  f"{kp['grid']} ({kp['waves']} waves, one block an SM), {kp['items']} work items "
+                  f"({kp['items_per_block']} a block), ring {kp['ring']} frames, {kp['smem']} B shared"
+                  + (f", {kp['partials']} partials" if kname == "wgrad" else ""))
         y = sc.stem_conv_fwd(x, w)
         ref = sc.stem_conv_plain(x.float(), w.float())
         torch.cuda.synchronize()
@@ -567,6 +589,77 @@ def main() -> None:
               f"({tot['bound'][1]}; {tot['bound'][0] / tot['ms']} of it), max_abs_err "
               f"{tot['max_abs_err']}")
         results[key] = tot
+
+    # K4's float32 pair (csrc/flash_attention_f32.cu): what the tensor-core
+    # kernels do not take, routed by flash_mha_fwd/bwd; float32 on the CUDA
+    # cores, so its bound is its operations at the float32 rate
+    for name, use in sorted(build.ptxas_usage(fl.SOURCE_F32).items()):
+        print(f"[kernel] {name[-60:]}: {use['registers']} registers, spill stores "
+              f"{use['spill_stores']} B, loads {use['spill_loads']} B")
+    f32_err = 0.0
+    for shape, dtype in (((2, 2, 6400, 1600, 288), torch.float32), ((2, 2, 1600, 1600, 576), torch.float32),
+                         ((1, 3, 777, 555, 640), torch.float32), ((1, 2, 500, 300, 768), torch.bfloat16)):
+        b_, h_, nq, nk, d = shape
+        check(fl.route(dtype, d) == "f32", f"flash {shape} {dtype} does not route to the float32 pair")
+        fplan = fl.f32_plan(b_ * h_, nq, nk, d)
+        print(f"[kernel] flash f32 pair {shape} {dtype}: " + ", ".join(
+            f"{kname} grid {kp['grid']} ({math.prod(kp['grid']) / sms} blocks an SM), {kp['smem']} B shared"
+            for kname, kp in fplan.items()))
+        scale = d ** -0.5
+        q, do = (torch.randn((b_, h_, nq, d), device=dev, generator=g).to(dtype) for _ in range(2))
+        k_, v = (torch.randn((b_, h_, nk, d), device=dev, generator=g).to(dtype) for _ in range(2))
+        before = (fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches,
+                  fl.flash_f32_fwd.launches, fl.flash_f32_bwd.launches)
+        o, lse = fl.flash_mha_fwd(q, k_, v, scale)
+        grads = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
+        ref_o, ref_lse = fl.flash_fwd_plain(q, k_, v, scale)
+        ref_g = fl.flash_bwd_plain(q, k_, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        check((fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches, fl.flash_f32_fwd.launches,
+               fl.flash_f32_bwd.launches) == (before[0], before[1], before[2] + 1, before[3] + 1),
+              f"flash {shape} {dtype} did not launch the float32 pair once each way")
+        # float32: every sum in float32 in another order (1e-4 of the largest
+        # entry); bf16: both round the same float32 values to bf16 (one ulp, 2^-7)
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+        for name, a, r in (("o", o, ref_o), ("dq", grads[0], ref_g[0]), ("dk", grads[1], ref_g[1]),
+                           ("dv", grads[2], ref_g[2])):
+            err = float((a.float() - r.float()).abs().max())
+            top = float(r.float().abs().max())
+            print(f"[kernel] flash f32 pair {shape} {dtype} {name}: max_abs_err {err} (bound {tol} of "
+                  f"max|ref| {top} = {tol * top})")
+            check(math.isfinite(err) and err <= tol * top, f"flash f32 pair {name} disagrees at {shape}")
+            if dtype == torch.float32:
+                f32_err = max(f32_err, err)
+        lse_err = float((lse - ref_lse).abs().max())
+        check(lse_err <= 1e-4, f"flash f32 pair lse disagrees at {shape}: {lse_err}")
+        check(all(torch.equal(a, bb) for a, bb in zip(fl.flash_mha_bwd(q, k_, v, o, lse, do, scale), grads)),
+              "the flash f32 pair's backward is not deterministic")
+        fwd_ms, fwd_plain_ms = in_turns(lambda: fl.flash_mha_fwd(q, k_, v, scale),
+                                        lambda: fl.flash_fwd_plain(q, k_, v, scale))
+        bwd_ms, bwd_plain_ms = in_turns(lambda: fl.flash_mha_bwd(q, k_, v, o, lse, do, scale),
+                                        lambda: fl.flash_bwd_plain(q, k_, v, o, lse, do, scale))
+        backend = sdpa_backend(q, k_, v, scale)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k_, v))
+        with sdpa_kernel([backend]):
+            lib_fwd_ms = alone(lambda: F.scaled_dot_product_attention(q, k_, v, scale=scale))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            lib_bwd_ms = alone(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True))
+        work, el = b_ * h_ * nq * nk * d, q.element_size()
+        io = el * b_ * h_ * (2 * nq + 2 * nk) * d
+        fwd_bound = bound(io + 4.0 * b_ * h_ * nq, 4.0 * work, "f32")
+        bwd_bound = bound(io + el * b_ * h_ * (2 * nq + 2 * nk) * d + 4.0 * b_ * h_ * nq, 10.0 * work, "f32")
+        print(f"[kernel] flash f32 pair {shape} {dtype}: fwd {fwd_ms} ms (plain {fwd_plain_ms}, SDPA "
+              f"{lib_fwd_ms} by {backend.name}, bound {fwd_bound[0]} {fwd_bound[1]}, {fwd_bound[0] / fwd_ms} "
+              f"of it); bwd {bwd_ms} ms (plain {bwd_plain_ms}, SDPA {lib_bwd_ms}, bound {bwd_bound[0]} "
+              f"{bwd_bound[1]}, {bwd_bound[0] / bwd_ms} of it)")
+        if shape == (2, 2, 6400, 1600, 288):  # 34 of MViT-L's 48 blocks run this shape
+            results["flash_f32_fwd"] = dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
+                                            bound=fwd_bound)
+            results["flash_f32_bwd"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+                                            bound=bwd_bound)
+        del q, k_, v, do, o, lse, grads, ref_o, ref_g, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    results["flash_f32_fwd"]["max_abs_err"] = results["flash_f32_bwd"]["max_abs_err"] = f32_err
     print(f"[kernel] card after the flash timings: {card_state()}")
 
     # -- 4. small input: the card's bf16 forward against a CPU float32 one --------
@@ -618,7 +711,42 @@ def main() -> None:
         print(f"[small] MViT-L MaskFeat {out_name} {tuple(a.shape)}: max rel err vs CPU float32 {rel} "
               f"(bound 5e-2)")
         check(math.isfinite(rel) and rel <= 5e-2, f"the card's MViT-L {out_name} disagrees with the CPU")
-    del ref_model, card_model, got, want
+    del card_model, got
+
+    # the same MViT-L in float32 on the card: TPU.COMPUTE_DTYPE float32 with
+    # flash attention takes K4's float32 pair, once per block in the forward
+    f32_model = build_model(ref_cfg, dev, seed=0).eval()
+    n_attn = sum(1 for item in f32_model.encoder.plan if item[0] == "transition") + sum(
+        item[3] - item[2] for item in f32_model.encoder.plan if item[0] == "segment")
+    for fn in (fl.flash_mha_fwd, fl.flash_mha_bwd, fl.flash_f32_fwd, fl.flash_f32_bwd):
+        fn.launches = 0
+    with torch.no_grad():
+        got = f32_model(x_small.to(dev), loader_mask=mask_small.to(dev))
+    torch.cuda.synchronize()
+    fwd_launches = fl.flash_f32_fwd.launches
+    for out_name, a, r in (("HOG prediction", got[0][0], want[0][0]),
+                           ("joint projection", got[4], want[4])):
+        check(a.dtype == torch.float32, f"the float32 MViT-L {out_name} is {a.dtype}")
+        rel = float((a.cpu() - r).abs().max() / r.abs().max())
+        # float32 on both sides (TF32 off), sums in other orders through 48
+        # blocks: ~1e-6 a layer; a wrong kernel is O(1)
+        print(f"[small] MViT-L MaskFeat float32 on the card {out_name}: max rel err vs CPU float32 {rel} "
+              f"(bound 1e-3)")
+        check(math.isfinite(rel) and rel <= 1e-3, f"the card's float32 MViT-L {out_name} disagrees with the CPU")
+    out = f32_model(x_small.to(dev), loader_mask=mask_small.to(dev))
+    (out[0][0].pow(2).mean() + out[4].pow(2).mean()).backward()
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(p.grad).all()) for p in f32_model.parameters() if p.grad is not None),
+          "the float32 MViT-L's gradients are not finite")
+    launches_f32 = {"flash_f32_fwd": fl.flash_f32_fwd.launches, "flash_f32_bwd": fl.flash_f32_bwd.launches}
+    print(f"[small] MViT-L float32 on the card: {n_attn} attention blocks; K4 float32 pair launches "
+          f"{launches_f32} (forward alone {fwd_launches}), tensor-core K4 "
+          f"{(fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches)}")
+    check(fwd_launches == n_attn, "the float32 forward did not launch the float32 pair once a block")
+    check(launches_f32["flash_f32_bwd"] == n_attn, "the float32 backward did not launch the pair once a block")
+    check(fl.flash_mha_fwd.launches == fl.flash_mha_bwd.launches == 0,
+          "the float32 MViT-L reached the bf16 kernels")
+    del ref_model, f32_model, got, want, out
     torch.cuda.empty_cache()
 
     # -- 5. the BYOL path ---------------------------------------------------------
@@ -889,6 +1017,7 @@ def main() -> None:
           f"device busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
 
     launches.update(probe_launches)
+    launches.update(launches_f32)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
@@ -911,6 +1040,10 @@ def main() -> None:
             ("flash_mha_fwd", "advise_tpu_torch/csrc/flash_attention.cu",
              "advise_tpu/ops/flash_attention.py:75"),
             ("flash_mha_bwd", "advise_tpu_torch/csrc/flash_attention.cu",
+             "advise_tpu/ops/flash_attention.py:75"),
+            ("flash_f32_fwd", "advise_tpu_torch/csrc/flash_attention_f32.cu",
+             "advise_tpu/ops/flash_attention.py:75"),
+            ("flash_f32_bwd", "advise_tpu_torch/csrc/flash_attention_f32.cu",
              "advise_tpu/ops/flash_attention.py:75"),
             *((name, "advise_tpu_torch/csrc/window_probe.cu", f"scripts/probe_mosaic_aot.py:{line}")
               for name, line in PROBE_LINES.items()))

@@ -16,9 +16,9 @@ bf16, so it is held to one bf16 ulp of the largest output of the float32
 plain conv on the same bf16 inputs (TF32 off); the weight gradient is a
 float32 sum in another order, held to 1e-3 of its largest entry. The fused
 aug states every rounding of its chain (the note in fused_aug.cu), so it is
-held EQUAL to its plain version, in float32 and in bf16. Flash attention
-takes bf16 q, k, v and is held against the float32 dense chain on the same
-bf16 values: the forward rounds the probabilities to bf16 for P V and the
+held EQUAL to its plain version, in float32 and in bf16. Flash attention's
+tensor-core kernels take bf16 q, k, v and are held against the float32 dense
+chain on the same bf16 values: the forward rounds the probabilities to bf16 for P V and the
 output once, so it is held to 2^-7 of the largest output; the backward
 rounds P, dS and its outputs to bf16, and D comes from the bf16 output, so
 dq, dk and dv are held to 2^-6 of their largest entries (chip_smoke.py
@@ -63,9 +63,14 @@ def _bf16_ulp(top: float) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,kt", [
-    ((2, 7, 37, 45, 3), 5),   # ragged: partial tiles in both directions
+    ((2, 7, 37, 45, 3), 5),   # ragged: partial tiles in both directions, odd W
     ((2, 8, 64, 64, 3), 5),
-    ((1, 4, 33, 70, 3), 1),   # odd height, the slow stem's kt
+    ((1, 4, 33, 70, 3), 1),   # B = 1, odd height, the slow stem's kt
+    ((1, 6, 50, 36, 3), 3),   # B = 1, kt 3
+    ((2, 5, 30, 42, 3), 7),   # kt 7: K1 tiles of 28 rows, K2 in two tap groups
+    ((2, 2, 40, 34, 3), 5),   # T < kt
+    ((1, 3, 24, 24, 3), 7),   # T < kt at kt 7
+    ((2, 40, 64, 70, 3), 5),  # 240 items on 132 blocks: the ring's steady state
 ])
 def test_kernels_match_plain(cuda, shape, kt):
     x, w, g = _inputs(shape, kt, cuda)
@@ -85,6 +90,15 @@ def test_kernels_match_plain(cuda, shape, kt):
     torch.cuda.synchronize()
     assert (sc.stem_conv_fwd.launches, sc.stem_conv_wgrad.launches) == (
         launches[0] + 1, launches[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("th,kt", [(56, 5), (28, 7), (56, 1), (14, 3)])
+def test_stem_plan_matches_compiled(cuda, th, kt):
+    """plan()'s shared memory per block is the source's own arithmetic."""
+    lib = sc._library()
+    assert lib.stem_fwd_smem(th, kt) == sc.fwd_smem(th, kt)
+    assert lib.stem_wgrad_smem(th, kt) == sc.wgrad_smem(th, kt)
 
 
 @pytest.mark.cuda
@@ -274,16 +288,78 @@ def test_flash_attention_matches_plain(cuda, shape):
 
 @pytest.mark.cuda
 def test_flash_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """Neither kernel pair takes float16 or float64, tensors of other
+    shapes, or tensors on several devices."""
     q, k, v, _ = _flash_inputs((1, 2, 16, 16, 32), cuda)
-    with pytest.raises(TypeError):
-        fl.flash_mha_fwd(q.float(), k.float(), v.float(), 0.1)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            fl.flash_mha_fwd(q.to(dtype), k.to(dtype), v.to(dtype), 0.1)
     with pytest.raises(ValueError):
         fl.flash_mha_fwd(q, k[:, :, :, :16], v, 0.1)
     with pytest.raises(ValueError):
+        fl.flash_mha_fwd(q.float(), k[:, :, :, :16].float(), v.float(), 0.1)
+    with pytest.raises(ValueError):
         fl.flash_mha_fwd(q, k.cpu(), v, 0.1)
-    big = torch.zeros((1, 1, 4, 600), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):  # above the widest kernel (576)
-        fl.flash_mha_fwd(big, big, big, 0.1)
+
+
+F32_PAIR_CASES = [  # (b, h, nq, nk, d), dtype: what the tensor-core kernels do not take
+    ((2, 2, 200, 150, 72), torch.float32),
+    ((1, 2, 130, 70, 288), torch.float32),
+    ((2, 1, 97, 65, 576), torch.float32),
+    ((1, 1, 97, 65, 600), torch.float32),     # d > 576, ragged tiles
+    ((1, 1, 40, 33, 1100), torch.float32),    # d above a block's 1024 columns: grid z splits it
+    ((1, 2, 500, 300, 768), torch.bfloat16),  # bf16 above 576
+    ((1, 1, 70, 45, 600), torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", F32_PAIR_CASES)
+def test_flash_f32_pair_matches_plain(cuda, shape, dtype):
+    """float32 q, k, v (any head dim) and bf16 above 576 go through
+    flash_mha to the float32 pair of csrc/flash_attention_f32.cu, never to
+    the tensor-core kernels, and agree with the float32 dense chain (TF32
+    off). In float32 every product and sum is float32, in another order over
+    up to 1100 columns and 500 rows, so o, dq, dk and dv are held to 1e-4 of
+    their largest entry. In bf16 the output is rounded once (2^-8) and the
+    backward's D comes from that bf16 output, so the gradients are held to
+    2^-6, as the tensor-core pair's are."""
+    b, h, nq, nk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, do = (torch.randn((b, h, nq, d), device=cuda, generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, h, nk, d), device=cuda, generator=g).to(dtype) for _ in range(2))
+    scale = d ** -0.5
+    tol, gtol = (1e-4, 1e-4) if dtype == torch.float32 else (2 ** -8, 2 ** -6)
+    launches = (fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches,
+                fl.flash_f32_fwd.launches, fl.flash_f32_bwd.launches)
+    qk = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fl.flash_mha(*qk, scale)
+    o.backward(do)
+    qr = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = fl.flash_mha_plain(*qr, scale)
+    ref.backward(do.float())
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == ref.shape
+    assert _rel(o.detach(), ref.detach()) <= tol
+    for got, want in zip(qk, qr):
+        assert got.grad.dtype == dtype
+        assert _rel(got.grad, want.grad) <= gtol
+    assert (fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches, fl.flash_f32_fwd.launches,
+            fl.flash_f32_bwd.launches) == (launches[0], launches[1], launches[2] + 1, launches[3] + 1)
+    o2, lse = fl.flash_f32_fwd(q, k, v, scale)
+    ref_o, ref_lse = fl.flash_fwd_plain(q, k, v, scale)
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    again = fl.flash_f32_bwd(q, k, v, o2, lse, do, scale)
+    assert all(torch.equal(a, t.grad) for a, t in zip(again, qk))  # no atomics: deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [72, 576, 600, 1100])
+def test_flash_f32_plan_matches_compiled(cuda, d):
+    """f32_plan()'s output columns a block are the source's own."""
+    lib = fl._library_f32()
+    assert lib.flash_f32_cols(d, 0) == fl.f32_cols(d, fl.F32_OUT_COLS)
+    assert lib.flash_f32_cols(d, 1) == fl.f32_cols(d, fl.F32_OUT_COLS_KV)
 
 
 @pytest.mark.cuda
