@@ -11,20 +11,22 @@ function's: q ``[b, h, nq, d]``, k and v ``[b, h, nk, d]``; the output is
   forward is :func:`flash_mha_fwd` and whose backward is
   :func:`flash_mha_bwd`.
 - Each of the two wrappers routes a CUDA tensor by :func:`route`: bf16 at a
-  head dim up to 576 to the tensor-core kernels of ``csrc/flash_attention.cu``,
+  head dim up to 576 to the bf16 kernels of ``csrc/flash_attention.cu``,
   float32 at any head dim and bf16 above 576 to the float32 pair of
-  ``csrc/flash_attention_f32.cu`` (:func:`flash_f32_fwd`,
+  ``csrc/flash_attention_f32.cu`` (also tensor cores, in 3xTF32; :func:`flash_f32_fwd`,
   :func:`flash_f32_bwd`), and raises on any other dtype. It runs its plain
   version (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`) for a CPU
   tensor. There is no fallback from a CUDA tensor. Each wrapper that
   launches kernels counts its launches in ``.launches``: one per forward,
   one per backward (whose kernels, D, dK/dV, the split reduce where there
   are splits, and dQ, run as one call).
-- :func:`plan` is how the tensor-core kernels run a shape: the template
-  width, each kernel's warps, grid and shared memory, and the dK/dV
-  kernel's query-range splits with their float32 scratch; :func:`f32_plan`
-  the float32 pair's grids and shared memory. Both are plain arithmetic, so
-  the CPU tests read them.
+- :func:`plan` is how the bf16 kernels run a shape: the template width,
+  each kernel's warps, grid and shared memory, and the dK/dV kernel's
+  query-range splits with their float32 scratch; :func:`f32_plan` the same
+  for the float32 pair: the source's make_plan (:func:`f32_kernel_plan`:
+  tiles, warps, column parts, shared memory; :func:`compiled_f32_plan` reads
+  the built library's for the card tests) with the dK/dV splits. Both are
+  plain arithmetic, so the CPU tests read them.
 - :func:`flash_mha_plain` is the plain dense chain (float32 ``q * scale @
   k^T``, softmax, ``@ v``) that the kernels are held against on the card.
 
@@ -68,14 +70,37 @@ TILES = {
     288: {"fwd": (64, 1), "dq": (32, 1), "dkdv": (64, 32, 2)},
     576: {"fwd": (32, 2), "dq": (16, 2), "dkdv": (32, 32, 4)},
 }
-# the float32 pair (csrc/flash_attention_f32.cu holds the same): rows a
-# block owns, output columns updated a pass, and the float32 output columns
-# a block holds in shared memory (forward and dQ; dK and dV each)
-F32_ROWS = 32
-F32_VC = 128
-F32_OUT_COLS = 1024
-F32_OUT_COLS_KV = 512
-F32_SCRATCH = 4 * 32 * 33 * 4 + 32 * 128 * 4 + 3 * 32 * 4  # sizeof(Scratch)
+# the float32 pair, 3xTF32 on the tensor cores (csrc/flash_attention_f32.cu
+# holds the same): a row's pitch in shared memory is its width + F32_PAD
+# floats; up to F32_RES_MAX columns one operand of a kernel stays resident,
+# above it the contraction over d streams in chunks of F32_DC columns (per
+# kernel: the source's DC_OF) and the output columns split into parts of at
+# most F32_RES_MAX; a two-stage ring
+F32_PAD = 4
+F32_DC = {"fwd": 144, "dq": 32, "dkdv": 144}
+F32_RES_MAX = 288
+F32_STAGES = 2
+# per kernel and tier (head dim rounded to 8: <= 72, <= 144, above; bf16
+# always the last): accumulator columns a warp holds (CW), keys a loop tile
+# (dK/dV: queries), warps a block (CW_OF, BK_OF, WARPS_OF of the source)
+F32_TILES = {
+    "fwd": ((72, 64, 8), (144, 32, 8), (288, 32, 8)),
+    "dq": ((72, 32, 8), (144, 32, 8), (288, 16, 4)),
+    "dkdv": ((72, 32, 8), (144, 32, 8), (144, 16, 8)),
+}
+F32_KERNELS = ("fwd", "dq", "dkdv")  # the source's Kernel enum, in order
+F32_PLAN_KEYS = ("cw", "bk", "warps", "wc", "rows", "stream", "kc", "cols", "parts", "smem")
+# the fragment mapping of the pair's mma.sync m16n8k8 TF32 (acc_to_a and
+# load_b of the source): register i of a P or dS A operand is accumulator
+# register F32_ACC_TO_A[i], and B register j of lane t reads row
+# F32_B_ROWS[j][t] of each 8-row slab of V, K, dO or Q
+F32_ACC_TO_A = (0, 2, 1, 3)
+F32_B_ROWS = ((0, 2, 4, 6), (1, 3, 5, 7))
+# the dK/dV split count's cost model: one SM's float32-equivalent rate in
+# 3xTF32 (a third of its share of the 495 TFLOP/s TF32 peak, over the
+# three MMAs a product takes) and the shared memory of an SM
+F32_SM_FLOPS = 495e12 / SMS / 3 / 3
+SM_SMEM = 233472
 _lib = None
 _lib_f32 = None
 
@@ -104,10 +129,10 @@ def _library_f32():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_f32_fwd.argtypes = [vp] * 5 + [ci] * 4 + [cf, ci, vp]
         lib.flash_f32_fwd.restype = ci
-        lib.flash_f32_bwd.argtypes = [vp] * 10 + [ci] * 4 + [cf, ci, vp]
+        lib.flash_f32_bwd.argtypes = [vp] * 12 + [ci] * 4 + [cf, ci, ci, vp]
         lib.flash_f32_bwd.restype = ci
-        lib.flash_f32_cols.argtypes = [ci, ci]
-        lib.flash_f32_cols.restype = ci
+        lib.flash_f32_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.flash_f32_plan.restype = ci
         _lib_f32 = lib
     return _lib_f32
 
@@ -166,28 +191,92 @@ def route(dtype: torch.dtype, d: int) -> str:
     raise TypeError(f"flash attention: no kernel for {dtype}; it takes torch.bfloat16 or torch.float32")
 
 
-def f32_cols(d: int, limit: int) -> int:
-    """Output columns a block of the float32 pair holds: all of d up to
-    ``limit``, else an equal split of d, in multiples of F32_VC."""
-    return _cdiv(_cdiv(d, _cdiv(d, limit)), F32_VC) * F32_VC
+def f32_kernel_plan(kernel: str, d: int, bf16: bool = False) -> dict:
+    """How kernel ``kernel`` ("fwd", "dq" or "dkdv") of the float32 pair
+    runs head dim ``d``: the source's make_plan, key for key
+    (:data:`F32_PLAN_KEYS`)."""
+    d8 = _cdiv(d, 8) * 8
+    tier = 2 if bf16 or d8 > 144 else 1 if d8 > 72 else 0  # the source's tier_of
+    cw, bk, warps = F32_TILES[kernel][tier]
+    stream = int(d8 > F32_RES_MAX)
+    parts = _cdiv(d, F32_RES_MAX) if stream else 1
+    cols = _cdiv(_cdiv(d, parts), 8) * 8 if stream else d8
+    kc = F32_DC[kernel] if stream else d8
+    wc = _cdiv(cols, cw) if kernel == "dkdv" else 1
+    rows = 16 * warps // wc
+    pc, po = kc + F32_PAD, cols + F32_PAD
+    if kernel == "fwd":  # Q resident; units: K (or chunks of Q and K), then V
+        res = 0 if stream else rows * pc
+        slot = max((rows * pc if stream else 0) + bk * pc, bk * po)
+    elif kernel == "dq":  # Q, dO resident; units: K and V (or chunks, then K)
+        res = 0 if stream else 2 * rows * pc
+        slot = max(2 * (rows + bk) * pc, bk * po) if stream else 2 * bk * pc
+    else:  # K, V resident; units: Q and dO (or chunks, then Q and dO); lse, D
+        res = 0 if stream else 2 * rows * pc
+        slot = (max(2 * (rows + bk) * pc, 2 * bk * po) if stream else 2 * bk * pc) + 2 * bk
+    return {"cw": cw, "bk": bk, "warps": warps, "wc": wc, "rows": rows, "stream": stream,
+            "kc": kc, "cols": cols, "parts": parts, "smem": 4 * (res + F32_STAGES * slot)}
+
+
+def _f32_splits(bh: int, nq: int, nk: int, d: int, p: dict) -> int:
+    """Query-range splits of the float32 dK/dV kernel: the count (1 to 16,
+    at most one per query tile) whose waves of blocks plus the float32
+    partials' write and read take the least time under the F32_SM_FLOPS
+    model."""
+    base = _cdiv(nk, p["rows"]) * bh * p["parts"]
+    per_sm = max(1, min(SM_SMEM // (p["smem"] + 1024), 8 // p["warps"]))
+    wave_s = per_sm * 8.0 * nq * p["rows"] * d / F32_SM_FLOPS  # a wave's blocks, unsplit
+    best = None
+    for s in range(1, min(MAX_SPLITS, _cdiv(nq, p["bk"])) + 1):
+        scratch_s = 0.0 if s == 1 else 2 * 2 * s * bh * nk * d * 4 / HBM_BYTES_PER_S
+        cost = _cdiv(base * s, SMS * per_sm) * wave_s / s + scratch_s
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return best[1]
 
 
 @functools.lru_cache(maxsize=None)
-def f32_plan(bh: int, nq: int, nk: int, d: int) -> dict:
-    """How the float32 pair runs ``bh`` slices of (nq, nk, d): each kernel's
-    grid (x, y, z: d split where a block cannot hold it) and dynamic shared
-    memory, 256 threads a block. Pure arithmetic on the shapes."""
-    cols, kv_cols = f32_cols(d, F32_OUT_COLS), f32_cols(d, F32_OUT_COLS_KV)
-    rows = F32_ROWS
-    return {
-        "fwd": {"grid": (_cdiv(nq, rows), bh, _cdiv(d, cols)), "cols": cols,
-                "smem": F32_SCRATCH + 4 * rows * cols},
-        "bwd_pre": {"grid": (_cdiv(bh * nq, 8), 1, 1), "smem": 0},
-        "dkdv": {"grid": (_cdiv(nk, rows), bh, _cdiv(d, kv_cols)), "cols": kv_cols,
-                 "smem": F32_SCRATCH + 2 * 4 * rows * kv_cols},
-        "dq": {"grid": (_cdiv(nq, rows), bh, _cdiv(d, cols)), "cols": cols,
-               "smem": F32_SCRATCH + 4 * rows * cols},
-    }
+def f32_plan(bh: int, nq: int, nk: int, d: int, bf16: bool = False) -> dict:
+    """How the float32 pair runs ``bh`` slices of (nq, nk, d): per kernel
+    its :func:`f32_kernel_plan` with its grid (x, y, z: column parts, for
+    dK/dV times the query-range splits), the splits and the bytes of their
+    float32 scratch. Pure arithmetic on the shapes."""
+    out = {}
+    for kernel, n in (("fwd", nq), ("dq", nq), ("dkdv", nk)):
+        p = f32_kernel_plan(kernel, d, bf16)
+        p["grid"] = (_cdiv(n, p["rows"]), bh, p["parts"])
+        out[kernel] = p
+    splits = _f32_splits(bh, nq, nk, d, out["dkdv"])
+    gx, gy, gz = out["dkdv"]["grid"]
+    out["dkdv"]["grid"] = (gx, gy, gz * splits)
+    out["bwd_pre"] = {"grid": (_cdiv(bh * nq, 8), 1, 1), "smem": 0}
+    out["splits"] = splits
+    out["scratch_bytes"] = 2 * splits * bh * nk * d * 4 if splits > 1 else 0
+    return out
+
+
+def compiled_f32_plan(kernel: str, d: int, bf16: bool = False) -> dict:
+    """The launch plan the built float32 library computes for ``kernel`` at
+    head dim ``d``, in :func:`f32_kernel_plan`'s form (builds the library on
+    first use)."""
+    out = (ctypes.c_int * len(F32_PLAN_KEYS))()
+    if _library_f32().flash_f32_plan(F32_KERNELS.index(kernel), int(d), int(bf16), out) != 0:
+        raise ValueError(f"flash attention: no float32 plan for {kernel} at head dim {d}")
+    return dict(zip(F32_PLAN_KEYS, out))
+
+
+def f32_kernel_usage() -> dict:
+    """{(kernel, "float32" or "bf16", CW, BK or None): registers a thread,
+    spill bytes and static shared memory} of the built float32 library,
+    from ptxas -v."""
+    usage = {}
+    for name, u in build.ptxas_usage(SOURCE_F32).items():
+        m = re.search(r"(flash_f32_[a-z]+_kernel)I(f|13__nv_bfloat16)(?:Li(\d+)ELi(\d+)E)?", name)
+        if m:
+            dtype = "float32" if m.group(2) == "f" else "bf16"
+            cw, bk = (int(m.group(3)), int(m.group(4))) if m.group(3) else (None, None)
+            usage[(m.group(1), dtype, cw, bk)] = u
+    return usage
 
 
 def fwd_smem(dp: int, bq: int, bk: int) -> int:
@@ -387,7 +476,9 @@ def _f32_inputs(q, k, v, *more):
     if nq == 0 or nk == 0:
         raise ValueError("flash attention: empty query or key set")
     shapes = [(b, h, nq, d), (b, h, nk, d), (b, h, nk, d)] + [(b, h, nq, d)] * len(more)
-    out = [_check(name, x, shape, q.dtype, aligned=False)  # scalar loads: any address
+    # any address: the kernels copy 16 bytes at a time only where every
+    # operand is 16-byte aligned, 4 otherwise
+    out = [_check(name, x, shape, q.dtype, aligned=False)
            for name, x, shape in zip(("q", "k", "v", "o", "do"), (q, k, v, *more), shapes)]
     return out, (b, h, nq, nk, d)
 
@@ -395,11 +486,13 @@ def _f32_inputs(q, k, v, *more):
 def flash_f32_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward of the float32 pair: (o in q's dtype, lse float32 in base
-    2), every product and sum in float32; the plain version for CPU
-    tensors."""
+    2), every product in 3xTF32 and every sum in float32; the plain version
+    for CPU tensors."""
     if _device_kind(q, k, v) == "cpu":
         return flash_fwd_plain(q, k, v, scale)
     (q, k, v), (b, h, nq, nk, d) = _f32_inputs(q, k, v)
+    if scale < 0:  # the kernel takes scale >= 0: the same softmax of (-q) k^T |scale|
+        q, scale = -q, -scale
     o = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     with _current(q.device):
@@ -422,13 +515,20 @@ def flash_f32_bwd(q, k, v, o, lse, do, scale: float):
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, nq):
         raise ValueError(f"flash attention: lse must be float32 [b, h, nq], got {lse.dtype} {tuple(lse.shape)}")
     lse = lse.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    p = f32_plan(b * h, nq, nk, d, bf16)
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = None
+    if p["splits"] > 1:  # float32 partial dK, dV of each query range
+        part = torch.empty((2, p["splits"], b * h, nk, d), dtype=torch.float32, device=q.device)
     with _current(q.device):
         err = _library_f32().flash_f32_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, nq, nk, d, float(scale), int(q.dtype == torch.bfloat16),
+            None if part is None else part[0].data_ptr(),
+            None if part is None else part[1].data_ptr(),
+            b * h, nq, nk, d, float(scale), p["splits"], int(bf16),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_f32_bwd launch failed: CUDA error {err}")

@@ -25,9 +25,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    card's peak rates) and, where one PyTorch call computes the same
    function, that call's time (flash attention: scaled_dot_product_attention
    in bf16, with the backend that served it); K4's float32 pair
-   (csrc/flash_attention_f32.cu) in float32 at two MViT-L shapes and a ragged
-   one above head dim 576, and in bf16 at head dim 768, against the plain
-   versions, with SDPA in float32 as its library yardstick. Also the stem kernels on their
+   (csrc/flash_attention_f32.cu, 3xTF32 on the tensor cores) in float32 at
+   every distinct attention shape of MViT-L 32x312 and a ragged one above
+   head dim 576, and in bf16 at head dim 768, against the plain versions,
+   with its plan, its registers and spills (a spill fails) and the TF32 MMA
+   count of its SASS (cuobjdump; none fails), SDPA in the same dtype as its
+   library yardstick and both its bounds (3xTF32 on the tensor cores, and
+   float32 on the CUDA cores). Also the stem kernels on their
    other launch schedules at the BYOL stem shape: K1' (TPU.PALLAS_STEM_CHUNK:
    K1 and K2 per batch chunk, chunk 8 and 12 -> 8) and K2' (TPU.
    PALLAS_STEM_WGRAD_ONLY: K2 over 16-sample chunks); and the window
@@ -56,7 +60,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    2 views of uint8 clips through the 'OnlyCrop' augmentation, block masks
    from the port's MaskingGenerator3D, the lr from the port's lr policy in
    the warm-up, 2 warm-up and 5 timed steps; the flash kernels' launches
-   are checked against the count the block schedule implies;
+   are checked against the count the block schedule implies; then the same
+   step with TPU.COMPUTE_DTYPE float32 (1 warm-up and 2 timed steps), whose
+   attention runs K4's float32 pair as often as the bf16 step runs the bf16
+   pair and never the bf16 pair;
 8. the entry point: ``python -m advise_tpu_torch.tools.run`` on the BYOL
    preset at full width with synthetic videos (48 of them: 3 iterations an
    epoch), 2 epochs with a kNN probe and a checkpoint each, then the same
@@ -88,6 +95,7 @@ SPEED_EPOCH = 1.0  # inside SpeedPro's 10 warm-up epochs
 MASKED_EPOCH = 1.0  # inside the MViT-L preset's 10 warm-up epochs
 SLOW_R50_SPEED_PARAMS = 40_047_684  # the JAX package's oracle (tests/test_models.py)
 VARIANT_WARMUP, VARIANT_TIMED = 1, 2  # the BYOL step's stem-schedule variants
+F32_WARMUP, F32_TIMED = 1, 2  # the masked step in float32
 # phase 8: the entry point on the BYOL preset, into a directory .gitignore lists
 RUN_DIR = "build/chip_smoke_run"
 RUN_VIDEOS = 48  # 3 iterations an epoch at the preset's 16 clips
@@ -103,9 +111,10 @@ PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 
 K4_REPS = 10  # flash attention and SDPA calls back to back in a timing sample
 
 # H100 SXM (NVIDIA's data sheet): device memory rate, dense bf16 tensor
-# cores, float32 on the CUDA cores
+# cores, float32 on the CUDA cores, and float32 as 3xTF32 on the tensor
+# cores (three dense TF32 MMAs, 495 TFLOP/s, per float32 product)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 # float operations of the fused aug per output element: the luma (5), the
 # three blends (5 each) and the normalisation lookup, rounded up
 AUG_OPS_PER_ELEMENT = 25
@@ -231,6 +240,144 @@ def stem_schedules(sc, x, w, y, gy, kt, alone, results) -> None:
         r = results[name]
         print(f"[kernel] {name}: {r['ms']} ms, plain {r['plain_ms']} ms, library {r['library_ms']} ms, "
               f"bound {r['bound'][0]} ms ({r['bound'][1]})")
+
+
+def tf32_mma_counts(lib_path, nvcc):
+    """{kernel (mangled): TF32 tensor-core instructions (HMMA...TF32 of
+    mma.sync, HGMMA...TF32 of wgmma)} in the SASS of a built library, from
+    the toolkit's cuobjdump."""
+    from pathlib import Path
+
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = line.split("Function : ", 1)
+        if len(head) == 2:
+            fn = head[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line) and "TF32" in line:
+            counts[fn] += 1
+    return counts
+
+
+def flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms):
+    """K4's float32 pair at every distinct attention shape of the masked
+    path's encoder in float32 (2 views), each weighted by the blocks that run
+    it, then at (1,3,777,555,640) float32 and (1,2,500,300,768) bf16: its
+    plan, registers and spills (a spill in a float32 instance, which serves
+    head dims up to 288, fails), the TF32 MMAs of its SASS (none fails),
+    agreement with the plain versions (float32: 1e-4 of the largest entry;
+    bf16: 2^-7), a deterministic backward, and times beside the plain chain,
+    SDPA in the same dtype, the CUDA-core float32 bound and the 3xTF32 bound.
+    Returns the encoder's totals as flash_f32_fwd / flash_f32_bwd results."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    for (kname, dtype, cw, bk), use in sorted(fl.f32_kernel_usage().items(), key=str):
+        print(f"[kernel] flash f32 pair {kname} {dtype}" + (f" CW {cw} BK {bk}" if cw else "")
+              + f": {use['registers']} registers, spill stores {use['spill_stores']} B, loads "
+              f"{use['spill_loads']} B")
+        if dtype == "float32":
+            check(use["spill_stores"] == use["spill_loads"] == 0,
+                  f"flash f32 pair {kname} CW {cw} spills registers")
+    counts = tf32_mma_counts(build.library_path(fl.SOURCE_F32), build.find_nvcc())
+    for name, n in sorted(counts.items()):
+        print(f"[kernel] flash f32 pair SASS {name[-70:]}: {n} TF32 MMA instructions")
+    for kname in ("flash_f32_fwd_kernel", "flash_f32_dkdv_kernel", "flash_f32_dq_kernel"):
+        n = sum(c for name, c in counts.items() if kname in name)
+        check(n > 0, f"{kname} has no TF32 tensor-core instruction in its SASS")
+    totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=[0.0, 0.0], max_abs_err=0.0)
+              for name in ("flash_f32_fwd", "flash_f32_bwd")}
+    cases = [(sh, torch.float32) for sh in sorted(uses, key=lambda sh: -uses[sh])]
+    cases += [((1, 3, 777, 555, 640), torch.float32), ((1, 2, 500, 300, 768), torch.bfloat16)]
+    for shape, dtype in cases:
+        b_, h_, nq, nk, d = shape
+        check(fl.route(dtype, d) == "f32", f"flash {shape} {dtype} does not route to the float32 pair")
+        fplan = fl.f32_plan(b_ * h_, nq, nk, d, dtype == torch.bfloat16)
+        print(f"[kernel] flash f32 pair {shape} {dtype}: " + ", ".join(
+            f"{kname} grid {kp['grid']} ({math.prod(kp['grid']) / sms} blocks an SM)"
+            + (f", {kp['warps']} warps, CW {kp['cw']}, {'streamed' if kp['stream'] else 'resident'}, "
+               f"{kp['smem']} B shared" if "cw" in kp else "")
+            for kname, kp in fplan.items() if isinstance(kp, dict))
+            + f"; dK/dV splits {fplan['splits']} (scratch {fplan['scratch_bytes']} B)")
+        scale = d ** -0.5
+        q, do = (torch.randn((b_, h_, nq, d), device=dev, generator=g).to(dtype) for _ in range(2))
+        k_, v = (torch.randn((b_, h_, nk, d), device=dev, generator=g).to(dtype) for _ in range(2))
+        before = (fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches,
+                  fl.flash_f32_fwd.launches, fl.flash_f32_bwd.launches)
+        o, lse = fl.flash_mha_fwd(q, k_, v, scale)
+        grads = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
+        ref_o, ref_lse = fl.flash_fwd_plain(q, k_, v, scale)
+        ref_g = fl.flash_bwd_plain(q, k_, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        check((fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches, fl.flash_f32_fwd.launches,
+               fl.flash_f32_bwd.launches) == (before[0], before[1], before[2] + 1, before[3] + 1),
+              f"flash {shape} {dtype} did not launch the float32 pair once each way")
+        # float32: 3xTF32 products (about 2^-22 of each) summed in float32 in
+        # another order (1e-4 of the largest entry); bf16: both round the
+        # same float32 values to bf16 (one ulp, 2^-7)
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+        for name, a, r in (("o", o, ref_o), ("dq", grads[0], ref_g[0]), ("dk", grads[1], ref_g[1]),
+                           ("dv", grads[2], ref_g[2])):
+            err = float((a.float() - r.float()).abs().max())
+            top = float(r.float().abs().max())
+            print(f"[kernel] flash f32 pair {shape} {dtype} {name}: max_abs_err {err} (bound {tol} of "
+                  f"max|ref| {top} = {tol * top})")
+            check(math.isfinite(err) and err <= tol * top, f"flash f32 pair {name} disagrees at {shape}")
+            if dtype == torch.float32 and shape in uses:
+                key = "flash_f32_fwd" if name == "o" else "flash_f32_bwd"
+                totals[key]["max_abs_err"] = max(totals[key]["max_abs_err"], err)
+        del ref_o, ref_g
+        lse_err = float((lse - ref_lse).abs().max())
+        print(f"[kernel] flash f32 pair {shape} {dtype} lse: max_abs_err {lse_err} (bound 1e-4)")
+        check(lse_err <= 1e-4, f"flash f32 pair lse disagrees at {shape}: {lse_err}")
+        check(all(torch.equal(a, bb) for a, bb in zip(fl.flash_mha_bwd(q, k_, v, o, lse, do, scale), grads)),
+              "the flash f32 pair's backward is not deterministic")
+        del grads
+        fwd_ms, fwd_plain_ms = in_turns(lambda: fl.flash_mha_fwd(q, k_, v, scale),
+                                        lambda: fl.flash_fwd_plain(q, k_, v, scale))
+        bwd_ms, bwd_plain_ms = in_turns(lambda: fl.flash_mha_bwd(q, k_, v, o, lse, do, scale),
+                                        lambda: fl.flash_bwd_plain(q, k_, v, o, lse, do, scale))
+        backend = sdpa_backend(q, k_, v, scale)
+        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k_, v))
+        with sdpa_kernel([backend]):
+            lib_fwd_ms = alone(lambda: F.scaled_dot_product_attention(q, k_, v, scale=scale))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            lib_bwd_ms = alone(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True))
+        work, el = b_ * h_ * nq * nk * d, q.element_size()
+        io = el * b_ * h_ * (2 * nq + 2 * nk) * d
+        fwd_bytes, bwd_bytes = io + 4.0 * b_ * h_ * nq, 2 * io + 4.0 * b_ * h_ * nq
+        # 3xTF32: each float32 operation three TF32 tensor-core ones; the
+        # CUDA-core float32 bound beside it
+        fwd_bound = bound(fwd_bytes, 4.0 * work, "tf32x3")
+        bwd_bound = bound(bwd_bytes, 10.0 * work, "tf32x3")
+        fwd_f32, bwd_f32 = bound(fwd_bytes, 4.0 * work, "f32"), bound(bwd_bytes, 10.0 * work, "f32")
+        n_use = uses.get(shape, 0) if dtype == torch.float32 else 0
+        print(f"[kernel] flash f32 pair {shape} {dtype} x{n_use} blocks: fwd {fwd_ms} ms (plain {fwd_plain_ms}, "
+              f"SDPA {lib_fwd_ms} by {backend.name}, 3xTF32 bound {fwd_bound[0]} {fwd_bound[1]}, "
+              f"{fwd_bound[0] / fwd_ms} of it; CUDA-core float32 bound {fwd_f32[0]}); bwd {bwd_ms} ms "
+              f"(plain {bwd_plain_ms}, SDPA {lib_bwd_ms}, 3xTF32 bound {bwd_bound[0]} {bwd_bound[1]}, "
+              f"{bwd_bound[0] / bwd_ms} of it; CUDA-core float32 bound {bwd_f32[0]}); vs SDPA: fwd "
+              f"{lib_fwd_ms / fwd_ms}x, bwd {lib_bwd_ms / bwd_ms}x")
+        for key, vals in (("flash_f32_fwd", (fwd_ms, fwd_plain_ms, lib_fwd_ms, fwd_bound)),
+                          ("flash_f32_bwd", (bwd_ms, bwd_plain_ms, lib_bwd_ms, bwd_bound))):
+            tot = totals[key]
+            tot["ms"] += n_use * vals[0]
+            tot["plain_ms"] += n_use * vals[1]
+            tot["library_ms"] += n_use * vals[2]
+            tot["bound"][0] += n_use * vals[3][0]
+            tot["bound"][1] += n_use * (1.0 if vals[3][1] == "operations" else 0.0)
+        del q, k_, v, do, o, lse, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
+    for key, tot in totals.items():
+        tot["bound"] = (tot["bound"][0], "operations" if tot["bound"][1] * 2 >= len(per_block) else "bytes")
+        print(f"[kernel] {key} over the encoder's {len(per_block)} blocks in float32: {tot['ms']} ms, plain "
+              f"{tot['plain_ms']} ms, SDPA {tot['library_ms']} ms, 3xTF32 bound {tot['bound'][0]} ms "
+              f"({tot['bound'][1]}; {tot['bound'][0] / tot['ms']} of it), max_abs_err {tot['max_abs_err']}")
+    return totals
 
 
 def window_probes(wp, dev, in_turns, results):
@@ -591,75 +738,9 @@ def main() -> None:
         results[key] = tot
 
     # K4's float32 pair (csrc/flash_attention_f32.cu): what the tensor-core
-    # kernels do not take, routed by flash_mha_fwd/bwd; float32 on the CUDA
-    # cores, so its bound is its operations at the float32 rate
-    for name, use in sorted(build.ptxas_usage(fl.SOURCE_F32).items()):
-        print(f"[kernel] {name[-60:]}: {use['registers']} registers, spill stores "
-              f"{use['spill_stores']} B, loads {use['spill_loads']} B")
-    f32_err = 0.0
-    for shape, dtype in (((2, 2, 6400, 1600, 288), torch.float32), ((2, 2, 1600, 1600, 576), torch.float32),
-                         ((1, 3, 777, 555, 640), torch.float32), ((1, 2, 500, 300, 768), torch.bfloat16)):
-        b_, h_, nq, nk, d = shape
-        check(fl.route(dtype, d) == "f32", f"flash {shape} {dtype} does not route to the float32 pair")
-        fplan = fl.f32_plan(b_ * h_, nq, nk, d)
-        print(f"[kernel] flash f32 pair {shape} {dtype}: " + ", ".join(
-            f"{kname} grid {kp['grid']} ({math.prod(kp['grid']) / sms} blocks an SM), {kp['smem']} B shared"
-            for kname, kp in fplan.items()))
-        scale = d ** -0.5
-        q, do = (torch.randn((b_, h_, nq, d), device=dev, generator=g).to(dtype) for _ in range(2))
-        k_, v = (torch.randn((b_, h_, nk, d), device=dev, generator=g).to(dtype) for _ in range(2))
-        before = (fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches,
-                  fl.flash_f32_fwd.launches, fl.flash_f32_bwd.launches)
-        o, lse = fl.flash_mha_fwd(q, k_, v, scale)
-        grads = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
-        ref_o, ref_lse = fl.flash_fwd_plain(q, k_, v, scale)
-        ref_g = fl.flash_bwd_plain(q, k_, v, o, lse, do, scale)
-        torch.cuda.synchronize()
-        check((fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches, fl.flash_f32_fwd.launches,
-               fl.flash_f32_bwd.launches) == (before[0], before[1], before[2] + 1, before[3] + 1),
-              f"flash {shape} {dtype} did not launch the float32 pair once each way")
-        # float32: every sum in float32 in another order (1e-4 of the largest
-        # entry); bf16: both round the same float32 values to bf16 (one ulp, 2^-7)
-        tol = 1e-4 if dtype == torch.float32 else 2 ** -7
-        for name, a, r in (("o", o, ref_o), ("dq", grads[0], ref_g[0]), ("dk", grads[1], ref_g[1]),
-                           ("dv", grads[2], ref_g[2])):
-            err = float((a.float() - r.float()).abs().max())
-            top = float(r.float().abs().max())
-            print(f"[kernel] flash f32 pair {shape} {dtype} {name}: max_abs_err {err} (bound {tol} of "
-                  f"max|ref| {top} = {tol * top})")
-            check(math.isfinite(err) and err <= tol * top, f"flash f32 pair {name} disagrees at {shape}")
-            if dtype == torch.float32:
-                f32_err = max(f32_err, err)
-        lse_err = float((lse - ref_lse).abs().max())
-        check(lse_err <= 1e-4, f"flash f32 pair lse disagrees at {shape}: {lse_err}")
-        check(all(torch.equal(a, bb) for a, bb in zip(fl.flash_mha_bwd(q, k_, v, o, lse, do, scale), grads)),
-              "the flash f32 pair's backward is not deterministic")
-        fwd_ms, fwd_plain_ms = in_turns(lambda: fl.flash_mha_fwd(q, k_, v, scale),
-                                        lambda: fl.flash_fwd_plain(q, k_, v, scale))
-        bwd_ms, bwd_plain_ms = in_turns(lambda: fl.flash_mha_bwd(q, k_, v, o, lse, do, scale),
-                                        lambda: fl.flash_bwd_plain(q, k_, v, o, lse, do, scale))
-        backend = sdpa_backend(q, k_, v, scale)
-        ql, kl, vl = (t.clone().requires_grad_() for t in (q, k_, v))
-        with sdpa_kernel([backend]):
-            lib_fwd_ms = alone(lambda: F.scaled_dot_product_attention(q, k_, v, scale=scale))
-            lib_out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
-            lib_bwd_ms = alone(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True))
-        work, el = b_ * h_ * nq * nk * d, q.element_size()
-        io = el * b_ * h_ * (2 * nq + 2 * nk) * d
-        fwd_bound = bound(io + 4.0 * b_ * h_ * nq, 4.0 * work, "f32")
-        bwd_bound = bound(io + el * b_ * h_ * (2 * nq + 2 * nk) * d + 4.0 * b_ * h_ * nq, 10.0 * work, "f32")
-        print(f"[kernel] flash f32 pair {shape} {dtype}: fwd {fwd_ms} ms (plain {fwd_plain_ms}, SDPA "
-              f"{lib_fwd_ms} by {backend.name}, bound {fwd_bound[0]} {fwd_bound[1]}, {fwd_bound[0] / fwd_ms} "
-              f"of it); bwd {bwd_ms} ms (plain {bwd_plain_ms}, SDPA {lib_bwd_ms}, bound {bwd_bound[0]} "
-              f"{bwd_bound[1]}, {bwd_bound[0] / bwd_ms} of it)")
-        if shape == (2, 2, 6400, 1600, 288):  # 34 of MViT-L's 48 blocks run this shape
-            results["flash_f32_fwd"] = dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_fwd_ms,
-                                            bound=fwd_bound)
-            results["flash_f32_bwd"] = dict(ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
-                                            bound=bwd_bound)
-        del q, k_, v, do, o, lse, grads, ref_o, ref_g, ql, kl, vl, lib_out
-        torch.cuda.empty_cache()
-    results["flash_f32_fwd"]["max_abs_err"] = results["flash_f32_bwd"]["max_abs_err"] = f32_err
+    # kernels do not take, routed by flash_mha_fwd/bwd, at every float32
+    # shape of the masked path's encoder and two wide head dims
+    results.update(flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms))
     print(f"[kernel] card after the flash timings: {card_state()}")
 
     # -- 4. small input: the card's bf16 forward against a CPU float32 one --------
@@ -963,6 +1044,55 @@ def main() -> None:
     check(launches["flash_mha_bwd"] == bwd_per_step * steps > 0,
           "flash_mha_bwd launches differ from the schedule's count")
 
+    del model, params, bundle, state, step, stats
+    torch.cuda.empty_cache()
+
+    # the same step with TPU.COMPUTE_DTYPE float32 (the precision baseline):
+    # no autocast, flash attention through K4's float32 pair, as many
+    # launches a step as the bf16 step's, and none of the tensor-core pair
+    fcfg = mvcfg.clone()
+    fcfg.TPU.COMPUTE_DTYPE = "float32"
+    model = build_model(fcfg, dev, seed=0)
+    params = dict(model.named_parameters())
+    bundle = build_tx(fcfg, params)
+    state = TrainState(model, bundle.tx.init(params), 0)
+    step = make_train_step(fcfg, bundle, build_device_aug(fcfg, "train"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    f_steps = F32_WARMUP + F32_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (fl.flash_mha_fwd, fl.flash_mha_bwd, fl.flash_f32_fwd, fl.flash_f32_bwd):
+        fn.launches = 0
+    step_ms = []
+    for i in range(f_steps):
+        t0 = time.perf_counter()
+        stats = step(state, clips, {"mask": masks[i]}, gen, lr)
+        vals = {name: float(v) for name, v in stats.items()}
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[masked f32] step {i}: loss_mask {vals['loss_mask']} loss_nce {vals['loss_nce']} "
+              f"grad_norm {vals['grad_norm']} ({step_ms[-1]} ms)")
+        check(all(math.isfinite(vals[k]) for k in ("loss_mask", "loss_nce", "grad_norm")),
+              f"float32 masked step {i} is not finite")
+    launches["flash_f32_fwd"] = fl.flash_f32_fwd.launches
+    launches["flash_f32_bwd"] = fl.flash_f32_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(state.step == f_steps, "the float32 masked state did not advance")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "float32 masked params not finite")
+    median_ms = statistics.median(step_ms[F32_WARMUP:])
+    print(f"[masked f32] card after the steps: {card_state()}")
+    print(f"[masked f32] MViT-L MaskFeat + NT-Xent in {fcfg.TPU.COMPUTE_DTYPE}: median step {median_ms} ms "
+          f"over {F32_TIMED} steps (all: {step_ms}), {mb * mk_ * 1e3 / median_ms} clip-views/s, peak "
+          f"allocated {peak} bytes")
+    print(f"[masked f32] launches during the steps: flash_f32_fwd {launches['flash_f32_fwd']} (expected "
+          f"{fwd_per_step * f_steps}), flash_f32_bwd {launches['flash_f32_bwd']} (expected "
+          f"{bwd_per_step * f_steps}), tensor-core K4 {(fl.flash_mha_fwd.launches, fl.flash_mha_bwd.launches)}")
+    check(launches["flash_f32_fwd"] == fwd_per_step * f_steps > 0,
+          "flash_f32_fwd launches in the float32 step differ from the schedule's count")
+    check(launches["flash_f32_bwd"] == bwd_per_step * f_steps > 0,
+          "flash_f32_bwd launches in the float32 step differ from the schedule's count")
+    check(fl.flash_mha_fwd.launches == fl.flash_mha_bwd.launches == 0,
+          "the float32 masked step reached the tensor-core flash kernels")
     del model, params, bundle, state, step, clips, masks, stats
     torch.cuda.empty_cache()
 
@@ -1017,7 +1147,6 @@ def main() -> None:
           f"device busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
 
     launches.update(probe_launches)
-    launches.update(launches_f32)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],

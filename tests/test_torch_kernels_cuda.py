@@ -2,7 +2,8 @@
 card: the stem kernels (advise_tpu_torch/csrc/stem_conv.cu) on their three
 launch schedules (one launch, per batch chunk, wgrad-only), the fused
 simple aug (advise_tpu_torch/csrc/fused_aug.cu), flash attention, forward
-and backward (advise_tpu_torch/csrc/flash_attention.cu), and the window
+and backward (advise_tpu_torch/csrc/flash_attention.cu) with its float32
+pair in 3xTF32 (advise_tpu_torch/csrc/flash_attention_f32.cu), and the window
 gather of the nine Mosaic probes (advise_tpu_torch/csrc/window_probe.cu).
 Every test here needs an NVIDIA card and nvcc, and skips without a card.
 
@@ -307,9 +308,17 @@ F32_PAIR_CASES = [  # (b, h, nq, nk, d), dtype: what the tensor-core kernels do 
     ((1, 2, 130, 70, 288), torch.float32),
     ((2, 1, 97, 65, 576), torch.float32),
     ((1, 1, 97, 65, 600), torch.float32),     # d > 576, ragged tiles
-    ((1, 1, 40, 33, 1100), torch.float32),    # d above a block's 1024 columns: grid z splits it
+    ((1, 1, 40, 33, 1100), torch.float32),    # d above 288: streamed chunks, 4 column parts
     ((1, 2, 500, 300, 768), torch.bfloat16),  # bf16 above 576
     ((1, 1, 70, 45, 600), torch.bfloat16),
+    # MViT-L 32x312's float32 shapes at one view: the resident tiers (d 72,
+    # 144, 288) with the ring over thousands of keys and split query ranges
+    # (nq >= 24336), and d 576 streamed in chunks over two column parts
+    ((1, 2, 6400, 1600, 288), torch.float32),
+    ((1, 1, 24336, 1600, 144), torch.float32),
+    ((1, 1, 24336, 6400, 72), torch.float32),
+    ((1, 1, 24336, 1600, 288), torch.float32),
+    ((1, 2, 1600, 1600, 576), torch.float32),
 ]
 
 
@@ -319,9 +328,11 @@ def test_flash_f32_pair_matches_plain(cuda, shape, dtype):
     """float32 q, k, v (any head dim) and bf16 above 576 go through
     flash_mha to the float32 pair of csrc/flash_attention_f32.cu, never to
     the tensor-core kernels, and agree with the float32 dense chain (TF32
-    off). In float32 every product and sum is float32, in another order over
-    up to 1100 columns and 500 rows, so o, dq, dk and dv are held to 1e-4 of
-    their largest entry. In bf16 the output is rounded once (2^-8) and the
+    off). In float32 every product is taken in 3xTF32 (its operands split
+    into two TF32 halves, the small x small term dropped: about 2^-22 of
+    each product) and summed in float32 in another order over up to 1100
+    columns and 24336 rows, so o, dq, dk and dv are held to 1e-4 of their
+    largest entry. In bf16 the output is rounded once (2^-8) and the
     backward's D comes from that bf16 output, so the gradients are held to
     2^-6, as the tensor-core pair's are."""
     b, h, nq, nk, d = shape
@@ -354,12 +365,14 @@ def test_flash_f32_pair_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [72, 576, 600, 1100])
-def test_flash_f32_plan_matches_compiled(cuda, d):
-    """f32_plan()'s output columns a block are the source's own."""
-    lib = fl._library_f32()
-    assert lib.flash_f32_cols(d, 0) == fl.f32_cols(d, fl.F32_OUT_COLS)
-    assert lib.flash_f32_cols(d, 1) == fl.f32_cols(d, fl.F32_OUT_COLS_KV)
+@pytest.mark.parametrize("kernel", fl.F32_KERNELS)
+@pytest.mark.parametrize("d,bf16", [(8, False), (72, False), (100, False), (144, False), (200, False),
+                                    (288, False), (289, False), (576, False), (600, False),
+                                    (1100, False), (600, True), (768, True)])
+def test_flash_f32_plan_matches_compiled(cuda, kernel, d, bf16):
+    """f32_kernel_plan() is the source's make_plan: tiles, warps, column
+    parts and shared memory."""
+    assert fl.compiled_f32_plan(kernel, d, bf16) == fl.f32_kernel_plan(kernel, d, bf16)
 
 
 @pytest.mark.cuda

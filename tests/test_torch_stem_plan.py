@@ -302,19 +302,35 @@ def test_flash_route(dtype, d, kernel):
 @pytest.mark.parametrize("shape", [(4, 6400, 1600, 288), (4, 1600, 1600, 576), (2, 500, 300, 768),
                                    (1, 40, 33, 1100), (3, 777, 555, 640), (1, 1, 1, 8)])
 def test_flash_f32_plan(shape):
-    """The float32 pair's grids: 32 rows a block; output columns in
-    multiples of 128, all of d in one block up to 1024 (dK and dV: 512
-    each), else d split evenly over grid z; shared memory within a block's
-    limit."""
+    """The float32 pair's plan: a warp 16 rows (dK/dV: wc warps sharing 16
+    keys, each 1/wc of the columns); the output tiles' float32 accumulators
+    within 144 registers a thread; up to head dim 288 one block holds all
+    of d, above it grid z splits d into parts of at most 288 and the
+    contraction streams in chunks (fl.F32_DC); at MViT-L's shapes the dK/dV
+    grid with its query-range splits fills the card's SMs; shared memory
+    within a block's limit."""
     bh, nq, nk, d = shape
-    p = fl.f32_plan(bh, nq, nk, d)
-    for name, rows, limit in (("fwd", nq, fl.F32_OUT_COLS), ("dq", nq, fl.F32_OUT_COLS),
-                              ("dkdv", nk, fl.F32_OUT_COLS_KV)):
+    bf16 = d == 768  # what a bf16 input above 576 takes
+    p = fl.f32_plan(bh, nq, nk, d, bf16)
+    d8 = -(-d // 8) * 8
+    for name, n in (("fwd", nq), ("dq", nq), ("dkdv", nk)):
         k = p[name]
-        assert k["cols"] % fl.F32_VC == 0 and d <= k["cols"] * k["grid"][2]
-        assert k["grid"][2] == -(-d // limit) and k["cols"] - d / k["grid"][2] < fl.F32_VC
-        assert k["grid"][:2] == (-(-rows // fl.F32_ROWS), bh)
+        assert k["rows"] * k["wc"] == 16 * k["warps"] and k["warps"] <= 8
+        # float32 output accumulators, 4 registers per 8 columns (dK/dV: two
+        # tiles), within 144 of a thread's 255
+        assert (2 if name == "dkdv" else 1) * k["cw"] // 2 <= 144
+        assert k["cols"] % 8 == 0 and k["cols"] <= k["cw"] * k["wc"]
+        assert k["stream"] == (d8 > fl.F32_RES_MAX) and k["kc"] == (fl.F32_DC[name] if k["stream"] else d8)
+        assert k["parts"] == -(-d // fl.F32_RES_MAX) if k["stream"] else k["parts"] == 1
+        assert d <= k["cols"] * k["parts"] < d + 8 * k["parts"]
+        splits = p["splits"] if name == "dkdv" else 1
+        assert k["grid"] == (-(-n // k["rows"]), bh, k["parts"] * splits)
         assert k["smem"] <= fl.SMEM_LIMIT
+    gx, gy, gz = p["dkdv"]["grid"]
+    assert 1 <= p["splits"] <= min(fl.MAX_SPLITS, -(-nq // p["dkdv"]["bk"]))
+    if nq >= 1600:  # MViT-L's shapes: enough blocks for the card's SMs
+        assert gx * gy * gz >= fl.SMS
+    assert p["scratch_bytes"] == (2 * p["splits"] * bh * nk * d * 4 if p["splits"] > 1 else 0)
     assert p["bwd_pre"]["grid"][0] * 8 >= bh * nq
 
 
