@@ -54,21 +54,24 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, extra: Tuple[str, ...] = ()) -> Path:
     """Where ``source``'s library lives: named by the hash of its content
-    and flags."""
+    and flags (``extra``: flags added to its own, such as a -D)."""
     digest = hashlib.sha1((CSRC / source).read_bytes())
-    digest.update(" ".join(_COMMON_FLAGS + SOURCES[source]).encode())
+    digest.update(" ".join(_COMMON_FLAGS + SOURCES[source] + tuple(extra)).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(sources=None, verbose: bool = False) -> Dict[str, Tuple[Path, float]]:
+def build_all(sources=None, verbose: bool = False,
+              extra: Tuple[str, ...] = ()) -> Dict[str, Tuple[Path, float]]:
     """Compile ``sources`` (default: all of :data:`SOURCES`) that are not
-    built yet, one nvcc each, all started together. Returns {source:
-    (library path, seconds its build took)}; 0.0 for a library that was
-    already there. Raises with nvcc's output if a build fails."""
+    built yet, one nvcc each with ``extra`` flags, all started together.
+    Returns {source: (library path, seconds its build took)}; 0.0 for a
+    library that was already there. Raises with nvcc's output if a build
+    fails."""
     sources = list(SOURCES if sources is None else sources)
-    done = {src: (library_path(src), 0.0) for src in sources if library_path(src).exists()}
+    done = {src: (library_path(src, extra), 0.0) for src in sources
+            if library_path(src, extra).exists()}
     todo = [src for src in sources if src not in done]
     if not todo:
         return done
@@ -76,9 +79,9 @@ def build_all(sources=None, verbose: bool = False) -> Dict[str, Tuple[Path, floa
     nvcc = find_nvcc()
 
     def compile_one(src: str) -> Tuple[Path, float]:
-        out = library_path(src)
+        out = library_path(src, extra)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_COMMON_FLAGS, *SOURCES[src], "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *_COMMON_FLAGS, *SOURCES[src], *extra, "-o", str(tmp), str(CSRC / src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -95,11 +98,12 @@ def build_all(sources=None, verbose: bool = False) -> Dict[str, Tuple[Path, floa
     return done
 
 
-def ptxas_usage(source: str) -> Dict[str, Dict[str, int]]:
-    """Per kernel of ``source``'s library (mangled name): the registers a
-    thread, the bytes of spill stores and loads, and the static shared
-    memory, from the ``-Xptxas -v`` report its build kept."""
-    log = library_path(source).with_suffix(".log")
+def ptxas_usage(source: str, extra: Tuple[str, ...] = ()) -> Dict[str, Dict[str, int]]:
+    """Per kernel of ``source``'s library (built with ``extra`` flags;
+    mangled name): the registers a thread, the bytes of spill stores and
+    loads, and the static shared memory, from the ``-Xptxas -v`` report its
+    build kept."""
+    log = library_path(source, extra).with_suffix(".log")
     usage: Dict[str, Dict[str, int]] = {}
     name = None
     for line in log.read_text().splitlines():

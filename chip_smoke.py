@@ -13,9 +13,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    same inputs (TF32 off): the stem kernels at the BYOL path's stem shape
    and a ragged small shape, each with its plan (ops/stem_conv.py plan():
    tile, grid, waves, ring, partials) and its registers, spills and shared
-   memory from the build's ptxas -v report (a spill in K1 or K2 fails), the fused aug at SpeedPro's shape (float32 and
-   bf16 outputs, the preset's colour probability and p = 1) and a ragged
-   one, flash attention forward and backward at every distinct attention
+   memory from the build's ptxas -v report (a spill in K1 or K2 fails); the
+   fused aug K3 with its instances' registers, spills (a spill fails) and
+   shared memory, exactly equal to its plain version in float32 and bf16
+   out at SpeedPro's shape (the preset's colour probability and p = 1) and
+   at the card tests' edge shapes, each with its plan (ops/fused_aug.py
+   plan(): cluster, bands, threads, pitch, shared memory, store width,
+   grid, waves), timed on the card's clock (calls queued behind a sleep);
+   flash attention forward and backward at every distinct attention
    shape of MViT-L 32x312 (2 views) and a ragged one, each with its kernels'
    grids, waves, registers and spills (ptxas -v of the build). Times are
    CUDA events, median of 20 in the order plain, kernel, kernel, plain
@@ -36,7 +41,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    K1 and K2 per batch chunk, chunk 8 and 12 -> 8) and K2' (TPU.
    PALLAS_STEM_WGRAD_ONLY: K2 over 16-sample chunks); and the window
    kernel of the nine Mosaic probes (P1-P9) at each probe's shape, exactly
-   equal to its plain version, then the probe tool
+   equal to its plain version, timed through its wrapper and alone (100
+   launches back to back through its C entry point) beside the launch
+   floor (the same at a one-element window), then the probe tool
    (advise_tpu_torch/tools/probe_windows.py) as its path;
 4. small input: each full-width model's forward on the card (bf16) against
    the same weights' float32 forward on the CPU: SlowFast-R50 BYOL, the
@@ -71,7 +78,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    from Model_Epoch_0001 with the saved model bit for bit and run 3 more
    iterations (a torch.profiler window over two of them gives the device's
    idle share); checked: the files, finite losses, the step counter, the
-   model's digests, the K1/K2 launches.
+   model's digests, the K1/K2 launches; then the SpeedPro preset through
+   the same entry point, one epoch of 16 synthetic videos (2 iterations,
+   a profiler window over the second), whose K3 launches must equal its
+   iterations: iteration time, loader wait and idle share.
 
 Each path's kernel launch counts are reset just before its steps and read
 just after. The line before the last is nvidia-smi's name and power limit;
@@ -103,12 +113,29 @@ RUN_KNN_BATCHES = 1  # kNN probe batches an epoch
 RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(RUN_VIDEOS),
                  "TRAIN.SAVE_FREQ", "1", "CONTRASTIVE.KNN_EVAL_BATCHES", str(RUN_KNN_BATCHES)]
 RUN_TIMEOUT_S = 600
+# then the speed preset through the entry point: one epoch of synthetic videos
+SPEED_RUN_DIR = "build/chip_smoke_speed"
+SPEED_RUN_VIDEOS = 16  # 2 iterations at the preset's 8 videos x 4 clips
+SPEED_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(SPEED_RUN_VIDEOS),
+                       "SOLVER.MAX_EPOCH", "1", "TRAIN.AUTO_RESUME", "False"]
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
                "flat_u8": 263}
 
 K4_REPS = 10  # flash attention and SDPA calls back to back in a timing sample
+AUG_REPS = 10  # fused aug calls back to back in a timing sample
+SLEEP_CYCLES = 10_000_000  # ~5 ms at 1980 MHz: the card waits while the host queues a sample
+GATHER_LAUNCHES = 100  # window_gather launches back to back in a timing sample
+AUG_ALL_ON = (1.0, 0.4, 0.4, 0.4, 0.2)  # every clip runs the chain
+# K3's edge shapes (those of tests/test_torch_kernels_cuda.py): (clips, crop,
+# tops, lefts): W*3 = 129 with an odd crop, tops not 8-aligned and bands 15 +
+# 14; N*T = 1 with S % 4 == 2 and bands 13 + 13 + 12; left at 0 and at W - S
+# with top at H - S (the window ends on the tensor's last byte); W*3 = 135
+# (every row at its own shift); one pixel; the largest exact crop, 256
+AUG_EDGE_SHAPES = [((3, 2, 37, 43, 3), 29, (3, 5, 7), None), ((1, 1, 40, 52, 3), 38, (1,), (5,)),
+                   ((2, 3, 50, 61, 3), 45, (0, 5), (0, 16)), ((2, 2, 36, 45, 3), 32, (1, 4), (13, 2)),
+                   ((2, 2, 5, 7, 3), 1, (4, 0), (6, 3)), ((1, 2, 256, 260, 3), 256, (0,), (4,))]
 
 # H100 SXM (NVIDIA's data sheet): device memory rate, dense bf16 tensor
 # cores, float32 on the CUDA cores, and float32 as 3xTF32 on the tensor
@@ -380,15 +407,44 @@ def flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms):
     return totals
 
 
+def gather_alone(wp, x, y, arrays, sum0, u8, o):
+    """The card's ms a launch of GATHER_LAUNCHES window_gather launches back
+    to back through the C entry point (pointers and arrays made once),
+    queued behind torch.cuda._sleep so that the card runs them only once the
+    host has queued them all; median of 5 samples."""
+    import torch
+
+    lib, xp, yp = wp._library(), x.data_ptr(), y.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    check(lib.window_gather(xp, yp, *arrays, sum0, u8, o, o, stream) == 0, "window_gather failed")
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(GATHER_LAUNCHES):
+            lib.window_gather(xp, yp, *arrays, sum0, u8, o, o, stream)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / GATHER_LAUNCHES)
+    return statistics.median(ms)
+
+
 def window_probes(wp, dev, in_turns, results):
     """The window kernel at each Mosaic probe's shape and offset, exactly
-    equal to its plain version and timed beside it; then the probe tool
-    (tools/probe_windows.py), the probes' own path, with the counts set to 0
-    just before it. Returns the tool's launches."""
+    equal to its plain version and timed beside it, and alone (back-to-back
+    launches through its C entry point) beside the launch floor (the same at
+    a one-element window); then the probe tool (tools/probe_windows.py), the
+    probes' own path, with the counts set to 0 just before it. Returns the
+    tool's launches."""
+    import ctypes
+
     import torch
     from advise_tpu_torch.tools import probe_windows
 
     inputs = probe_windows.probe_inputs(dev)
+    alone = {}
     for name, o in probe_windows.probe_offsets().items():
         win, x, entry = wp.WINDOWS[name], inputs[name], wp.ENTRIES[name]
         got = entry(o, x)
@@ -400,9 +456,21 @@ def window_probes(wp, dev, in_turns, results):
         reads = got.numel() * (win.out[0] if win.sum_axis0 else 1)
         b = bound(reads * x.element_size() + 4.0 * got.numel(),
                   float(reads - got.numel()), "f32")
+        alone[name] = gather_alone(wp, x, got, wp._SPECS[name], int(win.sum_axis0),
+                                   int(win.dtype == torch.uint8), o)
         print(f"[kernel] window {name} {tuple(x.shape)} {x.dtype} o={o} -> {tuple(got.shape)}: equal, "
               f"{ms} ms, plain {plain_ms} ms, bound {b[0]} ms ({b[1]})")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bound=b)
+    one = [(ctypes.c_int * wp.RANK)(*vals) for vals in
+           ((1,) * 4, (1,) * 4, (0,) * 4, (-1,) * 4, (1,) * 4, (1,) * 4, (0,) * 4, (0,) * 4)]
+    floor_ms = gather_alone(wp, torch.zeros((1, 1, 1, 1), device=dev), torch.empty(1, device=dev),
+                            one, 0, 0, 0)
+    print(f"[kernel] window_gather launch floor: {floor_ms} ms a launch at a one-element window "
+          f"({GATHER_LAUNCHES} launches back to back through the C entry point, on the card's clock)")
+    for name, ms in alone.items():
+        b = max(results[name]["bound"][0], floor_ms)
+        print(f"[kernel] window {name}: the kernel alone {ms} ms a launch (wrapper {results[name]['ms']} "
+              f"ms), against max(byte bound, launch floor) {b} ms: {b / ms} of it")
     for entry in wp.ENTRIES.values():
         entry.launches = 0
     check(probe_windows.main() == 0, "the probe tool failed")
@@ -412,11 +480,11 @@ def window_probes(wp, dev, in_turns, results):
     return launches
 
 
-def run_entry_point(extra, label):
-    """``python -m advise_tpu_torch.tools.run`` on the BYOL preset with the
-    phase's overrides and ``extra``; returns its run record."""
-    cmd = [sys.executable, "-m", "advise_tpu_torch.tools.run", "--cfg", BYOL_CONFIG,
-           "--output", RUN_DIR] + RUN_OVERRIDES + extra
+def run_entry_point(extra, label, config=BYOL_CONFIG, out_dir=RUN_DIR, overrides=RUN_OVERRIDES):
+    """``python -m advise_tpu_torch.tools.run`` on ``config`` into
+    ``out_dir`` with ``overrides`` and ``extra``; returns its run record."""
+    cmd = [sys.executable, "-m", "advise_tpu_torch.tools.run", "--cfg", config,
+           "--output", out_dir] + overrides + extra
     print(f"[run] {label}: {' '.join(cmd[1:])}")
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
@@ -510,6 +578,31 @@ def main() -> None:
         p += times_ms(plain)
         return statistics.median(kk), statistics.median(p)
 
+    def queued_ms(fn, reps):
+        # the card's time a call: reps calls queued behind torch.cuda._sleep,
+        # so the card starts them only once the host has queued them all
+        out = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / reps)
+        return out
+
+    def queued_in_turns(kernel, plain, reps):
+        kernel()  # warm both
+        plain()
+        torch.cuda.synchronize()
+        p, kk = times_ms(plain), queued_ms(kernel, reps)
+        kk += queued_ms(kernel, reps)
+        p += times_ms(plain)
+        return statistics.median(kk), statistics.median(p)
+
     def alone(fn, reps=1):
         fn()
         torch.cuda.synchronize()
@@ -591,17 +684,36 @@ def main() -> None:
     sw_in, sh_in = ingest_geometry(scfg, "train")
     mean, std = tuple(scfg.DATA.MEAN), tuple(scfg.DATA.STD)
     preset_color = tuple(scfg.AUG.COLOR)
+    # K3's instances (store width x output type): registers, spills and
+    # static shared memory from the build's ptxas -v report; a spill fails
+    aug_usage = fa.kernel_usage()
+    for (vw, odt), use in sorted(aug_usage.items()):
+        print(f"[kernel] fused_aug_kernel<{vw}, {odt}>: {use['registers']} registers, spill stores "
+              f"{use['spill_stores']} B, loads {use['spill_loads']} B, static shared {use['smem']} B")
+        check(use["spill_stores"] == use["spill_loads"] == 0, f"fused_aug_kernel<{vw}, {odt}> spills")
+    check(len(aug_usage) == 6, f"the fused aug library has {len(aug_usage)} kernel instances, not 6")
     aug_err = 0.0
-    # the speed path runs its b * k clips as one batch through the aug; the
-    # ragged case: W*3 = 129, an odd crop, tops that are not 8-aligned
-    for shape, size, colors in [((sb * sk, st, sh_in, sw_in, 3), ss, (preset_color, (1.0,) + preset_color[1:])),
-                                ((3, 5, 41, 43, 3), 29, ((1.0, 0.4, 0.4, 0.4, 0.2),))]:
+    # the speed path runs its b * k clips as one batch through the aug, at the
+    # preset's colour probability and at p = 1; then the card tests' edge shapes
+    aug_cases = [((sb * sk, st, sh_in, sw_in, 3), ss, None, None, (preset_color, (1.0,) + preset_color[1:]))]
+    aug_cases += [(shape, size, tops, lefts, (AUG_ALL_ON,)) for shape, size, tops, lefts in AUG_EDGE_SHAPES]
+    for shape, size, tops, lefts, colors in aug_cases:
         clips = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
         clips[:, 0, :, : shape[3] // 3] = clips[:, 0, :, : shape[3] // 3, :1]  # gray pixels
+        for out_dtype in (torch.float32, torch.bfloat16):
+            vw = fa.plan(*shape[:4], size)["vector"]
+            kp = fa.plan(*shape[:4], size, out_dtype, aug_usage[(vw, str(out_dtype).split(".")[1])]["registers"])
+            print(f"[kernel] fused aug plan {shape} crop {size} {out_dtype}: cluster {kp['cluster']} x band "
+                  f"{kp['band']} rows {kp['bands'][-1:]} last, {kp['threads']} threads "
+                  f"({kp['items_per_thread']} groups of 4 pixels a thread), pitch {kp['pitch']} B, "
+                  f"shared {kp['smem']} B dynamic + {kp['smem_total'] - kp['smem']} static, stores of {kp['vector']} "
+                  f"({kp['store_bytes']} B), grid {kp['grid']}, {kp['per_sm']} CTAs an SM: "
+                  f"{kp['waves']} waves")
         for color in colors:
             prm = fa.sample_simple_aug(shape[0], shape[2], shape[3], size, color, g)
-            if size == 29:
-                prm["tops"] = torch.tensor([3, 9, 11], dtype=torch.int32, device=dev)
+            for key, offsets in (("tops", tops), ("lefts", lefts)):
+                if offsets is not None:
+                    prm[key] = torch.tensor(offsets, dtype=torch.int32, device=dev)
             for out_dtype in (torch.float32, torch.bfloat16):
                 got = fa.fused_simple_aug(clips, prm, size, mean, std, out_dtype)
                 want = fa.fused_simple_aug_plain(clips, prm, size, mean, std, out_dtype)
@@ -612,16 +724,20 @@ def main() -> None:
                       f"max_abs_err {err} (bound: 0, exact), equal {torch.equal(got, want)}")
                 check(torch.equal(got, want), f"fused_simple_aug disagrees at {shape} {out_dtype}")
                 if shape[0] == sb * sk and color == preset_color:
-                    aug_ms, aug_plain_ms = in_turns(
+                    # the card's time: AUG_REPS calls queued behind a sleep
+                    # (the wrapper's host work, ~0.05-0.1 ms a call, is
+                    # hidden by the step's other work on the path)
+                    aug_ms, aug_plain_ms = queued_in_turns(
                         lambda: fa.fused_simple_aug(clips, prm, size, mean, std, out_dtype),
-                        lambda: fa.fused_simple_aug_plain(clips, prm, size, mean, std, out_dtype))
+                        lambda: fa.fused_simple_aug_plain(clips, prm, size, mean, std, out_dtype),
+                        AUG_REPS)
                     n_out = got.numel()
                     applied = float(prm["apply"].float().mean())
                     aug_bound = bound(n_out + 7 * 4 * shape[0] + n_out * got.element_size(),
                                       AUG_OPS_PER_ELEMENT * n_out * applied + 2 * n_out, "f32")
                     print(f"[kernel] fused_simple_aug {shape} crop {size} {out_dtype}: {aug_ms} ms, "
                           f"plain {aug_plain_ms} ms, bound {aug_bound[0]} ms ({aug_bound[1]}), "
-                          f"no single library call")
+                          f"{aug_bound[0] / aug_ms} of it, no single library call")
                     if out_dtype == torch.float32:  # the speed path's output type (AUG_COMPUTE_OUT off)
                         results["fused_simple_aug"] = dict(ms=aug_ms, plain_ms=aug_plain_ms,
                                                            library_ms=None, bound=aug_bound)
@@ -1145,6 +1261,28 @@ def main() -> None:
     check(prof is not None, "the resumed run's profile window did not close")
     print(f"[run] profile window ({prof['steps']} iterations of the resumed run): wall {prof['wall_ms']} ms, "
           f"device busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
+
+    # the speed preset through the entry point: K3 once an iteration; a
+    # profiler window over the second iteration gives the idle share
+    shutil.rmtree(SPEED_RUN_DIR, ignore_errors=True)
+    spd = run_entry_point(["TPU.PROFILE_DIR", f"{SPEED_RUN_DIR}/profile", "TPU.PROFILE_START", "0",
+                           "TPU.PROFILE_STEPS", "1"], "speed preset, 1 epoch", SPEED_CONFIG,
+                          SPEED_RUN_DIR, SPEED_RUN_OVERRIDES)
+    n_iter = len(spd["iter_s"])
+    print(f"[run] speed preset: {n_iter} iterations, losses {[st['loss_spd'] for st in spd['stats']]}, "
+          f"iterations {[t * 1e3 for t in spd['iter_s']]} ms, loader wait {[t * 1e3 for t in spd['wait_s']]} "
+          f"ms, peak allocated {spd['peak_allocated_bytes']} bytes, fused_simple_aug launches "
+          f"{spd['launches']['fused_simple_aug']}, {spd['seconds']} s with start-up")
+    split = {stage: f"{s * 1e3 / n} ms x {n} ({s * 1e3} ms in all)" for stage, (s, n) in spd["host_s"].items()}
+    print(f"[run] speed preset: host stages {split}")
+    check(n_iter == SPEED_RUN_VIDEOS // sb and spd["start_step"] == 0, "speed preset: wrong schedule")
+    check(all(math.isfinite(v) for st in spd["stats"] for v in st.values()), "speed preset: a loss is not finite")
+    check(spd["launches"]["fused_simple_aug"] == n_iter,
+          "speed preset: fused_simple_aug launches differ from the iterations")
+    prof = spd.get("profile")
+    check(prof is not None, "the speed run's profile window did not close")
+    print(f"[run] speed preset profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device "
+          f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
 
     launches.update(probe_launches)
     print(json.dumps({"kernels": [

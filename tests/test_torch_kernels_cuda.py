@@ -194,20 +194,34 @@ MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
 
 
+# (clip shape, crop, tops, lefts); fa.plan() gives each its cluster, bands
+# and store width (vector)
+FUSED_AUG_SHAPES = [
+    ((2, 3, 40, 48, 3), 32, None, None),                # 2 bands of 16, float4 stores
+    ((3, 2, 37, 43, 3), 29, (3, 5, 7), None),           # W*3 = 129, odd crop (scalar stores),
+                                                        # tops not 8-aligned, bands 15 + 14
+    ((4, 8, 256, 320, 3), 224, None, None),             # SpeedPro's ingest and crop: 8 bands of 28
+    ((1, 1, 40, 52, 3), 38, (1,), (5,)),                # N*T = 1, S % 4 == 2 (float2 stores),
+                                                        # bands 13 + 13 + 12
+    ((2, 3, 50, 61, 3), 45, (0, 5), (0, 16)),           # left at 0 and at W - S, top at H - S: the
+                                                        # window ends on the tensor's last byte
+    ((2, 2, 36, 45, 3), 32, (1, 4), (13, 2)),           # W*3 = 135: every row at its own shift
+    ((2, 2, 5, 7, 3), 1, (4, 0), (6, 3)),               # one pixel, one band
+    ((1, 2, 256, 260, 3), 256, (0,), (4,)),             # the largest exact crop: 8 bands of 32
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,size,tops", [
-    ((2, 3, 40, 48, 3), 32, None),
-    ((3, 2, 37, 43, 3), 29, (3, 5, 7)),        # ragged: W*3 = 129, odd crop, tops not 8-aligned
-    ((4, 8, 256, 320, 3), 224, None),          # SpeedPro's ingest and crop
-])
+@pytest.mark.parametrize("shape,size,tops,lefts", FUSED_AUG_SHAPES)
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-def test_fused_aug_matches_plain(cuda, shape, size, tops, out_dtype):
+def test_fused_aug_matches_plain(cuda, shape, size, tops, lefts, out_dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
     clips = torch.randint(0, 256, shape, generator=g, device=cuda, dtype=torch.uint8)
     clips[:, 0, :, : shape[3] // 3] = clips[:, 0, :, : shape[3] // 3, :1]  # gray
     prm = fa.sample_simple_aug(shape[0], shape[2], shape[3], size, (1.0, 0.4, 0.4, 0.4, 0.2), g)
-    if tops is not None:
-        prm["tops"] = torch.tensor(tops, dtype=torch.int32, device=cuda)
+    for key, offsets in (("tops", tops), ("lefts", lefts)):
+        if offsets is not None:
+            prm[key] = torch.tensor(offsets, dtype=torch.int32, device=cuda)
     launches = fa.fused_simple_aug.launches
     got = fa.fused_simple_aug(clips, prm, size, MEAN, STD, out_dtype)
     want = fa.fused_simple_aug_plain(clips, prm, size, MEAN, STD, out_dtype)
@@ -215,6 +229,23 @@ def test_fused_aug_matches_plain(cuda, shape, size, tops, out_dtype):
     assert got.dtype == out_dtype and got.shape == want.shape
     assert torch.equal(got, want)
     assert fa.fused_simple_aug.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fused_aug_order_rows_that_are_not_permutations_match_plain(cuda, out_dtype):
+    """The kernel compiles in the 6 orders of brightness, contrast and
+    saturation; other rows of ``order`` (repeats, no hue, codes past 3) run
+    their 4 codes as they come, as the plain version does."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    clips = torch.randint(0, 256, (6, 2, 40, 44, 3), generator=g, device=cuda, dtype=torch.uint8)
+    prm = fa.sample_simple_aug(6, 40, 44, 32, (1.0, 0.4, 0.4, 0.4, 0.2), g)
+    prm["order"] = torch.tensor([[0, 0, 2, 1], [3, 3, 3, 3], [2, 1, 0, 5], [1, 2, 2, 2],
+                                 [2, 0, 1, 3], [3, 1, 0, 2]], dtype=torch.int32, device=cuda)
+    got = fa.fused_simple_aug(clips, prm, 32, MEAN, STD, out_dtype)
+    want = fa.fused_simple_aug_plain(clips, prm, 32, MEAN, STD, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -18,6 +18,11 @@ adjust_base_lr; tools/run.py) on the CPU.
   on the same batch and the same generator (the same code on the same
   inputs). A 3-epoch run cut after epoch 1 and resumed EQUALS the same run
   uncut, in every iteration's loss and grad norm and in the end state.
+- The trainer on the speed preset (SpeedPro_R50 cut to RESNET.DEPTH 10 and
+  narrow widths, tests/torch_port_common.py ``slow_r10``; TASK speed, the
+  fused simple aug) with the synthetic backend: one epoch of 2 iterations,
+  whose first loss_spd and grad norm EQUAL one call of the ported speed
+  step on the loader's first batch with the generator of (SEED, 0, 0).
 """
 
 import numpy as np
@@ -44,7 +49,7 @@ from advise_tpu_torch.engine.train import (
 from advise_tpu_torch.solver import lr_policy as tlr
 from advise_tpu_torch.solver import optimizer as toptim
 
-from torch_port_common import small_cfg
+from torch_port_common import small_cfg, speed_cfg
 
 torch.set_num_threads(1)
 
@@ -260,6 +265,32 @@ def test_trainer_runs_saves_resumes_and_matches_one_step(tmp_path, monkeypatch):
     assert (cut["start_epoch"], cut["start_step"], len(cut["stats"])) == (2, 4, 2)
     assert cut["stats"] == straight["stats"][4:]
     assert cut["model_sha256_end"] == straight["model_sha256_end"]
+
+
+def test_trainer_runs_the_speed_preset_and_matches_one_step(tmp_path):
+    cfg = speed_cfg(tconfig, "slow_r10", **{
+        "DATA.DECODE_BACKEND": "synthetic", "DATA.SYNTHETIC_SIZE": 4, "DATA.SYNTHETIC_RES": 48,
+        "DATA.WORKERS": 2, "TRAIN.SAVE_FREQ": 1, "SOLVER.MAX_EPOCH": 1})
+    cfg.LOGDIR = str(tmp_path)
+    assert cfg.TASK == "speed" and cfg.AUG.TYPE == "simple" and cfg.TPU.PALLAS_AUG
+    ref_cfg = cfg.clone()
+    ref_cfg.NUM_WORLDS = 1
+    toptim.adjust_base_lr(ref_cfg)
+    clips, infos = next(iter(build_loader(ref_cfg).epoch(0)))
+    state, bundle = build_train_state(ref_cfg, "cpu")
+    ref_step = make_train_step(ref_cfg, bundle, build_device_aug(ref_cfg, "train"))
+    lr = tlr.get_lr_at_epoch(ref_cfg, 0.5)
+    want = ref_step(state, torch.from_numpy(clips),
+                    {k: torch.from_numpy(v) for k, v in select_infos(ref_cfg, infos).items()},
+                    seeded_generator("cpu", ref_cfg.TRAIN.SEED, 0, 0), lr)
+
+    record = {}
+    trainer(cfg, device="cpu", record=record)
+    assert record["stats"][0]["loss_spd"] == float(want["loss_spd"])
+    assert record["stats"][0]["grad_norm"] == float(want["grad_norm"])
+    assert (record["start_epoch"], record["start_step"], len(record["iter_s"])) == (0, 0, 2)
+    assert all(np.isfinite(v) for st in record["stats"] for v in st.values())
+    assert (tmp_path / "checkpoints" / "Model_Epoch_0000" / ck.STATE_FILE).is_file()
 
 
 def test_trainer_pieces():
