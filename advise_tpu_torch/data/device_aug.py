@@ -1,6 +1,7 @@
 """On-device augmentation (counterpart of ``advise_tpu/data/device_aug.py``):
-the 'aa' pipeline with AUG.FUSED_RA, the 'simple' pipeline with
-TPU.PALLAS_AUG, and 'OnlyCrop' (RandomResizedCrop + normalize).
+the 'aa' pipeline with AUG.FUSED_RA, the 'simple' pipeline (the fused
+kernel with TPU.PALLAS_AUG, else the XLA path), 'OnlyCrop'
+(RandomResizedCrop + normalize) and 'none' (normalize only).
 
 uint8 ``[B, K, T, H, W, C]`` at the ingest geometry goes in, and float32
 or, with TPU.AUG_COMPUTE_OUT under bf16, bfloat16 comes out. All frames of
@@ -10,7 +11,9 @@ a clip share its parameters.
   warp, then the color ops), the horizontal flip (inside the warp),
   RandomErasing and normalize.
 - 'simple': the fixed Resize happened at ingest; per clip, a random crop,
-  the colour jitter and normalize, in one kernel (``ops/fused_aug.py``).
+  the colour jitter and normalize: in one kernel (``ops/fused_aug.py``)
+  with TPU.PALLAS_AUG, else op by op (:func:`color_jitter`), each op's
+  luma and contrast mean from the current image and a real hue rotation.
 - 'OnlyCrop': per clip, RandomResizedCrop with scale (AUG.MIN_AREA, 1) as
   ``jax.image.scale_and_translate`` computes it (linear, antialiased: one
   weight matrix per axis), clip to [0, 255], normalize.
@@ -35,24 +38,109 @@ def _round_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
 
 
+def _fma(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to float32, as a fused multiply-add. Evaluated
+    in float64: for the colour ops' operands (a float32 times an integer of
+    at most 9 bits, plus a value below 2^10) that holds the exact result;
+    for the HSV products (two float32 values in [0, 1], plus 1) it can
+    round twice only where the float64 result falls exactly on a float32
+    tie."""
+    a, b, c = (torch.as_tensor(v).double() for v in (a, b, c))
+    return (a * b + c).float()
+
+
 def _luma(x: torch.Tensor) -> torch.Tensor:
-    """PIL 'L' conversion: truncating integer luma of [..., 3]."""
-    return torch.floor(x[..., 0] * LUMA[0] + x[..., 1] * LUMA[1] + x[..., 2] * LUMA[2])
+    """PIL 'L' conversion: truncating integer luma of [..., 3]. The JAX
+    package's ``x @ LUMA`` evaluates, eagerly and under jit alike, as
+    fma(b, 0.114, fma(g, 0.587, r * 0.299)) in float32."""
+    k = torch.tensor(LUMA, dtype=torch.float32, device=x.device)
+    return torch.floor(_fma(x[..., 2], k[2], _fma(x[..., 1], k[1], x[..., 0] * k[0])))
 
 
-def adjust_brightness(clip: torch.Tensor, factor) -> torch.Tensor:
+def _blend(base: torch.Tensor, factor, x: torch.Tensor, contract: bool) -> torch.Tensor:
+    """base + factor * (x - base), rounded to uint8: as one fused
+    multiply-add when ``contract`` (XLA's code for the op inside a jitted
+    program), else the product and the sum rounded apart (eager JAX)."""
+    if contract:
+        return _round_u8(_fma(factor, x - base, base))
+    return _round_u8(base + factor * (x - base))
+
+
+# colour ops on clips [N, T, H, W, C] in float [0, 255], with factors that
+# broadcast against them; each takes its luma and contrast mean from the
+# image it is given (the current one in a chain)
+
+
+def adjust_brightness(clip: torch.Tensor, factor, contract: bool = False) -> torch.Tensor:
+    if contract:
+        return torch.clamp(torch.floor(_fma(clip, factor, 0.5)), 0.0, 255.0)
     return _round_u8(clip * factor)
 
 
-def adjust_contrast(clip: torch.Tensor, factor) -> torch.Tensor:
-    """[N, T, H, W, C]: blend with each frame's rounded mean luma."""
-    mean = torch.floor(torch.mean(_luma(clip), dim=(2, 3), keepdim=True) + 0.5)
-    return _round_u8(mean[..., None] + factor * (clip - mean[..., None]))
+def contrast_mean(clip: torch.Tensor) -> torch.Tensor:
+    """Each frame's rounded mean luma [N, T, 1, 1, 1]: the integer luma sum
+    (exact in float32 while H * W <= 65792) times float32(1 / (H * W)), as
+    XLA evaluates ``jnp.mean``."""
+    area = clip.shape[2] * clip.shape[3]
+    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(area))
+    total = torch.sum(_luma(clip), dim=(2, 3), keepdim=True)
+    return torch.floor(total * inv.to(clip.device) + 0.5)[..., None]
 
 
-def adjust_saturation(clip: torch.Tensor, factor) -> torch.Tensor:
-    lum = _luma(clip)[..., None]
-    return _round_u8(lum + factor * (clip - lum))
+def adjust_contrast(clip: torch.Tensor, factor, contract: bool = False) -> torch.Tensor:
+    """Blend with each frame's rounded mean luma."""
+    return _blend(contrast_mean(clip), factor, clip, contract)
+
+
+def adjust_saturation(clip: torch.Tensor, factor, contract: bool = False) -> torch.Tensor:
+    return _blend(_luma(clip)[..., None], factor, clip, contract)
+
+
+def rgb_to_hsv(x: torch.Tensor) -> torch.Tensor:
+    """[..., 3] RGB in [0, 1] -> (h, s, v) in [0, 1], float32, rounded as
+    the jitted JAX program rounds it (h / 6 is h times float32(1 / 6))."""
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    mx = torch.amax(x, dim=-1)
+    mn = torch.amin(x, dim=-1)
+    d = mx - mn
+    safe_d = torch.where(d == 0, torch.ones_like(d), d)
+    h = torch.where(
+        mx == r,
+        torch.remainder((g - b) / safe_d, 6.0),
+        torch.where(mx == g, (b - r) / safe_d + 2.0, (r - g) / safe_d + 4.0),
+    )
+    sixth = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(6.0)
+    h = torch.where(d == 0, torch.zeros_like(h), h * sixth.to(x.device))
+    s = torch.where(mx == 0, torch.zeros_like(d), d / torch.where(mx == 0, torch.ones_like(mx), mx))
+    return torch.stack([h, s, mx], dim=-1)
+
+
+def hsv_to_rgb(x: torch.Tensor) -> torch.Tensor:
+    """[..., 3] (h, s, v) in [0, 1] -> RGB in [0, 1]: the sextant ``i`` of
+    h picks each channel from (v, q, p, p, t, v) rotated. As in the jitted
+    JAX program, 1 - f s and 1 - (1 - f) s are fused multiply-adds."""
+    h, s, v = x[..., 0], x[..., 1], x[..., 2]
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1 - s)
+    q = v * _fma(-f, s, 1.0)
+    t = v * _fma(f - 1.0, s, 1.0)
+    i = torch.remainder(i.to(torch.int32), 6)
+    table = torch.stack([v, q, p, p, t, v, t, v, v, q, p, p, p, p, t, v, v, q], dim=-1)
+    idx = torch.stack([i, i + 6, i + 12], dim=-1).long()
+    return torch.gather(table, -1, idx)
+
+
+def adjust_hue(clip: torch.Tensor, shift_u8) -> torch.Tensor:
+    """Rotate hue by shift_u8 / 255 of a turn (PIL's uint8 HSV scale);
+    ``shift_u8`` broadcasts against ``clip`` as the other ops' factors do."""
+    hsv = rgb_to_hsv(clip / 255.0)
+    shift = torch.as_tensor(shift_u8, dtype=torch.float32, device=clip.device)
+    if shift.ndim == clip.ndim:
+        shift = shift[..., 0]
+    h = torch.remainder(hsv[..., 0] + shift / 255.0, 1.0)
+    out = hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]], dim=-1))
+    return _round_u8(out * 255.0)
 
 
 def uniform_from(u: torch.Tensor, lo, hi) -> torch.Tensor:
@@ -100,10 +188,14 @@ def sample_rrc_box(n: int, h: int, w: int, scale, ratio, generator: torch.Genera
     return rrc_box_from_uniforms(*u, h, w, scale, ratio)
 
 
-def normalize(x: torch.Tensor, mean, std) -> torch.Tensor:
-    """[0, 255] -> ImageNet-normalized float32."""
+def normalize(x: torch.Tensor, mean, std, by_reciprocal: bool = False) -> torch.Tensor:
+    """[0, 255] -> ImageNet-normalized float32: (x - mean) / std, or with
+    ``by_reciprocal`` (x - mean) * float32(1 / std), which is what XLA makes
+    of the division by a constant inside a jitted program."""
     m = torch.tensor(mean, dtype=torch.float32, device=x.device) * 255.0
     s = torch.tensor(std, dtype=torch.float32, device=x.device) * 255.0
+    if by_reciprocal:
+        return (x - m) * (1.0 / s)
     return (x - m) / s
 
 
@@ -177,38 +269,101 @@ class AAAug:
         return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
 
 
+def color_jitter(clips: torch.Tensor, params: Dict[str, torch.Tensor], hue: bool) -> torch.Tensor:
+    """RandomColorJitter on float clips [N, T, H, W, C] (``color_jitter_clip``
+    of the JAX package): per clip, brightness, contrast, saturation and hue
+    (codes 0-3) in the order ``params['order']`` [N, 4], the whole chain kept
+    where ``params['apply']`` is set. Each op sees the image the previous one
+    left, and rounds its blends as the jitted JAX program does. Every op runs
+    on every clip and a select keeps the clip's own, as JAX's vmapped switch
+    does; with ``hue`` False (h == 0) the hue op is the identity."""
+    dev = clips.device
+    bc = (-1,) + (1,) * (clips.ndim - 1)
+    bf, cf, sf, hf = (params[k].to(dev, torch.float32).view(bc) for k in ("bfac", "cfac", "sfac", "hfac"))
+    ops = [
+        lambda y: adjust_brightness(y, bf, contract=True),
+        lambda y: adjust_contrast(y, cf, contract=True),
+        lambda y: adjust_saturation(y, sf, contract=True),
+    ]
+    if hue:
+        ops.append(lambda y: adjust_hue(y, hf))
+    order = params["order"].to(dev).long()
+    y = clips
+    for pos in range(order.shape[1]):
+        for code, op in enumerate(ops):
+            y = torch.where((order[:, pos] == code).view(bc), op(y), y)
+    return torch.where((params["apply"].to(dev) > 0).view(bc), y, clips)
+
+
 class SimpleAug:
-    """AUG.TYPE 'simple' with TPU.PALLAS_AUG: ``aug(batch_u8, generator)``,
-    or ``apply(batch_u8, sample(...))`` with parameters from elsewhere. The
-    XLA path of the JAX package (TPU.PALLAS_AUG off) draws its parameters
-    from other key splits and rotates hue for real; it is not ported yet."""
+    """AUG.TYPE 'simple' (``make_simple_train_aug``): ``aug(batch_u8,
+    generator)``, or ``apply(batch_u8, sample(...))`` with parameters from
+    elsewhere. Per clip: a random crop of AUG.TARGET_SIZE, the colour jitter
+    of AUG.COLOR (p, brightness, contrast, saturation, hue), normalize.
+
+    - TPU.PALLAS_AUG: the fused kernel (``ops/fused_aug.py``), which takes
+      its luma and contrast mean from the raw crop and skips hue.
+    - Otherwise the XLA path: :func:`color_jitter`, each op on the current
+      image, with a real hue rotation unless AUG.REFERENCE_EXACT_HUE sets h
+      to 0 (the reference's own hue is a no-op)."""
 
     def __init__(self, cfg):
-        if not cfg.TPU.PALLAS_AUG:
-            raise NotImplementedError("the simple aug without TPU.PALLAS_AUG is not ported yet")
         self.size = int(cfg.AUG.TARGET_SIZE)
-        self.color = tuple(cfg.AUG.COLOR)
+        self.pallas = bool(cfg.TPU.PALLAS_AUG)
+        p, b, c, s, h = (float(v) for v in cfg.AUG.COLOR)
+        if cfg.AUG.REFERENCE_EXACT_HUE:
+            h = 0.0
+        self.color = tuple(cfg.AUG.COLOR) if self.pallas else (p, b, c, s, h)
         self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
         self.out_dtype = aug_out_dtype(cfg)
 
     def sample(self, n: int, t: int, h: int, w: int, c: int,
                generator: torch.Generator) -> Dict[str, Any]:
-        """Parameters for n clips of [t, h, w, c]."""
+        """Parameters for n clips of [t, h, w, c]: crop offsets ``tops`` and
+        ``lefts``, factors ``bfac``, ``cfac``, ``sfac`` (and on the XLA path
+        the hue shift ``hfac``, uniform on [-h, h)), ``apply`` and ``order``."""
         from advise_tpu_torch.ops.fused_aug import sample_simple_aug
 
-        return sample_simple_aug(n, h, w, self.size, self.color, generator)
+        params = sample_simple_aug(n, h, w, self.size, self.color, generator)
+        if not self.pallas:
+            u = torch.rand(n, generator=generator, device=generator.device)
+            params["hfac"] = uniform_from(u, -self.color[4], self.color[4])
+        return params
 
     def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
-        from advise_tpu_torch.ops.fused_aug import fused_simple_aug
+        from advise_tpu_torch.ops.fused_aug import crop_windows, fused_simple_aug
 
         b, k = batch_u8.shape[:2]
         flat = batch_u8.reshape(b * k, *batch_u8.shape[2:])
-        out = fused_simple_aug(flat, params, self.size, self.mean, self.std, self.out_dtype)
+        if self.pallas:
+            out = fused_simple_aug(flat, params, self.size, self.mean, self.std, self.out_dtype)
+        else:
+            clips = crop_windows(flat, params["tops"], params["lefts"], self.size)
+            clips = color_jitter(clips, params, hue=self.color[4] != 0.0)
+            out = normalize(clips, self.mean, self.std, by_reciprocal=True).to(self.out_dtype)
         return out.reshape(b, k, *out.shape[1:])
 
     def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         b, k, t, h, w, c = batch_u8.shape
         return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
+
+
+class NoAug:
+    """AUG.TYPE 'none': normalize the uint8 clips as they are."""
+
+    def __init__(self, cfg):
+        self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+        self.out_dtype = aug_out_dtype(cfg)
+
+    def sample(self, n: int, t: int, h: int, w: int, c: int,
+               generator: torch.Generator) -> Dict[str, Any]:
+        return {}
+
+    def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+        return normalize(batch_u8.float(), self.mean, self.std, by_reciprocal=True).to(self.out_dtype)
+
+    def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        return self.apply(batch_u8, {})
 
 
 def resize_weights(in_size: int, out_size: int, scale: torch.Tensor,
@@ -274,12 +429,12 @@ class RRCAug:
         return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
 
 
-_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug, "OnlyCrop": RRCAug}
+_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug, "OnlyCrop": RRCAug, "none": NoAug}
 
 
 def build_device_aug(cfg, mode: str = "train"):
-    """The train-mode pipeline of AUG.TYPE 'aa', 'simple' or 'OnlyCrop'
-    (other AUG.TYPEs and modes are not ported yet). DATA.REVERSE_INPUT_CHANNEL flips the
+    """The train-mode pipeline of AUG.TYPE 'aa', 'simple', 'OnlyCrop' or
+    'none' (other AUG.TYPEs and modes are not ported yet). DATA.REVERSE_INPUT_CHANNEL flips the
     channel axis of the raw batch first."""
     if mode != "train" or cfg.AUG.TYPE not in _TRAIN_AUGS:
         raise NotImplementedError(f"device aug mode={mode} AUG.TYPE={cfg.AUG.TYPE} is not ported yet")

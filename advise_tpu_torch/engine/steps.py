@@ -10,9 +10,14 @@ parameters updated. The task step: augmentation -> cast -> forward (all
 B*K clips as one batch, head dropout) -> task loss -> backward -> BN commit
 -> global grad norm -> SGD direction -> update; MaskMViT's task step runs
 the masked MSE over the pretrain depths plus, with MASK.JOINT_CONTRASTIVE,
-the NT-Xent between the two views' projections, then AdamW. With one device
-the JAX step's ``pmean``/``all_gather`` are identities. The steps run
-eagerly and update ``state`` in place.
+the NT-Xent between the two views' projections, then AdamW. The AdViSe
+step (TemporalModel): augmentation -> cast -> the BYOL twins' EMA update
+from the pre-step parameters -> the tower's tokens (no gradient unless
+TM.FROM_SCRATCH) -> temporal head -> speed CE and/or BYOL against the twins
+-> backward (zeros for the frozen tower) -> BN commit -> global grad norm ->
+the optimizer's direction -> update. With one device the JAX step's
+``pmean``/``all_gather`` are identities. The steps run eagerly and update
+``state`` in place.
 """
 
 from __future__ import annotations
@@ -192,12 +197,134 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
     return step
 
 
+# the AdViSe BYOL twins: state.ssl key -> the TemporalModel submodule they copy
+_TWINS = {"ema_temporal": "temporal_encoder", "ema_projector": "head_projector"}
+
+
+def init_tmodeling_ssl(cfg, model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The AdViSe BYOL twins (``advise_tpu/engine/steps.py init_tmodeling_ssl``):
+    copies of the temporal encoder's and the projector's parameters,
+    {name: tensor} relative to each module; {} without BYOL in SSL.TASK."""
+    if "byol" not in cfg.SSL.TASK:
+        return {}
+    if cfg.TM.SKIP_TM:
+        raise ValueError("the BYOL twins need a temporal encoder (TM.SKIP_TM is set)")
+    return {twin: {n: p.detach().clone() for n, p in getattr(model, name).named_parameters()}
+            for twin, name in _TWINS.items()}
+
+
+@torch.no_grad()
+def update_tmodeling_ema(cfg, ssl: Dict[str, Dict[str, torch.Tensor]], model: nn.Module) -> None:
+    """In place: twin = twin * m + online * (1 - m), m = CONTRASTIVE.MOMENTUM."""
+    m = cfg.CONTRASTIVE.MOMENTUM
+    for twin, name in _TWINS.items():
+        online = dict(getattr(model, name).named_parameters())
+        ema = list(ssl[twin].values())
+        torch._foreach_mul_(ema, m)
+        torch._foreach_add_(ema, torch._foreach_mul([online[n] for n in ssl[twin]], 1.0 - m))
+
+
+def tmodeling_loss(cfg, model: nn.Module, ssl: Dict[str, Dict[str, torch.Tensor]],
+                   clips: torch.Tensor, infos: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The AdViSe loss (``advise_tpu/engine/steps.py tmodeling_loss``) on
+    clips [B, K, T, H, W, C], in float32:
+
+    - speed (or action) in SSL.TASK: the CE of head_cls's logits against
+      ``infos['spd_label']`` [B, K] (no SSL.SMOOTHING, as in JAX), and
+      acc_spd;
+    - BYOL: keys from the twin temporal encoder on the same tokens, in eval
+      mode (the online model's running statistics from before the step);
+      per view i the online projection and prediction of clip i against
+      the twin projector's eval projection of clip 1 - i, l2-normalized;
+      -mean(q . k / T) averaged over the two views, plus 1 / T.
+
+    The tower runs once: the key path takes its tokens detached (JAX applies
+    it again to the same clips, which gives the same tokens). Every head
+    call in train mode records its BN statistics, committed after the
+    backward in this order: features, classify, then project and predict of
+    view 0, then of view 1."""
+    from advise_tpu_torch.engine.contrastive import l2_normalize
+    from advise_tpu_torch.models.temporal_model import eval_mode
+
+    use_byol = "byol" in cfg.SSL.TASK
+    use_speed = "speed" in cfg.SSL.TASK or "action" in cfg.SSL.TASK
+    t_temp = cfg.CONTRASTIVE.T
+    b, k = clips.shape[:2]
+    grid = model.tokens(clips.reshape(b * k, *clips.shape[2:]))
+    feats = model.temporal_forward(grid)
+    loss = torch.zeros((), device=clips.device)
+    stats: Dict[str, torch.Tensor] = {}
+    if use_speed:
+        logits = model.classify(feats, generator)
+        labels = infos["spd_label"].reshape(b * k).long()
+        loss_spd = L.cross_entropy(logits, labels)
+        loss = loss + loss_spd
+        stats["loss_spd"] = loss_spd
+        stats["acc_spd"] = L.top_k_accuracy(logits, labels, 1)
+    if use_byol:
+        if k < 2:
+            raise ValueError("BYOL tmodeling needs DATA.NUM_CLIP >= 2")
+        with torch.no_grad(), eval_mode(model.temporal_encoder):
+            keys = model.temporal_forward(grid.detach(), ssl["ema_temporal"]).reshape(b, k, -1)
+        feats_bk = feats.reshape(b, k, -1)
+        loss_byol = torch.zeros((), device=clips.device)
+        for i in range(2):
+            q = model.predict(model.project(feats_bk[:, i], generator), generator)
+            with torch.no_grad(), eval_mode(model.head_projector):
+                key = model.project(keys[:, 1 - i], projector_params=ssl["ema_projector"])
+            q, key = l2_normalize(q.float()), l2_normalize(key.float())
+            loss_byol = loss_byol - (torch.sum(q * key, dim=-1) / t_temp).mean()
+        loss_byol = loss_byol / 2.0 + 1.0 / t_temp
+        loss = loss + loss_byol
+        stats["loss_byol"] = loss_byol
+    return loss, stats
+
+
+def make_tmodeling_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):
+    """Returns ``step(state, clips_u8, infos, generator, lr) -> stats`` for the
+    TemporalModel (the task step's signature): ``state.ssl`` holds the BYOL
+    twins (:func:`init_tmodeling_ssl`), updated before the loss from the
+    pre-step parameters. Parameters outside the graph (the frozen tower)
+    get zero gradients, as JAX's ``stop_gradient`` gives them; their lr
+    scale is 0, so they come out of the step unchanged."""
+    dtype = cfg_compute_dtype(cfg)
+    use_byol = "byol" in cfg.SSL.TASK
+
+    def step(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator], lr: float) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.train()
+        clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
+        clips = clips.to(dtype)
+        if use_byol:
+            update_tmodeling_ema(cfg, state.ssl, model)
+        with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            loss, stats = tmodeling_loss(cfg, model, state.ssl, clips, infos, generator)
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(params.items(), grads)}
+        commit_bn_stats(model)
+        stats = {name: v.detach() for name, v in stats.items()}
+        stats["grad_norm"] = global_grad_norm(grads)
+        direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
+        apply_direction(params, direction, lr, bundle.lr_scales)
+        state.step += 1
+        return stats
+
+    return step
+
+
 def make_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):
     """Dispatch on the model, as the JAX ``make_train_step`` does:
-    ContrastiveModel takes the contrastive step, MaskMViT the task step with
-    the masked loss, every other model the task step of cfg.TASK."""
+    ContrastiveModel takes the contrastive step, TemporalModel the AdViSe
+    step, MaskMViT the task step with the masked loss, every other model the
+    task step of cfg.TASK."""
     if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
         return make_contrastive_train_step(cfg, bundle, device_aug)
+    if cfg.MODEL.MODEL_NAME == "TemporalModel":
+        return make_tmodeling_train_step(cfg, bundle, device_aug)
     return make_task_train_step(cfg, bundle, device_aug)
 
 

@@ -25,8 +25,12 @@ TPU.PROFILE_DIR runs ``torch.profiler`` over the steps
 (PROFILE_START, PROFILE_START + PROFILE_STEPS] of the step counter, writes
 ``trace.json`` there and logs the device's busy and idle shares of that
 window. Not ported (they raise, naming the ROADMAP.md item):
-TPU.PARTITION_MODE 'auto' (A11), VIS_MASK (A12), the TemporalModel and its
-CLIP tower loading (A10).
+TPU.PARTITION_MODE 'auto' (A11), VIS_MASK (A12).
+
+The TemporalModel's CLIP tower takes its weights from
+MODEL.SPATIAL_MODEL_PATH (an open_clip checkpoint, or a directory holding
+``open_clip_pytorch_model.bin``) when it is set, else keeps the random
+weights of TRAIN.SEED, as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -87,14 +91,22 @@ def check_ported(cfg) -> None:
         raise NotImplementedError("TPU.PARTITION_MODE 'auto' is not ported yet (ROADMAP A11)")
     if cfg.VIS_MASK.ENABLE:
         raise NotImplementedError("VIS_MASK is not ported yet (ROADMAP A12)")
-    if cfg.MODEL.MODEL_NAME == "TemporalModel" or cfg.MODEL.SPATIAL_MODEL_PATH:
-        raise NotImplementedError(
-            "the TemporalModel and its CLIP tower loading are not ported yet (ROADMAP A10)")
+
+
+def spatial_checkpoint(path: str) -> str:
+    """MODEL.SPATIAL_MODEL_PATH as a file: a directory means the
+    ``open_clip_pytorch_model.bin`` inside it."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "open_clip_pytorch_model.bin")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"MODEL.SPATIAL_MODEL_PATH: no checkpoint at {path}")
+    return path
 
 
 def build_train_state(cfg, device) -> Tuple[TrainState, OptimizerBundle]:
     """The model (weights from TRAIN.SEED) on ``device``, its optimizer and
-    state; for ContrastiveModel the SSL state too."""
+    state; for ContrastiveModel the SSL state too; for the TemporalModel the
+    CLIP tower from MODEL.SPATIAL_MODEL_PATH when set, then the BYOL twins."""
     model = build_model(cfg, device, seed=cfg.TRAIN.SEED)
     params = dict(model.named_parameters())
     bundle = build_tx(cfg, params)
@@ -103,6 +115,13 @@ def build_train_state(cfg, device) -> Tuple[TrainState, OptimizerBundle]:
         from advise_tpu_torch.engine.contrastive import init_ssl_state
 
         state.ssl = init_ssl_state(cfg, model, seeded_generator(device, cfg.TRAIN.SEED, 7))
+    elif cfg.MODEL.MODEL_NAME == "TemporalModel":
+        from advise_tpu_torch.engine.steps import init_tmodeling_ssl
+        from advise_tpu_torch.models.clip_vit import load_openclip_weights
+
+        if cfg.MODEL.SPATIAL_MODEL_PATH:
+            load_openclip_weights(spatial_checkpoint(cfg.MODEL.SPATIAL_MODEL_PATH), model.spatial_encoder)
+        state.ssl = init_tmodeling_ssl(cfg, model)
     return state, bundle
 
 

@@ -1,6 +1,6 @@
 """Model registry and builder (counterpart of ``advise_tpu/models/__init__.py``):
 MODEL_NAME ResNet (the single-pathway 3D ResNets), ContrastiveModel (ARCH
-slowfast), MViT and MaskMViT (MaskFeat)."""
+slowfast), MViT, MaskMViT (MaskFeat) and TemporalModel (AdViSe)."""
 
 from __future__ import annotations
 
@@ -15,12 +15,14 @@ from advise_tpu_torch.models.layers.norm import get_norm
 from advise_tpu_torch.models.masked import MaskMViT
 from advise_tpu_torch.models.mvit import MViT
 from advise_tpu_torch.models.resnet3d import ResNet3D
+from advise_tpu_torch.models.temporal_model import TemporalModel
 
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "ResNet": ResNet3D,
     "ContrastiveModel": ContrastiveModel,
     "MViT": MViT,
     "MaskMViT": MaskMViT,
+    "TemporalModel": TemporalModel,
 }
 
 
@@ -33,8 +35,8 @@ def build_model(cfg, device: torch.device | str = "cuda", seed: int = 0,
     """Construct the configured model with weights drawn from ``generator``
     (a CPU generator seeded with ``seed`` when none is given), on
     ``device``: the card unless the caller asks for another. On a CUDA
-    device the conv weights take the channels-last layout the activations
-    use."""
+    device the 3D conv weights take the channels-last layout the
+    activations use."""
     name = cfg.MODEL.MODEL_NAME
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(
@@ -45,5 +47,8 @@ def build_model(cfg, device: torch.device | str = "cuda", seed: int = 0,
     init_weights(model, generator)
     model = model.to(device)
     if torch.device(device).type == "cuda":
-        model = model.to(memory_format=torch.channels_last_3d)
+        with torch.no_grad():
+            for t in list(model.parameters()) + list(model.buffers()):
+                if t.dim() == 5:
+                    t.data = t.data.contiguous(memory_format=torch.channels_last_3d)
     return model

@@ -18,12 +18,15 @@ Two differences of form, both forced by PyTorch:
   ``views=V``; the module then reduces over ``V * num_splits`` slices, which
   is the same normalization and the same averaged running update. Without
   it a concatenated batch would pool the views' statistics silently.
-- **Running statistics move once per step.** A forward in train mode does
-  not touch the buffers: it records its batch statistics, and
-  :func:`commit_bn_stats` folds them into the running buffers after the
-  step's backward. Under ``torch.utils.checkpoint`` (TPU.REMAT) the forward
-  is recomputed in the backward, which would move an in-place update twice;
-  a recomputed forward here only records the same statistics again.
+- **Running statistics move after the step's backward.** A forward in
+  train mode does not touch the buffers: it records its batch statistics,
+  and :func:`commit_bn_stats` folds the records into the running buffers in
+  call order. A BN that the step calls twice (the AdViSe BYOL heads, once a
+  view) thus moves twice, the second update on top of the first, as the
+  JAX step threads its ``batch_stats`` through both applies. Under
+  ``torch.utils.checkpoint`` (TPU.REMAT) the forward is recomputed inside
+  the backward; a forward run there records nothing, so a recomputation
+  never counts as a call.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ class SyncBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
-        self.pending = None  # (batch mean, unbiased batch var) of the last forward
+        self.pending = []  # (batch mean, unbiased batch var) of each forward, in call order
         self.reset_parameters()
 
     @torch.no_grad()
@@ -80,22 +83,30 @@ class SyncBatchNorm(nn.Module):
         mean = torch.mean(xf, dim=red)
         var = torch.mean(torch.square(xf), dim=red) - torch.square(mean)
         y = self._fold(xs, mean, var, (splits, 1, c) + tail).reshape(x.shape)
-        with torch.no_grad():
-            unbiased = var.mean(0) * (count / max(count - 1, 1))
-            self.pending = (mean.mean(0).detach(), unbiased.detach())
+        if not _in_backward():
+            with torch.no_grad():
+                unbiased = var.mean(0) * (count / max(count - 1, 1))
+                self.pending.append((mean.mean(0).detach(), unbiased.detach()))
         return y
+
+
+def _in_backward() -> bool:
+    """True while autograd runs a backward pass: where a checkpointed forward
+    is recomputed."""
+    return torch._C._current_graph_task_id() != -1
 
 
 @torch.no_grad()
 def commit_bn_stats(model: nn.Module) -> None:
-    """Fold every BN's recorded batch statistics into its running buffers
-    (``new = (1 - m) * old + m * batch``) and clear them."""
+    """Fold every BN's recorded batch statistics into its running buffers in
+    call order (``new = (1 - m) * old + m * batch`` per record) and clear
+    them."""
     for m in model.modules():
-        if isinstance(m, SyncBatchNorm) and m.pending is not None:
-            mean, var = m.pending
-            m.running_mean.mul_(1 - m.momentum).add_(m.momentum * mean)
-            m.running_var.mul_(1 - m.momentum).add_(m.momentum * var)
-            m.pending = None
+        if isinstance(m, SyncBatchNorm):
+            for mean, var in m.pending:
+                m.running_mean.mul_(1 - m.momentum).add_(m.momentum * mean)
+                m.running_var.mul_(1 - m.momentum).add_(m.momentum * var)
+            m.pending = []
 
 
 def get_norm(cfg):

@@ -5,11 +5,17 @@ The port names its modules as the Flax modules are named, so a Flax path
 ``backbone/s2/pathway0_res0/branch2/a/kernel`` becomes the torch key
 ``backbone.s2.pathway0_res0.branch2.a.weight``. Leaves map as:
 
-- conv ``kernel`` DHWIO ``[kt, kh, kw, I, O]`` -> ``weight`` OIDHW;
+- conv ``kernel`` DHWIO ``[kt, kh, kw, I, O]`` -> ``weight`` OIDHW, and the
+  2-D HWIO ``[kh, kw, I, O]`` (CLIP's patch conv) -> OIHW;
 - Dense ``kernel`` ``[in, out]`` -> Linear ``weight`` ``[out, in]``;
+- the attention's DenseGeneral kernels -> Linear weights: ``query``/
+  ``key``/``value`` ``[width, heads, hd]`` -> ``[heads * hd, width]`` with
+  their ``[heads, hd]`` biases flattened, ``out`` ``[heads, hd, width]`` ->
+  ``[width, heads * hd]``;
 - BN and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``, and the batch
   statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
-- a free parameter (``mask_token``, ``pos_embed_spatial``, ...) keeps its
+- a free parameter (``mask_token``, ``pos_embed_spatial``,
+  ``class_embedding``, ``positional_embedding``, ``proj``, ...) keeps its
   name and layout;
 - the reversible MViT's stacked segment parameters (``rev_seg{n}_f`` /
   ``rev_seg{n}_g``, one slice per block on axis 0) -> one module per block,
@@ -31,6 +37,7 @@ import torch
 _PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 _STACKED = re.compile(r"^rev_seg\d+_[fg]$")
+_QKV = ("query", "key", "value")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -41,11 +48,19 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tupl
             yield prefix + (str(k),), v
 
 
-def _param_leaf(name: str, arr: np.ndarray) -> np.ndarray:
+def _param_leaf(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
+    name = path[-1]
     if name == "kernel" and arr.ndim == 5:
         return arr.transpose(4, 3, 0, 1, 2)
+    if name == "kernel" and arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    if name == "kernel" and arr.ndim == 3:  # an attention DenseGeneral
+        flat = arr.reshape(-1, arr.shape[-1]) if path[-2] == "out" else arr.reshape(arr.shape[0], -1)
+        return flat.T
     if name == "kernel" and arr.ndim == 2:
         return arr.T
+    if name == "bias" and arr.ndim == 2 and path[-2] in _QKV:
+        return arr.reshape(-1)
     return arr
 
 
@@ -69,7 +84,7 @@ def params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """A Flax params tree (or any tree shaped like it, such as the momentum
     trace or Adam's moments) -> {torch param name: tensor} in torch layouts."""
     return {
-        param_key(p): torch.from_numpy(np.array(_param_leaf(p[-1], a)))
+        param_key(p): torch.from_numpy(np.array(_param_leaf(p, a)))
         for path, v in _flatten(params)
         for p, a in _unstack(path, np.asarray(v))
     }
@@ -97,7 +112,9 @@ def convert_train_state(params: Mapping, batch_stats: Mapping,
       (a tree shaped like ``params``);
     - ``ema``: the momentum encoder's state_dict from ``ssl['ema_params']``
       and ``ssl['ema_batch_stats']``;
-    - ``knn_mem``: the kNN bank.
+    - ``knn_mem``: the kNN bank;
+    - ``ema_temporal`` and ``ema_projector``: the TemporalModel's BYOL twins,
+      {name: tensor} relative to ``temporal_encoder`` and ``head_projector``.
     """
     out: Dict[str, Any] = {"model": flax_to_state_dict(params, batch_stats)}
     if momentum is not None:
@@ -107,4 +124,7 @@ def convert_train_state(params: Mapping, batch_stats: Mapping,
             out["ema"] = flax_to_state_dict(ssl["ema_params"], ssl["ema_batch_stats"])
         if "knn_mem" in ssl:
             out["knn_mem"] = torch.from_numpy(np.array(ssl["knn_mem"]))
+        for twin in ("ema_temporal", "ema_projector"):
+            if twin in ssl:
+                out[twin] = params_to_torch(ssl[twin])
     return out

@@ -50,7 +50,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Slow-R50 speed model, and the full-depth MViT-L MaskFeat model at 4
    frames x 64^2; then that MViT-L with TPU.COMPUTE_DTYPE float32 on the
    card (flash attention through K4's float32 pair, its launches counted)
-   against the same CPU forward, and one backward through the pair;
+   against the same CPU forward, and one backward through the pair; then
+   AdViSe (the ViT-B/16 tower and the R3D temporal head of
+   configs/pretrain/AdViSe.yaml) at 2 clips x 8 frames at 224^2, bf16 on
+   the card against float32 on the CPU;
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
    clips through the 'aa' augmentation, 2 warm-up and 5 timed steps; then
@@ -71,6 +74,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    step with TPU.COMPUTE_DTYPE float32 (1 warm-up and 2 timed steps), whose
    attention runs K4's float32 pair as often as the bf16 step runs the bf16
    pair and never the bf16 pair;
+7b. the AdViSe path: the AdViSe step of configs/pretrain/AdViSe.yaml
+   (TemporalModel: a frozen ViT-B/16 CLIP tower with random weights from
+   the seed, the R3D temporal head, speed CE) at full width on one card
+   through build_train_state, 8 videos x 4 clips x 8 frames of uint8
+   clips at 320x256 through the XLA simple aug, 2 warm-up and 5 timed
+   steps: step time, clips/s, peak memory, parameter counts (total and
+   frozen), then one step under torch.profiler (its device kernels by
+   summed time, the idle share); the loss finite, the tower's digest unchanged, no kernel
+   launched (the preset's path has none); then two variants of 1 warm-up
+   and 2 timed steps: SSL.TASK speed_byol with TM.FROM_SCRATCH (the
+   gradient through the whole tower; the tower and the BYOL twins move),
+   and TPU.PALLAS_AUG, whose K3 launches must equal its steps;
 8. the entry point: ``python -m advise_tpu_torch.tools.run`` on the BYOL
    preset at full width with synthetic videos (48 of them: 3 iterations an
    epoch), 2 epochs with a kNN probe and a checkpoint each, then the same
@@ -81,7 +96,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    model's digests, the K1/K2 launches; then the SpeedPro preset through
    the same entry point, one epoch of 16 synthetic videos (2 iterations,
    a profiler window over the second), whose K3 launches must equal its
-   iterations: iteration time, loader wait and idle share.
+   iterations: iteration time, loader wait and idle share; then the AdViSe
+   preset the same way (16 videos, one epoch of 2 iterations, SSL.TASK
+   speed_byol so that its checkpoint carries the BYOL twins): the
+   TemporalModelingSampler's ingest at 320x256 and the XLA simple aug
+   through the trainer, a profiler window over the second iteration. The
+   script's wall time is printed last.
 
 Each path's kernel launch counts are reset just before its steps and read
 just after. The line before the last is nvidia-smi's name and power limit;
@@ -99,6 +119,7 @@ import warnings
 BYOL_CONFIG = "configs/pretrain/SlowFast_R50_K400.yaml"
 SPEED_CONFIG = "configs/pretrain/SpeedPro_R50.yaml"
 MASKED_CONFIG = "configs/pretrain/MViT_L_32x312_joint.yaml"
+ADVISE_CONFIG = "configs/pretrain/AdViSe.yaml"
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 LR, EPOCH_EXACT = 1e-3, 1.0
 SPEED_EPOCH = 1.0  # inside SpeedPro's 10 warm-up epochs
@@ -118,6 +139,19 @@ SPEED_RUN_DIR = "build/chip_smoke_speed"
 SPEED_RUN_VIDEOS = 16  # 2 iterations at the preset's 8 videos x 4 clips
 SPEED_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(SPEED_RUN_VIDEOS),
                        "SOLVER.MAX_EPOCH", "1", "TRAIN.AUTO_RESUME", "False"]
+# then AdViSe through the entry point: one epoch of 2 iterations with the BYOL
+# twins (SSL.TASK speed_byol), so its checkpoint carries them
+ADVISE_RUN_DIR = "build/chip_smoke_advise"
+ADVISE_RUN_VIDEOS = 16  # 2 iterations at the preset's 8 videos x 4 clips
+ADVISE_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(ADVISE_RUN_VIDEOS),
+                        "SOLVER.MAX_EPOCH", "1", "SSL.TASK", "speed_byol", "TRAIN.AUTO_RESUME", "False"]
+ADVISE_EPOCH = 1.0  # inside AdViSe's 5 warm-up epochs
+ADVISE_SMALL_CLIPS = 2  # phase 4: clips x the preset's 8 frames at 224^2
+# the AdViSe step's variants, VARIANT_WARMUP + VARIANT_TIMED steps each: the
+# gradient through the whole ViT-B/16 with the BYOL twins moving, and the
+# fused aug K3 in place of the XLA simple aug
+ADVISE_VARIANTS = {"speed_byol FROM_SCRATCH": {"SSL.TASK": "speed_byol", "TM.FROM_SCRATCH": True},
+                   "PALLAS_AUG": {"TPU.PALLAS_AUG": True}}
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
@@ -505,6 +539,135 @@ def run_entry_point(extra, label, config=BYOL_CONFIG, out_dir=RUN_DIR, overrides
     return record
 
 
+def counted_kernels():
+    """Every kernel wrapper that counts its launches."""
+    from advise_tpu_torch.ops import flash_attention as fl
+    from advise_tpu_torch.ops import fused_aug as fa
+    from advise_tpu_torch.ops import stem_conv as sc
+
+    return (sc.stem_conv_fwd, sc.stem_conv_wgrad, fa.fused_simple_aug, fl.flash_mha_fwd,
+            fl.flash_mha_bwd, fl.flash_f32_fwd, fl.flash_f32_bwd)
+
+
+def advise_forward(tconfig, dev) -> None:
+    """Phase 4's AdViSe check: the full-width model (ViT-B/16 tower, R3D
+    head) on the card in bf16 against the same weights' float32 forward on
+    the CPU, eval mode, ADVISE_SMALL_CLIPS clips of 8 frames."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.models import build_model
+
+    acfg = one_card_cfg(tconfig, ADVISE_CONFIG)
+    ref_cfg = acfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    ref_cfg.TM.ENABLE_BF16 = False
+    ref = build_model(ref_cfg, "cpu", seed=0).eval()
+    card = build_model(acfg, dev, seed=0).eval()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (ADVISE_SMALL_CLIPS, acfg.DATA.NUM_FRAMES, 224, 224, 3)).astype(np.float32))
+    with torch.no_grad():
+        want_feat = ref.features(x)
+        want = ref.classify(want_feat)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got_feat = card.features(x.to(dev).bfloat16())
+            got = card.classify(got_feat)
+    for out_name, a, r in (("features", got_feat, want_feat), ("logits", got, want)):
+        check(tuple(a.shape) == tuple(r.shape), f"AdViSe {out_name} has shape {tuple(a.shape)}")
+        rel = float((a.float().cpu() - r).abs().max() / r.abs().max())
+        # bf16 through the 12-layer tower and the 4-block head: ~1e-2
+        print(f"[small] AdViSe ViT-B/16 + R3D {out_name} {tuple(a.shape)}: max rel err vs CPU float32 "
+              f"{rel} (bound 5e-2)")
+        check(math.isfinite(rel) and rel <= 5e-2, f"the card's AdViSe {out_name} disagrees with the CPU")
+    del ref, card
+    torch.cuda.empty_cache()
+
+
+def advise_steps(acfg, label, warmup, timed, dev, profiled=False):
+    """The AdViSe step of ``acfg`` through ``build_train_state`` on one card:
+    uint8 clips at the ingest geometry, warmup + timed steps; prints each
+    step, the median, clips/s, the peak memory and the parameter counts;
+    with ``profiled`` one more step under torch.profiler: its device kernels
+    by total time and the device's busy share of the step's wall time.
+    Returns (median ms, peak bytes, launches by kernel, tower unchanged,
+    twins moved)."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.data import build_device_aug, ingest_geometry
+    from advise_tpu_torch.engine.checkpoint import tensors_digest
+    from advise_tpu_torch.engine.steps import make_train_step
+    from advise_tpu_torch.engine.train import build_train_state
+    from advise_tpu_torch.solver.lr_policy import get_lr_at_epoch
+    from advise_tpu_torch.solver.optimizer import classify_params
+
+    state, bundle = build_train_state(acfg, dev)
+    model = state.model
+    labels = classify_params(acfg, dict(model.named_parameters()))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_frozen = sum(p.numel() for n, p in model.named_parameters() if labels[n] == "frozen")
+    step = make_train_step(acfg, bundle, build_device_aug(acfg, "train"))
+    b, k, t = acfg.DATA.BATCHSIZE_PER_GPU, acfg.DATA.NUM_CLIP, acfg.DATA.NUM_FRAMES
+    w_in, h_in = ingest_geometry(acfg, "train")
+    rng = np.random.default_rng(3)
+    clips = torch.from_numpy(rng.integers(0, 256, size=(b, k, t, h_in, w_in, 3), dtype=np.uint8)).to(dev)
+    infos = {"spd_label": torch.from_numpy(rng.integers(0, acfg.MODEL.NUM_CLASSES, (b, k))).to(dev)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lr = get_lr_at_epoch(acfg, ADVISE_EPOCH)
+    tower0 = tensors_digest(model.spatial_encoder.state_dict())
+    twins0 = {name: tensors_digest(v) for name, v in state.ssl.items()}
+    print(f"[advise] {label}: {n_params} params ({n_frozen} frozen), SSL.TASK {acfg.SSL.TASK}, "
+          f"FROM_SCRATCH {acfg.TM.FROM_SCRATCH}, PALLAS_AUG {acfg.TPU.PALLAS_AUG}, clips "
+          f"{tuple(clips.shape)} uint8 -> crop {acfg.AUG.TARGET_SIZE}, {acfg.TPU.COMPUTE_DTYPE}, "
+          f"lr {lr} at epoch {ADVISE_EPOCH}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counted_kernels():
+        fn.launches = 0
+    step_ms = []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        stats = step(state, clips, infos, gen, lr)
+        vals = {name: float(v) for name, v in stats.items()}
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[advise] {label} step {i}: {vals} ({step_ms[-1]} ms)")
+        check(all(math.isfinite(v) for v in vals.values()), f"AdViSe {label} step {i} is not finite")
+    launches = {fn.__name__: fn.launches for fn in counted_kernels()}
+    peak = torch.cuda.max_memory_allocated()
+    check(state.step == warmup + timed, f"the AdViSe {label} state did not advance")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), f"AdViSe {label} params not finite")
+    median_ms = statistics.median(step_ms[warmup:])
+    tower_same = tensors_digest(model.spatial_encoder.state_dict()) == tower0
+    twins_moved = all(tensors_digest(v) != twins0[name] for name, v in state.ssl.items())
+    print(f"[advise] {label}: median step {median_ms} ms over {timed} steps, {b * k * 1e3 / median_ms} "
+          f"clips/s ({b} videos x {k} clips x {t} frames), peak allocated {peak} bytes, launches "
+          f"{launches}, tower unchanged {tower_same}, twins {sorted(state.ssl)} moved {twins_moved}")
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        from advise_tpu_torch.engine.meters import busy_ms
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, clips, infos, gen, lr)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        print(f"[advise] {label} profiled step: wall {wall} ms, device busy {busy} ms, idle share "
+              f"{1.0 - busy / wall}, {len(kernels)} kernels, summed kernel time {sum(by_name.values())} ms")
+        for name, ms in top:
+            print(f"[advise]   {ms:.3f} ms  {name[:150]}")
+    del state, bundle, model, step, clips
+    torch.cuda.empty_cache()
+    return median_ms, peak, launches, tower_same, twins_moved
+
+
 def main() -> None:
     import torch
 
@@ -528,6 +691,7 @@ def main() -> None:
     from advise_tpu_torch.solver.lr_policy import get_lr_at_epoch
     from advise_tpu_torch.solver.optimizer import build_tx
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     # the plain versions are the references: no TF32 anywhere in this run
     torch.backends.cudnn.allow_tf32 = False
@@ -945,6 +1109,7 @@ def main() -> None:
           "the float32 MViT-L reached the bf16 kernels")
     del ref_model, f32_model, got, want, out
     torch.cuda.empty_cache()
+    advise_forward(tconfig, dev)
 
     # -- 5. the BYOL path ---------------------------------------------------------
     model = build_model(cfg, dev, seed=0)
@@ -1212,6 +1377,27 @@ def main() -> None:
     del model, params, bundle, state, step, clips, masks, stats
     torch.cuda.empty_cache()
 
+    # -- 7b. the AdViSe path: no kernel on the preset's own path -------------------
+    acfg = one_card_cfg(tconfig, ADVISE_CONFIG)
+    _, _, adv_launches, tower_same, _ = advise_steps(acfg, "AdViSe.yaml", WARMUP_STEPS, TIMED_STEPS, dev,
+                                                     profiled=True)
+    check(tower_same, "the frozen CLIP tower changed in the AdViSe steps")
+    check(not any(adv_launches.values()), "the AdViSe step launched a kernel: its path has none")
+    for label, over in ADVISE_VARIANTS.items():
+        vcfg = acfg.clone()
+        for key, value in over.items():
+            sec, leaf = key.split(".")
+            vcfg[sec][leaf] = value
+        _, _, v_launches, tower_same, twins_moved = advise_steps(vcfg, label, VARIANT_WARMUP, VARIANT_TIMED, dev)
+        if vcfg.TM.FROM_SCRATCH:
+            check(not tower_same and twins_moved, f"AdViSe {label}: the tower or the twins did not move")
+        if vcfg.TPU.PALLAS_AUG:
+            advise_k3 = v_launches["fused_simple_aug"]
+            print(f"[advise] {label}: fused_simple_aug launches {advise_k3} in "
+                  f"{VARIANT_WARMUP + VARIANT_TIMED} steps")
+            check(advise_k3 == VARIANT_WARMUP + VARIANT_TIMED,
+                  f"AdViSe {label}: fused_simple_aug was not launched once a step")
+
     # -- 8. the entry point ---------------------------------------------------------
     import shutil
     from pathlib import Path
@@ -1283,6 +1469,32 @@ def main() -> None:
     check(prof is not None, "the speed run's profile window did not close")
     print(f"[run] speed preset profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device "
           f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
+
+    # AdViSe through the entry point: the TemporalModelingSampler's ingest at
+    # 320x256, the XLA simple aug, the twins in the checkpoint
+    shutil.rmtree(ADVISE_RUN_DIR, ignore_errors=True)
+    adv = run_entry_point(["TPU.PROFILE_DIR", f"{ADVISE_RUN_DIR}/profile", "TPU.PROFILE_START", "0",
+                           "TPU.PROFILE_STEPS", "1"], "AdViSe preset (SSL.TASK speed_byol), 1 epoch",
+                          ADVISE_CONFIG, ADVISE_RUN_DIR, ADVISE_RUN_OVERRIDES)
+    n_iter = len(adv["iter_s"])
+    print(f"[run] AdViSe preset: {n_iter} iterations, stats {adv['stats']}, iterations "
+          f"{[t * 1e3 for t in adv['iter_s']]} ms, loader wait {[t * 1e3 for t in adv['wait_s']]} ms, peak "
+          f"allocated {adv['peak_allocated_bytes']} bytes, launches {adv['launches']}, {adv['seconds']} s "
+          f"with start-up")
+    split = {stage: f"{s * 1e3 / n} ms x {n} ({s * 1e3} ms in all)" for stage, (s, n) in adv["host_s"].items()}
+    print(f"[run] AdViSe preset: host stages {split}")
+    check(n_iter == ADVISE_RUN_VIDEOS // acfg.DATA.BATCHSIZE_PER_GPU and adv["start_step"] == 0,
+          "AdViSe preset: wrong schedule")
+    check(all(math.isfinite(v) for st in adv["stats"] for v in st.values()), "AdViSe preset: a loss is not finite")
+    saved = torch.load(Path(ADVISE_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE, map_location="cpu",
+                       weights_only=False)
+    check(set(saved["ssl"]) == {"ema_temporal", "ema_projector"} and saved["step"] == n_iter,
+          "AdViSe preset: the checkpoint lacks the BYOL twins")
+    prof = adv.get("profile")
+    check(prof is not None, "the AdViSe run's profile window did not close")
+    print(f"[run] AdViSe preset profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device "
+          f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
+    print(f"[total] chip_smoke.py wall time {time.perf_counter() - t_start} s")
 
     launches.update(probe_launches)
     print(json.dumps({"kernels": [

@@ -230,7 +230,9 @@ def test_device_aug_simple_pipeline():
     """build_device_aug dispatches AUG.TYPE 'simple' at the ingest geometry
     AUG.RESIZE (W, H); the batch [B, K] is flattened to clips and back;
     REVERSE_INPUT_CHANNEL flips the channels before the aug; without
-    TPU.PALLAS_AUG the pipeline is not ported yet."""
+    TPU.PALLAS_AUG the pipeline takes the XLA path and launches no kernel
+    (tests/test_torch_simple_aug_xla.py holds it to JAX); an AUG.TYPE that
+    is not ported raises."""
     cfg = _simple_cfg()
     w, h = ingest_geometry(cfg, "train")
     assert (w, h) == (48, 40)
@@ -247,5 +249,10 @@ def test_device_aug_simple_pipeline():
                        aug(batch.flip(-1), torch.Generator().manual_seed(5)))
     bf16 = build_device_aug(_simple_cfg(**{"TPU.AUG_COMPUTE_OUT": True}), "train")
     assert bf16(batch, torch.Generator().manual_seed(5)).dtype == torch.bfloat16
+    xla = build_device_aug(_simple_cfg(**{"TPU.PALLAS_AUG": False}), "train")
+    launches = fa.fused_simple_aug.launches
+    out = xla(batch, torch.Generator().manual_seed(5))
+    assert not xla.pallas and out.shape == (2, 3, 4, 32, 32, 3)
+    assert fa.fused_simple_aug.launches == launches
     with pytest.raises(NotImplementedError):
-        build_device_aug(_simple_cfg(**{"TPU.PALLAS_AUG": False}), "train")
+        build_device_aug(_simple_cfg(**{"AUG.TYPE": "clip_aug"}), "train")

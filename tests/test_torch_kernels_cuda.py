@@ -4,7 +4,8 @@ launch schedules (one launch, per batch chunk, wgrad-only), the fused
 simple aug (advise_tpu_torch/csrc/fused_aug.cu), flash attention, forward
 and backward (advise_tpu_torch/csrc/flash_attention.cu) with its float32
 pair in 3xTF32 (advise_tpu_torch/csrc/flash_attention_f32.cu), and the window
-gather of the nine Mosaic probes (advise_tpu_torch/csrc/window_probe.cu).
+gather of the nine Mosaic probes (advise_tpu_torch/csrc/window_probe.cu);
+and the AdViSe model's bf16 forward on the card against the CPU.
 Every test here needs an NVIDIA card and nvcc, and skips without a card.
 
 This file imports no JAX, so a machine without it runs the file without the
@@ -428,3 +429,36 @@ def test_flash_forward_takes_a_negative_scale(cuda):
     fl.flash_mha_plain(*qr, -0.2).backward(do.float())
     for got, want in zip(fl.flash_mha_bwd(q, k, v, o, lse, do, -0.2), qr):
         assert _rel(got, want.grad) <= 2 ** -6
+
+
+@pytest.mark.cuda
+def test_advise_forward_on_the_card_matches_the_cpu(cuda):
+    """AdViSe (configs/pretrain/AdViSe.yaml: the ViT-B/16 tower in bf16, the
+    R3D temporal head) with 2 layers of the tower, on the card in bf16 under
+    autocast against the same weights' float32 forward on the CPU, in eval
+    mode: features and logits within 5e-2 of their largest magnitude (bf16
+    rounds at 2^-8 a layer); the tower's tokens come back in float32."""
+    from advise_tpu_torch import config as tconfig
+    from advise_tpu_torch.models import build_model
+
+    cfg = tconfig.get_cfg()
+    cfg.merge_from_file("configs/pretrain/AdViSe.yaml")
+    cfg.MODEL.TEMPORAL_NUM_LAYERS = 1
+    cfg = tconfig.assert_and_infer_cfg(cfg)
+    ref_cfg = cfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    ref_cfg.TM.ENABLE_BF16 = False
+    ref = build_model(ref_cfg, "cpu", seed=0).eval()
+    card = build_model(cfg, cuda, seed=0).eval()
+    x = torch.randn((2, cfg.DATA.NUM_FRAMES, 224, 224, 3), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want_feat = ref.features(x)
+        want = ref.classify(want_feat)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            grid = card.tokens(x.to(cuda).bfloat16())
+            got_feat = card.temporal_forward(grid)
+            got = card.classify(got_feat)
+    assert grid.dtype == torch.float32 and tuple(grid.shape) == (2, cfg.DATA.NUM_FRAMES, 14, 14, 768)
+    for a, r in ((got_feat, want_feat), (got, want)):
+        assert tuple(a.shape) == tuple(r.shape)
+        assert float((a.float().cpu() - r).abs().max() / r.abs().max()) <= 5e-2

@@ -198,9 +198,10 @@ def test_initializers_match_jax(zero_final_bn):
 def test_port_imports_no_jax():
     """Importing the port (its entry point, trainer, data pipeline and probe
     tool among it) and running a CPU forward and backward of each model
-    (MaskMViT through flash_mha's CPU path), the simple and OnlyCrop augs
-    and a MaskingGenerator3D draw loads no jax, flax, optax or advise_tpu
-    module."""
+    (MaskMViT through flash_mha's CPU path), the simple and OnlyCrop augs,
+    a MaskingGenerator3D draw, and one AdViSe step (the TemporalModel with
+    its CLIP tower, the XLA simple aug with hue, BYOL twins) loads no jax,
+    flax, optax or advise_tpu module."""
     code = (
         "import sys, torch\n"
         "from advise_tpu_torch.config import get_cfg, assert_and_infer_cfg\n"
@@ -253,6 +254,18 @@ def test_port_imports_no_jax():
         "assert n[0] == 6  # one attention a block\n"
         "(out[0][0].sum() + out[4].sum()).backward()\n"
         "assert all(p.grad is not None for p in m.parameters())\n"
+        "from advise_tpu_torch.engine.train import build_train_state\n"
+        "from advise_tpu_torch.models import clip_vit, temporal_model\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/smoke/advise_tm_synth.yaml')\n"
+        "cfg.AUG.REFERENCE_EXACT_HUE = False; cfg.TM.TEMPORAL_ARCH = 'resnet3d'; cfg.SSL.BN_MLP = True\n"
+        "cfg = assert_and_infer_cfg(cfg)\n"
+        "state, bundle = build_train_state(cfg, 'cpu')\n"
+        "assert isinstance(state.model.spatial_encoder, clip_vit.CLIPViT)\n"
+        "step = make_train_step(cfg, bundle, build_device_aug(cfg))\n"
+        "clips = torch.randint(0, 256, (2, 2, 4, 36, 40, 3), dtype=torch.uint8)\n"
+        "stats = step(state, clips, {'spd_label': torch.zeros(2, 2, dtype=torch.long)}, g, 1e-3)\n"
+        "assert set(stats) == {'loss_spd', 'acc_spd', 'loss_byol', 'grad_norm'}\n"
+        "assert all(bool(torch.isfinite(v)) for v in stats.values())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

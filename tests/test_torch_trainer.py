@@ -18,6 +18,9 @@ adjust_base_lr; tools/run.py) on the CPU.
   on the same batch and the same generator (the same code on the same
   inputs). A 3-epoch run cut after epoch 1 and resumed EQUALS the same run
   uncut, in every iteration's loss and grad norm and in the end state.
+- The trainer on the AdViSe smoke preset (configs/smoke/advise_tm_synth.yaml,
+  4 synthetic videos): one epoch, then a resume to 2 epochs that EQUALS the
+  same run never cut, the BYOL twins included.
 - The trainer on the speed preset (SpeedPro_R50 cut to RESNET.DEPTH 10 and
   narrow widths, tests/torch_port_common.py ``slow_r10``; TASK speed, the
   fused simple aug) with the synthetic backend: one epoch of 2 iterations,
@@ -44,6 +47,7 @@ from advise_tpu_torch.engine.train import (
     check_ported,
     seeded_generator,
     select_infos,
+    spatial_checkpoint,
     trainer,
 )
 from advise_tpu_torch.solver import lr_policy as tlr
@@ -293,6 +297,56 @@ def test_trainer_runs_the_speed_preset_and_matches_one_step(tmp_path):
     assert (tmp_path / "checkpoints" / "Model_Epoch_0000" / ck.STATE_FILE).is_file()
 
 
+def _tm_run_cfg(logdir, **overrides):
+    """configs/smoke/advise_tm_synth.yaml (TemporalModel, a tiny CLIP tower
+    trained from scratch, conv3d head, speed + BYOL, the XLA simple aug with
+    a real hue) on 4 synthetic videos: 4 iterations an epoch."""
+    cfg = tconfig.get_cfg()
+    cfg.merge_from_file("configs/smoke/advise_tm_synth.yaml")
+    cfg.DATA.SYNTHETIC_SIZE = 4
+    cfg.TRAIN.SAVE_FREQ = 1
+    cfg.AUG.REFERENCE_EXACT_HUE = False
+    for key, value in overrides.items():
+        sec, leaf = key.split(".")
+        cfg[sec][leaf] = value
+    cfg = tconfig.assert_and_infer_cfg(cfg)
+    cfg.LOGDIR = str(logdir)
+    return cfg
+
+
+def test_trainer_runs_advise_tm_synth_and_resumes_bit_exactly(tmp_path):
+    """The AdViSe smoke preset through the trainer: its one epoch (4
+    iterations) saves the model, the optimizer and the BYOL twins. A 2-epoch
+    run cut after epoch 0 and resumed EQUALS the same run never cut, in
+    every iteration's stats, the end model and the twins (the lr schedule
+    runs to MAX_EPOCH, so both runs have 2)."""
+    one = {}
+    trainer(_tm_run_cfg(tmp_path / "one"), device="cpu", record=one)
+    assert len(one["stats"]) == 4
+    assert all(set(st) == {"loss_spd", "acc_spd", "loss_byol", "grad_norm"} for st in one["stats"])
+    assert all(np.isfinite(v) for st in one["stats"] for v in st.values())
+    saved = torch.load(tmp_path / "one" / "checkpoints" / "Model_Epoch_0000" / ck.STATE_FILE,
+                       weights_only=False)
+    assert set(saved["ssl"]) == {"ema_temporal", "ema_projector"} and saved["step"] == 4
+    assert ck.tensors_digest(saved["model"]) == one["model_sha256_end"]
+
+    straight, cut = {}, {}
+    state = trainer(_tm_run_cfg(tmp_path / "straight", **{"SOLVER.MAX_EPOCH": 2}), device="cpu",
+                    record=straight)
+    assert set(state.ssl) == {"ema_temporal", "ema_projector"}
+    kept = tmp_path / "cut" / "checkpoints"
+    kept.mkdir(parents=True)
+    for name in ("Model_Epoch_0000", "Model_Epoch_0000.meta.npy"):
+        (tmp_path / "straight" / "checkpoints" / name).rename(kept / name)
+    resumed = trainer(_tm_run_cfg(tmp_path / "cut", **{"SOLVER.MAX_EPOCH": 2, "TRAIN.AUTO_RESUME": True}),
+                      device="cpu", record=cut)
+    assert (cut["start_epoch"], cut["start_step"], len(cut["stats"])) == (1, 4, 4)
+    assert cut["stats"] == straight["stats"][4:]
+    assert cut["model_sha256_end"] == straight["model_sha256_end"]
+    for twin in ("ema_temporal", "ema_projector"):
+        assert ck.tensors_digest(resumed.ssl[twin]) == ck.tensors_digest(state.ssl[twin]), twin
+
+
 def test_trainer_pieces():
     cfg = small_cfg(tconfig)
     infos = {"item_id": 1, "time_idx": 2, "cls_id": 3, "length": 4}
@@ -301,13 +355,17 @@ def test_trainer_pieces():
     assert torch.equal(torch.rand(4, generator=a), torch.rand(4, generator=b))
     assert not torch.equal(torch.rand(4, generator=seeded_generator("cpu", 0, 1, 3)),
                            torch.rand(4, generator=seeded_generator("cpu", 0, 2, 2)))
-    for key, value, item in (("TPU.PARTITION_MODE", "auto", "A11"), ("VIS_MASK.ENABLE", True, "A12"),
-                             ("MODEL.SPATIAL_MODEL_PATH", "/x", "A10")):
+    for key, value, item in (("TPU.PARTITION_MODE", "auto", "A11"), ("VIS_MASK.ENABLE", True, "A12")):
         bad = cfg.clone()
         section, leaf = key.split(".")
         bad[section][leaf] = value
         with pytest.raises(NotImplementedError, match=item):
             check_ported(bad)
+    bad = cfg.clone()
+    bad.MODEL.SPATIAL_MODEL_PATH = "no_such_clip_checkpoint"
+    check_ported(bad)  # the CLIP tower loads now; a missing checkpoint raises where it is read
+    with pytest.raises(FileNotFoundError, match="no_such_clip_checkpoint"):
+        spatial_checkpoint(bad.MODEL.SPATIAL_MODEL_PATH)
     m = AverageMeter(window=2)
     for v in (1.0, 2.0, 6.0):
         m.update(v)

@@ -206,3 +206,48 @@ def grads_agree(got, want, tol):
         if float(np.abs(g - w).max()) > tol * float(np.abs(w).max()) + tol * 1e-2 * top:
             bad.append(k)
     return bad
+
+
+# AdViSe (configs/pretrain/AdViSe.yaml: TemporalModel, R3D temporal head,
+# speed CE) cut to CPU size: a 2-layer CLIP tower of width 128 (2 heads) at
+# 32^2 (a 2 x 2 patch grid), a temporal ResStage of 2 blocks 128 -> 16
+# (inner 8), heads of MLP_DIM 16, CONTRASTIVE.DIM 8; float32 without
+# TM.ENABLE_BF16
+TM_B, TM_K, TM_T, TM_S = 4, 2, 4, 32  # videos, clips per video, frames, crop
+
+
+def tm_cfg(mod=jconfig, **overrides):
+    cfg = mod.get_cfg()
+    cfg.merge_from_file("configs/pretrain/AdViSe.yaml")
+    cfg.NUM_GPUS = 1
+    cfg.NUM_WORLDS = 1
+    cfg.TPU.MESH_SYNC = 1
+    cfg.BN.NUM_SYNC_DEVICES = 1
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.DONATE = False
+    cfg.TM.ENABLE_BF16 = False
+    cfg.MODEL.SPATIAL_EMBEDDING_DIM = 128
+    cfg.MODEL.TEMPORAL_NUM_LAYERS = 1
+    cfg.MODEL.TEMPORAL_EMBEDDING_DIM = 16
+    cfg.MODEL.TEMPORAL_HIDDEN_DIM = 8
+    cfg.SSL.MLP_DIM = 16
+    cfg.CONTRASTIVE.DIM = 8
+    cfg.TM.NUM_BLOCKS = 2
+    cfg.TM.NUM_HEADS = 2
+    cfg.DATA.NUM_FRAMES = TM_T
+    cfg.DATA.NUM_CLIP = TM_K
+    cfg.DATA.BATCHSIZE_PER_GPU = TM_B
+    cfg.AUG.TARGET_SIZE = TM_S
+    cfg.AUG.RESIZE = [TM_S * 5 // 4, TM_S * 9 // 8]
+    _override(cfg, overrides)
+    return mod.assert_and_infer_cfg(cfg)
+
+
+def tm_variables(model, seed=0):
+    """The JAX TemporalModel's initial params and batch_stats (every head
+    touched through ``init_all``), as numpy trees."""
+    v = jax.jit(lambda: model.init(
+        {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed + 1)},
+        jnp.zeros((2, TM_T, TM_S, TM_S, 3), jnp.float32), train=False, method="init_all",
+    ))()
+    return jax.device_get(v["params"]), jax.device_get(v.get("batch_stats", {}))
