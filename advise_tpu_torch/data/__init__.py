@@ -2,10 +2,16 @@
 (:func:`build_sampler`, :func:`build_dataset`, :func:`build_loader`), the
 on-card augmentation, and the host -> card prefetch.
 
+Modes: 'train' (the sampler of cfg.TASK), 'speed' (speed_val: the dense
+SpeedValSampler over VAL.*) and 'action' (inference: the
+InferenceClipSampler over INFER.*), each with its own data dir, label dir
+and split file (:func:`_mode_cfg`) and ingest geometry. The eval phases
+fetch items through ``loader.threaded_items``.
+
 One process drives one card: the loader is rank 0 of a world of 1, and
 its batch is DATA.BATCHSIZE_PER_GPU times ``n_devices``, the number of
 cards this process drives (1). The host-side PIL augmentation
-(TPU.DEVICE_AUG False) is not ported and raises (ROADMAP A).
+(TPU.DEVICE_AUG False) is not ported and raises (ROADMAP A 15).
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ from __future__ import annotations
 from advise_tpu_torch.data import sampling as spl
 from advise_tpu_torch.data.dataset import ClipDataset
 from advise_tpu_torch.data.device_aug import build_device_aug, ingest_geometry
-from advise_tpu_torch.data.loader import ClipLoader
+from advise_tpu_torch.data.loader import ClipLoader, threaded_items
 from advise_tpu_torch.data.prefetch import device_put_batch, prefetch_to_device
 
 __all__ = [
@@ -26,12 +32,14 @@ __all__ = [
     "device_put_batch",
     "ClipDataset",
     "ClipLoader",
+    "threaded_items",
 ]
 
 
 def build_sampler(cfg, mode: str = "train"):
-    """The train sampler of cfg.TASK (``advise_tpu/data/__init__.py:33-60``);
-    the speed_val and inference samplers wait for their phases."""
+    """The sampler of ``mode`` (``advise_tpu/data/__init__.py build_sampler``):
+    in 'train' that of cfg.TASK, in 'speed' the dense speed_val sweep, in
+    'action' NUM_CLIPS starts x NUM_CROPS duplicates."""
     if mode == "train":
         if cfg.TASK == "speed":
             return spl.SpeedClipSampler(
@@ -51,26 +59,48 @@ def build_sampler(cfg, mode: str = "train"):
                 stride=cfg.DATA.STRIDE,
             )
         raise NotImplementedError(f"TASK={cfg.TASK}")
-    raise NotImplementedError(f"the {mode} sampler is not ported yet (ROADMAP A items 5-6)")
+    if mode == "speed":
+        return spl.SpeedValSampler(
+            num_frames=cfg.VAL.NUM_FRAME, stride=cfg.VAL.STRIDE, speed_range=cfg.VAL.RANGE,
+            jitter=cfg.VAL.JITTER, fps=cfg.VAL.FPS,
+        )
+    if mode == "action":
+        return spl.InferenceClipSampler(
+            num_clips=cfg.INFER.NUM_CLIPS, num_crops=cfg.INFER.NUM_CROPS,
+            num_frames=cfg.INFER.NUM_FRAMES, stride=cfg.INFER.STRIDE,
+            jitter=cfg.INFER.JITTER, method=cfg.INFER.SAMPLE_METHOD,
+        )
+    raise NotImplementedError(f"mode={mode}")
+
+
+def _mode_cfg(cfg, mode: str):
+    """(data dir, label dir, split file) of ``mode``."""
+    if mode == "speed":
+        return cfg.VAL.DATADIR, cfg.VAL.LABELDIR, cfg.VAL.SPLITFILE
+    if mode == "action":
+        return cfg.INFER.DATADIR, cfg.INFER.LABELDIR, cfg.INFER.SPLITFILE
+    return cfg.DATA.DATADIR, cfg.DATA.LABELDIR, cfg.DATA.SPLITFILE
 
 
 def build_dataset(cfg, mode: str = "train") -> ClipDataset:
-    """The dataset of ``mode`` (train only: the speed_val and inference
-    geometries wait for ROADMAP A items 5-6)."""
-    if not cfg.TPU.DEVICE_AUG:
+    """The dataset of ``mode``: its sampler, its data, label dir and split
+    file, and its ingest geometry; the synthetic backend's settings are
+    DATA.*'s in every mode."""
+    data_dir, label_dir, split = _mode_cfg(cfg, mode)
+    if mode == "train" and not cfg.TPU.DEVICE_AUG:
         raise NotImplementedError(
             "TPU.DEVICE_AUG False (the host-side PIL augmentation, host_aug) is not "
-            "ported yet (ROADMAP A)")
+            "ported yet (ROADMAP A 15)")
     mask_gen = None
-    if cfg.TASK == "masked" and not cfg.MASK.MAE_RND_MASK:
+    if mode == "train" and cfg.TASK == "masked" and not cfg.MASK.MAE_RND_MASK:
         from advise_tpu_torch.data.masking import build_mask_generator
 
         mask_gen = build_mask_generator(cfg)
     return ClipDataset(
         name=cfg.DATA.DATASET,
-        data_dir=cfg.DATA.DATADIR,
-        label_dir=cfg.DATA.LABELDIR,
-        split_name=cfg.DATA.SPLITFILE,
+        data_dir=data_dir,
+        label_dir=label_dir,
+        split_name=split,
         sampler=build_sampler(cfg, mode),
         ingest_wh=ingest_geometry(cfg, mode),
         backend=cfg.DATA.DECODE_BACKEND,

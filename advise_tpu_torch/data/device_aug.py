@@ -1,7 +1,8 @@
 """On-device augmentation (counterpart of ``advise_tpu/data/device_aug.py``):
-the 'aa' pipeline with AUG.FUSED_RA, the 'simple' pipeline (the fused
-kernel with TPU.PALLAS_AUG, else the XLA path), 'OnlyCrop'
-(RandomResizedCrop + normalize) and 'none' (normalize only).
+the train pipelines 'aa' with AUG.FUSED_RA, 'simple' (the fused kernel
+with TPU.PALLAS_AUG, else the XLA path), 'OnlyCrop' (RandomResizedCrop +
+normalize) and 'none' (normalize only); the speed_val pipeline (the RRC
+with VAL's size, scale and ratio) and the inference crop.
 
 uint8 ``[B, K, T, H, W, C]`` at the ingest geometry goes in, and float32
 or, with TPU.AUG_COMPUTE_OUT under bf16, bfloat16 comes out. All frames of
@@ -16,7 +17,14 @@ a clip share its parameters.
   luma and contrast mean from the current image and a real hue rotation.
 - 'OnlyCrop': per clip, RandomResizedCrop with scale (AUG.MIN_AREA, 1) as
   ``jax.image.scale_and_translate`` computes it (linear, antialiased: one
-  weight matrix per axis), clip to [0, 255], normalize.
+  weight matrix per axis), clip to [0, 255], normalize. Mode 'speed' runs
+  the same crop at VAL.TARGET_SIZE with scale (VAL.MIN_AREA, 1) and
+  VAL.RAND_CROP_RATIO.
+- mode 'action': per clip, a random INFER.RES square crop (the ingest
+  resized the short side to INFER.RES), normalize.
+
+Every pipeline normalizes as the jitted JAX step does: (x - mean) times
+float32(1 / std).
 
 Each pipeline is split into sampling (``sample``, from an explicit
 ``torch.Generator`` on the clips' device) and applying (``apply``), so a
@@ -25,7 +33,7 @@ test can hand the apply the parameters the JAX code drew.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -261,7 +269,7 @@ class AAAug:
         clips = self.ra.color_apply(clips, params["plan"])
         if self.erasing is not None:
             clips = self.erasing.apply(clips, params["erase"])
-        out = normalize(clips, self.mean, self.std).to(self.out_dtype)
+        out = normalize(clips, self.mean, self.std, by_reciprocal=True).to(self.out_dtype)
         return out.reshape(b, k, *out.shape[1:])
 
     def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -401,27 +409,79 @@ def resized_crop_clips(clips: torch.Tensor, boxes: torch.Tensor, size: int) -> t
     return torch.einsum("ntywc,nwx->ntyxc", out, ww)
 
 
-class RRCAug:
-    """AUG.TYPE 'OnlyCrop' (``make_rrc_aug`` with scale (AUG.MIN_AREA, 1), no
-    flip): ``aug(batch_u8, generator)``, or ``apply(batch_u8, sample(...))``
-    with boxes from elsewhere."""
+def sample_crop_offsets(n: int, h: int, w: int, size: int,
+                        generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Per-clip offsets of a fixed-size crop (``random_crop_clip``): ``tops``
+    uniform in [0, h - size) and ``lefts`` in [0, w - size), 0 where the dim
+    equals the size."""
+    dev = generator.device
+    return {name: torch.randint(0, max(dim - size, 1), (n,), generator=generator, device=dev,
+                                dtype=torch.int32)
+            for name, dim in (("tops", h), ("lefts", w))}
 
-    def __init__(self, cfg):
-        self.size = int(cfg.AUG.TARGET_SIZE)
-        self.scale = (cfg.AUG.MIN_AREA, 1.0)
-        self.ratio = tuple(cfg.AUG.RAND_CROP_RATIO)
+
+class RRCAug:
+    """RandomResizedCrop + normalize (``make_rrc_aug``): AUG.TYPE 'OnlyCrop'
+    (AUG.TARGET_SIZE, scale (AUG.MIN_AREA, 1), AUG.RAND_CROP_RATIO) by
+    default, or the given size, scale and ratio (mode 'speed'), with a
+    horizontal flip of half the clips when ``random_flip``:
+    ``aug(batch_u8, generator)``, or ``apply(batch_u8, sample(...))`` with
+    boxes (and flips) from elsewhere."""
+
+    def __init__(self, cfg, size: Optional[int] = None, scale=None, ratio=None,
+                 random_flip: bool = False):
+        self.size = int(size if size is not None else cfg.AUG.TARGET_SIZE)
+        self.scale = tuple(scale if scale is not None else (cfg.AUG.MIN_AREA, 1.0))
+        self.ratio = tuple(ratio if ratio is not None else cfg.AUG.RAND_CROP_RATIO)
+        self.random_flip = random_flip
         self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
         self.out_dtype = aug_out_dtype(cfg)
 
     def sample(self, n: int, t: int, h: int, w: int, c: int,
                generator: torch.Generator) -> Dict[str, Any]:
-        return {"box": sample_rrc_box(n, h, w, self.scale, self.ratio, generator)}
+        params = {"box": sample_rrc_box(n, h, w, self.scale, self.ratio, generator)}
+        if self.random_flip:
+            params["flip"] = torch.rand(n, generator=generator, device=generator.device) < 0.5
+        return params
 
     def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
         b, k = batch_u8.shape[:2]
         flat = batch_u8.reshape(b * k, *batch_u8.shape[2:]).float()
-        clips = torch.clamp(resized_crop_clips(flat, params["box"], self.size), 0.0, 255.0)
-        out = normalize(clips, self.mean, self.std).to(self.out_dtype)
+        clips = resized_crop_clips(flat, params["box"], self.size)
+        if self.random_flip:
+            flip = params["flip"].to(clips.device).view(-1, 1, 1, 1, 1)
+            clips = torch.where(flip, clips.flip(3), clips)
+        clips = torch.clamp(clips, 0.0, 255.0)
+        out = normalize(clips, self.mean, self.std, by_reciprocal=True).to(self.out_dtype)
+        return out.reshape(b, k, *out.shape[1:])
+
+    def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        b, k, t, h, w, c = batch_u8.shape
+        return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
+
+
+class InferAug:
+    """The inference crop (``make_infer_aug``): per clip a random square crop
+    of INFER.RES (:func:`sample_crop_offsets`), normalize.
+    ``aug(batch_u8, generator)``, or ``apply(batch_u8, sample(...))`` with
+    offsets from elsewhere."""
+
+    def __init__(self, cfg):
+        self.size = int(cfg.INFER.RES)
+        self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+        self.out_dtype = aug_out_dtype(cfg)
+
+    def sample(self, n: int, t: int, h: int, w: int, c: int,
+               generator: torch.Generator) -> Dict[str, Any]:
+        return sample_crop_offsets(n, h, w, self.size, generator)
+
+    def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+        from advise_tpu_torch.ops.fused_aug import crop_windows
+
+        b, k = batch_u8.shape[:2]
+        flat = batch_u8.reshape(b * k, *batch_u8.shape[2:])
+        clips = crop_windows(flat, params["tops"], params["lefts"], self.size)
+        out = normalize(clips, self.mean, self.std, by_reciprocal=True).to(self.out_dtype)
         return out.reshape(b, k, *out.shape[1:])
 
     def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -432,13 +492,26 @@ class RRCAug:
 _TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug, "OnlyCrop": RRCAug, "none": NoAug}
 
 
+def _build_device_aug(cfg, mode: str):
+    if mode == "train":
+        if cfg.AUG.TYPE not in _TRAIN_AUGS:
+            raise NotImplementedError(f"AUG.TYPE={cfg.AUG.TYPE} is not ported yet (ROADMAP A 13-14)")
+        return _TRAIN_AUGS[cfg.AUG.TYPE](cfg)
+    if mode == "speed":
+        return RRCAug(cfg, size=cfg.VAL.TARGET_SIZE, scale=(cfg.VAL.MIN_AREA, 1.0),
+                      ratio=cfg.VAL.RAND_CROP_RATIO)
+    if mode == "action":
+        return InferAug(cfg)
+    raise NotImplementedError(mode)
+
+
 def build_device_aug(cfg, mode: str = "train"):
-    """The train-mode pipeline of AUG.TYPE 'aa', 'simple', 'OnlyCrop' or
-    'none' (other AUG.TYPEs and modes are not ported yet). DATA.REVERSE_INPUT_CHANNEL flips the
-    channel axis of the raw batch first."""
-    if mode != "train" or cfg.AUG.TYPE not in _TRAIN_AUGS:
-        raise NotImplementedError(f"device aug mode={mode} AUG.TYPE={cfg.AUG.TYPE} is not ported yet")
-    aug = _TRAIN_AUGS[cfg.AUG.TYPE](cfg)
+    """The pipeline of ``mode`` (``advise_tpu/data/device_aug.py
+    build_device_aug``): 'train' by AUG.TYPE ('aa', 'simple', 'OnlyCrop',
+    'none'; the others are not ported yet), 'speed' the RRC of VAL.*,
+    'action' the INFER.RES crop. DATA.REVERSE_INPUT_CHANNEL flips the channel
+    axis of the raw batch first."""
+    aug = _build_device_aug(cfg, mode)
     if not cfg.DATA.REVERSE_INPUT_CHANNEL:
         return aug
 
@@ -449,13 +522,17 @@ def build_device_aug(cfg, mode: str = "train"):
 
 
 def ingest_geometry(cfg, mode: str = "train") -> Tuple[int, int]:
-    """Fixed (W, H) decode geometry in train mode: AUG.RESIZE verbatim for
-    'simple' (the reference resizes to this exact size), else a 4:3 canvas
-    around AUG.TARGET_SIZE, so crops have material to sample (the other
-    modes of the JAX ``ingest_geometry`` are not ported yet)."""
-    if mode != "train":
-        raise NotImplementedError(f"ingest geometry mode={mode} is not ported yet")
-    if cfg.AUG.TYPE == "simple":
+    """Fixed (W, H) decode geometry of ``mode``: AUG.RESIZE verbatim for a
+    'simple' train aug (the reference resizes to this exact size); else a
+    4:3 canvas around the crop, so crops have material to sample: around
+    VAL.TARGET_SIZE for 'speed', INFER.RES for 'action', AUG.TARGET_SIZE
+    for 'train'."""
+    if mode == "train" and cfg.AUG.TYPE == "simple":
         return (int(cfg.AUG.RESIZE[0]), int(cfg.AUG.RESIZE[1]))
-    s = int(cfg.AUG.TARGET_SIZE)
+    if mode == "speed":
+        s = int(cfg.VAL.TARGET_SIZE)
+    elif mode == "action":
+        s = int(cfg.INFER.RES)
+    else:
+        s = int(cfg.AUG.TARGET_SIZE)
     return (s * 4 // 3, s)

@@ -12,19 +12,47 @@ nothing of the JAX package):
 - hosts take strided slices of the permutation (``rank``/``world``).
 
 Batches are uint8 ``[B, K, T, H, W, C]`` plus an ``infos`` dict of stacked
-arrays; augmentation happens on the card.
+arrays; augmentation happens on the card. The eval phases take items one
+by one, in order, through :func:`threaded_items`.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from advise_tpu_torch.utils.host_times import HOST_TIMES
 
 Batch = Tuple[np.ndarray, Dict[str, np.ndarray]]
+
+
+def threaded_items(dataset, n_items: int, seed_stream: Callable[[int], List[int]],
+                   num_workers: int = 8, lookahead: int = 32) -> Iterator[Tuple[int, Batch]]:
+    """Ordered threaded fetch of ``dataset.get(idx, rng)`` for idx in
+    range(n_items), the eval phases' decode pool: ``rng`` is
+    ``default_rng(SeedSequence(seed_stream(idx)))``, so each item draws what
+    a serial loop would, whatever the worker schedule; at most ``lookahead``
+    items in flight."""
+
+    def fetch(idx: int):
+        rng = np.random.default_rng(np.random.SeedSequence(seed_stream(idx)))
+        with HOST_TIMES("item"):
+            return dataset.get(idx, rng)
+
+    with ThreadPoolExecutor(max_workers=max(num_workers, 1)) as pool:
+        inflight = {}
+        horizon = min(n_items, max(lookahead, 1))
+        for i in range(horizon):
+            inflight[i] = pool.submit(fetch, i)
+        next_submit = horizon
+        for i in range(n_items):
+            out = inflight.pop(i).result()
+            if next_submit < n_items:
+                inflight[next_submit] = pool.submit(fetch, next_submit)
+                next_submit += 1
+            yield i, out
 
 
 def _collate(samples) -> Batch:

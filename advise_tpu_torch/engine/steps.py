@@ -1,6 +1,7 @@
-"""The train steps (counterpart of ``advise_tpu/engine/steps.py``) on one
-device: the contrastive step and the task step (TASK speed; MaskMViT's
-masked step).
+"""The train and eval steps (counterpart of ``advise_tpu/engine/steps.py``)
+on one device: the contrastive step, the task step (TASK speed and
+action_recog; MaskMViT's masked step), the AdViSe step and the eval step of
+speed_val and inference.
 
 Order inside the contrastive step, as in the JAX package: augmentation ->
 cast to TPU.COMPUTE_DTYPE -> EMA update -> BYOL loss (online views with
@@ -159,7 +160,23 @@ def masked_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
     return loss, stats
 
 
-TASK_LOSSES = {"speed": speed_task_loss, "masked": masked_task_loss}
+def action_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
+                     infos: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Action recognition and the linear probe: clips [B, K, T, H, W, C] run
+    as one [B*K] batch against ``infos['cls_id']`` [B] repeated over the K
+    clips of a video; CE, plus acc@1 and acc@5. ``generator`` draws the
+    head's dropout mask."""
+    b, k = clips.shape[:2]
+    labels = torch.repeat_interleave(infos["cls_id"].reshape(b).long(), k)
+    logits = model(clips.reshape(b * k, *clips.shape[2:]), generator=generator)
+    loss = L.cross_entropy(logits, labels)
+    return loss, {"loss_cls": loss, "acc@1": L.top_k_accuracy(logits, labels, 1),
+                  "acc@5": L.top_k_accuracy(logits, labels, 5)}
+
+
+TASK_LOSSES = {"speed": speed_task_loss, "action_recog": action_task_loss,
+               "masked": masked_task_loss}
 
 
 def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):
@@ -326,6 +343,31 @@ def make_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]
     if cfg.MODEL.MODEL_NAME == "TemporalModel":
         return make_tmodeling_train_step(cfg, bundle, device_aug)
     return make_task_train_step(cfg, bundle, device_aug)
+
+
+def make_eval_step(cfg, device_aug: Optional[Callable]):
+    """The forward-only step of speed_val and inference
+    (``advise_tpu/engine/steps.py make_eval_step``): returns
+    ``eval_step(model, clips_u8, generator) -> logits [B, K, classes]``.
+    ``clips_u8`` [B, K, T, H, W, 3] uint8 (or already-augmented float clips
+    when ``device_aug`` is None) go through the aug drawn from
+    ``generator``, the cast to TPU.COMPUTE_DTYPE (bf16 under autocast) and
+    ``model`` in eval mode without autograd: BN on its running statistics,
+    which it does not record, and no dropout."""
+    dtype = cfg_compute_dtype(cfg)
+
+    @torch.no_grad()
+    def eval_step(model: nn.Module, clips_u8: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+        model.eval()
+        clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
+        clips = clips.to(dtype)
+        b, k = clips.shape[:2]
+        with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            logits = model(clips.reshape(b * k, *clips.shape[2:]))
+        return logits.reshape(b, k, -1)
+
+    return eval_step
 
 
 def make_knn_probe_step(cfg, device_aug: Optional[Callable], num_classes: Optional[int] = None):

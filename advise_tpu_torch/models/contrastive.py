@@ -1,7 +1,8 @@
 """Contrastive model (counterpart of ``advise_tpu/models/contrastive.py``):
-the backbone with its CONTRASTIVE.DIM head and BYOL predictor. The
-algorithm state (EMA twin, kNN bank) lives in the train state
-(``engine/contrastive.py``), as in the JAX package."""
+the backbone of MODEL.ARCH (SlowFast, or a single-pathway ResNet3D for
+'slow', 'c2d', 'i3d' and 'slow_c2d') with its CONTRASTIVE.DIM head and
+BYOL predictor. The algorithm state (EMA twin, kNN bank) lives in the
+train state (``engine/contrastive.py``), as in the JAX package."""
 
 from __future__ import annotations
 
@@ -10,7 +11,24 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from advise_tpu_torch.models.resnet3d import ResNet3D
 from advise_tpu_torch.models.slowfast import SlowFast
+
+
+def _backbone_cls(arch: str):
+    """The backbone of MODEL.ARCH (``_backbone_cls`` of the JAX package);
+    X3D, MViT and Swin backbones are not ported yet."""
+    arch = arch.lower()
+    if arch == "slowfast":
+        return SlowFast
+    if arch in ("slow", "c2d", "i3d", "slow_c2d"):
+        return ResNet3D
+    if arch == "x3d":
+        raise NotImplementedError("ContrastiveModel over X3D is not ported yet (ROADMAP A 12)")
+    if arch in ("mvit", "swin", "video_swin", "swin3d"):
+        raise NotImplementedError(
+            f"ContrastiveModel over MODEL.ARCH={arch} is not ported yet (ROADMAP A 11, A 13)")
+    raise KeyError(f"ContrastiveModel: unknown MODEL.ARCH={arch!r}")
 
 
 class ContrastiveModel(nn.Module):
@@ -19,11 +37,10 @@ class ContrastiveModel(nn.Module):
 
     def __init__(self, cfg, norm: Callable, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.MODEL.ARCH.lower() != "slowfast":
-            raise NotImplementedError(f"MODEL.ARCH={cfg.MODEL.ARCH} is not ported yet")
+        backbone = _backbone_cls(cfg.MODEL.ARCH)
         if cfg.CONTRASTIVE.TYPE == "swav":
-            raise NotImplementedError("SwAV prototypes are not ported yet")
-        self.backbone = SlowFast(cfg, norm, dtype)
+            raise NotImplementedError("SwAV prototypes are not ported yet (ROADMAP A 14)")
+        self.backbone = backbone(cfg, norm, dtype)
 
     def forward(self, x: torch.Tensor, views: int = 1):
         return self.backbone(x, views)

@@ -37,7 +37,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from advise_tpu_torch.data.device_aug import uniform_from
+from advise_tpu_torch.data.device_aug import sample_crop_offsets, uniform_from
 from advise_tpu_torch.ops import build
 
 LUMA = (0.299, 0.587, 0.114)
@@ -198,10 +198,7 @@ def sample_simple_aug(n: int, h: int, w: int, size: int, color: Sequence[float],
         return torch.rand(shape, generator=generator, device=dev)
 
     return {
-        "tops": torch.randint(0, max(h - size, 1), (n,), generator=generator, device=dev,
-                              dtype=torch.int32),
-        "lefts": torch.randint(0, max(w - size, 1), (n,), generator=generator, device=dev,
-                               dtype=torch.int32),
+        **sample_crop_offsets(n, h, w, size, generator),
         "bfac": uniform_from(rand(n), max(0.0, 1 - b), 1 + b),
         "cfac": uniform_from(rand(n), max(0.0, 1 - c), 1 + c),
         "sfac": uniform_from(rand(n), max(0.0, 1 - s), 1 + s),

@@ -2,20 +2,25 @@
 
     python -m advise_tpu_torch.tools.run --cfg X.yaml --output DIR [K V ...]
 
-The counterpart of ``advise_tpu/tools/run.py:51-95``: the config files are
+The counterpart of ``advise_tpu/tools/run.py``: the config files are
 merged in order, the trailing ``K V`` pairs override them, DIR becomes
-cfg.LOGDIR (logs, ``checkpoints/``), and the phases of cfg.PIPELINE run in
-order. 'train' is ported; '<x>_val' and '<x>_infer' raise
-NotImplementedError (ROADMAP A items 5-6). One process drives one card
-(rank 0 of a world of 1); there is no CPU switch: tests call
-``engine.train.trainer(cfg, device="cpu")``. tensorboardX, where it imports,
-logs to DIR.
+cfg.LOGDIR (logs, ``checkpoints/``, ``Metrics.csv``), and the phases of
+cfg.PIPELINE run in order: 'train', 'speed_val' (``engine/validate.py``)
+and 'action_infer' (``engine/inference.py``); other '<x>_val' and
+'<x>_infer' fail their assertion, as in JAX. An eval phase takes the state
+that 'train' left; without one it loads MODELDATA, else RESUME, else
+``LOGDIR/checkpoints/Model_Best`` (:func:`_load_eval_state`). One process
+drives one card (rank 0 of a world of 1); there is no CPU switch: tests
+call ``engine.train.trainer``, ``validation`` and ``inference`` with
+``device="cpu"``. tensorboardX, where it imports, logs to DIR.
 
 At the end the run logs one line ``run record: {...}`` (JSON) with the
 trainer's record (``engine/train.py trainer``: start epoch and step, the
 model's sha256 at the start and the end, per-iteration time, wait and stats, the
-profile window's idle share), each kernel's launch count and the peak
-allocated memory on the card.
+profile window's idle share), one entry per eval phase under its name
+(wall seconds, batches and their median time, clips or views and their
+rate, the loader's wait, the result, the phase's peak allocated memory),
+each kernel's launch count and the peak allocated memory on the card.
 """
 
 from __future__ import annotations
@@ -25,8 +30,13 @@ import logging
 
 import torch
 
+import os
+
 from advise_tpu_torch.config import assert_and_infer_cfg, load_config, parse_args
+from advise_tpu_torch.engine.inference import inference
+from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.engine.train import trainer
+from advise_tpu_torch.engine.validate import validation
 from advise_tpu_torch.utils.logging import get_commit_sha, setup_logger
 
 logger = logging.getLogger(__name__)
@@ -65,20 +75,57 @@ def main(argv=None) -> None:
         pass
 
     record = {}
+    state = None
+    peak = 0
     for phase in cfg.PIPELINE:
+        torch.cuda.reset_peak_memory_stats()
         if phase == "train":
             logger.info("=== phase: train (task=%s) ===", cfg.TASK)
-            trainer(cfg, tb_logger=tb, device="cuda", record=record)
-        elif phase.endswith("_val") or phase.endswith("_infer"):
-            raise NotImplementedError(
-                f"pipeline phase {phase!r} is not ported yet (ROADMAP A items 5-6)")
+            state = trainer(cfg, tb_logger=tb, device="cuda", record=record)
+        elif phase.endswith("_val"):
+            val_type = phase[: -len("_val")]
+            assert val_type == "speed", f"val type {val_type} not implemented"
+            logger.info("=== phase: %s ===", phase)
+            if state is None:
+                state = _load_eval_state(cfg, "cuda")
+            record[phase] = {}
+            validation(cfg, state.model, state, device="cuda", record=record[phase])
+        elif phase.endswith("_infer"):
+            infer_type = phase[: -len("_infer")]
+            assert infer_type == "action", f"infer type {infer_type} not implemented"
+            logger.info("=== phase: %s ===", phase)
+            if state is None:
+                state = _load_eval_state(cfg, "cuda")
+            record[phase] = {}
+            inference(cfg, state.model, state, device="cuda", record=record[phase])
         else:
             raise NotImplementedError(f"pipeline phase: {phase}")
-    torch.cuda.synchronize()
-    record.update(launches=kernel_launches(), peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        if phase != "train":
+            record[phase]["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    record.update(launches=kernel_launches(), peak_allocated_bytes=peak,
                   device=torch.cuda.get_device_name(0))
     logger.info("run record: %s", json.dumps(record))
     logger.info("pipeline complete")
+
+
+def _load_eval_state(cfg, device) -> TrainState:
+    """The state of an eval-only pipeline: the model (weights of INFER.SEED)
+    restored from MODELDATA, else RESUME, else ``LOGDIR/checkpoints/
+    Model_Best``; with none of them on disk, the random weights, with a
+    warning."""
+    from advise_tpu_torch.engine.checkpoint import CheckpointManager
+    from advise_tpu_torch.models import build_model
+
+    state = TrainState(build_model(cfg, device, seed=cfg.INFER.SEED), {}, 0)
+    path = cfg.MODELDATA or cfg.RESUME or os.path.join(cfg.LOGDIR, "checkpoints", "Model_Best")
+    if os.path.isdir(path):
+        state = CheckpointManager(cfg).restore(path, state)
+        logger.info("eval state loaded from %s", path)
+    else:
+        logger.warning("no checkpoint at %s — evaluating random init", path)
+    return state
 
 
 if __name__ == "__main__":

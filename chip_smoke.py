@@ -53,7 +53,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    against the same CPU forward, and one backward through the pair; then
    AdViSe (the ViT-B/16 tower and the R3D temporal head of
    configs/pretrain/AdViSe.yaml) at 2 clips x 8 frames at 224^2, bf16 on
-   the card against float32 on the CPU;
+   the card against float32 on the CPU; then the eval step (the inference
+   crop, the eval-mode forward) of configs/eval/linear_probe_ucf.yaml's
+   Slow-R50 (101 classes) on 2 clips of 8 frames at 256^2, bf16 on the card
+   against float32 on the CPU;
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
    clips through the 'aa' augmentation, 2 warm-up and 5 timed steps; then
@@ -96,7 +99,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    model's digests, the K1/K2 launches; then the SpeedPro preset through
    the same entry point, one epoch of 16 synthetic videos (2 iterations,
    a profiler window over the second), whose K3 launches must equal its
-   iterations: iteration time, loader wait and idle share; then the AdViSe
+   iterations: iteration time, loader wait and idle share, then speed_val
+   (PIPELINE ['train', 'speed_val'] at the VAL defaults: 40 clips a video,
+   chunks of 2; its confusion matrix counts every clip, Metrics.csv, no
+   kernel launched: clips/s, median batch, loader wait, peak memory); then
+   configs/eval/linear_probe_ucf.yaml (Slow-R50, 101 classes, one card)
+   through the same entry point with RESUME at the speed run's checkpoint:
+   a linear probe of 2 iterations (the non-head parameters bit for bit the
+   checkpoint's, the head trained), then action_infer over its 32 videos
+   at 10 clips x 3 crops at 256^2 (views/s, median batch, loader wait, peak
+   memory; no kernel launched); then the AdViSe
    preset the same way (16 videos, one epoch of 2 iterations, SSL.TASK
    speed_byol so that its checkpoint carries the BYOL twins): the
    TemporalModelingSampler's ingest at 320x256 and the XLA simple aug
@@ -138,7 +150,17 @@ RUN_TIMEOUT_S = 600
 SPEED_RUN_DIR = "build/chip_smoke_speed"
 SPEED_RUN_VIDEOS = 16  # 2 iterations at the preset's 8 videos x 4 clips
 SPEED_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(SPEED_RUN_VIDEOS),
-                       "SOLVER.MAX_EPOCH", "1", "TRAIN.AUTO_RESUME", "False"]
+                       "SOLVER.MAX_EPOCH", "1", "TRAIN.AUTO_RESUME", "False",
+                       "PIPELINE", "['train','speed_val']"]
+# then the linear probe of configs/eval/linear_probe_ucf.yaml from the speed
+# run's checkpoint, and multi-view inference (10 clips x 3 crops at 256^2)
+PROBE_CONFIG = "configs/eval/linear_probe_ucf.yaml"
+PROBE_RUN_DIR = "build/chip_smoke_probe"
+PROBE_RUN_VIDEOS = 32  # 2 iterations at the preset's 16 clips
+PROBE_RUN_OVERRIDES = ["NUM_GPUS", "1", "BN.NUM_SYNC_DEVICES", "1", "TPU.MESH_SYNC", "1",
+                       "DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(PROBE_RUN_VIDEOS),
+                       "SOLVER.MAX_EPOCH", "1", "RESUME", f"{SPEED_RUN_DIR}/checkpoints/Model_Epoch_0000"]
+EVAL_SMALL_CLIPS = 2  # phase 4: the probe model's eval step, card against CPU
 # then AdViSe through the entry point: one epoch of 2 iterations with the BYOL
 # twins (SSL.TASK speed_byol), so its checkpoint carries them
 ADVISE_RUN_DIR = "build/chip_smoke_advise"
@@ -547,6 +569,38 @@ def counted_kernels():
 
     return (sc.stem_conv_fwd, sc.stem_conv_wgrad, fa.fused_simple_aug, fl.flash_mha_fwd,
             fl.flash_mha_bwd, fl.flash_f32_fwd, fl.flash_f32_bwd)
+
+
+def eval_forward(tconfig, dev) -> None:
+    """Phase 4's eval check: the eval step (``make_eval_step``: the
+    inference crop, the cast, the eval-mode forward) of the linear probe's
+    Slow-R50 (101 classes, a linear head) on EVAL_SMALL_CLIPS uint8 clips of
+    8 x 256 x 341, bf16 on the card against float32 on the CPU with the same
+    weights and crops."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.data import build_device_aug, ingest_geometry
+    from advise_tpu_torch.engine.steps import make_eval_step
+    from advise_tpu_torch.models import build_model
+
+    pcfg = one_card_cfg(tconfig, PROBE_CONFIG)
+    ref_cfg = pcfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    w, h = ingest_geometry(pcfg, "action")
+    clips = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (EVAL_SMALL_CLIPS, 1, pcfg.INFER.NUM_FRAMES, h, w, 3), dtype=np.uint8))
+    aug = build_device_aug(pcfg, "action")
+    crops = aug.sample(EVAL_SMALL_CLIPS, pcfg.INFER.NUM_FRAMES, h, w, 3, torch.Generator().manual_seed(0))
+    want = make_eval_step(ref_cfg, lambda x, g: aug.apply(x, crops))(
+        build_model(ref_cfg, "cpu", seed=0), clips, None)
+    got = make_eval_step(pcfg, lambda x, g: aug.apply(x, crops))(build_model(pcfg, dev, seed=0), clips.to(dev), None)
+    check(tuple(got.shape) == (EVAL_SMALL_CLIPS, 1, pcfg.MODEL.NUM_CLASSES), f"eval logits {tuple(got.shape)}")
+    rel = float((got.float().cpu() - want).abs().max() / want.abs().max())
+    # bf16 activations through ~50 layers, as the other phase-4 forwards
+    print(f"[small] Slow-R50 probe eval step {tuple(got.shape)} (crop {pcfg.INFER.RES}, bf16 on the card): "
+          f"max rel err vs CPU float32 {rel} (bound 5e-2)")
+    check(math.isfinite(rel) and rel <= 5e-2, "the card's eval step disagrees with the CPU")
 
 
 def advise_forward(tconfig, dev) -> None:
@@ -1047,6 +1101,7 @@ def main() -> None:
             check(math.isfinite(rel) and rel <= 5e-2, f"the card's {name} {out_name} disagrees with the CPU")
         del ref_model, card_model, got, want
     torch.cuda.empty_cache()
+    eval_forward(tconfig, dev)
 
     small_cfg = mvcfg.clone()
     small_cfg.DATA.NUM_FRAMES = 4
@@ -1469,6 +1524,54 @@ def main() -> None:
     check(prof is not None, "the speed run's profile window did not close")
     print(f"[run] speed preset profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device "
           f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
+    # speed_val at the reference's VAL defaults: 224^2, 8 frames, stride 1,
+    # RANGE [1,2,4,8], chunks of 2, a start every VAL.FPS (25) frames of the
+    # 250-frame synthetic videos: 10 starts x 4 labels = 40 clips a video
+    val = spd["speed_val"]
+    val_clips = SPEED_RUN_VIDEOS * (scfg.DATA.SYNTHETIC_LENGTH // scfg.VAL.FPS) * len(scfg.VAL.RANGE)
+    confusion = np.asarray(val["confusion"])
+    print(f"[run] speed_val: {val['clips']} clips in {val['batches']} batches, {val['seconds']} s, "
+          f"{val['clips_per_s']} clips/s, median batch {val['batch_ms_median']} ms, loader wait "
+          f"{val['wait_s']} s, peak allocated {val['peak_allocated_bytes']} bytes, acc {val['acc']}, "
+          f"confusion {val['confusion']}")
+    check(confusion.shape == (4, 4) and int(confusion.sum()) == val_clips == val["clips"],
+          f"speed_val: the confusion matrix counts {int(confusion.sum())} clips, not {val_clips}")
+    check(Path(SPEED_RUN_DIR, "Metrics.csv").is_file(), "speed_val wrote no Metrics.csv")
+
+    # the linear probe of the speed run's checkpoint, then multi-view
+    # inference: no kernel on either path (OnlyCrop, the inference crop)
+    shutil.rmtree(PROBE_RUN_DIR, ignore_errors=True)
+    prb = run_entry_point([], "linear probe + action_infer", PROBE_CONFIG, PROBE_RUN_DIR, PROBE_RUN_OVERRIDES)
+    pcfg = one_card_cfg(tconfig, PROBE_CONFIG)
+    n_iter = len(prb["iter_s"])
+    inf = prb["action_infer"]
+    print(f"[run] probe: {n_iter} iterations, losses {[st['loss_cls'] for st in prb['stats']]}, iterations "
+          f"{[t * 1e3 for t in prb['iter_s']]} ms, loader wait {[t * 1e3 for t in prb['wait_s']]} ms, "
+          f"peak allocated {prb['peak_allocated_bytes']} bytes (all phases), launches {prb['launches']}, "
+          f"{prb['seconds']} s with start-up")
+    print(f"[run] action_infer: {inf['total']} videos, {inf['views']} views in {inf['batches']} batches, "
+          f"{inf['seconds']} s, {inf['views_per_s']} views/s, median batch {inf['batch_ms_median']} ms, "
+          f"loader wait {inf['wait_s']} s, peak allocated {inf['peak_allocated_bytes']} bytes, acc {inf['acc']} "
+          f"({inf['correct']}/{inf['total']})")
+    check(n_iter == PROBE_RUN_VIDEOS // pcfg.DATA.BATCHSIZE_PER_GPU and prb["start_step"] == 0,
+          "probe: wrong schedule")
+    check(all(math.isfinite(v) for st in prb["stats"] for v in st.values()), "probe: a loss is not finite")
+    check(inf["total"] == PROBE_RUN_VIDEOS and inf["views"] == PROBE_RUN_VIDEOS * 30,
+          "action_infer did not see every view of every video")
+    check(not any(prb["launches"].values()), "the probe run launched a kernel")
+    pretrained = torch.load(Path(SPEED_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE,
+                            map_location="cpu", weights_only=False)["model"]
+    probed = torch.load(Path(PROBE_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE,
+                        map_location="cpu", weights_only=False)["model"]
+    fresh = build_model(pcfg, "cpu", seed=pcfg.TRAIN.SEED).state_dict()
+    frozen = [k for k in probed if "head" not in k and "running_" not in k]
+    head = [k for k in probed if "head" in k]
+    stats_moved = sum(not torch.equal(probed[k], pretrained[k]) for k in probed if "running_" in k)
+    print(f"[run] probe: {len(frozen)} non-head parameters, {len(head)} head tensors, "
+          f"{stats_moved} BN buffers moved by the probe's train mode")
+    check(all(torch.equal(probed[k], pretrained[k]) for k in frozen),
+          "the probe's frozen parameters differ from the speed checkpoint")
+    check(any(not torch.equal(probed[k], fresh[k]) for k in head), "the probe's head did not train")
 
     # AdViSe through the entry point: the TemporalModelingSampler's ingest at
     # 320x256, the XLA simple aug, the twins in the checkpoint

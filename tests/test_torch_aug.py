@@ -171,14 +171,15 @@ def test_warp_coords_and_gather_match_jax():
 
 def test_aa_pipeline_matches_jax():
     """The whole 'aa' pipeline (RRC + RandAugment m7-n4 + flip + erasing +
-    normalize, float32 out) with the JAX-drawn parameters injected."""
+    normalize, float32 out) with the JAX-drawn parameters injected, against
+    the jitted JAX pipeline (the program the train step runs)."""
     jcfg = _cfg(jconfig)
     tcfg = _cfg(tconfig)
     jcfg.TPU.AUG_COMPUTE_OUT = tcfg.TPU.AUG_COMPUTE_OUT = False
     b, k, t, h, w = 3, 2, 2, 12, 16
     batch = np.random.default_rng(11).integers(0, 256, (b, k, t, h, w, 3), dtype=np.uint8)
     key = jax.random.PRNGKey(21)
-    want = np.asarray(jaug.make_aa_aug(jcfg)(jnp.asarray(batch), key))
+    want = np.asarray(jax.jit(jaug.make_aa_aug(jcfg))(jnp.asarray(batch), key))
     params, _ = _jax_params(tcfg, key, b * k, t, h, w)
     aug = taug.build_device_aug(tcfg, "train")
     got = aug.apply(torch.from_numpy(batch), params).numpy()

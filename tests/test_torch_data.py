@@ -190,8 +190,8 @@ def test_label_lists_and_retry_policy_match_jax(tmp_path):
 def test_factory_raises_for_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="host_aug"):
         build_dataset(_cfg(tconfig, **{"TPU.DEVICE_AUG": False}))
-    with pytest.raises(NotImplementedError):
-        build_dataset(_cfg(tconfig), mode="speed")
+    with pytest.raises(NotImplementedError, match="mode=knn"):
+        build_dataset(_cfg(tconfig), mode="knn")
     from advise_tpu_torch.utils import storage
 
     with pytest.raises(NotImplementedError, match="remote path"):

@@ -462,3 +462,34 @@ def test_advise_forward_on_the_card_matches_the_cpu(cuda):
     for a, r in ((got_feat, want_feat), (got, want)):
         assert tuple(a.shape) == tuple(r.shape)
         assert float((a.float().cpu() - r).abs().max() / r.abs().max()) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_probe_eval_step_on_the_card_matches_the_cpu(cuda):
+    """The eval step of configs/eval/linear_probe_ucf.yaml (the inference
+    crop, the cast, Slow-R50 with a 101-class linear head in eval mode) on
+    2 uint8 clips of 8 x 256 x 341 with the same crops: bf16 on the card
+    against float32 on the CPU, logits within 5e-2 of their largest
+    magnitude; the card's forward records no BN statistics."""
+    from advise_tpu_torch import config as tconfig
+    from advise_tpu_torch.data import build_device_aug, ingest_geometry
+    from advise_tpu_torch.engine.steps import make_eval_step
+    from advise_tpu_torch.models import build_model
+
+    cfg = tconfig.get_cfg()
+    cfg.merge_from_file("configs/eval/linear_probe_ucf.yaml")
+    cfg.NUM_GPUS = cfg.BN.NUM_SYNC_DEVICES = cfg.TPU.MESH_SYNC = 1
+    cfg = tconfig.assert_and_infer_cfg(cfg)
+    ref_cfg = cfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    w, h = ingest_geometry(cfg, "action")
+    clips = torch.randint(0, 256, (2, 1, cfg.INFER.NUM_FRAMES, h, w, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(0))
+    aug = build_device_aug(cfg, "action")
+    crops = aug.sample(2, cfg.INFER.NUM_FRAMES, h, w, 3, torch.Generator().manual_seed(1))
+    want = make_eval_step(ref_cfg, lambda x, g: aug.apply(x, crops))(build_model(ref_cfg, "cpu", seed=0), clips, None)
+    card = build_model(cfg, cuda, seed=0)
+    got = make_eval_step(cfg, lambda x, g: aug.apply(x, crops))(card, clips.to(cuda), None)
+    assert tuple(got.shape) == tuple(want.shape) == (2, 1, 101)
+    assert float((got.float().cpu() - want).abs().max() / want.abs().max()) <= 5e-2
+    assert all(not getattr(m, "pending", []) for m in card.modules())

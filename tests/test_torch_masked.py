@@ -106,14 +106,15 @@ def test_mask_generator_uses_the_loader_grid():
 
 def test_onlycrop_matches_jax():
     """The port's OnlyCrop apply, fed JAX's own RandomResizedCrop boxes (the
-    key splits of make_rrc_aug), against JAX's make_rrc_aug."""
+    key splits of make_rrc_aug), against JAX's make_rrc_aug under jit (the
+    program the train step runs)."""
     jcfg, tcfg = masked_cfg(jconfig), masked_cfg(tconfig)
     assert tcfg.AUG.TYPE == "OnlyCrop"
     w, h = ingest_geometry(tcfg, "train")
     batch = np.random.default_rng(2).integers(0, 256, (MASK_B, MASK_K, MASK_T, h, w, 3),
                                               dtype=np.uint8)
     key = jax.random.PRNGKey(11)
-    want = np.asarray(jmake_rrc_aug(jcfg, scale=(jcfg.AUG.MIN_AREA, 1.0))(jnp.asarray(batch), key))
+    want = np.asarray(jax.jit(jmake_rrc_aug(jcfg, scale=(jcfg.AUG.MIN_AREA, 1.0)))(jnp.asarray(batch), key))
     keys = jax.random.split(key, MASK_B * MASK_K)
     boxes = np.array([[float(v) for v in jsample_rrc_box(
         jax.random.split(kk)[0], h, w, (jcfg.AUG.MIN_AREA, 1.0), tuple(jcfg.AUG.RAND_CROP_RATIO))]

@@ -199,9 +199,10 @@ def test_port_imports_no_jax():
     """Importing the port (its entry point, trainer, data pipeline and probe
     tool among it) and running a CPU forward and backward of each model
     (MaskMViT through flash_mha's CPU path), the simple and OnlyCrop augs,
-    a MaskingGenerator3D draw, and one AdViSe step (the TemporalModel with
-    its CLIP tower, the XLA simple aug with hue, BYOL twins) loads no jax,
-    flax, optax or advise_tpu module."""
+    a MaskingGenerator3D draw, one AdViSe step (the TemporalModel with
+    its CLIP tower, the XLA simple aug with hue, BYOL twins), the eval
+    modules with a speed_val eval step, and ContrastiveModel over ResNet3D
+    loads no jax, flax, optax or advise_tpu module."""
     code = (
         "import sys, torch\n"
         "from advise_tpu_torch.config import get_cfg, assert_and_infer_cfg\n"
@@ -266,6 +267,17 @@ def test_port_imports_no_jax():
         "stats = step(state, clips, {'spd_label': torch.zeros(2, 2, dtype=torch.long)}, g, 1e-3)\n"
         "assert set(stats) == {'loss_spd', 'acc_spd', 'loss_byol', 'grad_norm'}\n"
         "assert all(bool(torch.isfinite(v)) for v in stats.values())\n"
+        "from advise_tpu_torch.engine import inference, validate\n"
+        "from advise_tpu_torch.tools import run\n"
+        "from advise_tpu_torch.engine.steps import make_eval_step\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/smoke/byol_r10_synth.yaml')\n"
+        "m = build_model(assert_and_infer_cfg(cfg), 'cpu')\n"
+        "assert type(m.backbone).__name__ == 'ResNet3D'\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/smoke/speed_r18_synth.yaml')\n"
+        "cfg = assert_and_infer_cfg(cfg)\n"
+        "logits = make_eval_step(cfg, build_device_aug(cfg, 'speed'))(\n"
+        "    build_model(cfg, 'cpu'), torch.zeros(2, 1, 4, 32, 42, 3, dtype=torch.uint8), g)\n"
+        "assert logits.shape == (2, 1, 4)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
