@@ -1,8 +1,9 @@
 """On-device augmentation (counterpart of ``advise_tpu/data/device_aug.py``):
 the train pipelines 'aa' with AUG.FUSED_RA, 'simple' (the fused kernel
 with TPU.PALLAS_AUG, else the XLA path), 'OnlyCrop' (RandomResizedCrop +
-normalize) and 'none' (normalize only); the speed_val pipeline (the RRC
-with VAL's size, scale and ratio) and the inference crop.
+normalize), 'rbyol' (the MoCo-v2 / BYOL stack) and 'none' (normalize only);
+the speed_val pipeline (the RRC with VAL's size, scale and ratio) and the
+inference crop.
 
 uint8 ``[B, K, T, H, W, C]`` at the ingest geometry goes in, and float32
 or, with TPU.AUG_COMPUTE_OUT under bf16, bfloat16 comes out. All frames of
@@ -20,6 +21,12 @@ a clip share its parameters.
   weight matrix per axis), clip to [0, 255], normalize. Mode 'speed' runs
   the same crop at VAL.TARGET_SIZE with scale (VAL.MIN_AREA, 1) and
   VAL.RAND_CROP_RATIO.
+- 'rbyol': per clip, RandomResizedCrop with scale (AUG.MIN_AREA, 1) (or,
+  with AUG.TRAIN_JITTER_MOTION_SHIFT, per frame a box between two drawn
+  boxes, floored to the grid), clip to [0, 255], the colour jitter of
+  AUG.COLOR with a real hue, grayscale with probability AUG.GRAYSCALE, the
+  Gaussian blur with probability 0.5, the flip with AUG.RANDOM_FLIP,
+  normalize.
 - mode 'action': per clip, a random INFER.RES square crop (the ingest
   resized the short side to INFER.RES), normalize.
 
@@ -489,13 +496,108 @@ class InferAug:
         return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
 
 
-_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug, "OnlyCrop": RRCAug, "none": NoAug}
+def motion_boxes(b1: torch.Tensor, b2: torch.Tensor, t: int) -> torch.Tensor:
+    """Per-frame boxes [N, t, 4] between boxes ``b1`` and ``b2`` [N, 4]:
+    b1 (1 - a) + b2 a at a = linspace(0, 1, t), floored to the integer grid.
+    The sum is one fused multiply-add, as XLA emits it in the jitted JAX
+    program (``motion_shift_boxes``)."""
+    alpha = torch.linspace(0.0, 1.0, t, dtype=torch.float32, device=b1.device)[None, :, None]
+    return torch.floor(_fma(b2[:, None], alpha, b1[:, None] * (1 - alpha)))
+
+
+def resized_crop_clip_boxes(clips: torch.Tensor, boxes: torch.Tensor, size: int) -> torch.Tensor:
+    """:func:`resized_crop_clips` with a box per frame: boxes [N, T, 4]."""
+    n, t = boxes.shape[:2]
+    top, left, bh, bw = (boxes[..., i].reshape(-1).to(clips.device, torch.float32) for i in range(4))
+    wh = resize_weights(clips.shape[2], size, size / bh, -top * size / bh).view(n, t, -1, size)
+    ww = resize_weights(clips.shape[3], size, size / bw, -left * size / bw).view(n, t, -1, size)
+    out = torch.einsum("nthwc,nthy->ntywc", clips, wh)
+    return torch.einsum("ntywc,ntwx->ntyxc", out, ww)
+
+
+def grayscale(clips: torch.Tensor, gray: torch.Tensor) -> torch.Tensor:
+    """RandomGrayscale: the PIL 'L' luma replicated to the 3 channels where
+    ``gray`` [N] is set."""
+    luma = _luma(clips)[..., None].expand(clips.shape)
+    return torch.where(gray.to(clips.device).view(-1, 1, 1, 1, 1), luma, clips)
+
+
+class RByolAug:
+    """AUG.TYPE 'rbyol' (``make_rbyol_aug``): ``aug(batch_u8, generator)``,
+    or ``apply(batch_u8, sample(...))`` with parameters from elsewhere."""
+
+    def __init__(self, cfg):
+        self.size = int(cfg.AUG.TARGET_SIZE)
+        self.scale = (cfg.AUG.MIN_AREA, 1.0)
+        self.ratio = tuple(cfg.AUG.RAND_CROP_RATIO)
+        self.motion_shift = bool(cfg.AUG.TRAIN_JITTER_MOTION_SHIFT)
+        self.color = tuple(float(v) for v in cfg.AUG.COLOR)
+        self.gray_p = float(cfg.AUG.GRAYSCALE)
+        self.sigma = (float(cfg.AUG.SSL_BLUR_SIGMA_MIN[1]), float(cfg.AUG.SSL_BLUR_SIGMA_MAX[1]))
+        self.random_flip = bool(cfg.AUG.RANDOM_FLIP)
+        self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+        self.out_dtype = aug_out_dtype(cfg)
+
+    def sample(self, n: int, t: int, h: int, w: int, c: int,
+               generator: torch.Generator) -> Dict[str, Any]:
+        """Parameters for n clips of [t, h, w, c]: ``box`` [N, 4] (or with
+        motion shift ``boxes`` [N, t, 4]); the colour jitter's ``bfac``,
+        ``cfac``, ``sfac``, ``hfac``, ``apply`` and ``order``; ``gray``,
+        ``sigma``, ``blur`` and ``flip`` [N]."""
+        dev = generator.device
+
+        def rand(*shape):
+            return torch.rand((n, *shape), generator=generator, device=dev)
+
+        if self.motion_shift:
+            b1, b2 = (sample_rrc_box(n, h, w, self.scale, self.ratio, generator) for _ in range(2))
+            params: Dict[str, Any] = {"boxes": motion_boxes(b1, b2, t)}
+        else:
+            params = {"box": sample_rrc_box(n, h, w, self.scale, self.ratio, generator)}
+        p, bj, cj, sj, hj = self.color
+        params["bfac"] = uniform_from(rand(), max(0.0, 1 - bj), 1 + bj)
+        params["cfac"] = uniform_from(rand(), max(0.0, 1 - cj), 1 + cj)
+        params["sfac"] = uniform_from(rand(), max(0.0, 1 - sj), 1 + sj)
+        params["hfac"] = uniform_from(rand(), -hj, hj)
+        params["apply"] = (rand() < p).to(torch.int32)
+        params["order"] = torch.argsort(rand(4), dim=1).to(torch.int32)
+        params["gray"] = rand() < self.gray_p
+        params["sigma"] = uniform_from(rand(), *self.sigma)
+        params["blur"] = rand() < 0.5
+        params["flip"] = rand() < 0.5 if self.random_flip else torch.zeros(n, dtype=torch.bool, device=dev)
+        return params
+
+    def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+        from advise_tpu_torch.data.erasing import gaussian_blur_clips
+
+        b, k = batch_u8.shape[:2]
+        flat = batch_u8.reshape(b * k, *batch_u8.shape[2:]).float()
+        if "boxes" in params:
+            clips = resized_crop_clip_boxes(flat, params["boxes"], self.size)
+        else:
+            clips = resized_crop_clips(flat, params["box"], self.size)
+        clips = torch.clamp(clips, 0.0, 255.0)
+        clips = color_jitter(clips, params, hue=self.color[4] != 0.0)
+        clips = grayscale(clips, params["gray"])
+        blur = params["blur"].to(clips.device).view(-1, 1, 1, 1, 1)
+        clips = torch.where(blur, gaussian_blur_clips(clips, params["sigma"]), clips)
+        flip = params["flip"].to(clips.device).view(-1, 1, 1, 1, 1)
+        clips = torch.where(flip, clips.flip(3), clips)
+        out = normalize(clips, self.mean, self.std, by_reciprocal=True).to(self.out_dtype)
+        return out.reshape(b, k, *out.shape[1:])
+
+    def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        b, k, t, h, w, c = batch_u8.shape
+        return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
+
+
+_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug, "OnlyCrop": RRCAug, "rbyol": RByolAug, "none": NoAug}
 
 
 def _build_device_aug(cfg, mode: str):
     if mode == "train":
         if cfg.AUG.TYPE not in _TRAIN_AUGS:
-            raise NotImplementedError(f"AUG.TYPE={cfg.AUG.TYPE} is not ported yet (ROADMAP A 13-14)")
+            raise NotImplementedError(f"AUG.TYPE={cfg.AUG.TYPE} is not ported yet (ROADMAP A 14)")
         return _TRAIN_AUGS[cfg.AUG.TYPE](cfg)
     if mode == "speed":
         return RRCAug(cfg, size=cfg.VAL.TARGET_SIZE, scale=(cfg.VAL.MIN_AREA, 1.0),
@@ -508,7 +610,7 @@ def _build_device_aug(cfg, mode: str):
 def build_device_aug(cfg, mode: str = "train"):
     """The pipeline of ``mode`` (``advise_tpu/data/device_aug.py
     build_device_aug``): 'train' by AUG.TYPE ('aa', 'simple', 'OnlyCrop',
-    'none'; the others are not ported yet), 'speed' the RRC of VAL.*,
+    'rbyol', 'none'; 'clip_aug' is not ported yet), 'speed' the RRC of VAL.*,
     'action' the INFER.RES crop. DATA.REVERSE_INPUT_CHANNEL flips the channel
     axis of the raw batch first."""
     aug = _build_device_aug(cfg, mode)

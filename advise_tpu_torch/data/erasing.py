@@ -1,9 +1,11 @@
-"""Random erasing (counterpart of ``advise_tpu/data/erasing.py``
-``random_erasing_clip``), cube mode: one region for all frames of a clip.
+"""Random erasing and the Gaussian blur (counterpart of
+``advise_tpu/data/erasing.py`` ``random_erasing_clip`` and
+``gaussian_blur_clip``).
 
-Mode 'pixel' fills the region with per-pixel noise ``normal * 64 + 128``,
-clipped to [0, 255]. The noise is drawn only where it lands: one
-[T, eh, ew, C] block per erased clip.
+Erasing, cube mode: one region for all frames of a clip. Mode 'pixel'
+fills the region with per-pixel noise ``normal * 64 + 128``, clipped to
+[0, 255]. The noise is drawn only where it lands: one [T, eh, ew, C] block
+per erased clip.
 """
 
 from __future__ import annotations
@@ -14,6 +16,34 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from advise_tpu_torch.data.device_aug import uniform_from
+
+
+BLUR_RADIUS = 4  # the JAX blur's static kernel radius
+
+
+def gaussian_blur_clips(clips: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Separable spatial Gaussian blur of float clips [N, T, H, W, C], each
+    clip with its own sigma [N]: a 9-tap kernel exp(-x^2 / (2 max(sigma,
+    1e-3)^2)) normalised to sum 1, over H and then over W of the
+    edge-padded clip, the taps summed in order as the JAX function sums
+    them."""
+    r = BLUR_RADIUS
+    dev = clips.device
+    xs = torch.arange(-r, r + 1, dtype=torch.float32, device=dev)
+    k = torch.exp(-0.5 * (xs[None, :] / torch.clamp(sigma.to(dev, torch.float32), min=1e-3)[:, None]) ** 2)
+    k = k / k.sum(dim=1, keepdim=True)
+    k = k.view(-1, 2 * r + 1, 1, 1, 1, 1)  # [N, taps, 1, 1, 1, 1]
+
+    def one_axis(x, axis):
+        n = x.shape[axis]
+        idx = torch.arange(-r, n + r, device=dev).clamp(0, n - 1)
+        xp = x.index_select(axis, idx)
+        out = k[:, 0] * xp.narrow(axis, 0, n)
+        for i in range(1, 2 * r + 1):
+            out = out + k[:, i] * xp.narrow(axis, i, n)
+        return out
+
+    return one_axis(one_axis(clips, 2), 3)
 
 
 class RandomErasing:

@@ -4,10 +4,12 @@ action_recog; MaskMViT's masked step), the AdViSe step and the eval step of
 speed_val and inference.
 
 Order inside the contrastive step, as in the JAX package: augmentation ->
-cast to TPU.COMPUTE_DTYPE -> EMA update -> BYOL loss (online views with
-per-view BN, momentum-encoder keys, kNN scatter) -> backward -> BN running
-statistics committed once -> global grad norm -> LARS-SGD direction ->
-parameters updated. The task step: augmentation -> cast -> forward (all
+cast to TPU.COMPUTE_DTYPE -> EMA update -> the algorithm's loss (BYOL:
+online views with per-view BN, momentum-encoder keys, kNN scatter; MoCo:
+the online view 0, shuffle-BN keys of the other views, the queue's
+negatives, the queue update, kNN scatter) -> backward -> BN running
+statistics committed once -> global grad norm -> the optimizer's direction
+-> parameters updated. The task step: augmentation -> cast -> forward (all
 B*K clips as one batch, head dropout) -> task loss -> backward -> BN commit
 -> global grad norm -> SGD direction -> update; MaskMViT's task step runs
 the masked MSE over the pretrain depths plus, with MASK.JOINT_CONTRASTIVE,
@@ -33,7 +35,7 @@ from advise_tpu_torch.engine.contrastive import CONTRASTIVE_LOSSES, momentum_at,
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.models import compute_dtype as cfg_compute_dtype
 from advise_tpu_torch.models import losses as L
-from advise_tpu_torch.models.layers.norm import commit_bn_stats
+from advise_tpu_torch.models.layers.norm import commit_bn_stats, drop_bn_records
 from advise_tpu_torch.solver.optimizer import (
     OptimizerBundle,
     apply_direction,
@@ -47,9 +49,13 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
     stats``: ``clips_u8`` [B, K, T, H, W, 3] uint8 at ingest geometry (or
     already-augmented float clips when ``device_aug`` is None), ``infos``
     with ``item_id`` [B], ``generator`` drawing the augmentation on the
-    clips' device."""
+    clips' device and then the dropout masks and MoCo's shuffle-BN
+    permutations."""
     if cfg.CONTRASTIVE.SEQUENTIAL:
-        raise NotImplementedError("CONTRASTIVE.SEQUENTIAL is not ported yet")
+        raise NotImplementedError("CONTRASTIVE.SEQUENTIAL is not ported yet (ROADMAP A 14)")
+    if cfg.CONTRASTIVE.TYPE not in CONTRASTIVE_LOSSES:
+        raise NotImplementedError(
+            f"CONTRASTIVE.TYPE={cfg.CONTRASTIVE.TYPE} is not ported yet (ROADMAP A 14)")
     algo = CONTRASTIVE_LOSSES[cfg.CONTRASTIVE.TYPE]
     dtype = cfg_compute_dtype(cfg)
 
@@ -66,7 +72,7 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
             ssl["ema_model"].train()
             update_ema(ssl, model, momentum_at(cfg, epoch_exact))
         with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
-            loss, ssl, stats = algo(cfg, model, ssl, views, infos)
+            loss, ssl, stats = algo(cfg, model, ssl, views, infos, generator)
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, list(params.values()))
         grads = dict(zip(params, grads))
@@ -186,7 +192,7 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
     drawing the augmentation and then the dropout mask on the clips'
     device (the masked step: the drop-path masks). ``state.ssl`` stays {}."""
     if cfg.TRAIN.SEQUENTIAL:
-        raise NotImplementedError("TRAIN.SEQUENTIAL is not ported yet")
+        raise NotImplementedError("TRAIN.SEQUENTIAL is not ported yet (ROADMAP A 14)")
     task = "masked" if cfg.MODEL.MODEL_NAME == "MaskMViT" else cfg.TASK
     if task not in TASK_LOSSES:
         raise NotImplementedError(f"TASK={task} train step is not ported yet")
@@ -372,15 +378,20 @@ def make_eval_step(cfg, device_aug: Optional[Callable]):
 
 def make_knn_probe_step(cfg, device_aug: Optional[Callable], num_classes: Optional[int] = None):
     """The epoch-end online kNN monitor (``advise_tpu/engine/steps.py:701``):
-    returns ``probe(state, clips_u8, infos, generator) -> acc``, the eval
-    forward of the first view -> l2-normalized float32 projection -> top-k
-    vote against ``state.ssl['knn_mem']`` with ``state.ssl['knn_labels']``,
-    top-1 accuracy against ``infos['cls_id']``. ``num_classes`` is the
-    dataset's label range (MODEL.NUM_CLASSES when None)."""
+    returns ``probe(state, clips_u8, infos, generator) -> acc``, the forward
+    of the first view -> l2-normalized float32 projection -> top-k vote
+    against ``state.ssl['knn_mem']`` with ``state.ssl['knn_labels']``, top-1
+    accuracy against ``infos['cls_id']``. ``num_classes`` is the dataset's
+    label range (MODEL.NUM_CLASSES when None).
+
+    The forward is in eval mode, or with CONTRASTIVE.KNN_BATCH_STATS in
+    train mode: BN on the batch's statistics and dropout live (its masks
+    from ``generator`` after the aug's draws), as JAX's ``train=True``. JAX
+    throws the mutated statistics away, so the probe drops what the BN
+    layers recorded, and the running statistics stay as they were."""
     from advise_tpu_torch.engine.contrastive import knn_probe, l2_normalize
 
-    if cfg.CONTRASTIVE.KNN_BATCH_STATS:
-        raise NotImplementedError("CONTRASTIVE.KNN_BATCH_STATS is not ported yet")
+    use_batch_stats = bool(cfg.CONTRASTIVE.KNN_BATCH_STATS)
     dtype = cfg_compute_dtype(cfg)
     knn_k = int(cfg.CONTRASTIVE.KNN_K)
     if num_classes is None:
@@ -390,11 +401,13 @@ def make_knn_probe_step(cfg, device_aug: Optional[Callable], num_classes: Option
     def probe(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator]) -> torch.Tensor:
         model = state.model
-        model.eval()
+        model.train(use_batch_stats)
         clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
         clips = clips.to(dtype)
         with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
-            out = model(clips[:, 0])  # the first view
+            out = model(clips[:, 0], generator=generator)  # the first view
+        if use_batch_stats:
+            drop_bn_records(model)
         proj = out[0] if isinstance(out, (list, tuple)) else out
         q = l2_normalize(proj.float())
         ssl = state.ssl

@@ -25,7 +25,7 @@ TPU.PROFILE_DIR runs ``torch.profiler`` over the steps
 (PROFILE_START, PROFILE_START + PROFILE_STEPS] of the step counter, writes
 ``trace.json`` there and logs the device's busy and idle shares of that
 window. Not ported (they raise, naming the ROADMAP.md item):
-TPU.PARTITION_MODE 'auto' (A11), VIS_MASK (A12).
+TPU.PARTITION_MODE 'auto' (A 16), VIS_MASK (A 11).
 
 The TemporalModel's CLIP tower takes its weights from
 MODEL.SPATIAL_MODEL_PATH (an open_clip checkpoint, or a directory holding
@@ -85,12 +85,27 @@ def seeded_generator(device, *keys: int) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
+def ssl_digest(ssl: Dict[str, Any]) -> str:
+    """:func:`tensors_digest` of the SSL state: every tensor of it by name
+    (a module's parameters and buffers under its name), in name order."""
+    flat: Dict[str, torch.Tensor] = {}
+    for name in sorted(ssl):
+        value = ssl[name]
+        if isinstance(value, torch.nn.Module):
+            flat.update({f"{name}.{k}": v for k, v in value.state_dict().items()})
+        elif isinstance(value, dict):
+            flat.update({f"{name}.{k}": v for k, v in value.items()})
+        else:
+            flat[name] = value
+    return tensors_digest(flat)
+
+
 def check_ported(cfg) -> None:
     """Raise for the trainer options the port does not carry yet."""
     if cfg.TPU.PARTITION_MODE == "auto":
-        raise NotImplementedError("TPU.PARTITION_MODE 'auto' is not ported yet (ROADMAP A11)")
+        raise NotImplementedError("TPU.PARTITION_MODE 'auto' is not ported yet (ROADMAP A 16)")
     if cfg.VIS_MASK.ENABLE:
-        raise NotImplementedError("VIS_MASK is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("VIS_MASK is not ported yet (ROADMAP A 11)")
 
 
 def spatial_checkpoint(path: str) -> str:
@@ -179,7 +194,8 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
     ready to stats read back), ``wait_s`` (the wait for the batch) and the
     step's stats, and at the start ``start_epoch``, ``start_step`` and
     ``model_sha256`` (:func:`tensors_digest` of the model's parameters and
-    BN buffers after any resume), and at the end ``model_sha256_end`` and
+    BN buffers after any resume) and ``ssl_sha256`` (:func:`ssl_digest`),
+    and at the end ``model_sha256_end``, ``ssl_sha256_end`` and
     ``host_s``, the input pipeline's stages over the run
     (:meth:`HostTimes.snapshot`, the kNN probe's batches included)."""
     check_ported(cfg)
@@ -208,6 +224,7 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
                 " (resumed)" if resumed else "")
     if record is not None:
         record.update(start_epoch=start_epoch, start_step=state.step, model_sha256=digest,
+                      ssl_sha256=ssl_digest(state.ssl),
                       iter_s=[], wait_s=[], stats=[])
 
     device_aug = build_device_aug(cfg, "train")
@@ -274,6 +291,7 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
     profile.close(state.step)  # a window that outlasts the run ends with it
     if record is not None:
         record["model_sha256_end"] = tensors_digest(state.model.state_dict())
+        record["ssl_sha256_end"] = ssl_digest(state.ssl)
         record["host_s"] = HOST_TIMES.snapshot()
         if profile.result is not None:
             record["profile"] = profile.result

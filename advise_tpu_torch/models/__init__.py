@@ -1,6 +1,7 @@
 """Model registry and builder (counterpart of ``advise_tpu/models/__init__.py``):
-MODEL_NAME ResNet (the single-pathway 3D ResNets), ContrastiveModel (ARCH
-slowfast), MViT, MaskMViT (MaskFeat) and TemporalModel (AdViSe)."""
+MODEL_NAME ResNet (the single-pathway 3D ResNets), X3D, ContrastiveModel
+(ARCH slowfast, x3d or a single-pathway ResNet), MViT, MaskMViT (MaskFeat)
+and TemporalModel (AdViSe)."""
 
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ from advise_tpu_torch.models.masked import MaskMViT
 from advise_tpu_torch.models.mvit import MViT
 from advise_tpu_torch.models.resnet3d import ResNet3D
 from advise_tpu_torch.models.temporal_model import TemporalModel
+from advise_tpu_torch.models.x3d import X3D
 
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "ResNet": ResNet3D,
+    "X3D": X3D,
     "ContrastiveModel": ContrastiveModel,
     "MViT": MViT,
     "MaskMViT": MaskMViT,

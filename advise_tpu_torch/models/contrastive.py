@@ -1,6 +1,6 @@
 """Contrastive model (counterpart of ``advise_tpu/models/contrastive.py``):
-the backbone of MODEL.ARCH (SlowFast, or a single-pathway ResNet3D for
-'slow', 'c2d', 'i3d' and 'slow_c2d') with its CONTRASTIVE.DIM head and
+the backbone of MODEL.ARCH (SlowFast, X3D, or a single-pathway ResNet3D
+for 'slow', 'c2d', 'i3d' and 'slow_c2d') with its CONTRASTIVE.DIM head and
 BYOL predictor. The algorithm state (EMA twin, kNN bank) lives in the
 train state (``engine/contrastive.py``), as in the JAX package."""
 
@@ -13,18 +13,19 @@ from torch import nn
 
 from advise_tpu_torch.models.resnet3d import ResNet3D
 from advise_tpu_torch.models.slowfast import SlowFast
+from advise_tpu_torch.models.x3d import X3D
 
 
 def _backbone_cls(arch: str):
     """The backbone of MODEL.ARCH (``_backbone_cls`` of the JAX package);
-    X3D, MViT and Swin backbones are not ported yet."""
+    MViT and Swin backbones are not ported yet."""
     arch = arch.lower()
     if arch == "slowfast":
         return SlowFast
     if arch in ("slow", "c2d", "i3d", "slow_c2d"):
         return ResNet3D
     if arch == "x3d":
-        raise NotImplementedError("ContrastiveModel over X3D is not ported yet (ROADMAP A 12)")
+        return X3D
     if arch in ("mvit", "swin", "video_swin", "swin3d"):
         raise NotImplementedError(
             f"ContrastiveModel over MODEL.ARCH={arch} is not ported yet (ROADMAP A 11, A 13)")
@@ -42,5 +43,8 @@ class ContrastiveModel(nn.Module):
             raise NotImplementedError("SwAV prototypes are not ported yet (ROADMAP A 14)")
         self.backbone = backbone(cfg, norm, dtype)
 
-    def forward(self, x: torch.Tensor, views: int = 1):
-        return self.backbone(x, views)
+    def forward(self, x: torch.Tensor, views: int = 1,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the backbone's dropout (and X3D's drop-connect)
+        masks in training."""
+        return self.backbone(x, views, generator)

@@ -1,16 +1,16 @@
 """Heads (counterpart of ``advise_tpu/models/layers/heads.py``): the MLP
 projector (with or without BN), the BYOL predictor stack on the ResNet
-basic head, and the transformer head."""
+basic head and on the X3D head, and the transformer head."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from advise_tpu_torch.models.layers.common import dense, fc_init
+from advise_tpu_torch.models.layers.common import conv3d, dense, fc_init, lecun_normal_init
 from advise_tpu_torch.models.layers.norm import SyncBatchNorm
 
 
@@ -109,6 +109,58 @@ class ResNetBasicHead(nn.Module):
             else:
                 raise NotImplementedError(self.act_func)
         return out
+
+
+class X3DHead(nn.Module):
+    """conv_5 (1x1x1 expansion to ``dim_inner``) -> BN -> ReLU -> mean over
+    (T, H, W) -> lin_5 (1x1x1 to ``dim_out``) -> BN with ``bn_lin5_on`` ->
+    ReLU -> dropout (training only) -> the projection: a Linear with
+    normal(0, 0.01), or with ``num_mlp_layers`` > 1 the MLPHead stack, then
+    the BYOL predictors. With predictors it returns [proj, pred, ...];
+    otherwise the projection, softmaxed in evaluation when ``act_func`` says
+    so. conv_5 and lin_5 take Flax's default init."""
+
+    def __init__(self, dim_in: int, dim_inner: int, dim_out: int, num_classes: int,
+                 norm: Callable, dropout_rate: float = 0.0, act_func: str = "softmax",
+                 bn_lin5_on: bool = False, num_mlp_layers: int = 1, mlp_dim: int = 2048,
+                 bn_mlp: bool = False, predictor_depths: Sequence[int] = (),
+                 predictor_mlp_dim: int = 2048, predictor_bn: bool = False):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.act_func = act_func
+        self.conv_5 = conv3d(dim_in, dim_inner, 1, init=lecun_normal_init)
+        self.conv_5_bn = norm(dim_inner)
+        self.lin_5 = conv3d(dim_inner, dim_out, 1, init=lecun_normal_init)
+        self.lin_5_bn = norm(dim_out) if bn_lin5_on else None
+        if num_mlp_layers == 1:
+            self.projection = dense(dim_out, num_classes, init=fc_init(0.01))
+        else:
+            self.projection = MLPHead(dim_out, num_classes, mlp_dim, num_mlp_layers, bn_on=bn_mlp)
+        self.num_predictors = len(predictor_depths)
+        for i, depth in enumerate(predictor_depths):
+            self.add_module(f"predictor{i}", MLPHead(
+                num_classes, num_classes, predictor_mlp_dim, depth, bn_on=predictor_bn))
+
+    def forward(self, inputs: Sequence[torch.Tensor], views: int = 1,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout mask in training (rate > 0)."""
+        x = F.relu(self.conv_5_bn(self.conv_5(inputs[0]), views))
+        x = self.lin_5(x.mean(dim=(2, 3, 4), keepdim=True))
+        if self.lin_5_bn is not None:
+            x = self.lin_5_bn(x, views)
+        x = F.relu(x).flatten(1)
+        if self.training and self.dropout_rate > 0.0:
+            x = dropout(x, self.dropout_rate, generator)
+        x = self.projection(x, views) if isinstance(self.projection, MLPHead) else self.projection(x)
+        outputs: List[torch.Tensor] = [x]
+        for i in range(self.num_predictors):
+            x = getattr(self, f"predictor{i}")(x, views)
+            outputs.append(x)
+        if len(outputs) > 1:
+            return outputs
+        if not self.training and self.act_func == "softmax":
+            x = torch.softmax(x, dim=-1)
+        return x
 
 
 class TransformerBasicHead(nn.Module):

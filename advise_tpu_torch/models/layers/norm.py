@@ -109,6 +109,14 @@ def commit_bn_stats(model: nn.Module) -> None:
             m.pending = []
 
 
+def drop_bn_records(model: nn.Module) -> None:
+    """Forget every BN's recorded batch statistics: a forward whose running
+    statistics must not move (the kNN probe on batch statistics)."""
+    for m in model.modules():
+        if isinstance(m, SyncBatchNorm):
+            m.pending = []
+
+
 def get_norm(cfg):
     """Norm factory (``advise_tpu/models/layers/norm.py get_norm``). One
     device, so 'sync_batchnorm' has no peers to sync with."""

@@ -1,5 +1,6 @@
-"""HOG features, the MaskFeat regression target (counterpart of
-``advise_tpu/models/layers/operators.py`` ``hog_features``).
+"""Squeeze-excitation and HOG features, the MaskFeat regression target
+(counterpart of ``advise_tpu/models/layers/operators.py`` ``SE`` and
+``hog_features``).
 
 The same vectorized formulation as the JAX package: Sobel gradients by
 shifts of the edge-padded frame, ``atan2(gx, gy)`` phase, the Gaussian
@@ -15,6 +16,36 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from advise_tpu_torch.models.layers.common import lecun_normal_init
+from advise_tpu_torch.models.utils import round_width
+
+
+class SE(nn.Module):
+    """3D squeeze-excitation: the mean over (T, H, W), a 1x1x1 conv ``fc1``
+    to ``round_width(dim, ratio, 8, 8)`` channels (the JAX module's
+    ``_round_width``), ReLU, a 1x1x1 conv ``fc2`` back
+    to ``dim``, and the input scaled by the sigmoid of that.
+
+    The JAX module's convs carry no ``dtype``, so their float32 parameters
+    promote the excitation to float32, and with bf16 input the module returns
+    float32. Here fc1 and fc2 run in float32 with autocast off, and the
+    product is float32 too; the next conv casts back under autocast."""
+
+    def __init__(self, dim: int, ratio: float):
+        super().__init__()
+        dim_fc = round_width(dim, ratio, min_width=8, divisor=8)
+        self.fc1 = nn.Conv3d(dim, dim_fc, 1)
+        self.fc2 = nn.Conv3d(dim_fc, dim, 1)
+        for conv in (self.fc1, self.fc2):  # Flax's default kernel init, zero bias
+            conv.weight_init = lecun_normal_init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.mean(dim=(2, 3, 4), keepdim=True)
+        with torch.autocast(x.device.type, enabled=False):
+            s = self.fc2(F.relu(self.fc1(s.float())))
+            return x.float() * torch.sigmoid(s)
 
 
 def gaussian_kernel2d(size: int, sigma: float, device=None) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""The ResNet basic stem and MViT's PatchEmbed (counterpart of
+"""The ResNet basic stem, X3D's stem and MViT's PatchEmbed (counterpart of
 ``advise_tpu/models/layers/stem.py`` ResNetBasicStem with the
-SpaceToDepthStemConv routing, and PatchEmbed).
+SpaceToDepthStemConv routing, X3DStem and PatchEmbed).
 
 Tensors inside the model are NCDHW in shape with a channels-last
 (NDHWC) memory layout, so the stem kernel reads and writes its NDHWC
@@ -64,6 +64,21 @@ class ResNetBasicStem(nn.Module):
             x = self.conv(x)
         x = F.relu(self.bn(x, views))
         return F.max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+
+
+class X3DStem(nn.Module):
+    """Channel-separated stem: a (1,3,3)/s(1,2,2) conv ``conv_xy``, then a
+    depthwise (t,1,1) conv ``conv`` (groups = channels), BN, ReLU."""
+
+    def __init__(self, dim_in: int, dim_out: int, temp_kernel: int, norm: Callable):
+        super().__init__()
+        self.conv_xy = conv3d(dim_in, dim_out, (1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1))
+        self.conv = conv3d(dim_out, dim_out, (temp_kernel, 1, 1),
+                           padding=(temp_kernel // 2, 0, 0), groups=dim_out)
+        self.bn = norm(dim_out)
+
+    def forward(self, x: torch.Tensor, views: int = 1) -> torch.Tensor:
+        return F.relu(self.bn(self.conv(self.conv_xy(x)), views))
 
 
 class PatchEmbed(nn.Module):

@@ -56,8 +56,6 @@ class ResNet3D(nn.Module):
         arch = cfg.MODEL.ARCH.lower()
         if arch not in TEMPORAL_KERNEL_BASIS:
             raise ValueError(f"MODEL.ARCH={cfg.MODEL.ARCH} is not a single-pathway ResNet")
-        if any(any(loc) for stage in cfg.NONLOCAL.LOCATION for loc in stage):
-            raise NotImplementedError("Nonlocal blocks are not ported yet")
         depths = MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH]
         num_groups = cfg.RESNET.NUM_GROUPS
         width = cfg.RESNET.WIDTH_PER_GROUP
@@ -81,6 +79,10 @@ class ResNet3D(nn.Module):
                 num_groups=[num_groups],
                 num_block_temp_kernel=[cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[si][0]],
                 norm=norm,
+                nonlocal_inds=[tuple(cfg.NONLOCAL.LOCATION[si][0])],
+                nonlocal_group=[cfg.NONLOCAL.GROUP[si][0]],
+                nonlocal_pool=[cfg.NONLOCAL.POOL[si][0]],
+                instantiation=cfg.NONLOCAL.INSTANTIATION,
                 trans_func_name=cfg.RESNET.TRANS_FUNC,
                 stride_1x1=cfg.RESNET.STRIDE_1X1,
                 dilation=[cfg.RESNET.SPATIAL_DILATIONS[si][0]],

@@ -64,8 +64,6 @@ class SlowFast(nn.Module):
         fuse_k = cfg.SLOWFAST.FUSION_KERNEL_SZ
         out_dim_ratio = beta_inv // fuse_ratio
         self.alpha = alpha
-        if any(any(loc) for stage in cfg.NONLOCAL.LOCATION for loc in stage):
-            raise NotImplementedError("Nonlocal blocks are not ported yet")
 
         depths = MODEL_STAGE_DEPTH[cfg.RESNET.DEPTH]
         remat = stage_remat(cfg)
@@ -102,6 +100,13 @@ class SlowFast(nn.Module):
                 num_groups=[num_groups] * 2,
                 num_block_temp_kernel=[cfg.RESNET.NUM_BLOCK_TEMP_KERNEL[si][0]] * 2,
                 norm=norm,
+                nonlocal_inds=[
+                    tuple(cfg.NONLOCAL.LOCATION[si][0]),
+                    tuple(cfg.NONLOCAL.LOCATION[si][1] if len(cfg.NONLOCAL.LOCATION[si]) > 1 else ()),
+                ],
+                nonlocal_group=[cfg.NONLOCAL.GROUP[si][0]] * 2,
+                nonlocal_pool=[cfg.NONLOCAL.POOL[si][0]] * 2,
+                instantiation=cfg.NONLOCAL.INSTANTIATION,
                 trans_func_name=cfg.RESNET.TRANS_FUNC,
                 stride_1x1=cfg.RESNET.STRIDE_1X1,
                 dilation=[cfg.RESNET.SPATIAL_DILATIONS[si][0]] * 2,
@@ -135,9 +140,11 @@ class SlowFast(nn.Module):
             fc_init_std=cfg.MODEL.FC_INIT_STD,
         )
 
-    def forward(self, x: torch.Tensor, views: int = 1):
+    def forward(self, x: torch.Tensor, views: int = 1,
+                generator: Optional[torch.Generator] = None):
         """x [V*B, T, H, W, C] (views stacked view-major) -> head output;
-        BN statistics are taken per view."""
+        BN statistics are taken per view. ``generator`` draws the head's
+        dropout mask in training."""
         x_f = x.permute(0, 4, 1, 2, 3)  # NCDHW view of the NDHWC clip
         x_s = x_f[:, :, :: self.alpha]
         x_s = self.s1_slow(x_s, views)
@@ -147,4 +154,4 @@ class SlowFast(nn.Module):
             x_s, x_f = getattr(self, f"s{si + 2}")([x_s, x_f], views)
             if si < 3:
                 x_s, x_f = getattr(self, f"s{si + 2}_fuse")(x_s, x_f, views)
-        return self.head([x_s, x_f], views)
+        return self.head([x_s, x_f], views, generator)

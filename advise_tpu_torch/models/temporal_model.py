@@ -84,13 +84,14 @@ class ResStageTemporal(nn.Module):
 
     def __init__(self, cfg, norm: Callable, chn: int):
         super().__init__()
-        if any(cfg.NONLOCAL.LOCATION[0][0]):
-            raise NotImplementedError("Nonlocal blocks are not ported yet (ROADMAP A 12)")
         self.stage = ResStage(
             dim_in=[chn], dim_out=[cfg.MODEL.TEMPORAL_EMBEDDING_DIM],
             dim_inner=[cfg.MODEL.TEMPORAL_HIDDEN_DIM], temp_kernel_sizes=[[1]],
             stride=[cfg.RESNET.SPATIAL_STRIDES[0][0]], num_blocks=[cfg.TM.NUM_BLOCKS],
             num_groups=[1], num_block_temp_kernel=[1], norm=norm,
+            nonlocal_inds=[tuple(cfg.NONLOCAL.LOCATION[0][0])],
+            nonlocal_group=[cfg.NONLOCAL.GROUP[0][0]], nonlocal_pool=[cfg.NONLOCAL.POOL[0][0]],
+            instantiation=cfg.NONLOCAL.INSTANTIATION,
             trans_func_name=cfg.RESNET.TRANS_FUNC, stride_1x1=cfg.RESNET.STRIDE_1X1,
             dilation=[cfg.RESNET.SPATIAL_DILATIONS[0][0]],
         )

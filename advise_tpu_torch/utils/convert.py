@@ -23,7 +23,13 @@ The port names its modules as the Flax modules are named, so a Flax path
   ``[k, k, k, 1, C]`` map like every conv.
 
 The stem's weight is the plain ``[kt, 7, 7, C, O]`` ``conv/kernel`` on the
-space-to-depth path too, so it maps like every other conv.
+space-to-depth path too, so it maps like every other conv. X3D's and the
+Nonlocal block's leaves need no rule of their own: the channelwise
+kernels ``[kt, kh, kw, 1, C]`` (``conv_xy``'s neighbour ``conv``, the
+bottlenecks' ``b``) become ``[C, 1, kt, kh, kw]``, and SE's ``fc1``/``fc2``,
+the Nonlocal ``theta``/``phi``/``g``/``out`` with their biases, ``out_bn``,
+the head's ``conv_5``/``lin_5`` and ``projection`` map like any conv, BN
+and Dense.
 """
 
 from __future__ import annotations

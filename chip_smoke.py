@@ -16,8 +16,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    memory from the build's ptxas -v report (a spill in K1 or K2 fails); the
    fused aug K3 with its instances' registers, spills (a spill fails) and
    shared memory, exactly equal to its plain version in float32 and bf16
-   out at SpeedPro's shape (the preset's colour probability and p = 1) and
-   at the card tests' edge shapes, each with its plan (ops/fused_aug.py
+   out at SpeedPro's and at X3D-M's shapes (each preset's colour
+   probability and p = 1) and at the card tests' edge shapes, each with its
+   plan (ops/fused_aug.py
    plan(): cluster, bands, threads, pitch, shared memory, store width,
    grid, waves), timed on the card's clock (calls queued behind a sleep);
    flash attention forward and backward at every distinct attention
@@ -56,7 +57,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the card against float32 on the CPU; then the eval step (the inference
    crop, the eval-mode forward) of configs/eval/linear_probe_ucf.yaml's
    Slow-R50 (101 classes) on 2 clips of 8 frames at 256^2, bf16 on the card
-   against float32 on the CPU;
+   against float32 on the CPU; then X3D-M (configs/pretrain/X3D_M_K400.yaml,
+   4 classes) on 2 clips of 16 frames and the MoCo Slow-R18 of
+   configs/chip/moco_knn_minik400.yaml on 2 clips of 8 frames, both at
+   112^2, bf16 on the card against float32 on the CPU;
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
    clips through the 'aa' augmentation, 2 warm-up and 5 timed steps; then
@@ -89,6 +93,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and 2 timed steps: SSL.TASK speed_byol with TM.FROM_SCRATCH (the
    gradient through the whole tower; the tower and the BYOL twins move),
    and TPU.PALLAS_AUG, whose K3 launches must equal its steps;
+7c. the X3D path: X3D-M's parameter count at 400 classes against the JAX
+   package's, then the speed step of configs/pretrain/X3D_M_K400.yaml at
+   full width on one card (16 videos x 4 clips x 16 frames of uint8 at
+   320x256 through the XLA simple aug to 224^2, bf16, REMAT, simple_sgd),
+   2 warm-up and 5 timed steps: step time, clips/s, peak memory, the
+   convolutions' arithmetic rate; then each channelwise conv3d alone at
+   the step's shapes (forward and backward, channels-last and NCDHW, CUDA
+   events) and one step under torch.profiler (kernels by summed time, the
+   idle share); no kernel launched; then TPU.PALLAS_AUG for 1 warm-up and 2
+   timed steps, K3 once a step;
+7d. the MoCo path: the contrastive step of
+   configs/chip/moco_knn_minik400.yaml at its full width (Slow-R18 basic
+   transform, 16 videos x 2 clips x 8 frames at 112^2 through the rbyol
+   aug, shuffle-BN, the 256-key queue, SGD), 2 warm-up and 5 timed steps
+   and 9 more, so that the queue's pointer wraps (checked each step); then
+   the kNN probe with CONTRASTIVE.KNN_BATCH_STATS, which must leave the
+   model's running statistics bit for bit; no kernel launched;
 8. the entry point: ``python -m advise_tpu_torch.tools.run`` on the BYOL
    preset at full width with synthetic videos (48 of them: 3 iterations an
    epoch), 2 epochs with a kNN probe and a checkpoint each, then the same
@@ -112,14 +133,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    preset the same way (16 videos, one epoch of 2 iterations, SSL.TASK
    speed_byol so that its checkpoint carries the BYOL twins): the
    TemporalModelingSampler's ingest at 320x256 and the XLA simple aug
-   through the trainer, a profiler window over the second iteration. The
-   script's wall time is printed last.
+   through the trainer, a profiler window over the second iteration; then
+   X3D_M_K400.yaml (one epoch of 32 synthetic videos, 2 iterations, a
+   profiler window over the second; no kernel launched); then
+   configs/chip/moco_knn_minik400cc.yaml for 2 epochs of 32 synthetic
+   videos with the kNN probe each epoch, and the same command to 3 epochs
+   with TRAIN.AUTO_RESUME, whose model and SSL state (momentum encoder,
+   queue, pointer, kNN bank) must start as saved, by their sha256 (no cv2,
+   no dataset, no download). The script's wall time is printed last.
+
+Reductions: one card (BN.NUM_SYNC_DEVICES 1, TPU.MESH_SYNC 1; shuffle-BN
+permutes the card's own batch); widths, depth and per-card batches are the
+presets'.
 
 Each path's kernel launch counts are reset just before its steps and read
 just after. The line before the last is nvidia-smi's name and power limit;
 the last is {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import math
 import statistics
@@ -174,6 +206,29 @@ ADVISE_SMALL_CLIPS = 2  # phase 4: clips x the preset's 8 frames at 224^2
 # fused aug K3 in place of the XLA simple aug
 ADVISE_VARIANTS = {"speed_byol FROM_SCRATCH": {"SSL.TASK": "speed_byol", "TM.FROM_SCRATCH": True},
                    "PALLAS_AUG": {"TPU.PALLAS_AUG": True}}
+# the X3D path (phase 7c): X3D_M_K400.yaml's speed step at the preset's
+# per-card batch; its phase-4 check on 2 clips of 16 frames at 112^2
+X3D_CONFIG = "configs/pretrain/X3D_M_K400.yaml"
+X3D_EPOCH = 1.0  # inside the preset's 10 warm-up epochs
+X3D_M_PARAMS = 3_794_322  # X3D-M at 400 classes: the JAX package's oracle (tests/test_x3d.py)
+SMALL_CLIPS, SMALL_SIZE = 2, 112  # phase 4's X3D and MoCo forwards
+# the MoCo path (phase 7d): moco_knn_minik400.yaml's contrastive step; the
+# steps after the timed ones run the pointer round the 256-row queue
+MOCO_CONFIG = "configs/chip/moco_knn_minik400.yaml"
+MOCO_CC_CONFIG = "configs/chip/moco_knn_minik400cc.yaml"
+MOCO_EPOCH = 0.5  # inside the preset's warm-up epoch
+# phase 8: X3D-M through the entry point, one epoch of 2 iterations
+X3D_RUN_DIR = "build/chip_smoke_x3d"
+X3D_RUN_VIDEOS = 32
+ONE_CARD = ["NUM_GPUS", "1", "BN.NUM_SYNC_DEVICES", "1", "TPU.MESH_SYNC", "1"]
+X3D_RUN_OVERRIDES = ONE_CARD + ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(X3D_RUN_VIDEOS),
+                                "SOLVER.MAX_EPOCH", "1", "TRAIN.AUTO_RESUME", "False"]
+# then moco_knn_minik400cc.yaml: 2 epochs of 32 videos (2 iterations and the
+# kNN probe on batch statistics each), then a resume to 3
+MOCO_RUN_DIR = "build/chip_smoke_moco"
+MOCO_RUN_VIDEOS = 32
+MOCO_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(MOCO_RUN_VIDEOS),
+                      "TRAIN.SAVE_FREQ", "1"]
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
@@ -637,87 +692,424 @@ def advise_forward(tconfig, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def advise_steps(acfg, label, warmup, timed, dev, profiled=False):
-    """The AdViSe step of ``acfg`` through ``build_train_state`` on one card:
-    uint8 clips at the ingest geometry, warmup + timed steps; prints each
-    step, the median, clips/s, the peak memory and the parameter counts;
-    with ``profiled`` one more step under torch.profiler: its device kernels
-    by total time and the device's busy share of the step's wall time.
-    Returns (median ms, peak bytes, launches by kernel, tower unchanged,
-    twins moved)."""
+def small_forwards(tconfig, dev) -> None:
+    """Phase 4's X3D and MoCo checks: X3D-M at the preset's width (4
+    classes) on SMALL_CLIPS clips of 16 frames, and the MoCo Slow-R18 of
+    moco_knn_minik400.yaml on SMALL_CLIPS clips of 8 frames, both at
+    SMALL_SIZE^2: bf16 on the card against the same weights' float32
+    forward on the CPU, eval mode."""
     import numpy as np
     import torch
 
-    from advise_tpu_torch.data import build_device_aug, ingest_geometry
-    from advise_tpu_torch.engine.checkpoint import tensors_digest
-    from advise_tpu_torch.engine.steps import make_train_step
-    from advise_tpu_torch.engine.train import build_train_state
-    from advise_tpu_torch.solver.lr_policy import get_lr_at_epoch
-    from advise_tpu_torch.solver.optimizer import classify_params
+    from advise_tpu_torch.models import build_model
 
-    state, bundle = build_train_state(acfg, dev)
-    model = state.model
+    for label, path in (("X3D-M", X3D_CONFIG), ("MoCo Slow-R18", MOCO_CONFIG)):
+        cfg = one_card_cfg(tconfig, path)
+        ref_cfg = cfg.clone()
+        ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+        x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            (SMALL_CLIPS, cfg.DATA.NUM_FRAMES, SMALL_SIZE, SMALL_SIZE, 3)).astype(np.float32))
+        with torch.no_grad():
+            want = build_model(ref_cfg, "cpu", seed=0).eval()(x)
+            card = build_model(cfg, dev, seed=0).eval()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                got = card(x.to(dev).bfloat16())
+        check(tuple(got.shape) == tuple(want.shape), f"{label} output {tuple(got.shape)}")
+        rel = float((got.float().cpu() - want).abs().max() / want.abs().max())
+        # bf16 activations through the whole network, as the other phase-4 forwards
+        print(f"[small] {label} {tuple(x.shape)} -> {tuple(got.shape)} (bf16 on the card): max rel err vs "
+              f"CPU float32 {rel} (bound 5e-2)")
+        check(math.isfinite(rel) and rel <= 5e-2, f"the card's {label} forward disagrees with the CPU")
+        del card
+    torch.cuda.empty_cache()
+
+
+def conv_layers(model, x):
+    """Every Conv3d that one eval-mode forward of ``model`` on ``x`` runs:
+    (the forward's FLOPs, multiply-adds x 2, of the channelwise convs
+    (groups == channels) and of the others, {'depthwise': flops, 'other':
+    flops}; the channelwise layers {(input shape, weight shape, stride,
+    padding, dilation): count}, batch as ``x`` gives it)."""
+    import torch
+
+    flops, channelwise = {"depthwise": 0, "other": 0}, {}
+
+    def hook(mod, inputs, output):
+        dw = mod.groups > 1 and mod.groups == mod.in_channels
+        # in channels per group x kernel volume, a multiply-add each
+        flops["depthwise" if dw else "other"] += 2 * output.numel() * mod.weight[0].numel()
+        if dw:
+            key = (tuple(inputs[0].shape), tuple(mod.weight.shape), mod.stride, mod.padding, mod.dilation)
+            channelwise[key] = channelwise.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, torch.nn.Conv3d)]
+    was_training = model.training
+    model.eval()  # a train-mode forward would record BN statistics
+    with torch.no_grad(), torch.autocast(x.device.type, dtype=torch.bfloat16):
+        model(x)
+    model.train(was_training)
+    for h in handles:
+        h.remove()
+    return flops, channelwise
+
+
+def time_channelwise(layers, batch, fwd_passes, dev, reps=3):
+    """Each channelwise conv of ``layers`` (:func:`conv_layers`) alone
+    at ``batch`` clips in bf16, forward and backward (input and weight
+    gradients), channels-last (the model's layout) and NCDHW: CUDA-event
+    medians of ``reps``. Prints a line a layer; returns the estimate of the
+    step's channelwise time (``fwd_passes`` forwards and one backward of
+    each layer, channels-last), the same in NCDHW, and the names of the
+    kernels these convolutions launch."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed(fn):
+        out = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    totals = {"channels_last": 0.0, "ncdhw": 0.0}
+    names = set()
+    for (shape, wshape, stride, pad, dil), count in sorted(layers.items()):
+        row = {}
+        for layout in totals:
+            fmt = torch.channels_last_3d if layout == "channels_last" else torch.contiguous_format
+            x = torch.randn((batch,) + shape[1:], device=dev, generator=g).bfloat16()
+            x = x.contiguous(memory_format=fmt).requires_grad_(True)
+            w = (torch.randn(wshape, device=dev, generator=g) * 0.1).bfloat16()
+            w = w.contiguous(memory_format=fmt).requires_grad_(True)
+
+            def fwd():
+                return F.conv3d(x, w, None, stride, pad, dil, wshape[0])
+
+            y = fwd()
+            gy = torch.randn_like(y).contiguous(memory_format=fmt)
+
+            def bwd():
+                torch.autograd.grad(fwd(), (x, w), gy)
+
+            fwd_ms = timed(fwd)
+            fb_ms = timed(bwd)
+            row[layout] = (fwd_ms, fb_ms - fwd_ms)
+            totals[layout] += count * (fwd_passes * fwd_ms + (fb_ms - fwd_ms))
+            if layout == "channels_last":
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    bwd()
+                    torch.cuda.synchronize()
+                names |= {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+            del x, w, y, gy
+        flops = 2 * batch * math.prod(shape[1:]) // (stride[1] * stride[2]) * math.prod(wshape[2:])
+        print(f"[x3d]   channelwise conv {(batch,) + shape[1:]} weight {wshape} stride {stride} x{count}: "
+              f"channels-last fwd {row['channels_last'][0]} ms, bwd {row['channels_last'][1]} ms; NCDHW fwd "
+              f"{row['ncdhw'][0]} ms, bwd {row['ncdhw'][1]} ms ({flops / 1e9} GFLOP a forward)")
+    torch.cuda.empty_cache()
+    return totals["channels_last"], totals["ncdhw"], names
+
+
+def profile_step(label, run_step, tag, kernel_names=frozenset()):
+    """One call of ``run_step`` under torch.profiler: the device kernels by
+    summed time, the device's busy and idle share of the wall time, and the
+    share of the summed time of the kernels named in ``kernel_names`` (the
+    channelwise conv3d's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from advise_tpu_torch.engine.meters import busy_ms
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    total = sum(by_name.values())
+    dw = {n: ms for n, ms in by_name.items() if n in kernel_names}
+    dw_text = (f"; kernels of the names the channelwise convolutions launch alone {sum(dw.values())} ms "
+               f"({sum(dw.values()) / max(total, 1e-9)} of the summed time)") if kernel_names else ""
+    print(f"[{tag}] {label} profiled step: wall {wall} ms, device busy {busy} ms, idle share "
+          f"{1.0 - busy / wall}, {len(kernels)} kernels, summed kernel time {total} ms (kernels overlap: "
+          f"the sum exceeds the busy time){dw_text}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"[{tag}]   {ms:.3f} ms  {name[:150]}")
+    for name, ms in sorted(dw.items(), key=lambda kv: -kv[1]):
+        print(f"[{tag}]   channelwise kind: {ms:.3f} ms  {name[:150]}")
+    return {"wall_ms": wall, "busy_ms": busy, "summed_ms": total, "depthwise_ms": sum(dw.values())}
+
+
+def x3d_steps(xcfg, label, warmup, timed, dev, profiled=False):
+    """The X3D speed step of ``xcfg`` (``step_run``: uint8 clips [B, K, T,
+    256, 320, 3] through the simple aug, the lr from the port's policy),
+    warmup + timed steps (``time_steps``); prints each step, the median,
+    clips/s, the peak memory, the parameter count and the conv arithmetic
+    rate; with ``profiled`` one more step under torch.profiler. Returns
+    (median ms, peak bytes, launches by kernel)."""
+    import torch
+
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    run = step_run(xcfg, dev, 5, X3D_EPOCH)
+    model = run.state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    b, k, t = xcfg.DATA.BATCHSIZE_PER_GPU, xcfg.DATA.NUM_CLIP, xcfg.DATA.NUM_FRAMES
+    size = int(xcfg.AUG.TARGET_SIZE)
+    # the step's convolution arithmetic: a forward, its recompute under
+    # REMAT, and a backward of two convolutions per forward one
+    fwd, layers = conv_layers(model, torch.zeros((1, t, size, size, 3), device=dev, dtype=torch.bfloat16))
+    passes = 4 if xcfg.TPU.REMAT else 3
+    step_flops = {kind: v * b * k * passes for kind, v in fwd.items()}
+    print(f"[x3d] {label}: {n_params} params, clips {tuple(run.clips.shape)} uint8 -> crop {size}, "
+          f"{xcfg.TPU.COMPUTE_DTYPE}, REMAT {xcfg.TPU.REMAT}, PALLAS_AUG {xcfg.TPU.PALLAS_AUG}, "
+          f"{xcfg.SOLVER.OPTIMIZING_METHOD}, lr {run.lr} at epoch {X3D_EPOCH}; conv arithmetic a step "
+          f"{step_flops['depthwise'] / 1e12} TFLOP channelwise + {step_flops['other'] / 1e12} TFLOP other")
+
+    def after_step(i, vals, ms):
+        print(f"[x3d] {label} step {i}: {vals} ({ms} ms)")
+        check(all(math.isfinite(v) for v in vals.values()), f"X3D {label} step {i} is not finite")
+
+    median_ms, step_ms, peak, launches = time_steps(run, warmup, timed, counted_kernels(), after_step=after_step)
+    check(run.state.step == warmup + timed, f"the X3D {label} state did not advance")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), f"X3D {label} params not finite")
+    total = sum(step_flops.values())
+    print(f"[x3d] {label}: median step {median_ms} ms over {timed} steps (all: {step_ms}), "
+          f"{b * k * 1e3 / median_ms} clips/s ({b} videos x {k} clips x {t} frames), peak allocated {peak} "
+          f"bytes, conv rate {total / median_ms / 1e9} TFLOP/s, launches {launches}")
+    if profiled:
+        # the channelwise convolutions alone at the step's shapes, then the
+        # step under the profiler
+        dw_ms, dw_ncdhw_ms, names = time_channelwise(layers, b * k, passes - 2, dev)
+        print(f"[x3d] {label}: {sum(layers.values())} channelwise convolutions in {len(layers)} shapes; alone "
+              f"they take {dw_ms} ms a step channels-last ({dw_ms / median_ms} of the step, "
+              f"{step_flops['depthwise'] / dw_ms / 1e9} TFLOP/s), {dw_ncdhw_ms} ms in NCDHW; the rest of the "
+              f"step {median_ms - dw_ms} ms for {step_flops['other'] / 1e12} TFLOP of other convolutions "
+              f"({step_flops['other'] / max(median_ms - dw_ms, 1e-9) / 1e9} TFLOP/s)")
+        profile_step(label, run.call, "x3d", frozenset(names))
+    del run, model
+    gc.collect()  # run.call holds the run
+    torch.cuda.empty_cache()
+    return median_ms, peak, launches
+
+
+def moco_steps(mcfg, warmup, timed, extra, dev):
+    """The MoCo contrastive step of ``mcfg`` (``step_run``: rbyol aug,
+    shuffle-BN, the queue) on one card, warmup + timed steps and ``extra``
+    more that run the queue's pointer round (``time_steps``); then the kNN
+    probe with CONTRASTIVE.KNN_BATCH_STATS on one batch, which must leave
+    every running statistic bit for bit as it was. Returns (median ms, peak
+    bytes, launches by kernel)."""
+    import torch
+
+    from advise_tpu_torch.engine.checkpoint import tensors_digest
+    from advise_tpu_torch.engine.steps import make_knn_probe_step
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    run = step_run(mcfg, dev, 6, MOCO_EPOCH)
+    state, model = run.state, run.state.model
+    b, k, t = mcfg.DATA.BATCHSIZE_PER_GPU, mcfg.DATA.NUM_CLIP, mcfg.DATA.NUM_FRAMES
+    queue_len = mcfg.CONTRASTIVE.QUEUE_LEN
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[moco] {n_params} params, clips {tuple(run.clips.shape)} uint8 -> rbyol crop {mcfg.AUG.TARGET_SIZE}, "
+          f"{mcfg.TPU.COMPUTE_DTYPE}, {mcfg.SOLVER.OPTIMIZING_METHOD}, queue {queue_len} x "
+          f"{mcfg.CONTRASTIVE.DIM}, lr {run.lr} at epoch {MOCO_EPOCH}")
+    ptrs, accs = [], []
+
+    def after_step(i, vals, ms):
+        ptrs.append(int(state.ssl["ptr"]))
+        accs.append(vals["acc_ins"])
+        if i < warmup + timed:
+            print(f"[moco] step {i}: {vals} ptr {ptrs[-1]} ({ms} ms)")
+        check(all(math.isfinite(v) for v in vals.values()), f"MoCo step {i} is not finite")
+
+    _, step_ms, peak, launches = time_steps(
+        run, warmup, timed + extra, counted_kernels(),
+        infos_fn=lambda i: {"item_id": torch.arange(b, device=dev) + (i * b) % mcfg.CONTRASTIVE.LENGTH},
+        after_step=after_step)
+    median_ms = statistics.median(step_ms[warmup:warmup + timed])
+    want_ptrs = [(b * (i + 1)) % queue_len for i in range(len(ptrs))]
+    print(f"[moco] median step {median_ms} ms over {timed} steps (all: {step_ms[:warmup + timed]}), "
+          f"{b * k * 1e3 / median_ms} clip-views/s ({b} videos x {k} clips x {t} frames), peak allocated "
+          f"{peak} bytes, acc_ins {accs}, pointer {ptrs} (expected {want_ptrs}), launches {launches}")
+    check(ptrs == want_ptrs and 0 in ptrs, "the MoCo queue's pointer did not advance and wrap as expected")
+    # the kNN probe on batch statistics: the running statistics stay as they were
+    state.ssl["knn_labels"] = torch.arange(mcfg.CONTRASTIVE.LENGTH, device=dev) % mcfg.MODEL.NUM_CLASSES
+    probe = make_knn_probe_step(mcfg, run.aug, num_classes=mcfg.MODEL.NUM_CLASSES)
+    before = tensors_digest(model.state_dict())
+    acc = float(probe(state, run.clips, {"cls_id": torch.arange(b, device=dev) % mcfg.MODEL.NUM_CLASSES},
+                      run.gen))
+    unchanged = tensors_digest(model.state_dict()) == before
+    pending = sum(len(getattr(m, "pending", [])) for m in model.modules())
+    print(f"[moco] kNN probe with KNN_BATCH_STATS {mcfg.CONTRASTIVE.KNN_BATCH_STATS}: acc {acc}, model "
+          f"unchanged {unchanged}, BN records left {pending}")
+    check(mcfg.CONTRASTIVE.KNN_BATCH_STATS and unchanged and pending == 0 and math.isfinite(acc),
+          "the kNN probe on batch statistics moved the model or left BN records")
+    del run, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return median_ms, peak, launches
+
+
+def x3d_path(tconfig, dev) -> None:
+    """Phase 7c: X3D-M's parameter count, the X3D_M_K400.yaml speed step
+    (x3d_steps, profiled), then its TPU.PALLAS_AUG variant, K3 once a step."""
+    import torch
+
+    from advise_tpu_torch.models.layers.norm import get_norm
+    from advise_tpu_torch.models.x3d import X3D
+
+    xcfg = one_card_cfg(tconfig, X3D_CONFIG)
+    ref_cfg = xcfg.clone()
+    ref_cfg.MODEL.NUM_CLASSES = 400
+    with torch.device("meta"):
+        n_x3d_m = sum(p.numel() for p in X3D(ref_cfg, get_norm(ref_cfg)).parameters())
+    print(f"[x3d] X3D-M at 400 classes: {n_x3d_m} params (the JAX package's count {X3D_M_PARAMS})")
+    check(n_x3d_m == X3D_M_PARAMS, "X3D-M's parameter count differs from the JAX package's")
+    _, _, x3d_launches = x3d_steps(xcfg, "X3D_M_K400.yaml", WARMUP_STEPS, TIMED_STEPS, dev, profiled=True)
+    check(not any(x3d_launches.values()), "the X3D step launched a kernel: its path has none")
+    vcfg = xcfg.clone()
+    vcfg.TPU.PALLAS_AUG = True
+    _, _, v_launches = x3d_steps(vcfg, "PALLAS_AUG", VARIANT_WARMUP, VARIANT_TIMED, dev)
+    print(f"[x3d] PALLAS_AUG: fused_simple_aug launches {v_launches['fused_simple_aug']} in "
+          f"{VARIANT_WARMUP + VARIANT_TIMED} steps")
+    check(v_launches["fused_simple_aug"] == VARIANT_WARMUP + VARIANT_TIMED
+          and sum(v_launches.values()) == v_launches["fused_simple_aug"],
+          "X3D PALLAS_AUG: fused_simple_aug was not launched once a step")
+
+
+def moco_path(tconfig, dev) -> None:
+    """Phase 7d: the moco_knn_minik400.yaml step (moco_steps) over enough
+    steps to wrap the queue's pointer."""
+    mcfg = one_card_cfg(tconfig, MOCO_CONFIG)
+    per_step = mcfg.DATA.BATCHSIZE_PER_GPU
+    extra = mcfg.CONTRASTIVE.QUEUE_LEN // per_step - WARMUP_STEPS - TIMED_STEPS  # to the wrap
+    _, _, moco_launches = moco_steps(mcfg, WARMUP_STEPS, TIMED_STEPS, max(extra, 0), dev)
+    check(not any(moco_launches.values()), "the MoCo step launched a kernel: its path has none")
+
+
+def x3d_entry(tconfig) -> None:
+    """Phase 8's X3D run: X3D_M_K400.yaml through the entry point, one
+    epoch of X3D_RUN_VIDEOS synthetic videos, a profiler window over the
+    second iteration; no kernel launched."""
+    import shutil
+
+    xcfg = one_card_cfg(tconfig, X3D_CONFIG)
+    shutil.rmtree(X3D_RUN_DIR, ignore_errors=True)
+    x3d = run_entry_point(["TPU.PROFILE_DIR", f"{X3D_RUN_DIR}/profile", "TPU.PROFILE_START", "0",
+                           "TPU.PROFILE_STEPS", "1"], "X3D-M preset, 1 epoch", X3D_CONFIG, X3D_RUN_DIR,
+                          X3D_RUN_OVERRIDES)
+    n_iter = len(x3d["iter_s"])
+    print(f"[run] X3D preset: {n_iter} iterations, stats {x3d['stats']}, iterations "
+          f"{[t * 1e3 for t in x3d['iter_s']]} ms, loader wait {[t * 1e3 for t in x3d['wait_s']]} ms, peak "
+          f"allocated {x3d['peak_allocated_bytes']} bytes, launches {x3d['launches']}, {x3d['seconds']} s "
+          f"with start-up")
+    split = {stage: f"{s * 1e3 / n} ms x {n} ({s * 1e3} ms in all)" for stage, (s, n) in x3d["host_s"].items()}
+    print(f"[run] X3D preset: host stages {split}")
+    check(n_iter == X3D_RUN_VIDEOS // xcfg.DATA.BATCHSIZE_PER_GPU and x3d["start_step"] == 0,
+          "X3D preset: wrong schedule")
+    check(all(math.isfinite(v) for st in x3d["stats"] for v in st.values()), "X3D preset: a loss is not finite")
+    check(not any(x3d["launches"].values()), "the X3D run launched a kernel")
+    prof = x3d.get("profile")
+    check(prof is not None, "the X3D run's profile window did not close")
+    print(f"[run] X3D preset profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device "
+          f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
+
+
+def moco_entry(tconfig) -> None:
+    """Phase 8's MoCo runs: moco_knn_minik400cc.yaml through the entry
+    point, 2 epochs with the kNN probe on batch statistics, then a resume
+    to 3 that starts from the saved model, momentum encoder, queue and
+    pointer bit for bit."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from advise_tpu_torch.engine.checkpoint import STATE_FILE
+    from advise_tpu_torch.engine.train import ssl_digest
+
+    shutil.rmtree(MOCO_RUN_DIR, ignore_errors=True)
+    ccfg = one_card_cfg(tconfig, MOCO_CC_CONFIG)
+    m1 = run_entry_point(["SOLVER.MAX_EPOCH", "2"], "MoCo cc preset, 2 epochs", MOCO_CC_CONFIG, MOCO_RUN_DIR,
+                         MOCO_RUN_OVERRIDES)
+    saved = torch.load(Path(MOCO_RUN_DIR) / "checkpoints" / "Model_Epoch_0001" / STATE_FILE, map_location="cpu",
+                       weights_only=False)
+    saved_ssl = ssl_digest(saved["ssl"])
+    m2 = run_entry_point(["SOLVER.MAX_EPOCH", "3", "TRAIN.AUTO_RESUME", "True"], "MoCo cc preset, resume to 3",
+                         MOCO_CC_CONFIG, MOCO_RUN_DIR, MOCO_RUN_OVERRIDES)
+    iters = MOCO_RUN_VIDEOS // ccfg.DATA.BATCHSIZE_PER_GPU
+    for rec, label, epochs in ((m1, "first run", 2), (m2, "resumed run", 1)):
+        print(f"[run] MoCo {label}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats "
+              f"{rec['stats']}, iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait "
+              f"{[t * 1e3 for t in rec['wait_s']]} ms, peak allocated {rec['peak_allocated_bytes']} bytes, "
+              f"launches {rec['launches']}, {rec['seconds']} s with start-up")
+        check(len(rec["iter_s"]) == epochs * iters, f"MoCo {label}: wrong schedule")
+        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"MoCo {label}: not finite")
+        check(not any(rec["launches"].values()), f"the MoCo {label} launched a kernel")
+    print(f"[run] MoCo ptr in Model_Epoch_0001 {int(saved['ssl']['ptr'])}; model sha256: end of the first run "
+          f"{m1['model_sha256_end']}, start of the resumed run {m2['model_sha256']}; SSL state (momentum "
+          f"encoder, queue, pointer, kNN bank) sha256: end {m1['ssl_sha256_end']}, saved {saved_ssl}, "
+          f"resumed {m2['ssl_sha256']}")
+    check(m2["start_epoch"] == 2 and m2["start_step"] == 2 * iters, "the MoCo run did not resume at epoch 2")
+    check(int(saved["ssl"]["ptr"]) == 2 * iters * ccfg.DATA.BATCHSIZE_PER_GPU % ccfg.CONTRASTIVE.QUEUE_LEN,
+          "the MoCo checkpoint's pointer is not where 4 steps leave it")
+    check(m1["model_sha256_end"] == m2["model_sha256"], "the resumed MoCo model differs from the saved one")
+    check(m1["ssl_sha256_end"] == saved_ssl == m2["ssl_sha256"],
+          "the resumed MoCo momentum encoder, queue or pointer differs from the saved one")
+
+
+def advise_steps(acfg, label, warmup, timed, dev, profiled=False):
+    """The AdViSe step of ``acfg`` (``step_run``: uint8 clips at the ingest
+    geometry) on one card, warmup + timed steps (``time_steps``); prints
+    each step, the median, clips/s, the peak memory and the parameter
+    counts; with ``profiled`` one more step under torch.profiler. Returns
+    (median ms, peak bytes, launches by kernel, tower unchanged, twins
+    moved)."""
+    import torch
+
+    from advise_tpu_torch.engine.checkpoint import tensors_digest
+    from advise_tpu_torch.solver.optimizer import classify_params
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    run = step_run(acfg, dev, 3, ADVISE_EPOCH)
+    state, model = run.state, run.state.model
     labels = classify_params(acfg, dict(model.named_parameters()))
     n_params = sum(p.numel() for p in model.parameters())
     n_frozen = sum(p.numel() for n, p in model.named_parameters() if labels[n] == "frozen")
-    step = make_train_step(acfg, bundle, build_device_aug(acfg, "train"))
     b, k, t = acfg.DATA.BATCHSIZE_PER_GPU, acfg.DATA.NUM_CLIP, acfg.DATA.NUM_FRAMES
-    w_in, h_in = ingest_geometry(acfg, "train")
-    rng = np.random.default_rng(3)
-    clips = torch.from_numpy(rng.integers(0, 256, size=(b, k, t, h_in, w_in, 3), dtype=np.uint8)).to(dev)
-    infos = {"spd_label": torch.from_numpy(rng.integers(0, acfg.MODEL.NUM_CLASSES, (b, k))).to(dev)}
-    gen = torch.Generator(device=dev).manual_seed(0)
-    lr = get_lr_at_epoch(acfg, ADVISE_EPOCH)
     tower0 = tensors_digest(model.spatial_encoder.state_dict())
     twins0 = {name: tensors_digest(v) for name, v in state.ssl.items()}
     print(f"[advise] {label}: {n_params} params ({n_frozen} frozen), SSL.TASK {acfg.SSL.TASK}, "
           f"FROM_SCRATCH {acfg.TM.FROM_SCRATCH}, PALLAS_AUG {acfg.TPU.PALLAS_AUG}, clips "
-          f"{tuple(clips.shape)} uint8 -> crop {acfg.AUG.TARGET_SIZE}, {acfg.TPU.COMPUTE_DTYPE}, "
-          f"lr {lr} at epoch {ADVISE_EPOCH}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in counted_kernels():
-        fn.launches = 0
-    step_ms = []
-    for i in range(warmup + timed):
-        t0 = time.perf_counter()
-        stats = step(state, clips, infos, gen, lr)
-        vals = {name: float(v) for name, v in stats.items()}
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"[advise] {label} step {i}: {vals} ({step_ms[-1]} ms)")
+          f"{tuple(run.clips.shape)} uint8 -> crop {acfg.AUG.TARGET_SIZE}, {acfg.TPU.COMPUTE_DTYPE}, "
+          f"lr {run.lr} at epoch {ADVISE_EPOCH}")
+
+    def after_step(i, vals, ms):
+        print(f"[advise] {label} step {i}: {vals} ({ms} ms)")
         check(all(math.isfinite(v) for v in vals.values()), f"AdViSe {label} step {i} is not finite")
-    launches = {fn.__name__: fn.launches for fn in counted_kernels()}
-    peak = torch.cuda.max_memory_allocated()
+
+    median_ms, _, peak, launches = time_steps(run, warmup, timed, counted_kernels(), after_step=after_step)
     check(state.step == warmup + timed, f"the AdViSe {label} state did not advance")
     check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), f"AdViSe {label} params not finite")
-    median_ms = statistics.median(step_ms[warmup:])
     tower_same = tensors_digest(model.spatial_encoder.state_dict()) == tower0
     twins_moved = all(tensors_digest(v) != twins0[name] for name, v in state.ssl.items())
     print(f"[advise] {label}: median step {median_ms} ms over {timed} steps, {b * k * 1e3 / median_ms} "
           f"clips/s ({b} videos x {k} clips x {t} frames), peak allocated {peak} bytes, launches "
           f"{launches}, tower unchanged {tower_same}, twins {sorted(state.ssl)} moved {twins_moved}")
     if profiled:
-        from torch.profiler import ProfilerActivity, profile
-
-        from advise_tpu_torch.engine.meters import busy_ms
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(state, clips, infos, gen, lr)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        print(f"[advise] {label} profiled step: wall {wall} ms, device busy {busy} ms, idle share "
-              f"{1.0 - busy / wall}, {len(kernels)} kernels, summed kernel time {sum(by_name.values())} ms")
-        for name, ms in top:
-            print(f"[advise]   {ms:.3f} ms  {name[:150]}")
-    del state, bundle, model, step, clips
+        profile_step(label, run.call, "advise")
+    del run, state, model
+    gc.collect()
     torch.cuda.empty_cache()
     return median_ms, peak, launches, tower_same, twins_moved
 
@@ -912,10 +1304,20 @@ def main() -> None:
     check(len(aug_usage) == 6, f"the fused aug library has {len(aug_usage)} kernel instances, not 6")
     aug_err = 0.0
     # the speed path runs its b * k clips as one batch through the aug, at the
-    # preset's colour probability and at p = 1; then the card tests' edge shapes
-    aug_cases = [((sb * sk, st, sh_in, sw_in, 3), ss, None, None, (preset_color, (1.0,) + preset_color[1:]))]
-    aug_cases += [(shape, size, tops, lefts, (AUG_ALL_ON,)) for shape, size, tops, lefts in AUG_EDGE_SHAPES]
-    for shape, size, tops, lefts, colors in aug_cases:
+    # preset's colour probability and at p = 1; so does X3D-M's PALLAS_AUG
+    # variant (phase 7c), at its 16-frame clips; then the card tests' edge
+    # shapes
+    xcfg = one_card_cfg(tconfig, X3D_CONFIG)
+    xw_in, xh_in = ingest_geometry(xcfg, "train")
+    x_color = tuple(xcfg.AUG.COLOR)
+    aug_cases = [((sb * sk, st, sh_in, sw_in, 3), ss, None, None, (preset_color, (1.0,) + preset_color[1:]),
+                  mean, std),
+                 ((xcfg.DATA.BATCHSIZE_PER_GPU * xcfg.DATA.NUM_CLIP, xcfg.DATA.NUM_FRAMES, xh_in, xw_in, 3),
+                  int(xcfg.AUG.TARGET_SIZE), None, None, (x_color, (1.0,) + x_color[1:]),
+                  tuple(xcfg.DATA.MEAN), tuple(xcfg.DATA.STD))]
+    aug_cases += [(shape, size, tops, lefts, (AUG_ALL_ON,), mean, std)
+                  for shape, size, tops, lefts in AUG_EDGE_SHAPES]
+    for shape, size, tops, lefts, colors, a_mean, a_std in aug_cases:
         clips = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
         clips[:, 0, :, : shape[3] // 3] = clips[:, 0, :, : shape[3] // 3, :1]  # gray pixels
         for out_dtype in (torch.float32, torch.bfloat16):
@@ -933,8 +1335,8 @@ def main() -> None:
                 if offsets is not None:
                     prm[key] = torch.tensor(offsets, dtype=torch.int32, device=dev)
             for out_dtype in (torch.float32, torch.bfloat16):
-                got = fa.fused_simple_aug(clips, prm, size, mean, std, out_dtype)
-                want = fa.fused_simple_aug_plain(clips, prm, size, mean, std, out_dtype)
+                got = fa.fused_simple_aug(clips, prm, size, a_mean, a_std, out_dtype)
+                want = fa.fused_simple_aug_plain(clips, prm, size, a_mean, a_std, out_dtype)
                 torch.cuda.synchronize()
                 err = float((got.float() - want.float()).abs().max())
                 aug_err = max(aug_err, err)
@@ -946,8 +1348,8 @@ def main() -> None:
                     # (the wrapper's host work, ~0.05-0.1 ms a call, is
                     # hidden by the step's other work on the path)
                     aug_ms, aug_plain_ms = queued_in_turns(
-                        lambda: fa.fused_simple_aug(clips, prm, size, mean, std, out_dtype),
-                        lambda: fa.fused_simple_aug_plain(clips, prm, size, mean, std, out_dtype),
+                        lambda: fa.fused_simple_aug(clips, prm, size, a_mean, a_std, out_dtype),
+                        lambda: fa.fused_simple_aug_plain(clips, prm, size, a_mean, a_std, out_dtype),
                         AUG_REPS)
                     n_out = got.numel()
                     applied = float(prm["apply"].float().mean())
@@ -1165,6 +1567,7 @@ def main() -> None:
     del ref_model, f32_model, got, want, out
     torch.cuda.empty_cache()
     advise_forward(tconfig, dev)
+    small_forwards(tconfig, dev)
 
     # -- 5. the BYOL path ---------------------------------------------------------
     model = build_model(cfg, dev, seed=0)
@@ -1453,6 +1856,10 @@ def main() -> None:
             check(advise_k3 == VARIANT_WARMUP + VARIANT_TIMED,
                   f"AdViSe {label}: fused_simple_aug was not launched once a step")
 
+    # -- 7c. the X3D path, 7d. the MoCo path: no kernel on the presets' paths -------
+    x3d_path(tconfig, dev)
+    moco_path(tconfig, dev)
+
     # -- 8. the entry point ---------------------------------------------------------
     import shutil
     from pathlib import Path
@@ -1597,6 +2004,8 @@ def main() -> None:
     check(prof is not None, "the AdViSe run's profile window did not close")
     print(f"[run] AdViSe preset profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device "
           f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
+    x3d_entry(tconfig)
+    moco_entry(tconfig)
     print(f"[total] chip_smoke.py wall time {time.perf_counter() - t_start} s")
 
     launches.update(probe_launches)

@@ -5,7 +5,7 @@ simple aug (advise_tpu_torch/csrc/fused_aug.cu), flash attention, forward
 and backward (advise_tpu_torch/csrc/flash_attention.cu) with its float32
 pair in 3xTF32 (advise_tpu_torch/csrc/flash_attention_f32.cu), and the window
 gather of the nine Mosaic probes (advise_tpu_torch/csrc/window_probe.cu);
-and the AdViSe model's bf16 forward on the card against the CPU.
+and the AdViSe and X3D-M models' bf16 forwards on the card against the CPU.
 Every test here needs an NVIDIA card and nvcc, and skips without a card.
 
 This file imports no JAX, so a machine without it runs the file without the
@@ -493,3 +493,28 @@ def test_probe_eval_step_on_the_card_matches_the_cpu(cuda):
     assert tuple(got.shape) == tuple(want.shape) == (2, 1, 101)
     assert float((got.float().cpu() - want).abs().max() / want.abs().max()) <= 5e-2
     assert all(not getattr(m, "pending", []) for m in card.modules())
+
+
+@pytest.mark.cuda
+def test_x3d_forward_on_the_card_matches_the_cpu(cuda):
+    """X3D-M of configs/pretrain/X3D_M_K400.yaml at full width (4 classes)
+    on 2 clips of 16 x 112^2 in eval mode: bf16 on the card (channelwise
+    convs, SE in float32) against float32 on the CPU with the same weights,
+    logits within 5e-2 of their largest magnitude, as the other bf16
+    forwards here."""
+    from advise_tpu_torch import config as tconfig
+    from advise_tpu_torch.models import build_model
+
+    cfg = tconfig.get_cfg()
+    cfg.merge_from_file("configs/pretrain/X3D_M_K400.yaml")
+    cfg.NUM_GPUS = cfg.BN.NUM_SYNC_DEVICES = cfg.TPU.MESH_SYNC = 1
+    cfg = tconfig.assert_and_infer_cfg(cfg)
+    ref_cfg = cfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    x = torch.randn((2, cfg.DATA.NUM_FRAMES, 112, 112, 3), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = build_model(ref_cfg, "cpu", seed=0).eval()(x)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = build_model(cfg, cuda, seed=0).eval()(x.to(cuda).bfloat16())
+    assert tuple(got.shape) == tuple(want.shape) == (2, 4)
+    assert float((got.float().cpu() - want).abs().max() / want.abs().max()) <= 5e-2

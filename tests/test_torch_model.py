@@ -201,8 +201,9 @@ def test_port_imports_no_jax():
     (MaskMViT through flash_mha's CPU path), the simple and OnlyCrop augs,
     a MaskingGenerator3D draw, one AdViSe step (the TemporalModel with
     its CLIP tower, the XLA simple aug with hue, BYOL twins), the eval
-    modules with a speed_val eval step, and ContrastiveModel over ResNet3D
-    loads no jax, flax, optax or advise_tpu module."""
+    modules with a speed_val eval step, ContrastiveModel over ResNet3D, an
+    X3D speed step (drop-connect on) and a MoCo step (the rbyol aug,
+    shuffle-BN, the queue) loads no jax, flax, optax or advise_tpu module."""
     code = (
         "import sys, torch\n"
         "from advise_tpu_torch.config import get_cfg, assert_and_infer_cfg\n"
@@ -214,7 +215,7 @@ def test_port_imports_no_jax():
         "from advise_tpu_torch.models import resnet3d, losses\n"
         "from advise_tpu_torch.solver import lr_policy\n"
         "import advise_tpu_torch.data\n"
-        "from advise_tpu_torch.tools import run, probe_windows\n"
+        "from advise_tpu_torch.tools import run, probe_windows, compare_steps\n"
         "from advise_tpu_torch.engine import train, checkpoint, meters\n"
         "cfg = get_cfg(); cfg.merge_from_file('configs/pretrain/SlowFast_R50_K400.yaml')\n"
         "cfg.RESNET.DEPTH = 10; cfg.RESNET.WIDTH_PER_GROUP = 16; cfg.SLOWFAST.BETA_INV = 2\n"
@@ -278,6 +279,29 @@ def test_port_imports_no_jax():
         "logits = make_eval_step(cfg, build_device_aug(cfg, 'speed'))(\n"
         "    build_model(cfg, 'cpu'), torch.zeros(2, 1, 4, 32, 42, 3, dtype=torch.uint8), g)\n"
         "assert logits.shape == (2, 1, 4)\n"
+        "from advise_tpu_torch.models import x3d\n"
+        "from advise_tpu_torch.parallel import collectives\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/pretrain/X3D_M_K400.yaml')\n"
+        "cfg.X3D.DEPTH_FACTOR = 0.5; cfg.X3D.DIM_C5 = 32; cfg.AUG.RESIZE = [40, 36]; cfg.AUG.TARGET_SIZE = 32\n"
+        "cfg.TPU.COMPUTE_DTYPE = 'float32'; cfg.MODEL.DROPCONNECT_RATE = 0.2\n"
+        "cfg.NUM_WORLDS = 1; cfg.TPU.MESH_SYNC = 1; cfg.BN.NUM_SYNC_DEVICES = 1\n"
+        "cfg = assert_and_infer_cfg(cfg)\n"
+        "state, bundle = build_train_state(cfg, 'cpu')\n"
+        "assert isinstance(state.model, x3d.X3D)\n"
+        "stats = make_train_step(cfg, bundle, build_device_aug(cfg))(\n"
+        "    state, torch.randint(0, 256, (2, 2, 4, 36, 40, 3), dtype=torch.uint8),\n"
+        "    {'spd_label': torch.zeros(2, 2, dtype=torch.long)}, g, 1e-3)\n"
+        "assert all(bool(torch.isfinite(v)) for v in stats.values())\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/chip/moco_knn_minik400.yaml')\n"
+        "cfg.RESNET.DEPTH = 10; cfg.RESNET.WIDTH_PER_GROUP = 8; cfg.CONTRASTIVE.QUEUE_LEN = 16\n"
+        "cfg.AUG.TARGET_SIZE = 24; cfg.DATA.NUM_FRAMES = 4; cfg.TPU.COMPUTE_DTYPE = 'float32'\n"
+        "cfg = assert_and_infer_cfg(cfg)\n"
+        "state, bundle = build_train_state(cfg, 'cpu')\n"
+        "stats = make_train_step(cfg, bundle, build_device_aug(cfg))(\n"
+        "    state, torch.randint(0, 256, (4, 2, 4, 24, 32, 3), dtype=torch.uint8),\n"
+        "    {'item_id': torch.arange(4)}, g, 1e-3, 0.5)\n"
+        "assert set(stats) == {'loss_nce', 'acc_ins', 'grad_norm'} and int(state.ssl['ptr']) == 4\n"
+        "assert all(bool(torch.isfinite(v)) for v in stats.values())\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -355,7 +355,7 @@ def test_trainer_pieces():
     assert torch.equal(torch.rand(4, generator=a), torch.rand(4, generator=b))
     assert not torch.equal(torch.rand(4, generator=seeded_generator("cpu", 0, 1, 3)),
                            torch.rand(4, generator=seeded_generator("cpu", 0, 2, 2)))
-    for key, value, item in (("TPU.PARTITION_MODE", "auto", "A11"), ("VIS_MASK.ENABLE", True, "A12")):
+    for key, value, item in (("TPU.PARTITION_MODE", "auto", "A 16"), ("VIS_MASK.ENABLE", True, "A 11")):
         bad = cfg.clone()
         section, leaf = key.split(".")
         bad[section][leaf] = value
@@ -384,3 +384,137 @@ def test_run_needs_a_card(tmp_path):
         run.main(["--cfg", "configs/pretrain/SlowFast_R50_K400.yaml", "--output", str(tmp_path),
                   "SOLVER.MAX_EPOCH", "1"])
     assert (tmp_path / "log.txt").is_file()
+
+
+def _preset_run_cfg(yaml, logdir, **overrides):
+    cfg = tconfig.get_cfg()
+    cfg.merge_from_file(yaml)
+    for key, value in {"NUM_GPUS": 1, "TPU.MESH_SYNC": 1, "BN.NUM_SYNC_DEVICES": 1,
+                       "TPU.COMPUTE_DTYPE": "float32", "DATA.DECODE_BACKEND": "synthetic",
+                       "DATA.SYNTHETIC_RES": 48, "DATA.WORKERS": 2, "DATA.NUM_FRAMES": 4,
+                       "TRAIN.SAVE_FREQ": 1, "TRAIN.AUTO_RESUME": False, **overrides}.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    cfg = tconfig.assert_and_infer_cfg(cfg)
+    cfg.LOGDIR = str(logdir)
+    return cfg
+
+
+def test_trainer_runs_the_x3d_preset(tmp_path):
+    """X3D_M_K400.yaml at DEPTH_FACTOR 0.5 through the trainer: the speed
+    task on the XLA simple aug with REMAT, one epoch of 2 iterations, its
+    first loss EQUAL to one call of the ported step on the loader's first
+    batch with the generator of (SEED, 0, 0), and its checkpoint."""
+    cfg = _preset_run_cfg("configs/pretrain/X3D_M_K400.yaml", tmp_path, **{
+        "X3D.DEPTH_FACTOR": 0.5, "X3D.DIM_C5": 32, "AUG.RESIZE": [40, 36], "AUG.TARGET_SIZE": 32,
+        "DATA.BATCHSIZE_PER_GPU": 2, "DATA.NUM_CLIP": 2, "DATA.SYNTHETIC_SIZE": 4, "SOLVER.MAX_EPOCH": 1})
+    assert cfg.MODEL.MODEL_NAME == "X3D" and cfg.TASK == "speed" and cfg.TPU.REMAT
+    ref_cfg = cfg.clone()
+    ref_cfg.NUM_WORLDS = 1
+    toptim.adjust_base_lr(ref_cfg)
+    clips, infos = next(iter(build_loader(ref_cfg).epoch(0)))
+    state, bundle = build_train_state(ref_cfg, "cpu")
+    want = make_train_step(ref_cfg, bundle, build_device_aug(ref_cfg, "train"))(
+        state, torch.from_numpy(clips), {k: torch.from_numpy(v) for k, v in select_infos(ref_cfg, infos).items()},
+        seeded_generator("cpu", ref_cfg.TRAIN.SEED, 0, 0), tlr.get_lr_at_epoch(ref_cfg, 0.5))
+    record = {}
+    trainer(cfg, device="cpu", record=record)
+    assert record["stats"][0]["loss_spd"] == float(want["loss_spd"])
+    assert (record["start_epoch"], len(record["iter_s"])) == (0, 2)
+    assert all(np.isfinite(v) for st in record["stats"] for v in st.values())
+    assert (tmp_path / "checkpoints" / "Model_Epoch_0000" / ck.STATE_FILE).is_file()
+
+
+def _moco_run_cfg(logdir, **overrides):
+    """configs/chip/moco_knn_minik400cc.yaml (MoCo, the rbyol aug,
+    shuffle-BN, KNN_BATCH_STATS) cut to a Slow R10 of width 8 on 8
+    synthetic videos of 4 frames at 24^2: 2 iterations an epoch and a kNN
+    probe batch; QUEUE_LEN 8 wraps the pointer every 2 iterations."""
+    return _preset_run_cfg("configs/chip/moco_knn_minik400cc.yaml", logdir, **{
+        "RESNET.DEPTH": 10, "RESNET.WIDTH_PER_GROUP": 8, "CONTRASTIVE.DIM": 16, "CONTRASTIVE.MLP_DIM": 32,
+        "CONTRASTIVE.QUEUE_LEN": 8, "CONTRASTIVE.LENGTH": 16, "CONTRASTIVE.KNN_EVAL_BATCHES": 1,
+        "AUG.TARGET_SIZE": 24, "DATA.BATCHSIZE_PER_GPU": 4, "DATA.SYNTHETIC_SIZE": 8, **overrides})
+
+
+def test_trainer_runs_moco_and_resumes_queue_and_pointer_bit_exactly(tmp_path):
+    """A 2-epoch MoCo run cut after epoch 0 and resumed EQUALS the same run
+    never cut: every iteration's stats, the model, the momentum encoder,
+    the queue and its pointer, bit for bit; the kNN probe on batch
+    statistics leaves the running statistics to the train steps."""
+    straight, cut = {}, {}
+    state = trainer(_moco_run_cfg(tmp_path / "straight", **{"SOLVER.MAX_EPOCH": 2}), device="cpu",
+                    record=straight)
+    assert set(state.ssl) == {"ema_model", "queue_x", "ptr", "knn_mem", "knn_labels"}
+    assert len(straight["stats"]) == 4 and int(state.ssl["ptr"]) == 0
+    assert all(set(st) == {"loss_nce", "acc_ins", "grad_norm"} for st in straight["stats"])
+    assert all(np.isfinite(v) for st in straight["stats"] for v in st.values())
+    saved = torch.load(tmp_path / "straight" / "checkpoints" / "Model_Epoch_0000" / ck.STATE_FILE,
+                       weights_only=False)
+    assert {"queue_x", "ptr", "ema_model"} <= set(saved["ssl"]) and saved["ssl"]["ptr"].dtype == torch.int64
+    kept = tmp_path / "cut" / "checkpoints"
+    kept.mkdir(parents=True)
+    for name in ("Model_Epoch_0000", "Model_Epoch_0000.meta.npy"):
+        (tmp_path / "straight" / "checkpoints" / name).rename(kept / name)
+    resumed = trainer(_moco_run_cfg(tmp_path / "cut", **{"SOLVER.MAX_EPOCH": 2, "TRAIN.AUTO_RESUME": True}),
+                      device="cpu", record=cut)
+    assert (cut["start_epoch"], cut["start_step"], len(cut["stats"])) == (1, 2, 2)
+    assert cut["stats"] == straight["stats"][2:]
+    assert cut["model_sha256_end"] == straight["model_sha256_end"]
+    assert ck.tensors_digest(resumed.ssl["ema_model"].state_dict()) == ck.tensors_digest(
+        state.ssl["ema_model"].state_dict())
+    for name in ("queue_x", "ptr", "knn_mem"):
+        assert torch.equal(resumed.ssl[name], state.ssl[name]), name
+
+
+def test_compare_steps_times_the_moco_step_on_cpu(tmp_path):
+    """tools/compare_steps.py's step_run and time_steps (the step timing
+    of chip_smoke.py's X3D, MoCo and AdViSe phases) on the small MoCo
+    preset: three steps with per-step item ids, the first EQUAL to one
+    call of the ported step built by hand on the same clips, ids and
+    generator; the pointer where three steps leave it; launches counted
+    from 0; the median of the timed steps."""
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    cfg = _moco_run_cfg(tmp_path)
+    run = step_run(cfg, torch.device("cpu"), 4, 0.5)
+    b = cfg.DATA.BATCHSIZE_PER_GPU
+    state, bundle = build_train_state(cfg, "cpu")
+    want = make_train_step(cfg, bundle, build_device_aug(cfg, "train"))(
+        state, run.clips, {"item_id": torch.arange(b)}, torch.Generator().manual_seed(0), run.lr, 0.5)
+
+    def counter():  # a kernel wrapper's launch count
+        pass
+
+    counter.launches = 7
+    seen = []
+    median, step_ms, peak, launches = time_steps(
+        run, 1, 2, (counter,), infos_fn=lambda i: {"item_id": torch.arange(b) + i * b},
+        after_step=lambda i, vals, ms: seen.append(vals))
+    assert seen[0] == {name: float(v) for name, v in want.items()}
+    assert len(seen) == len(step_ms) == 3 and median == float(np.median(step_ms[1:]))
+    assert run.state.step == 3 and int(run.state.ssl["ptr"]) == 3 * b % cfg.CONTRASTIVE.QUEUE_LEN
+    assert peak is None and launches == {"counter": 0}
+
+
+def test_compare_steps_infer_batch_on_cpu():
+    """compare_steps.infer_run, action_infer's batch, on a narrow Slow R10:
+    one video's NUM_CLIPS x NUM_CROPS views through the eval step give the
+    argmax of the views' mean logits of the same eval step called by hand
+    with INFER.SEED's generator."""
+    from advise_tpu_torch.data import ingest_geometry
+    from advise_tpu_torch.engine.steps import make_eval_step
+    from advise_tpu_torch.tools.compare_steps import infer_run, time_steps
+
+    cfg = speed_cfg(tconfig)
+    cfg.INFER.NUM_CLIPS, cfg.INFER.NUM_CROPS, cfg.INFER.RES, cfg.INFER.NUM_FRAMES = 2, 2, 24, 4
+    run = infer_run(cfg, torch.device("cpu"), 1)
+    _, step_ms, _, _ = time_steps(run, 0, 1)
+    w, h = ingest_geometry(cfg, "action")
+    videos = np.random.default_rng(1).integers(0, 256, (4, 4, h, w, 3), dtype=np.uint8)
+    logits = make_eval_step(cfg, build_device_aug(cfg, "action"))(
+        run.model, torch.from_numpy(videos[:, None]), seeded_generator("cpu", cfg.INFER.SEED, 0))
+    assert len(step_ms) == 1
+    assert int(run.call()["pred0"]) == int(torch.argmax(logits.reshape(1, 4, -1).float().mean(dim=1)))
