@@ -1,7 +1,7 @@
 """Model registry and builder (counterpart of ``advise_tpu/models/__init__.py``):
 MODEL_NAME ResNet (the single-pathway 3D ResNets), X3D, ContrastiveModel
-(ARCH slowfast, x3d or a single-pathway ResNet), MViT, MaskMViT (MaskFeat)
-and TemporalModel (AdViSe)."""
+(ARCH slowfast, x3d, swin or a single-pathway ResNet), MViT, MaskMViT
+(MaskFeat), SwinTransformer3D (Video Swin) and TemporalModel (AdViSe)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from advise_tpu_torch.models.layers.norm import get_norm
 from advise_tpu_torch.models.masked import MaskMViT
 from advise_tpu_torch.models.mvit import MViT
 from advise_tpu_torch.models.resnet3d import ResNet3D
+from advise_tpu_torch.models.swin3d import SwinTransformer3D
 from advise_tpu_torch.models.temporal_model import TemporalModel
 from advise_tpu_torch.models.x3d import X3D
 
@@ -25,6 +26,7 @@ MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "ContrastiveModel": ContrastiveModel,
     "MViT": MViT,
     "MaskMViT": MaskMViT,
+    "SwinTransformer3D": SwinTransformer3D,
     "TemporalModel": TemporalModel,
 }
 

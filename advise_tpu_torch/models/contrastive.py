@@ -1,8 +1,9 @@
 """Contrastive model (counterpart of ``advise_tpu/models/contrastive.py``):
-the backbone of MODEL.ARCH (SlowFast, X3D, or a single-pathway ResNet3D
-for 'slow', 'c2d', 'i3d' and 'slow_c2d') with its CONTRASTIVE.DIM head and
-BYOL predictor. The algorithm state (EMA twin, kNN bank) lives in the
-train state (``engine/contrastive.py``), as in the JAX package."""
+the backbone of MODEL.ARCH (SlowFast, X3D, Video Swin for 'swin',
+'video_swin' and 'swin3d', or a single-pathway ResNet3D for 'slow', 'c2d',
+'i3d' and 'slow_c2d') with its CONTRASTIVE.DIM head and BYOL predictor.
+The algorithm state (EMA twin, kNN bank) lives in the train state
+(``engine/contrastive.py``), as in the JAX package."""
 
 from __future__ import annotations
 
@@ -13,12 +14,13 @@ from torch import nn
 
 from advise_tpu_torch.models.resnet3d import ResNet3D
 from advise_tpu_torch.models.slowfast import SlowFast
+from advise_tpu_torch.models.swin3d import SwinTransformer3D
 from advise_tpu_torch.models.x3d import X3D
 
 
 def _backbone_cls(arch: str):
     """The backbone of MODEL.ARCH (``_backbone_cls`` of the JAX package);
-    MViT and Swin backbones are not ported yet."""
+    the MViT backbone is not ported yet."""
     arch = arch.lower()
     if arch == "slowfast":
         return SlowFast
@@ -26,9 +28,10 @@ def _backbone_cls(arch: str):
         return ResNet3D
     if arch == "x3d":
         return X3D
-    if arch in ("mvit", "swin", "video_swin", "swin3d"):
-        raise NotImplementedError(
-            f"ContrastiveModel over MODEL.ARCH={arch} is not ported yet (ROADMAP A 11, A 13)")
+    if arch in ("swin", "video_swin", "swin3d"):
+        return SwinTransformer3D
+    if arch == "mvit":
+        raise NotImplementedError(f"ContrastiveModel over MODEL.ARCH={arch} is not ported yet (ROADMAP A 11)")
     raise KeyError(f"ContrastiveModel: unknown MODEL.ARCH={arch!r}")
 
 
@@ -45,6 +48,6 @@ class ContrastiveModel(nn.Module):
 
     def forward(self, x: torch.Tensor, views: int = 1,
                 generator: Optional[torch.Generator] = None):
-        """``generator`` draws the backbone's dropout (and X3D's drop-connect)
-        masks in training."""
+        """``generator`` draws the backbone's dropout masks in training (and
+        X3D's drop-connect and Swin's drop-path masks)."""
         return self.backbone(x, views, generator)

@@ -1,6 +1,7 @@
 """Heads (counterpart of ``advise_tpu/models/layers/heads.py``): the MLP
 projector (with or without BN), the BYOL predictor stack on the ResNet
-basic head and on the X3D head, and the transformer head."""
+basic head and on the X3D head, and the transformer head (linear, or the
+contrastive MLP projector)."""
 
 from __future__ import annotations
 
@@ -164,25 +165,36 @@ class X3DHead(nn.Module):
 
 
 class TransformerBasicHead(nn.Module):
-    """The ViT head on pooled features: dropout (training only) -> linear
-    projection (normal(0, 0.01), zero bias) -> softmax in evaluation when
-    ``act_func`` says so. The contrastive MLP projector form is not ported
-    yet."""
+    """The transformer head on pooled features: dropout (training only) ->
+    the projection -> softmax in evaluation when ``act_func`` says so. The
+    projection is a Linear (normal(0, 0.01), zero bias) with
+    ``num_mlp_layers`` 1, else the contrastive MLPHead (``mlp_dim`` wide,
+    BN with ``bn_mlp``, per view)."""
 
     def __init__(self, dim_in: int, num_classes: int, dropout_rate: float = 0.0,
-                 act_func: str = "softmax", detach_final_fc: bool = False):
+                 act_func: str = "softmax", detach_final_fc: bool = False,
+                 num_mlp_layers: int = 1, mlp_dim: int = 2048, bn_mlp: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.act_func = act_func
         self.detach_final_fc = detach_final_fc
-        self.projection = dense(dim_in, num_classes, init=fc_init(0.01))
+        if num_mlp_layers == 1:
+            self.projection = dense(dim_in, num_classes, init=fc_init(0.01))
+        else:
+            self.projection = MLPHead(dim_in, num_classes, mlp_dim, num_mlp_layers, bn_on=bn_mlp)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                views: int = 1) -> torch.Tensor:
+        """``generator`` draws the dropout mask in training; ``views`` splits
+        the MLP's BN statistics."""
         if self.training and self.dropout_rate > 0.0:
             x = dropout(x, self.dropout_rate, generator)
         if self.detach_final_fc:
             x = x.detach()
-        x = self.projection(x)
+        if isinstance(self.projection, MLPHead):
+            x = self.projection(x, views)
+        else:
+            x = self.projection(x)
         if not self.training and self.act_func == "softmax":
             x = torch.softmax(x, dim=-1)
         return x

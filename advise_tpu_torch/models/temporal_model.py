@@ -6,8 +6,8 @@ temporal head.
     -> per-frame CLIP tokens [N*T, hw, D] (bf16 with TM.ENABLE_BF16)
     -> TM.CHANNEL_POOL_DIM / TM.SPATIAL_POOL_DIM pools, float32
     -> the temporal encoder of TM.TEMPORAL_ARCH: conv3d, resnet3d (one
-       ResStage) or tfmer_enc (one pre-norm transformer layer); none with
-       TM.SKIP_TM
+       ResStage), tfmer_enc (one pre-norm transformer layer) or video_swin
+       (one Swin BasicLayer); none with TM.SKIP_TM
     -> the head bridge (mean pool, or TM.TEMPORAL_CAT's temporal concat)
     -> head_cls logits; with BYOL in SSL.TASK, head_projector and
        head_predictor.
@@ -21,7 +21,6 @@ their parameters in ``state.ssl`` and runs these modules with them
 
 Grids between modules are channels-last ``[N, T, h, w, C]`` as in Flax;
 the resnet3d arch runs its ResStage on the NCDHW view of that memory.
-``video_swin`` needs the Swin3D BasicLayer (ROADMAP A 13) and raises.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ from advise_tpu_torch.models.clip_vit import CLIPViT, MultiHeadAttention
 from advise_tpu_torch.models.layers.common import dense, lecun_normal_init
 from advise_tpu_torch.models.layers.heads import MLPHead, dropout
 from advise_tpu_torch.models.layers.resnet import ResStage
+from advise_tpu_torch.models.swin3d import BasicLayer
 
 
 class Conv3dTemporal(nn.Module):
@@ -100,6 +100,21 @@ class ResStageTemporal(nn.Module):
         return self.stage([x.permute(0, 4, 1, 2, 3)])[0].permute(0, 2, 3, 4, 1)
 
 
+class SwinTemporal(nn.Module):
+    """video_swin arch: one Swin BasicLayer of TM.NUM_BLOCKS blocks and
+    TM.NUM_HEADS heads at TEMPORAL_EMBEDDING_DIM, window (4, 7, 7), no qkv
+    bias, no drop path, built for the token grid ``input_size`` (T, h, w)."""
+
+    def __init__(self, cfg, input_size, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.layer = BasicLayer(
+            cfg.MODEL.TEMPORAL_EMBEDDING_DIM, cfg.TM.NUM_BLOCKS, cfg.TM.NUM_HEADS, input_size,
+            window_size=(4, 7, 7), qkv_bias=False, dtype=dtype, remat=bool(cfg.TPU.REMAT))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(x)
+
+
 class Head(nn.Module):
     """load_head: a Linear ``fc`` when SSL.NUM_MLP_LAYERS is 1, else dropout
     (training, MODEL.DROPOUT_RATE > 0) then MLPHead ``mlp`` (SSL.MLP_DIM,
@@ -154,8 +169,13 @@ class TemporalModel(nn.Module):
             self.temporal_encoder = TransformerTemporal(chn, cfg.TM.NUM_HEADS, cfg.MODEL.TEMPORAL_HIDDEN_DIM)
             dim = chn
         elif t_arch == "video_swin":
-            raise NotImplementedError(
-                "TM.TEMPORAL_ARCH video_swin needs the Swin3D BasicLayer, not ported yet (ROADMAP A 13)")
+            if chn != emb:
+                raise ValueError(f"TM.TEMPORAL_ARCH video_swin keeps the width: TM.CHANNEL_POOL_DIM (or the "
+                                 f"tower's width) {chn} must equal MODEL.TEMPORAL_EMBEDDING_DIM {emb}")
+            hw = size // self.spatial_encoder.patch_size
+            sp = cfg.TM.SPATIAL_POOL_DIM
+            hw = sp if sp and hw != sp else hw
+            self.temporal_encoder = SwinTemporal(cfg, (cfg.DATA.NUM_FRAMES, hw, hw), dtype)
         else:
             raise NotImplementedError(t_arch)
         self.t_dim = emb // cfg.DATA.NUM_FRAMES

@@ -60,7 +60,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    against float32 on the CPU; then X3D-M (configs/pretrain/X3D_M_K400.yaml,
    4 classes) on 2 clips of 16 frames and the MoCo Slow-R18 of
    configs/chip/moco_knn_minik400.yaml on 2 clips of 8 frames, both at
-   112^2, bf16 on the card against float32 on the CPU;
+   112^2, bf16 on the card against float32 on the CPU; then Swin-B MoCo
+   (configs/pretrain/SwinB_moco_32chips.yaml, built for 112^2: stage 4's
+   grid pads 7 -> 8 and clamps its window to (8, 4, 4)) on 1 clip of 16
+   frames, and AdViSe with the video_swin temporal head (TM.TEMPORAL_ARCH
+   video_swin at TEMPORAL_EMBEDDING_DIM = TM.CHANNEL_POOL_DIM 384, 6 heads)
+   on 2 clips, the same way;
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
    clips through the 'aa' augmentation, 2 warm-up and 5 timed steps; then
@@ -92,7 +97,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    launched (the preset's path has none); then two variants of 1 warm-up
    and 2 timed steps: SSL.TASK speed_byol with TM.FROM_SCRATCH (the
    gradient through the whole tower; the tower and the BYOL twins move),
-   and TPU.PALLAS_AUG, whose K3 launches must equal its steps;
+   and TPU.PALLAS_AUG, whose K3 launches must equal its steps; then AdViSe
+   with the video_swin head (ADVISE_SWIN: its (8, 14, 14) token grid in
+   windows of (4, 7, 7), the odd blocks shifted by (2, 3, 3)), the
+   preset's speed task and speed_byol (the Swin layer's BYOL twin moves),
+   2 warm-up and 5 timed steps each, no kernel launched;
 7c. the X3D path: X3D-M's parameter count at 400 classes against the JAX
    package's, then the speed step of configs/pretrain/X3D_M_K400.yaml at
    full width on one card (16 videos x 4 clips x 16 frames of uint8 at
@@ -110,6 +119,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and 9 more, so that the queue's pointer wraps (checked each step); then
    the kNN probe with CONTRASTIVE.KNN_BATCH_STATS, which must leave the
    model's running statistics bit for bit; no kernel launched;
+7e. the Swin path: Swin-B MoCo's parameter count against the JAX
+   package's (90,002,504, built on the meta device), then the contrastive
+   step of configs/pretrain/SwinB_moco_32chips.yaml at one card (Swin-B
+   128 / 2-2-18-2 / 4-8-16-32, window (8, 7, 7), drop path 0.2; 4 videos x
+   2 clips x 16 frames at 298x224 through rbyol to 224^2, bf16, shuffle-BN,
+   the 65,536-key queue, the 239,975-row kNN bank on the card, LARS-SGD
+   with ZERO_WD_1D_PARAM, momentum annealing), 2 warm-up and 5 timed
+   steps: step time, clip-views/s, peak memory, the pointer advancing by
+   4 a step, finite losses, one profiled step (kernels by summed time, the
+   idle share), the kNN probe (the model bit for bit), and the window
+   attention's float32 chain (scores, bias, mask, softmax, cast) alone at
+   each block shape on CUDA events, as its share of the step; no kernel
+   launched;
 8. the entry point: ``python -m advise_tpu_torch.tools.run`` on the BYOL
    preset at full width with synthetic videos (48 of them: 3 iterations an
    epoch), 2 epochs with a kNN probe and a checkpoint each, then the same
@@ -139,12 +161,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    configs/chip/moco_knn_minik400cc.yaml for 2 epochs of 32 synthetic
    videos with the kNN probe each epoch, and the same command to 3 epochs
    with TRAIN.AUTO_RESUME, whose model and SSL state (momentum encoder,
-   queue, pointer, kNN bank) must start as saved, by their sha256 (no cv2,
-   no dataset, no download). The script's wall time is printed last.
+   queue, pointer, kNN bank) must start as saved, by their sha256; then
+   SwinB_moco_32chips.yaml the same way (one card, 16 synthetic videos: 4
+   iterations an epoch and the kNN probe), 2 epochs then a resume to 3,
+   bit for bit by sha256; then AdViSe with the video_swin head, SSL.TASK
+   speed_byol, one epoch of 2 iterations, the Swin layer's twin in its
+   checkpoint (no cv2, no dataset, no download). The script's wall time is
+   printed last.
 
 Reductions: one card (BN.NUM_SYNC_DEVICES 1, TPU.MESH_SYNC 1; shuffle-BN
-permutes the card's own batch); widths, depth and per-card batches are the
-presets'.
+permutes the card's own batch; Swin-B's preset is 32 chips); widths, depth
+and per-card batches are the presets', but AdViSe's video_swin head at 384
+wide (the preset's 512 does not build in the JAX package).
 
 Each path's kernel launch counts are reset just before its steps and read
 just after. The line before the last is nvidia-smi's name and power limit;
@@ -229,6 +257,27 @@ MOCO_RUN_DIR = "build/chip_smoke_moco"
 MOCO_RUN_VIDEOS = 32
 MOCO_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(MOCO_RUN_VIDEOS),
                       "TRAIN.SAVE_FREQ", "1"]
+# the Swin path (phase 7e): SwinB_moco_32chips.yaml's MoCo step at one card,
+# the preset's per-card batch; phase 4 checks Swin-B on one clip of 16
+# frames at 112^2 (built for it: stage 4's 7 x 7 grid pads to 8 in
+# PatchMerging and its window clamps to (8, 4, 4))
+SWIN_CONFIG = "configs/pretrain/SwinB_moco_32chips.yaml"
+SWIN_B_PARAMS = 90_002_504  # the JAX package's eval_shape of the preset (tests/test_torch_swin3d.py)
+SWIN_EPOCH = 1.0  # inside the preset's 10 warm-up epochs
+SWIN_SMALL_CLIPS, SWIN_SMALL_SIZE = 1, 112
+# AdViSe with the video_swin temporal head (phase 7b), at the width the JAX
+# package builds it: the head keeps TM.CHANNEL_POOL_DIM = TEMPORAL_EMBEDDING_DIM
+ADVISE_SWIN = {"TM.TEMPORAL_ARCH": "video_swin", "MODEL.TEMPORAL_EMBEDDING_DIM": 384,
+               "TM.CHANNEL_POOL_DIM": 384, "TM.NUM_HEADS": 6}
+# phase 8: Swin-B MoCo through the entry point, 2 epochs of 16 videos (4
+# iterations and the kNN probe each), then a resume to 3; and AdViSe with the
+# video_swin head, one epoch of 2 iterations of speed_byol
+SWIN_RUN_DIR = "build/chip_smoke_swin"
+SWIN_RUN_VIDEOS = 16
+SWIN_RUN_OVERRIDES = ONE_CARD + ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(SWIN_RUN_VIDEOS),
+                                 "TRAIN.SAVE_FREQ", "1"]
+ADVISE_SWIN_RUN_DIR = "build/chip_smoke_advise_swin"
+ADVISE_SWIN_RUN_OVERRIDES = ADVISE_RUN_OVERRIDES + [str(v) for kv in ADVISE_SWIN.items() for v in kv]
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
@@ -278,12 +327,17 @@ def card_state() -> str:
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
 
-def one_card_cfg(tconfig, path):
+def one_card_cfg(tconfig, path, overrides=None):
+    """``path`` at one card (NUM_WORLDS, TPU.MESH_SYNC, BN.NUM_SYNC_DEVICES
+    1), with ``overrides`` {KEY: value}."""
     cfg = tconfig.get_cfg()
     cfg.merge_from_file(path)
     cfg.NUM_WORLDS = 1
     cfg.TPU.MESH_SYNC = 1
     cfg.BN.NUM_SYNC_DEVICES = 1
+    for key, value in (overrides or {}).items():
+        sec, leaf = key.split(".")
+        cfg[sec][leaf] = value
     return tconfig.assert_and_infer_cfg(cfg)
 
 
@@ -658,16 +712,17 @@ def eval_forward(tconfig, dev) -> None:
     check(math.isfinite(rel) and rel <= 5e-2, "the card's eval step disagrees with the CPU")
 
 
-def advise_forward(tconfig, dev) -> None:
-    """Phase 4's AdViSe check: the full-width model (ViT-B/16 tower, R3D
-    head) on the card in bf16 against the same weights' float32 forward on
-    the CPU, eval mode, ADVISE_SMALL_CLIPS clips of 8 frames."""
+def advise_forward(tconfig, dev, label="ViT-B/16 + R3D", overrides=None) -> None:
+    """Phase 4's AdViSe check: the full-width model (ViT-B/16 tower, the R3D
+    head or the head ``overrides`` set) on the card in bf16 against the same
+    weights' float32 forward on the CPU, eval mode, ADVISE_SMALL_CLIPS clips
+    of 8 frames."""
     import numpy as np
     import torch
 
     from advise_tpu_torch.models import build_model
 
-    acfg = one_card_cfg(tconfig, ADVISE_CONFIG)
+    acfg = one_card_cfg(tconfig, ADVISE_CONFIG, overrides)
     ref_cfg = acfg.clone()
     ref_cfg.TPU.COMPUTE_DTYPE = "float32"
     ref_cfg.TM.ENABLE_BF16 = False
@@ -685,10 +740,40 @@ def advise_forward(tconfig, dev) -> None:
         check(tuple(a.shape) == tuple(r.shape), f"AdViSe {out_name} has shape {tuple(a.shape)}")
         rel = float((a.float().cpu() - r).abs().max() / r.abs().max())
         # bf16 through the 12-layer tower and the 4-block head: ~1e-2
-        print(f"[small] AdViSe ViT-B/16 + R3D {out_name} {tuple(a.shape)}: max rel err vs CPU float32 "
+        print(f"[small] AdViSe {label} {out_name} {tuple(a.shape)}: max rel err vs CPU float32 "
               f"{rel} (bound 5e-2)")
-        check(math.isfinite(rel) and rel <= 5e-2, f"the card's AdViSe {out_name} disagrees with the CPU")
+        check(math.isfinite(rel) and rel <= 5e-2, f"the card's AdViSe {label} {out_name} disagrees with the CPU")
     del ref, card
+    torch.cuda.empty_cache()
+
+
+def swin_forward(tconfig, dev) -> None:
+    """Phase 4's Swin check: Swin-B MoCo (ContrastiveModel, the 128-d MLP
+    projection) built for SWIN_SMALL_SIZE^2, on SWIN_SMALL_CLIPS clip of 16
+    frames: bf16 on the card against the same weights' float32 forward on
+    the CPU, eval mode."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.models import build_model
+
+    cfg = one_card_cfg(tconfig, SWIN_CONFIG, {"AUG.TARGET_SIZE": SWIN_SMALL_SIZE})
+    ref_cfg = cfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (SWIN_SMALL_CLIPS, cfg.DATA.NUM_FRAMES, SWIN_SMALL_SIZE, SWIN_SMALL_SIZE, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = build_model(ref_cfg, "cpu", seed=0).eval()(x)
+        card = build_model(cfg, dev, seed=0).eval()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = card(x.to(dev).bfloat16())
+    check(tuple(got.shape) == (SWIN_SMALL_CLIPS, cfg.CONTRASTIVE.DIM), f"Swin-B output {tuple(got.shape)}")
+    rel = float((got.float().cpu() - want).abs().max() / want.abs().max())
+    # bf16 activations through 24 blocks, as the other phase-4 forwards
+    print(f"[small] Swin-B MoCo {tuple(x.shape)} -> {tuple(got.shape)} (bf16 on the card; stage 4 pads 7 -> 8 "
+          f"and clamps its window to (8, 4, 4)): max rel err vs CPU float32 {rel} (bound 5e-2)")
+    check(math.isfinite(rel) and rel <= 5e-2, "the card's Swin-B forward disagrees with the CPU")
+    del card
     torch.cuda.empty_cache()
 
 
@@ -902,35 +987,41 @@ def x3d_steps(xcfg, label, warmup, timed, dev, profiled=False):
     return median_ms, peak, launches
 
 
-def moco_steps(mcfg, warmup, timed, extra, dev):
+def moco_steps(mcfg, epoch, warmup, timed, extra, dev, tag="moco", profiled=False):
     """The MoCo contrastive step of ``mcfg`` (``step_run``: rbyol aug,
     shuffle-BN, the queue) on one card, warmup + timed steps and ``extra``
-    more that run the queue's pointer round (``time_steps``); then the kNN
-    probe with CONTRASTIVE.KNN_BATCH_STATS on one batch, which must leave
-    every running statistic bit for bit as it was. Returns (median ms, peak
-    bytes, launches by kernel)."""
+    more that run the queue's pointer round (``time_steps``); with
+    ``profiled`` one more step under torch.profiler; then the kNN probe on
+    one batch (with CONTRASTIVE.KNN_BATCH_STATS on batch statistics), which
+    must leave every running statistic bit for bit as it was. Returns
+    (median ms, peak bytes, launches by kernel, the profile or None)."""
     import torch
 
     from advise_tpu_torch.engine.checkpoint import tensors_digest
+    from advise_tpu_torch.engine.contrastive import momentum_at
     from advise_tpu_torch.engine.steps import make_knn_probe_step
     from advise_tpu_torch.tools.compare_steps import step_run, time_steps
 
-    run = step_run(mcfg, dev, 6, MOCO_EPOCH)
+    run = step_run(mcfg, dev, 6, epoch)
     state, model = run.state, run.state.model
     b, k, t = mcfg.DATA.BATCHSIZE_PER_GPU, mcfg.DATA.NUM_CLIP, mcfg.DATA.NUM_FRAMES
     queue_len = mcfg.CONTRASTIVE.QUEUE_LEN
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[moco] {n_params} params, clips {tuple(run.clips.shape)} uint8 -> rbyol crop {mcfg.AUG.TARGET_SIZE}, "
-          f"{mcfg.TPU.COMPUTE_DTYPE}, {mcfg.SOLVER.OPTIMIZING_METHOD}, queue {queue_len} x "
-          f"{mcfg.CONTRASTIVE.DIM}, lr {run.lr} at epoch {MOCO_EPOCH}")
+    bank = state.ssl["knn_mem"]
+    print(f"[{tag}] {n_params} params, clips {tuple(run.clips.shape)} uint8 -> rbyol crop {mcfg.AUG.TARGET_SIZE}, "
+          f"{mcfg.TPU.COMPUTE_DTYPE}, REMAT {mcfg.TPU.REMAT}, {mcfg.SOLVER.OPTIMIZING_METHOD} (LARS "
+          f"{mcfg.SOLVER.LARS_ON}), queue {queue_len} x {mcfg.CONTRASTIVE.DIM}, kNN bank {tuple(bank.shape)} "
+          f"{bank.dtype} on {bank.device} ({bank.numel() * bank.element_size()} bytes), lr {run.lr} and momentum "
+          f"{momentum_at(mcfg, epoch)} (annealing {mcfg.CONTRASTIVE.MOMENTUM_ANNEALING}) at epoch {epoch}")
+    check(bank.is_cuda and bank.shape[0] == mcfg.CONTRASTIVE.LENGTH, f"{tag}: the kNN bank is not on the card")
     ptrs, accs = [], []
 
     def after_step(i, vals, ms):
         ptrs.append(int(state.ssl["ptr"]))
         accs.append(vals["acc_ins"])
         if i < warmup + timed:
-            print(f"[moco] step {i}: {vals} ptr {ptrs[-1]} ({ms} ms)")
-        check(all(math.isfinite(v) for v in vals.values()), f"MoCo step {i} is not finite")
+            print(f"[{tag}] step {i}: {vals} ptr {ptrs[-1]} ({ms} ms)")
+        check(all(math.isfinite(v) for v in vals.values()), f"{tag} step {i} is not finite")
 
     _, step_ms, peak, launches = time_steps(
         run, warmup, timed + extra, counted_kernels(),
@@ -938,11 +1029,13 @@ def moco_steps(mcfg, warmup, timed, extra, dev):
         after_step=after_step)
     median_ms = statistics.median(step_ms[warmup:warmup + timed])
     want_ptrs = [(b * (i + 1)) % queue_len for i in range(len(ptrs))]
-    print(f"[moco] median step {median_ms} ms over {timed} steps (all: {step_ms[:warmup + timed]}), "
+    print(f"[{tag}] median step {median_ms} ms over {timed} steps (all: {step_ms[:warmup + timed]}), "
           f"{b * k * 1e3 / median_ms} clip-views/s ({b} videos x {k} clips x {t} frames), peak allocated "
           f"{peak} bytes, acc_ins {accs}, pointer {ptrs} (expected {want_ptrs}), launches {launches}")
-    check(ptrs == want_ptrs and 0 in ptrs, "the MoCo queue's pointer did not advance and wrap as expected")
-    # the kNN probe on batch statistics: the running statistics stay as they were
+    check(ptrs == want_ptrs and (extra == 0 or 0 in ptrs),
+          f"the {tag} queue's pointer did not advance (and wrap) as expected")
+    prof = profile_step(f"{tag} step", run.call, tag) if profiled else None
+    # the kNN probe: the running statistics stay as they were
     state.ssl["knn_labels"] = torch.arange(mcfg.CONTRASTIVE.LENGTH, device=dev) % mcfg.MODEL.NUM_CLASSES
     probe = make_knn_probe_step(mcfg, run.aug, num_classes=mcfg.MODEL.NUM_CLASSES)
     before = tensors_digest(model.state_dict())
@@ -950,14 +1043,101 @@ def moco_steps(mcfg, warmup, timed, extra, dev):
                       run.gen))
     unchanged = tensors_digest(model.state_dict()) == before
     pending = sum(len(getattr(m, "pending", [])) for m in model.modules())
-    print(f"[moco] kNN probe with KNN_BATCH_STATS {mcfg.CONTRASTIVE.KNN_BATCH_STATS}: acc {acc}, model "
+    print(f"[{tag}] kNN probe with KNN_BATCH_STATS {mcfg.CONTRASTIVE.KNN_BATCH_STATS}: acc {acc}, model "
           f"unchanged {unchanged}, BN records left {pending}")
-    check(mcfg.CONTRASTIVE.KNN_BATCH_STATS and unchanged and pending == 0 and math.isfinite(acc),
-          "the kNN probe on batch statistics moved the model or left BN records")
+    check(unchanged and pending == 0 and math.isfinite(acc), f"the {tag} kNN probe moved the model or left BN records")
     del run, state, model
     gc.collect()
     torch.cuda.empty_cache()
-    return median_ms, peak, launches
+    return median_ms, peak, launches, prof
+
+
+def swin_attention_alone(scfg, dev, reps=5):
+    """The window attention's float32 chain alone (the scores of q * scale and
+    k in float32, the bias, the shift mask, the softmax, the cast to bf16) at
+    every block shape of ``scfg``'s Swin, on CUDA events: per block a
+    forward for the key clips and a forward and backward for the query
+    clips, as the MoCo step runs them. Returns (ms a step, unique shapes)."""
+    import torch
+
+    from advise_tpu_torch.models.swin3d import device_mask, get_window_size, merged_size
+
+    sw = scfg.SWIN
+    b, t, size = scfg.DATA.BATCHSIZE_PER_GPU, scfg.DATA.NUM_FRAMES, scfg.AUG.TARGET_SIZE
+    grid = (t // sw.PATCH_SIZE[0], size // sw.PATCH_SIZE[1], size // sw.PATCH_SIZE[2])
+    dim = sw.EMBED_DIM
+    counts = {}
+    for depth, heads in zip(sw.DEPTHS, sw.NUM_HEADS):
+        for i in range(depth):
+            shift_cfg = (0, 0, 0) if i % 2 == 0 else tuple(w // 2 for w in sw.WINDOW_SIZE)
+            window, shift = get_window_size(grid, tuple(sw.WINDOW_SIZE), shift_cfg)
+            padded = tuple(-(-g // w) * w for g, w in zip(grid, window))
+            key = (padded, window, shift if any(shift) else None, heads, dim // heads)
+            counts[key] = counts.get(key, 0) + 1
+        grid, dim = merged_size(grid), dim * 2
+
+    def timed(fn):
+        fn()
+        ms = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        return statistics.median(ms)
+
+    total = 0.0
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for (padded, window, shift, heads, hd), count in counts.items():
+        n = math.prod(window)
+        nw = math.prod(p // w for p, w in zip(padded, window))
+        q = torch.randn((b * nw, heads, n, hd), generator=gen, device=dev).bfloat16().requires_grad_()
+        k = torch.randn((b * nw, heads, n, hd), generator=gen, device=dev).bfloat16().requires_grad_()
+        bias = (torch.randn((heads, n, n), generator=gen, device=dev) * 0.02).requires_grad_()
+        mask = device_mask(*padded, window, shift, torch.device(dev)) if shift else None
+
+        def chain():
+            a = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2)) + bias[None]
+            if mask is not None:
+                a = (a.reshape(b, nw, heads, n, n) + mask[None, :, None]).reshape(b * nw, heads, n, n)
+            return torch.softmax(a, dim=-1).to(torch.bfloat16)
+
+        with torch.no_grad():
+            fwd = timed(chain)
+        gout = torch.ones((b * nw, heads, n, n), device=dev, dtype=torch.bfloat16)
+        both = timed(lambda: torch.autograd.grad(chain(), (q, k, bias), gout))
+        total += count * (fwd + both)
+        print(f"[swin] attention chain alone, {count} blocks at [{b * nw}, {heads}, {n}, {n}] (head dim {hd}, "
+              f"shift mask {shift is not None}): forward {fwd} ms, forward + backward {both} ms")
+        del q, k, bias, gout
+    torch.cuda.empty_cache()
+    return total, len(counts)
+
+
+def swin_path(tconfig, dev) -> None:
+    """Phase 7e: Swin-B's parameter count against the JAX package's, the
+    SwinB_moco_32chips.yaml MoCo step at one card (moco_steps, profiled),
+    and the share of the step its window attention's float32 chain takes
+    alone."""
+    import torch
+
+    from advise_tpu_torch.models.contrastive import ContrastiveModel
+    from advise_tpu_torch.models.layers.norm import get_norm
+
+    scfg = one_card_cfg(tconfig, SWIN_CONFIG)
+    with torch.device("meta"):
+        n_swin = sum(p.numel() for p in ContrastiveModel(scfg, get_norm(scfg)).parameters())
+    print(f"[swin] Swin-B MoCo: {n_swin} params (the JAX package's count {SWIN_B_PARAMS})")
+    check(n_swin == SWIN_B_PARAMS, "Swin-B's parameter count differs from the JAX package's")
+    median_ms, _, launches, prof = moco_steps(scfg, SWIN_EPOCH, WARMUP_STEPS, TIMED_STEPS, 0, dev, tag="swin",
+                                             profiled=True)
+    check(not any(launches.values()), "the Swin step launched a kernel: its path has none")
+    chain_ms, shapes = swin_attention_alone(scfg, dev)
+    print(f"[swin] the window attention's float32 chain alone: {chain_ms} ms a step over {shapes} shapes, "
+          f"{chain_ms / median_ms} of the {median_ms} ms step ({chain_ms / prof['busy_ms']} of the profiled "
+          f"step's device busy time)")
 
 
 def x3d_path(tconfig, dev) -> None:
@@ -993,7 +1173,8 @@ def moco_path(tconfig, dev) -> None:
     mcfg = one_card_cfg(tconfig, MOCO_CONFIG)
     per_step = mcfg.DATA.BATCHSIZE_PER_GPU
     extra = mcfg.CONTRASTIVE.QUEUE_LEN // per_step - WARMUP_STEPS - TIMED_STEPS  # to the wrap
-    _, _, moco_launches = moco_steps(mcfg, WARMUP_STEPS, TIMED_STEPS, max(extra, 0), dev)
+    check(mcfg.CONTRASTIVE.KNN_BATCH_STATS, "the MoCo preset no longer probes on batch statistics")
+    _, _, moco_launches, _ = moco_steps(mcfg, MOCO_EPOCH, WARMUP_STEPS, TIMED_STEPS, max(extra, 0), dev)
     check(not any(moco_launches.values()), "the MoCo step launched a kernel: its path has none")
 
 
@@ -1025,10 +1206,11 @@ def x3d_entry(tconfig) -> None:
           f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
 
 
-def moco_entry(tconfig) -> None:
-    """Phase 8's MoCo runs: moco_knn_minik400cc.yaml through the entry
-    point, 2 epochs with the kNN probe on batch statistics, then a resume
-    to 3 that starts from the saved model, momentum encoder, queue and
+def moco_entry(tconfig, label="MoCo cc", config=MOCO_CC_CONFIG, run_dir=MOCO_RUN_DIR,
+               overrides=MOCO_RUN_OVERRIDES, videos=MOCO_RUN_VIDEOS) -> None:
+    """Phase 8's MoCo runs (moco_knn_minik400cc.yaml, or the preset
+    ``config``): through the entry point, 2 epochs with the kNN probe, then a
+    resume to 3 that starts from the saved model, momentum encoder, queue and
     pointer bit for bit."""
     import shutil
     from pathlib import Path
@@ -1038,34 +1220,66 @@ def moco_entry(tconfig) -> None:
     from advise_tpu_torch.engine.checkpoint import STATE_FILE
     from advise_tpu_torch.engine.train import ssl_digest
 
-    shutil.rmtree(MOCO_RUN_DIR, ignore_errors=True)
-    ccfg = one_card_cfg(tconfig, MOCO_CC_CONFIG)
-    m1 = run_entry_point(["SOLVER.MAX_EPOCH", "2"], "MoCo cc preset, 2 epochs", MOCO_CC_CONFIG, MOCO_RUN_DIR,
-                         MOCO_RUN_OVERRIDES)
-    saved = torch.load(Path(MOCO_RUN_DIR) / "checkpoints" / "Model_Epoch_0001" / STATE_FILE, map_location="cpu",
+    shutil.rmtree(run_dir, ignore_errors=True)
+    ccfg = one_card_cfg(tconfig, config)
+    m1 = run_entry_point(["SOLVER.MAX_EPOCH", "2"], f"{label} preset, 2 epochs", config, run_dir, overrides)
+    saved = torch.load(Path(run_dir) / "checkpoints" / "Model_Epoch_0001" / STATE_FILE, map_location="cpu",
                        weights_only=False)
     saved_ssl = ssl_digest(saved["ssl"])
-    m2 = run_entry_point(["SOLVER.MAX_EPOCH", "3", "TRAIN.AUTO_RESUME", "True"], "MoCo cc preset, resume to 3",
-                         MOCO_CC_CONFIG, MOCO_RUN_DIR, MOCO_RUN_OVERRIDES)
-    iters = MOCO_RUN_VIDEOS // ccfg.DATA.BATCHSIZE_PER_GPU
-    for rec, label, epochs in ((m1, "first run", 2), (m2, "resumed run", 1)):
-        print(f"[run] MoCo {label}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats "
+    m2 = run_entry_point(["SOLVER.MAX_EPOCH", "3", "TRAIN.AUTO_RESUME", "True"], f"{label} preset, resume to 3",
+                         config, run_dir, overrides)
+    iters = videos // ccfg.DATA.BATCHSIZE_PER_GPU
+    for rec, run, epochs in ((m1, "first run", 2), (m2, "resumed run", 1)):
+        print(f"[run] {label} {run}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats "
               f"{rec['stats']}, iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait "
               f"{[t * 1e3 for t in rec['wait_s']]} ms, peak allocated {rec['peak_allocated_bytes']} bytes, "
               f"launches {rec['launches']}, {rec['seconds']} s with start-up")
-        check(len(rec["iter_s"]) == epochs * iters, f"MoCo {label}: wrong schedule")
-        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"MoCo {label}: not finite")
-        check(not any(rec["launches"].values()), f"the MoCo {label} launched a kernel")
-    print(f"[run] MoCo ptr in Model_Epoch_0001 {int(saved['ssl']['ptr'])}; model sha256: end of the first run "
+        split = {stage: f"{s * 1e3 / n} ms x {n} ({s * 1e3} ms in all)" for stage, (s, n) in rec["host_s"].items()}
+        print(f"[run] {label} {run}: host stages {split}")
+        check(len(rec["iter_s"]) == epochs * iters, f"{label} {run}: wrong schedule")
+        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label} {run}: not finite")
+        check(not any(rec["launches"].values()), f"the {label} {run} launched a kernel")
+    print(f"[run] {label} ptr in Model_Epoch_0001 {int(saved['ssl']['ptr'])}; model sha256: end of the first run "
           f"{m1['model_sha256_end']}, start of the resumed run {m2['model_sha256']}; SSL state (momentum "
           f"encoder, queue, pointer, kNN bank) sha256: end {m1['ssl_sha256_end']}, saved {saved_ssl}, "
           f"resumed {m2['ssl_sha256']}")
-    check(m2["start_epoch"] == 2 and m2["start_step"] == 2 * iters, "the MoCo run did not resume at epoch 2")
+    check(m2["start_epoch"] == 2 and m2["start_step"] == 2 * iters, f"the {label} run did not resume at epoch 2")
     check(int(saved["ssl"]["ptr"]) == 2 * iters * ccfg.DATA.BATCHSIZE_PER_GPU % ccfg.CONTRASTIVE.QUEUE_LEN,
-          "the MoCo checkpoint's pointer is not where 4 steps leave it")
-    check(m1["model_sha256_end"] == m2["model_sha256"], "the resumed MoCo model differs from the saved one")
+          f"the {label} checkpoint's pointer is not where {2 * iters} steps leave it")
+    check(m1["model_sha256_end"] == m2["model_sha256"], f"the resumed {label} model differs from the saved one")
     check(m1["ssl_sha256_end"] == saved_ssl == m2["ssl_sha256"],
-          "the resumed MoCo momentum encoder, queue or pointer differs from the saved one")
+          f"the resumed {label} momentum encoder, queue or pointer differs from the saved one")
+
+
+def advise_swin_entry(tconfig) -> None:
+    """Phase 8's AdViSe run with the video_swin head: AdViSe.yaml at
+    ADVISE_SWIN, SSL.TASK speed_byol, one epoch of 2 iterations; the twins
+    (the Swin layer's among them) in its checkpoint; no kernel launched."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from advise_tpu_torch.engine.checkpoint import STATE_FILE
+
+    acfg = one_card_cfg(tconfig, ADVISE_CONFIG, ADVISE_SWIN)
+    shutil.rmtree(ADVISE_SWIN_RUN_DIR, ignore_errors=True)
+    adv = run_entry_point([], "AdViSe video_swin (SSL.TASK speed_byol), 1 epoch", ADVISE_CONFIG,
+                          ADVISE_SWIN_RUN_DIR, ADVISE_SWIN_RUN_OVERRIDES)
+    n_iter = len(adv["iter_s"])
+    print(f"[run] AdViSe video_swin: {n_iter} iterations, stats {adv['stats']}, iterations "
+          f"{[t * 1e3 for t in adv['iter_s']]} ms, loader wait {[t * 1e3 for t in adv['wait_s']]} ms, peak "
+          f"allocated {adv['peak_allocated_bytes']} bytes, launches {adv['launches']}, {adv['seconds']} s "
+          f"with start-up")
+    check(n_iter == ADVISE_RUN_VIDEOS // acfg.DATA.BATCHSIZE_PER_GPU and adv["start_step"] == 0,
+          "AdViSe video_swin: wrong schedule")
+    check(all(math.isfinite(v) for st in adv["stats"] for v in st.values()), "AdViSe video_swin: not finite")
+    check(not any(adv["launches"].values()), "the AdViSe video_swin run launched a kernel")
+    saved = torch.load(Path(ADVISE_SWIN_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE,
+                       map_location="cpu", weights_only=False)
+    twin = saved["ssl"].get("ema_temporal", {})
+    check(any(k.startswith("layer.blocks_") for k in twin) and saved["step"] == n_iter,
+          "AdViSe video_swin: the checkpoint lacks the Swin layer's twin")
 
 
 def advise_steps(acfg, label, warmup, timed, dev, profiled=False):
@@ -1567,7 +1781,9 @@ def main() -> None:
     del ref_model, f32_model, got, want, out
     torch.cuda.empty_cache()
     advise_forward(tconfig, dev)
+    advise_forward(tconfig, dev, "ViT-B/16 + video_swin", ADVISE_SWIN)
     small_forwards(tconfig, dev)
+    swin_forward(tconfig, dev)
 
     # -- 5. the BYOL path ---------------------------------------------------------
     model = build_model(cfg, dev, seed=0)
@@ -1856,9 +2072,20 @@ def main() -> None:
             check(advise_k3 == VARIANT_WARMUP + VARIANT_TIMED,
                   f"AdViSe {label}: fused_simple_aug was not launched once a step")
 
-    # -- 7c. the X3D path, 7d. the MoCo path: no kernel on the presets' paths -------
+    # AdViSe with the video_swin temporal head, the preset's speed task and
+    # speed_byol (the Swin layer's BYOL twin): no kernel on either
+    for task in ("speed", "speed_byol"):
+        vcfg = one_card_cfg(tconfig, ADVISE_CONFIG, {**ADVISE_SWIN, "SSL.TASK": task})
+        _, _, v_launches, tower_same, twins_moved = advise_steps(vcfg, f"video_swin {task}", WARMUP_STEPS,
+                                                                 TIMED_STEPS, dev)
+        check(tower_same, f"AdViSe video_swin {task}: the frozen CLIP tower changed")
+        check(task == "speed" or twins_moved, "AdViSe video_swin speed_byol: the twins did not move")
+        check(not any(v_launches.values()), f"the AdViSe video_swin {task} step launched a kernel")
+
+    # -- 7c. the X3D path, 7d. the MoCo path, 7e. the Swin path: no kernel --------
     x3d_path(tconfig, dev)
     moco_path(tconfig, dev)
+    swin_path(tconfig, dev)
 
     # -- 8. the entry point ---------------------------------------------------------
     import shutil
@@ -2006,6 +2233,8 @@ def main() -> None:
           f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}")
     x3d_entry(tconfig)
     moco_entry(tconfig)
+    moco_entry(tconfig, "Swin-B MoCo", SWIN_CONFIG, SWIN_RUN_DIR, SWIN_RUN_OVERRIDES, SWIN_RUN_VIDEOS)
+    advise_swin_entry(tconfig)
     print(f"[total] chip_smoke.py wall time {time.perf_counter() - t_start} s")
 
     launches.update(probe_launches)

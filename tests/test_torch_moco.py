@@ -78,9 +78,17 @@ def _clips(seed):
     return np.random.default_rng(seed).standard_normal((B, K, T, S, S, 3)).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg, tcfg = moco_cfg(jconfig), moco_cfg(tconfig)
+# ContrastiveModel over a small Swin (embed 16, depths (2, 2), window (2, 4,
+# 4)): the (2, 8, 8) patch grid shifts its first stage by (0, 2, 2) under
+# the mask and clamps the second stage's window to its (2, 4, 4) grid;
+# LARS-SGD with ZERO_WD_1D_PARAM, as SwinB_moco_32chips.yaml
+SWIN = {"MODEL.ARCH": "swin", "SWIN.EMBED_DIM": 16, "SWIN.DEPTHS": [2, 2], "SWIN.NUM_HEADS": [2, 4],
+        "SWIN.WINDOW_SIZE": [2, 4, 4], "SWIN.DROP_PATH_RATE": 0.0, "SOLVER.LARS_ON": True,
+        "SOLVER.ZERO_WD_1D_PARAM": True}
+
+
+def _setup(**overrides):
+    jcfg, tcfg = moco_cfg(jconfig, **overrides), moco_cfg(tconfig, **overrides)
     jinit = jbuild_model(jcfg, sync_axes=())
     v = jax.jit(lambda: jinit.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
                                    jnp.zeros((1, T, S, S, 3), jnp.float32), train=False))()
@@ -90,6 +98,16 @@ def setup():
                                      jnp.zeros((1, T, S, S, 3), jnp.float32), train=False))()
     ssl["ema_params"] = jax.device_get(ema["params"])  # a momentum encoder apart from the online one
     return jcfg, tcfg, params, batch_stats, ssl
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup()
+
+
+@pytest.fixture(scope="module")
+def swin_setup():
+    return _setup(**SWIN)
 
 
 def _port(tcfg, params, batch_stats, ssl):
@@ -241,6 +259,22 @@ def test_three_step_trajectory_matches_jax(setup):
     queue, kNN scatter, SGD) 3 times from the same state, the
     augmentation held apart; with QUEUE_LEN 16 and 4 keys a step the
     pointer runs 4, 8, 12."""
+    _trajectory(setup)
+
+
+def test_swin_three_step_trajectory_matches_jax(swin_setup):
+    """The same 3 steps over the small Swin (SWIN): the loss, acc_ins, the
+    grad norm, what each parameter, BN statistic and momentum-encoder
+    tensor moved, the queue and its pointer, with the tolerances above;
+    the MLP projector's BN (bn0) under shuffle-BN in the keys."""
+    tcfg, batch_stats = swin_setup[1], swin_setup[3]
+    assert type(build_model(tcfg, "cpu").backbone).__name__ == "SwinTransformer3D"
+    assert set(batch_stats_to_torch(batch_stats)) == {"backbone.head.projection.bn0.running_mean",
+                                                      "backbone.head.projection.bn0.running_var"}
+    _trajectory(swin_setup)
+
+
+def _trajectory(setup):
     jcfg, tcfg, params, batch_stats, ssl = setup
     mesh = build_mesh(jcfg, jax.devices()[:1])
     bundle = jbuild_tx(jcfg, params)

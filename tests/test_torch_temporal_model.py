@@ -5,7 +5,12 @@ with the JAX initial variables passed through the param bridge
 (tests/torch_port_common.py ``tm_cfg``), float32.
 
 Tolerances: outputs agree to 1e-5 of their largest magnitude (float32
-matmul and reduction orders differ; measured <= 2.1e-6). The bf16 tower
+matmul and reduction orders differ; measured <= 2.1e-6). One exception:
+the video_swin case's train-mode head outputs, held to 1e-4 (measured
+1.9e-5) while its features hold 1e-5 (measured 4.2e-7): the 4 clips'
+pooled Swin features differ by a std of 0.04 on values up to 1.1, and the
+heads' train-mode BN over those 4 clips scales float32 noise up by that
+ratio; the port's heads fed JAX's own features differ by 2.7e-5 there. The bf16 tower
 (Flax ``dtype=bf16``) agrees with JAX's bf16 tower to 2e-2 of the largest
 token (bf16 keeps 8 bits; the two sides round their matmuls' sums
 differently; measured 9.2e-3). ``load_openclip_weights`` is held EQUAL to
@@ -28,7 +33,7 @@ from advise_tpu_torch.models.clip_vit import CLIPViT, load_openclip_weights
 from advise_tpu_torch.models.temporal_model import TemporalModel
 from advise_tpu_torch.utils.convert import flax_to_state_dict, params_to_torch
 
-from torch_port_common import TM_S, TM_T, rel_err, tm_cfg, tm_variables
+from torch_port_common import TM_S, TM_SWIN, TM_T, rel_err, tm_cfg, tm_variables
 
 torch.set_num_threads(1)
 
@@ -41,8 +46,8 @@ def _port_model(tcfg, params, batch_stats):
     return model
 
 
-def _clips(n, seed=0):
-    return np.random.default_rng(seed).standard_normal((n, TM_T, TM_S, TM_S, 3)).astype(np.float32)
+def _clips(n, seed=0, t=TM_T, s=TM_S):
+    return np.random.default_rng(seed).standard_normal((n, t, s, s, 3)).astype(np.float32)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -69,14 +74,15 @@ def _both(t_arch, **overrides):
     jcfg = tm_cfg(jconfig, **{"TM.TEMPORAL_ARCH": t_arch, **overrides})
     tcfg = tm_cfg(tconfig, **{"TM.TEMPORAL_ARCH": t_arch, **overrides})
     jm = jbuild_model(jcfg, sync_axes=())
-    params, batch_stats = tm_variables(jm)
+    params, batch_stats = tm_variables(jm, t=tcfg.DATA.NUM_FRAMES, s=tcfg.AUG.TARGET_SIZE)
     return jcfg, tcfg, jm, params, batch_stats
 
 
-def _check_forward(jm, params, batch_stats, model, byol):
+def _check_forward(jm, params, batch_stats, model, byol, head_tol=TOL):
     """Features, logits and (BYOL) projection and prediction, in eval mode
-    and in train mode (batch statistics in the BN layers)."""
-    x = _clips(4)
+    and in train mode (batch statistics in the BN layers; the heads' outputs
+    there to ``head_tol``)."""
+    x = _clips(4, t=model.cfg.DATA.NUM_FRAMES, s=model.cfg.AUG.TARGET_SIZE)
     variables = {"params": params, "batch_stats": batch_stats}
     for train in (False, True):
         model.train(train)
@@ -102,21 +108,26 @@ def _check_forward(jm, params, batch_stats, model, byol):
             if byol:
                 proj = model.project(feat)
                 got += [proj, model.predict(proj)]
-        for g, w in zip(got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
             assert tuple(g.shape) == tuple(w.shape)
-            assert rel_err(g.numpy(), w) <= TOL, (train, rel_err(g.numpy(), w))
+            tol = head_tol if train and i > 0 else TOL
+            assert rel_err(g.numpy(), w) <= tol, (train, i, rel_err(g.numpy(), w))
 
 
-@pytest.mark.parametrize("t_arch", ["conv3d", "tfmer_enc", "resnet3d"])
+ARCH_OVERRIDES = {"video_swin": TM_SWIN}
+
+
+@pytest.mark.parametrize("t_arch", ["conv3d", "tfmer_enc", "resnet3d", "video_swin"])
 def test_temporal_model_matches_jax(t_arch):
     """Each ported temporal arch under SSL.TASK speed_byol (head BN on,
-    the AdViSe default)."""
-    _, tcfg, jm, params, batch_stats = _both(t_arch, **{"SSL.TASK": "speed_byol"})
+    the AdViSe default); video_swin at TM_SWIN's geometry, where its
+    windows pad and shift."""
+    _, tcfg, jm, params, batch_stats = _both(t_arch, **{"SSL.TASK": "speed_byol", **ARCH_OVERRIDES.get(t_arch, {})})
     model = _port_model(tcfg, params, batch_stats)
     assert isinstance(model, TemporalModel)
-    _check_forward(jm, params, batch_stats, model, byol=True)
+    _check_forward(jm, params, batch_stats, model, byol=True, head_tol=1e-4 if t_arch == "video_swin" else TOL)
     with torch.no_grad():
-        logits = model.eval()(torch.from_numpy(_clips(2)))
+        logits = model.eval()(torch.from_numpy(_clips(2, t=tcfg.DATA.NUM_FRAMES, s=tcfg.AUG.TARGET_SIZE)))
     assert tuple(logits.shape) == (2, tcfg.MODEL.NUM_CLASSES)
 
 
@@ -143,8 +154,14 @@ def test_bridges_match_jax(bridge):
 
 
 def test_video_swin_raises():
-    with pytest.raises(NotImplementedError, match="A 13"):
-        build_model(tm_cfg(tconfig, **{"TM.TEMPORAL_ARCH": "video_swin", "TM.CHANNEL_POOL_DIM": 16}), "cpu")
+    """video_swin keeps the width: a channel pool that differs from
+    TEMPORAL_EMBEDDING_DIM raises, where JAX's setup asserts."""
+    over = {**TM_SWIN, "TM.CHANNEL_POOL_DIM": 32}
+    with pytest.raises(ValueError, match="TEMPORAL_EMBEDDING_DIM"):
+        build_model(tm_cfg(tconfig, **over), "cpu")
+    with pytest.raises(AssertionError):
+        jbuild_model(tm_cfg(jconfig, **over), sync_axes=()).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 6, 128, 128, 3)), train=False)
 
 
 def _openclip_state_dict(rng, width, layers, grid, out):

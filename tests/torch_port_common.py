@@ -243,11 +243,21 @@ def tm_cfg(mod=jconfig, **overrides):
     return mod.assert_and_infer_cfg(cfg)
 
 
-def tm_variables(model, seed=0):
+# the video_swin temporal head (one Swin BasicLayer, window (4, 7, 7)) at the
+# width it keeps (TM.CHANNEL_POOL_DIM = TEMPORAL_EMBEDDING_DIM 16), on 6
+# frames at 128^2: the tower's 8 x 8 patch grid and the 6 frames pad to
+# (8, 14, 14), and the odd blocks shift by (2, 3, 3) under the mask
+TM_SWIN_T, TM_SWIN_S = 6, 128
+TM_SWIN = {"TM.TEMPORAL_ARCH": "video_swin", "TM.CHANNEL_POOL_DIM": 16, "DATA.NUM_FRAMES": TM_SWIN_T,
+           "AUG.TARGET_SIZE": TM_SWIN_S, "AUG.RESIZE": [TM_SWIN_S * 5 // 4, TM_SWIN_S * 9 // 8]}
+
+
+def tm_variables(model, seed=0, t=TM_T, s=TM_S):
     """The JAX TemporalModel's initial params and batch_stats (every head
-    touched through ``init_all``), as numpy trees."""
+    touched through ``init_all``) for clips of ``t`` frames at ``s``^2, as
+    numpy trees."""
     v = jax.jit(lambda: model.init(
         {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed + 1)},
-        jnp.zeros((2, TM_T, TM_S, TM_S, 3), jnp.float32), train=False, method="init_all",
+        jnp.zeros((2, t, s, s, 3), jnp.float32), train=False, method="init_all",
     ))()
     return jax.device_get(v["params"]), jax.device_get(v.get("batch_stats", {}))
