@@ -15,10 +15,10 @@ it owes no kernel here (and runs neither SDPA nor K4).
 A window is clamped to the grid it sees (``get_window_size``), and the
 relative position table of a clamped window is smaller. Flax sizes the
 table at ``init``, from the input the model is initialised with; the port
-sizes it when the module is built, from ``input_size`` (for a model built
-from a config: DATA.NUM_FRAMES x AUG.TARGET_SIZE^2, the input JAX's train
-state initialises with). A forward whose grid clamps the window otherwise
-raises, as a Flax apply with a table of another shape does.
+sizes it when the module is built, from the grid each block is built for
+(for the backbone: DATA.NUM_FRAMES x AUG.TARGET_SIZE^2, the input JAX's
+train state initialises with). A forward whose grid clamps the window
+otherwise raises, as a Flax apply with a table of another shape does.
 
 The shift masks and the relative position index are functions of the
 static geometry. Each is made once per (geometry, device) in numpy and kept
@@ -140,6 +140,20 @@ def device_index(window: Triple, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_rel_pos_index(window).reshape(-1)).to(device)
 
 
+def window_softmax(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                   scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """The window attention's float32 chain: q [B*nW, heads, n, hd] scaled
+    in its own dtype, float32 scores against k, the float32 bias [heads, n,
+    n] and the shift mask [nW, n, n] (or None) added, the softmax in float32
+    cast to ``dtype``."""
+    attn = torch.matmul((q * scale).float(), k.float().transpose(-1, -2)) + bias[None].float()
+    if mask is not None:
+        b_, heads, n, _ = attn.shape
+        nw = mask.shape[0]
+        attn = (attn.reshape(b_ // nw, nw, heads, n, n) + mask[None, :, None]).reshape(b_, heads, n, n)
+    return torch.softmax(attn, dim=-1).to(dtype)
+
+
 class WindowAttention3D(nn.Module):
     """Multi-head self-attention inside windows of ``window_size`` (the
     clamped window), with a learned relative position bias per head."""
@@ -165,15 +179,9 @@ class WindowAttention3D(nn.Module):
         qkv = linear(self.qkv, x, self.dtype).reshape(b_, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
         with torch.autocast(x.device.type, enabled=False):
-            attn = torch.matmul((q * self.scale).float(), k.float().transpose(-1, -2))
             idx = device_index(self.window_size, x.device)
             bias = self.relative_position_bias_table[idx].reshape(n, n, heads).permute(2, 0, 1)
-            attn = attn + bias[None].float()
-            if mask is not None:
-                nw = mask.shape[0]
-                attn = (attn.reshape(b_ // nw, nw, heads, n, n) + mask[None, :, None]).reshape(b_, heads, n, n)
-            attn = torch.softmax(attn, dim=-1).to(v.dtype)
-            out = torch.matmul(attn, v)
+            out = torch.matmul(window_softmax(q, k, bias, mask, self.scale, v.dtype), v)
         out = out.transpose(1, 2).reshape(b_, n, c)
         return linear(self.proj, out, self.dtype)
 
@@ -295,45 +303,33 @@ def swin_input_size(cfg) -> Triple:
 class SwinTransformer3D(nn.Module):
     """Video Swin: patch embedding (a strided conv with bias) -> LayerNorm ->
     the stages (stochastic depth linear in the block index up to
-    DROP_PATH_RATE) -> LayerNorm; with ``include_head`` the mean over (T, H,
-    W) and, under MODEL_NAME ContrastiveModel, the CONTRASTIVE.DIM
-    TransformerBasicHead (an MLP projector with CONTRASTIVE.NUM_MLP_LAYERS >
-    1), else a classification Dense (softmax in evaluation when
-    MODEL.HEAD_ACT says so). The hyperparameters default to cfg.SWIN;
-    explicit values override them. ``input_size`` (T, H, W) defaults to
-    :func:`swin_input_size`. ``forward(x, views, generator)``: clips [B, T,
+    DROP_PATH_RATE) -> LayerNorm -> the mean over (T, H, W) and, under
+    MODEL_NAME ContrastiveModel, the CONTRASTIVE.DIM TransformerBasicHead (an
+    MLP projector with CONTRASTIVE.NUM_MLP_LAYERS > 1), else a
+    classification Dense (softmax in evaluation when MODEL.HEAD_ACT says
+    so). The hyperparameters are cfg.SWIN's, the clip geometry
+    :func:`swin_input_size`'s. ``forward(x, views, generator)``: clips [B, T,
     H, W, 3]; ``views`` splits the head's BN statistics; ``generator`` draws
     the drop-path and dropout masks in training."""
 
-    def __init__(self, cfg, norm=None, dtype: Optional[torch.dtype] = None, *,
-                 patch_size: Optional[Sequence[int]] = None, embed_dim: Optional[int] = None,
-                 depths: Optional[Sequence[int]] = None, num_heads: Optional[Sequence[int]] = None,
-                 window_size: Optional[Sequence[int]] = None, mlp_ratio: Optional[float] = None,
-                 drop_path_rate: Optional[float] = None, include_head: bool = True,
-                 input_size: Optional[Sequence[int]] = None):
+    def __init__(self, cfg, norm=None, dtype: Optional[torch.dtype] = None):
         super().__init__()
         s = cfg.SWIN
-        self.patch_size = tuple(patch_size or s.PATCH_SIZE)
-        embed_dim = embed_dim or s.EMBED_DIM
-        depths = tuple(depths or s.DEPTHS)
-        num_heads = tuple(num_heads or s.NUM_HEADS)
-        window_size = tuple(window_size or s.WINDOW_SIZE)
-        mlp_ratio = mlp_ratio or s.MLP_RATIO
-        rate = drop_path_rate if drop_path_rate is not None else s.DROP_PATH_RATE
+        self.patch_size = tuple(s.PATCH_SIZE)
+        embed_dim, depths = s.EMBED_DIM, tuple(s.DEPTHS)
         self.dtype = dtype
-        self.include_head = include_head
-        t, h, w = tuple(input_size or swin_input_size(cfg))
+        t, h, w = swin_input_size(cfg)
         grid = (t // self.patch_size[0], h // self.patch_size[1], w // self.patch_size[2])
         self.patch_embed = nn.Conv3d(3, embed_dim, self.patch_size, stride=self.patch_size)
         self.patch_embed.weight_init = lecun_normal_init
         self.norm_embed = nn.LayerNorm(embed_dim, eps=1e-5)
-        dpr = [float(r) for r in np.linspace(0, rate, sum(depths))]
+        dpr = [float(r) for r in np.linspace(0, s.DROP_PATH_RATE, sum(depths))]
         self.num_layers = len(depths)
         dim, at = embed_dim, 0
-        for i, (depth, heads) in enumerate(zip(depths, num_heads)):
+        for i, (depth, heads) in enumerate(zip(depths, s.NUM_HEADS)):
             last = i == len(depths) - 1
             self.add_module(f"layers_{i}", BasicLayer(
-                dim, depth, heads, grid, window_size, mlp_ratio, drop_path=dpr[at:at + depth],
+                dim, depth, heads, grid, tuple(s.WINDOW_SIZE), s.MLP_RATIO, drop_path=dpr[at:at + depth],
                 downsample=not last, dtype=dtype, remat=bool(cfg.TPU.REMAT)))
             at += depth
             if not last:
@@ -342,8 +338,6 @@ class SwinTransformer3D(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.contrastive = cfg.MODEL.MODEL_NAME == "ContrastiveModel"
         self.act_func = cfg.MODEL.HEAD_ACT
-        if not include_head:
-            return
         if self.contrastive:
             c = cfg.CONTRASTIVE
             self.head = TransformerBasicHead(
@@ -370,8 +364,6 @@ class SwinTransformer3D(nn.Module):
         for i in range(self.num_layers):
             x = getattr(self, f"layers_{i}")(x, keeps[i])
         x = layer_norm(self.norm, x, self.dtype)
-        if not self.include_head:
-            return x
         x = x.mean(dim=(1, 2, 3))
         if self.contrastive:
             return self.head(x, generator, views)

@@ -1053,14 +1053,15 @@ def moco_steps(mcfg, epoch, warmup, timed, extra, dev, tag="moco", profiled=Fals
 
 
 def swin_attention_alone(scfg, dev, reps=5):
-    """The window attention's float32 chain alone (the scores of q * scale and
-    k in float32, the bias, the shift mask, the softmax, the cast to bf16) at
-    every block shape of ``scfg``'s Swin, on CUDA events: per block a
-    forward for the key clips and a forward and backward for the query
-    clips, as the MoCo step runs them. Returns (ms a step, unique shapes)."""
+    """The window attention's float32 chain alone (``swin3d.window_softmax``:
+    the scores of q * scale and k in float32, the bias, the shift mask, the
+    softmax, the cast to bf16) at every block shape of ``scfg``'s Swin, on
+    CUDA events: per block a forward for the key clips and a forward and
+    backward for the query clips, as the MoCo step runs them. Returns (ms a
+    step, unique shapes)."""
     import torch
 
-    from advise_tpu_torch.models.swin3d import device_mask, get_window_size, merged_size
+    from advise_tpu_torch.models.swin3d import device_mask, get_window_size, merged_size, window_softmax
 
     sw = scfg.SWIN
     b, t, size = scfg.DATA.BATCHSIZE_PER_GPU, scfg.DATA.NUM_FRAMES, scfg.AUG.TARGET_SIZE
@@ -1099,10 +1100,7 @@ def swin_attention_alone(scfg, dev, reps=5):
         mask = device_mask(*padded, window, shift, torch.device(dev)) if shift else None
 
         def chain():
-            a = torch.matmul((q * hd ** -0.5).float(), k.float().transpose(-1, -2)) + bias[None]
-            if mask is not None:
-                a = (a.reshape(b, nw, heads, n, n) + mask[None, :, None]).reshape(b * nw, heads, n, n)
-            return torch.softmax(a, dim=-1).to(torch.bfloat16)
+            return window_softmax(q, k, bias, mask, hd ** -0.5, torch.bfloat16)
 
         with torch.no_grad():
             fwd = timed(chain)

@@ -26,14 +26,16 @@ stored values; the twins move by 1 - m = 0.007 of the online moves, near
 that floor), in the 2-norm over the tensor: AdamW's direction mu / sqrt(nu)
 turns a small gradient element's float32 noise into a step of its own, so
 single elements stray further (the largest measured: 0.56 of the tensor's
-largest move) while the 2-norm holds (measured <= 0.033). Three kinds of
+largest move) while the 2-norm holds (measured <= 0.033). Four kinds of
 tensor have a gradient that is zero in exact arithmetic, so both sides
 step on float32 noise: an attention key's bias (softmax cancels the shift
 it adds to a query's logits), the tower's ln_post bias (the train-mode BN
 after the temporal ResStage's first convs removes a constant shift of the
-tokens) and, with BN_MLP, the projector's last bias (the predictor's first
-Linear and BN remove it; its twin copies it). Those are held to the step's
-own bound: each side moved by at most 2 STEPS lr.
+tokens), with BN_MLP, the projector's last bias (the predictor's first
+Linear and BN remove it; its twin copies it) and, with BN_MLP under the
+video_swin head, its last block's MLP bias (it shifts every token alike,
+and each head's first Linear and BN remove the shift). Those are held to
+the step's own bound: each side moved by at most 2 STEPS lr.
 
 Four videos a view: BN over two samples (B 2) makes the heads' gradient
 scale with 1 / |a - b| per channel, which turns float32 noise into a 0.4 %
@@ -69,8 +71,12 @@ STEPS = 3
 
 
 def _clips(i, t=TM_T, s=TM_S):
+    """Noise clips, each scaled and offset on its own, so that their pooled
+    features differ from clip to clip as videos' do."""
     rng = np.random.default_rng(500 + i)
-    return rng.standard_normal((TM_B, TM_K, t, s, s, 3)).astype(np.float32)
+    x = rng.standard_normal((TM_B, TM_K, t, s, s, 3))
+    x = x * rng.uniform(0.25, 2.0, (TM_B, TM_K, 1, 1, 1, 1)) + rng.standard_normal((TM_B, TM_K, 1, 1, 1, 3))
+    return x.astype(np.float32)
 
 
 def _labels(i):
@@ -108,14 +114,10 @@ def test_three_step_trajectory_matches_jax(task, bn_mlp, from_scratch):
 
 def test_video_swin_speed_byol_trajectory_matches_jax():
     """The same 3 steps with the video_swin temporal head (TM_SWIN: its
-    windows pad and shift), SSL.TASK speed_byol, so the BYOL twin of the
-    Swin layer runs through functional_call; the bounds above. SSL.BN_MLP
-    off (the R3D cases hold the BN heads): the 4 noise clips' pooled Swin
-    features differ by a std of 0.04 on values up to 1.1, and a BN over
-    them scales float32 noise past the BN statistics' bound by step 3
-    (measured 1.2e-4 against 8.4e-5), the same noise in the port's head
-    and in JAX's."""
-    _trajectory("speed_byol", False, False, TM_SWIN)
+    windows pad and shift), SSL.TASK speed_byol with the preset's BN heads
+    (SSL.BN_MLP on), so the BYOL twin of the Swin layer runs through
+    functional_call; the bounds above."""
+    _trajectory("speed_byol", True, False, TM_SWIN)
 
 
 def _trajectory(task, bn_mlp, from_scratch, extra=None):
@@ -157,6 +159,8 @@ def _trajectory(task, bn_mlp, from_scratch, extra=None):
     p0 = params_to_torch(params)
     last_bias = f"head_projector.mlp.fc{tcfg.SSL.NUM_MLP_LAYERS - 1}.bias"
     zero_grad = (last_bias,) if bn_mlp and "byol" in task else ()
+    if bn_mlp and tcfg.TM.TEMPORAL_ARCH == "video_swin":
+        zero_grad += (f"temporal_encoder.layer.blocks_{tcfg.TM.NUM_BLOCKS - 1}.mlp.fc2.bias",)
     bad = _moved_ok(model.state_dict(), params_to_torch(jstate.params), p0, LR, zero_grad)
     assert not bad, bad
     if "byol" in task:
