@@ -127,19 +127,24 @@ def speed_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
 def masked_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
                      infos: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """MaskFeat loss: the weighted masked MSE over MASK.PRETRAIN_DEPTH, with
-    the loader's block masks ``infos['mask']`` [B, K, t, h, w]; with
-    MASK.JOINT_CONTRASTIVE plus JOINT_WEIGHT times the NT-Xent between the
-    l2-normalized projections of views 0 and 1 (temperature CONTRASTIVE.T,
-    negatives: every other projection of the batch; with one video the only
-    other projection is the positive, and the term is identically 0).
-    ``generator`` draws the drop-path masks."""
+    """The masked loss (MaskFeat or MAE): the weighted masked MSE over
+    MASK.PRETRAIN_DEPTH, with the loader's block masks ``infos['mask']`` [B,
+    K, t, h, w] when the loader draws them (MASK.MAE_RND_MASK False), else
+    the model's random masks; with MASK.JOINT_CONTRASTIVE plus JOINT_WEIGHT
+    times the NT-Xent between the l2-normalized projections of views 0 and 1
+    (temperature CONTRASTIVE.T, negatives: every other projection of the
+    batch; with one video the only other projection is the positive, and
+    the term is identically 0); under VIS_MASK the model's videos are
+    dropped. ``generator`` draws the random masks, then the drop-path
+    masks."""
     from advise_tpu_torch.engine.contrastive import l2_normalize
     from advise_tpu_torch.models.masked import masked_mse
 
     b, k = clips.shape[:2]
-    out = model(clips.reshape(b * k, *clips.shape[2:]),
-                loader_mask=infos["mask"].reshape(b * k, -1), generator=generator)
+    loader_mask = infos.get("mask")
+    if loader_mask is not None:
+        loader_mask = loader_mask.reshape(b * k, -1)
+    out = model(clips.reshape(b * k, *clips.shape[2:]), loader_mask=loader_mask, generator=generator)
     joint = cfg.MASK.JOINT_CONTRASTIVE
     preds, labels, masks, weights = out[:4]
     loss = 0.0

@@ -17,15 +17,21 @@ port seeds one ``torch.Generator`` on the card per use from a numpy
 - iteration ``it`` of epoch ``epoch`` (augmentation, then dropout or drop
   path): ``(TRAIN.SEED, epoch, it)``;
 - kNN probe batch ``i`` after epoch ``epoch``: ``(TRAIN.SEED, 2**31 - 1 -
-  epoch, i)``, as JAX's probe key is ``fold_in(rng, 2**31 - 1 - epoch)``.
+  epoch, i)``, as JAX's probe key is ``fold_in(rng, 2**31 - 1 - epoch)``;
+- the VIS_MASK dump after epoch ``epoch`` (its aug, then its masks):
+  ``(TRAIN.SEED, 424243 + epoch)``, as JAX's ``fold_in(rng, 424243 +
+  epoch)``.
 
 So a resumed run draws what the uninterrupted run would have drawn.
 
 TPU.PROFILE_DIR runs ``torch.profiler`` over the steps
 (PROFILE_START, PROFILE_START + PROFILE_STEPS] of the step counter, writes
 ``trace.json`` there and logs the device's busy and idle shares of that
-window. Not ported (they raise, naming the ROADMAP.md item):
-TPU.PARTITION_MODE 'auto' (A 16), VIS_MASK (A 11).
+window. With VIS_MASK.ENABLE (the MAE path) each epoch ends with the first
+batch of a fresh shuffle (``loader.take_one(epoch + 424243)``) through the
+model in eval mode, dumped by ``utils/visualization.py
+dump_mask_visualization`` under ``LOGDIR/vis_mask/vid/``. Not ported (it
+raises, naming the ROADMAP.md item): TPU.PARTITION_MODE 'auto' (A 16).
 
 The TemporalModel's CLIP tower takes its weights from
 MODEL.SPATIAL_MODEL_PATH (an open_clip checkpoint, or a directory holding
@@ -104,8 +110,6 @@ def check_ported(cfg) -> None:
     """Raise for the trainer options the port does not carry yet."""
     if cfg.TPU.PARTITION_MODE == "auto":
         raise NotImplementedError("TPU.PARTITION_MODE 'auto' is not ported yet (ROADMAP A 16)")
-    if cfg.VIS_MASK.ENABLE:
-        raise NotImplementedError("VIS_MASK is not ported yet (ROADMAP A 11)")
 
 
 def spatial_checkpoint(path: str) -> str:
@@ -282,6 +286,14 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
             helper.rt["knn_acc"] = float(np.mean(accs))
             logger.info("epoch %d online kNN top-1: %.4f (%d batches)", epoch,
                         helper.rt["knn_acc"], len(accs))
+        if cfg.VIS_MASK.ENABLE and cfg.MODEL.MODEL_NAME == "MaskMViT":
+            from advise_tpu_torch.utils.visualization import dump_mask_visualization
+
+            vis_batch = loader.take_one(epoch + 424243)
+            if vis_batch is not None:
+                vis_clips = torch.from_numpy(vis_batch[0]).to(device)
+                dump_mask_visualization(cfg, state.model, vis_clips, device_aug,
+                                        seeded_generator(device, cfg.TRAIN.SEED, 424243 + epoch), epoch)
         summary = helper.epoch_end()
         if knn_probe_fn is not None:
             summary["knn_acc"] = helper.rt["knn_acc"]

@@ -1,7 +1,8 @@
 """Model registry and builder (counterpart of ``advise_tpu/models/__init__.py``):
 MODEL_NAME ResNet (the single-pathway 3D ResNets), X3D, ContrastiveModel
-(ARCH slowfast, x3d, swin or a single-pathway ResNet), MViT, MaskMViT
-(MaskFeat), SwinTransformer3D (Video Swin) and TemporalModel (AdViSe)."""
+(ARCH slowfast, x3d, swin or a single-pathway ResNet), MViT (v1 and v2),
+MaskMViT (MaskFeat, and MAE under MASK.MAE_ON), SwinTransformer3D (Video
+Swin) and TemporalModel (AdViSe)."""
 
 from __future__ import annotations
 

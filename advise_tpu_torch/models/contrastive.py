@@ -31,7 +31,7 @@ def _backbone_cls(arch: str):
     if arch in ("swin", "video_swin", "swin3d"):
         return SwinTransformer3D
     if arch == "mvit":
-        raise NotImplementedError(f"ContrastiveModel over MODEL.ARCH={arch} is not ported yet (ROADMAP A 11)")
+        raise NotImplementedError(f"ContrastiveModel over MODEL.ARCH={arch} is not ported yet (ROADMAP A 20)")
     raise KeyError(f"ContrastiveModel: unknown MODEL.ARCH={arch!r}")
 
 

@@ -4,11 +4,16 @@ with the flash / dense dispatch, and MultiScaleBlock.
 
 Tokens are ``[B, N, C]``; the pools run on ``[B * heads, c, T, H, W]`` views
 of the channel-last grid. The attention pools q, k and v with depthwise
-convs and LayerNorms (MVIT.MODE 'conv'). Not ported yet (they raise): the
-relative position biases, POOL_FIRST, the other pooling modes,
-SEPARATE_QKV, RESIDUAL_POOLING, DIM_MUL_IN_ATT, layer scale and dropout.
-The ring-attention branch (MVIT.SEQ_SHARD) is a no-op on one card, as JAX's
-``nseq == 1`` branch is.
+convs and LayerNorms (MVIT.MODE 'conv'). MViTv2's options: the decomposed
+relative position biases (MVIT.REL_POS_SPATIAL / REL_POS_TEMPORAL, their
+tables linearly resized, antialiased when they shrink, as
+``jax.image.resize`` does), residual pooling (``out + q``) and
+DIM_MUL_IN_ATT (the attention widens, the skip is projected from the
+normalised input). A block with a relative position bias runs the dense
+chain, never flash attention, as in JAX. Not ported yet (they raise in
+``mvit.check_ported``, ROADMAP A 20): POOL_FIRST, the other pooling modes,
+SEPARATE_QKV, layer scale and dropout. The ring-attention branch
+(MVIT.SEQ_SHARD) is a no-op on one card, as JAX's ``nseq == 1`` branch is.
 
 Under bf16 autocast q, k and v are cast back to the compute dtype after
 their pools and LayerNorms (autocast runs ``layer_norm`` in float32, where
@@ -21,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,9 +35,11 @@ from advise_tpu_torch.models.layers.common import (
     DropPath,
     Mlp,
     dense,
+    divided_init,
     layer_norm,
     lecun_normal_init,
     trunc02,
+    zeros_init,
 )
 from advise_tpu_torch.ops.flash_attention import flash_mha
 
@@ -65,11 +73,92 @@ def pool_tokens(x: torch.Tensor, thw: Sequence[int], kernel: Sequence[int],
     return x, new_thw
 
 
-def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] float32 weights of ``jax.image.resize(..., 'linear')``
+    along one axis: half-pixel sample positions, the triangle kernel
+    widened by n_in / n_out when the axis shrinks (antialiasing), each
+    column normalised to sum 1."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def rel_pos_table(rel_pos: torch.Tensor, d: int) -> torch.Tensor:
+    """The table [L, head_dim] linearly resized to length ``d``."""
+    if rel_pos.shape[0] == d:
+        return rel_pos
+    w = torch.from_numpy(_resize_weights(rel_pos.shape[0], d)).to(rel_pos.device, rel_pos.dtype)
+    return w.t() @ rel_pos
+
+
+def rel_dist(q_n: int, k_n: int) -> torch.Tensor:
+    """[q_n, k_n] int64 indices into a table of 2 * max(q_n, k_n) - 1 rows:
+    the offset of query i from key j, each scaled to the finer grid."""
+    q_ratio = max(k_n / q_n, 1.0)
+    k_ratio = max(q_n / k_n, 1.0)
+    dist = np.arange(q_n)[:, None] * q_ratio - np.arange(k_n)[None, :] * k_ratio
+    return torch.from_numpy((dist + (k_n - 1) * k_ratio).astype(np.int64))
+
+
+def _add_block(attn: torch.Tensor, block: torch.Tensor, sp: int) -> torch.Tensor:
+    """``attn`` with its token-by-token part (past ``sp`` cls rows and
+    columns) replaced by ``block``."""
+    if not sp:
+        return block
+    return torch.cat([attn[:, :, :sp], torch.cat([attn[:, :, sp:, :sp], block], dim=3)], dim=2)
+
+
+def add_rel_pos_spatial(attn: torch.Tensor, q: torch.Tensor, has_cls: bool, q_shape, k_shape,
+                        rel_h: torch.Tensor, rel_w: torch.Tensor) -> torch.Tensor:
+    """The scores [B, H, Nq, Nk] plus q's products with the height and width
+    tables at each query-key offset (the cls token's rows and columns
+    untouched)."""
+    sp = 1 if has_cls else 0
+    q_t, q_h, q_w = q_shape
+    k_t, k_h, k_w = k_shape
+    rh = rel_pos_table(rel_h, 2 * max(q_h, k_h) - 1)[rel_dist(q_h, k_h).to(rel_h.device)]
+    rw = rel_pos_table(rel_w, 2 * max(q_w, k_w) - 1)[rel_dist(q_w, k_w).to(rel_w.device)]
+    b, nh, _, dim = q.shape
+    r_q = q[:, :, sp:].reshape(b, nh, q_t, q_h, q_w, dim)
+    rel_h_q = torch.einsum("bythwc,hkc->bythwk", r_q, rh.to(r_q.dtype))
+    rel_w_q = torch.einsum("bythwc,wkc->bythwk", r_q, rw.to(r_q.dtype))
+    block = attn[:, :, sp:, sp:].reshape(b, nh, q_t, q_h, q_w, k_t, k_h, k_w)
+    block = (block + rel_h_q[:, :, :, :, :, None, :, None]
+             + rel_w_q[:, :, :, :, :, None, None, :]).reshape(b, nh, q_t * q_h * q_w, k_t * k_h * k_w)
+    return _add_block(attn, block, sp)
+
+
+def add_rel_pos_temporal(attn: torch.Tensor, q: torch.Tensor, has_cls: bool, q_shape, k_shape,
+                         rel_t: torch.Tensor) -> torch.Tensor:
+    """The scores plus q's products with the temporal table at each offset."""
+    sp = 1 if has_cls else 0
+    q_t, q_h, q_w = q_shape
+    k_t, k_h, k_w = k_shape
+    rt = rel_pos_table(rel_t, 2 * max(q_t, k_t) - 1)[rel_dist(q_t, k_t).to(rel_t.device)]
+    b, nh, _, dim = q.shape
+    r_q = q[:, :, sp:].reshape(b, nh, q_t, q_h, q_w, dim)
+    rel = torch.einsum("bythwc,tkc->bythwk", r_q, rt.to(r_q.dtype))
+    block = attn[:, :, sp:, sp:].reshape(b, nh, q_t, q_h, q_w, k_t, k_h, k_w)
+    block = (block + rel[:, :, :, :, :, :, None, None]).reshape(b, nh, q_t * q_h * q_w, k_t * k_h * k_w)
+    return _add_block(attn, block, sp)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                    bias=None) -> torch.Tensor:
     """The JAX module's dense chain: float32 scores of ``q * scale`` and k,
-    softmax, probabilities cast to v's dtype, then ``@ v`` in that dtype."""
+    ``bias(scores)`` added (the relative position terms), softmax,
+    probabilities cast to v's dtype, then ``@ v`` in that dtype."""
     with torch.autocast(q.device.type, enabled=False):
         attn = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+        if bias is not None:
+            attn = bias(attn)
         attn = torch.softmax(attn, dim=-1).to(v.dtype)
         return torch.matmul(attn, v)
 
@@ -84,13 +173,19 @@ def _no_trivial_pool(kernel, stride):
 class MultiScaleAttention(nn.Module):
     """Pooled multi-head attention on tokens of width ``dim``, ``dim_out``
     wide: qkv projection, conv pooling of q and of k, v, attention through
-    K4 (``flash``) or the dense chain, output projection."""
+    K4 (``flash``) or the dense chain (with the relative position biases
+    of a block ``input_size`` on the grid), ``+ q`` under
+    ``residual_pooling``, output projection (its init divided by
+    ``proj_init_div``)."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, qkv_bias: bool = False,
                  kernel_q: Sequence[int] = (), kernel_kv: Sequence[int] = (),
                  stride_q: Sequence[int] = (), stride_kv: Sequence[int] = (),
                  has_cls_embed: bool = True, flash: bool = False,
-                 flash_native_dim_only: bool = False, dtype: Optional[torch.dtype] = None):
+                 flash_native_dim_only: bool = False, dtype: Optional[torch.dtype] = None,
+                 input_size: Sequence[int] = (), rel_pos_spatial: bool = False,
+                 rel_pos_temporal: bool = False, rel_pos_zero_init: bool = False,
+                 residual_pooling: bool = False, proj_init_div: float = 1.0):
         super().__init__()
         self.num_heads = num_heads
         self.dim_out = dim_out
@@ -100,7 +195,10 @@ class MultiScaleAttention(nn.Module):
         self.kernel_kv = _no_trivial_pool(kernel_kv, stride_kv)
         self.stride_q, self.stride_kv = tuple(stride_q), tuple(stride_kv)
         self.has_cls_embed = has_cls_embed
-        self.flash = flash and not (flash_native_dim_only and head_dim > 128 and head_dim % 128)
+        self.rel_pos_spatial, self.rel_pos_temporal = rel_pos_spatial, rel_pos_temporal
+        self.residual_pooling = residual_pooling
+        self.flash = (flash and not rel_pos_spatial and not rel_pos_temporal
+                      and not (flash_native_dim_only and head_dim > 128 and head_dim % 128))
         self.dtype = dtype
         self.qkv = dense(dim, 3 * dim_out, bias=qkv_bias, init=trunc02, bias_value=0.02)
         for name, kernel, stride in (("q", self.kernel_q, self.stride_q),
@@ -113,12 +211,41 @@ class MultiScaleAttention(nn.Module):
             conv.weight_init = lecun_normal_init
             self.add_module(f"pool_{name}", conv)
             self.add_module(f"norm_{name}", layer_norm(head_dim))
-        self.proj = dense(dim_out, dim_out, init=trunc02, bias_value=0.02)
+        self.proj = dense(dim_out, dim_out, init=divided_init(trunc02, proj_init_div), bias_value=0.02)
+        self.param_inits = {}
+        rel_init = zeros_init if rel_pos_zero_init else trunc02
+        if rel_pos_spatial or rel_pos_temporal:
+            if len(input_size) != 3:
+                raise ValueError("relative position biases need the block's input_size (t, h, w)")
+        if rel_pos_spatial:
+            size = input_size[1]
+            rel_sp_dim = 2 * max(size // (self.stride_q[1] if self.stride_q else 1),
+                                 size // (self.stride_kv[1] if self.stride_kv else 1)) - 1
+            for name in ("rel_pos_h", "rel_pos_w"):
+                setattr(self, name, nn.Parameter(torch.zeros(rel_sp_dim, head_dim)))
+                self.param_inits[name] = rel_init
+        if rel_pos_temporal:
+            self.rel_pos_t = nn.Parameter(torch.zeros(2 * input_size[0] - 1, head_dim))
+            self.param_inits["rel_pos_t"] = rel_init
 
     def _pool(self, x, thw, name):
         kernel, stride = (self.kernel_q, self.stride_q) if name == "q" else (self.kernel_kv, self.stride_kv)
         return pool_tokens(x, thw, kernel, stride, self.has_cls_embed,
                            getattr(self, f"pool_{name}", None), getattr(self, f"norm_{name}", None))
+
+    def _rel_pos_bias(self, q, q_shape, k_shape):
+        if not (self.rel_pos_spatial or self.rel_pos_temporal):
+            return None
+
+        def bias(attn):
+            if self.rel_pos_spatial:
+                attn = add_rel_pos_spatial(attn, q, self.has_cls_embed, q_shape, k_shape,
+                                           self.rel_pos_h, self.rel_pos_w)
+            if self.rel_pos_temporal:
+                attn = add_rel_pos_temporal(attn, q, self.has_cls_embed, q_shape, k_shape, self.rel_pos_t)
+            return attn
+
+        return bias
 
     def forward(self, x: torch.Tensor, thw: Sequence[int], x_res: Optional[torch.Tensor] = None):
         """``x_res``: a residual stream to pool through the SAME pool_q conv and
@@ -136,11 +263,19 @@ class MultiScaleAttention(nn.Module):
             res_pooled = r.transpose(1, 2).reshape(b, -1, rc)
 
         q, q_shape = self._pool(q, thw, "q")
-        k, _ = self._pool(k, thw, "k")
+        k, k_shape = self._pool(k, thw, "k")
         v, _ = self._pool(v, thw, "v")
         if self.dtype is not None:
             q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
-        out = flash_mha(q, k, v, self.scale) if self.flash else dense_attention(q, k, v, self.scale)
+        if self.flash:
+            out = flash_mha(q, k, v, self.scale)
+        else:
+            out = dense_attention(q, k, v, self.scale, self._rel_pos_bias(q, q_shape, k_shape))
+        if self.residual_pooling:
+            if self.has_cls_embed:
+                out = torch.cat([out[:, :, :1], out[:, :, 1:] + q[:, :, 1:]], dim=2)
+            else:
+                out = out + q
         out = self.proj(out.transpose(1, 2).reshape(b, -1, self.dim_out))
         if x_res is not None:
             return out, q_shape, res_pooled
@@ -151,28 +286,43 @@ class MultiScaleBlock(nn.Module):
     """norm1 -> attention (+ the residual max-pooled with kernel stride + 1
     where Q pools, projected when the width changes) -> norm2 -> MLP, each
     branch behind its own drop path; the keep masks come from the caller
-    (``keeps`` = (attention's, MLP's))."""
+    (``keeps`` = (attention's, MLP's)). With ``dim_mul_in_att`` the
+    attention is ``dim_out`` wide and the skip is projected from the
+    normalised input before its pool; otherwise the MLP's skip is projected
+    from the second norm. ``init_div`` divides the initial weights of the
+    attention's projection and of fc2."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop_path: float = 0.0,
                  kernel_q=(), kernel_kv=(), stride_q=(), stride_kv=(),
                  has_cls_embed: bool = True, flash: bool = False,
-                 flash_native_dim_only: bool = False, dtype: Optional[torch.dtype] = None):
+                 flash_native_dim_only: bool = False, dtype: Optional[torch.dtype] = None,
+                 input_size: Sequence[int] = (), rel_pos_spatial: bool = False,
+                 rel_pos_temporal: bool = False, rel_pos_zero_init: bool = False,
+                 residual_pooling: bool = False, dim_mul_in_att: bool = False,
+                 init_div: float = 1.0):
         super().__init__()
         self.stride_q = tuple(stride_q)
         self.has_cls_embed = has_cls_embed
+        self.dim_mul_in_att = dim_mul_in_att
+        att_dim = dim_out if dim_mul_in_att else dim
         self.norm1 = layer_norm(dim)
-        self.attn = MultiScaleAttention(dim, dim, num_heads, qkv_bias, kernel_q, kernel_kv,
+        self.attn = MultiScaleAttention(dim, att_dim, num_heads, qkv_bias, kernel_q, kernel_kv,
                                         stride_q, stride_kv, has_cls_embed, flash,
-                                        flash_native_dim_only, dtype)
+                                        flash_native_dim_only, dtype, input_size, rel_pos_spatial,
+                                        rel_pos_temporal, rel_pos_zero_init, residual_pooling,
+                                        proj_init_div=init_div)
         if dim != dim_out:
             self.proj = dense(dim, dim_out, init=trunc02, bias_value=0.02)
         self.drop_path = DropPath(drop_path)
-        self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim_out)
+        self.norm2 = layer_norm(att_dim)
+        self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out, fc2_init_div=init_div)
 
     def forward(self, x: torch.Tensor, thw: Sequence[int], keeps=(None, None)):
-        x_block, thw_new = self.attn(self.norm1(x), thw)
+        x_norm = self.norm1(x)
+        x_block, thw_new = self.attn(x_norm, thw)
+        if self.dim_mul_in_att and hasattr(self, "proj"):
+            x = self.proj(x_norm)
         stride = self.stride_q
         if stride and math.prod(stride) > 1:
             kernel = tuple(s + 1 if s > 1 else s for s in stride)
@@ -180,6 +330,6 @@ class MultiScaleBlock(nn.Module):
         x = x + self.drop_path(x_block, keeps[0])
         x_norm2 = self.norm2(x)
         x_mlp = self.mlp(x_norm2)
-        if hasattr(self, "proj"):
+        if not self.dim_mul_in_att and hasattr(self, "proj"):
             x = self.proj(x_norm2)
         return x + self.drop_path(x_mlp, keeps[1]), thw_new

@@ -15,8 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# the std of a unit normal truncated to [-2, 2] (Flax's truncated_normal
-# divides by it so that the truncated draw keeps the requested std)
+# the std of a unit normal truncated to [-2, 2] (Flax's variance_scaling
+# divides by it so that the truncated draw keeps the requested variance)
 _TRUNC_STD = 0.87962566103423978
 
 
@@ -43,12 +43,15 @@ def fc_init(std: float):
     return init
 
 
-def trunc_normal_init(std: float):
-    """Flax ``truncated_normal(stddev=std)``: normal truncated at two
-    standard deviations, widened so that the truncated draw has std ``std``."""
+def trunc_normal_init(std: float, corrected: bool = False):
+    """Flax ``truncated_normal(stddev=std)``: a normal of std ``std``
+    truncated at two standard deviations, so that the draw's own std is
+    0.88 ``std``; ``corrected`` first widens the normal by 1 / 0.88, so that
+    the truncated draw has std ``std``, as Flax's ``variance_scaling``
+    does."""
 
     def init(w: torch.Tensor, generator: torch.Generator) -> None:
-        s = std / _TRUNC_STD
+        s = std / _TRUNC_STD if corrected else std
         nn.init.trunc_normal_(w, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
 
     return init
@@ -58,10 +61,23 @@ def lecun_normal_init(w: torch.Tensor, generator: torch.Generator) -> None:
     """Flax's default kernel init: truncated normal with variance 1 / fan_in
     (fan_in over the input channels and the kernel window)."""
     fan_in, _ = nn.init._calculate_fan_in_and_fan_out(w)
-    trunc_normal_init((1.0 / fan_in) ** 0.5)(w, generator)
+    trunc_normal_init((1.0 / fan_in) ** 0.5, corrected=True)(w, generator)
 
 
 trunc02 = trunc_normal_init(0.02)
+
+
+def divided_init(init, div: float):
+    """``init`` with the drawn weight divided by ``div`` (MAE's depth
+    rescale, MASK.SCALE_INIT_BY_DEPTH); ``init`` itself when ``div`` is 1."""
+    if div == 1.0:
+        return init
+
+    def scaled(w: torch.Tensor, generator: torch.Generator) -> None:
+        init(w, generator)
+        w.div_(div)
+
+    return scaled
 
 
 def conv3d(dim_in: int, dim_out: int, kernel, stride=1, padding=0,
@@ -118,12 +134,13 @@ class DropPath(nn.Module):
 
 class Mlp(nn.Module):
     """Transformer MLP: fc1 -> GELU (tanh approximation, Flax's ``nn.gelu``)
-    -> fc2, both with Flax's default init."""
+    -> fc2, both with Flax's default init, fc2's divided by
+    ``fc2_init_div``."""
 
-    def __init__(self, dim_in: int, hidden: int, dim_out: int):
+    def __init__(self, dim_in: int, hidden: int, dim_out: int, fc2_init_div: float = 1.0):
         super().__init__()
         self.fc1 = dense(dim_in, hidden, init=lecun_normal_init)
-        self.fc2 = dense(hidden, dim_out, init=lecun_normal_init)
+        self.fc2 = dense(hidden, dim_out, init=divided_init(lecun_normal_init, fc2_init_div))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))

@@ -17,8 +17,12 @@ Stochastic depth draws its keep masks once per forward, from the caller's
 generator, before any block runs; a recomputation (checkpoint, the
 reversible backward) replays them. Under bf16 autocast the residual
 streams stay float32 (the token embedding plus the float32 position
-embeddings), where the JAX bf16 model keeps them in bf16. Knobs that are
-not ported yet raise (:func:`check_ported`).
+embeddings), where the JAX bf16 model keeps them in bf16. MViTv2's relative
+position biases and residual pooling reach every attention (the reversible
+walk's too); DIM_MUL_IN_ATT the plain walk's blocks and the schedule's
+width rule; MVIT.USE_FIXED_SINCOS_POS adds the fixed 3-D sin-cos table in
+place of the learned ones. Knobs that are not ported yet raise
+(:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from advise_tpu_torch.models.layers.common import (
 )
 from advise_tpu_torch.models.layers.heads import TransformerBasicHead
 from advise_tpu_torch.models.layers.stem import PatchEmbed
-from advise_tpu_torch.models.utils import round_width
+from advise_tpu_torch.models.utils import get_3d_sincos_pos_embed, round_width
 from advise_tpu_torch.parallel.reversible import reversible_block_scan
 
 
@@ -145,31 +149,41 @@ def fused_width(mode: str, dim: int) -> int:
 
 
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError on an MViT knob the port does not carry yet."""
+    """Raise NotImplementedError on an MViT knob the port does not carry
+    yet, naming its ROADMAP.md item."""
     m = cfg.MVIT
     unported = {
-        "MVIT.REL_POS_SPATIAL/TEMPORAL": m.REL_POS_SPATIAL or m.REL_POS_TEMPORAL,
-        "MVIT.POOL_FIRST": m.POOL_FIRST, f"MVIT.MODE={m.MODE}": m.MODE != "conv",
-        "MVIT.SEPARATE_QKV": m.SEPARATE_QKV, "MVIT.RESIDUAL_POOLING": m.RESIDUAL_POOLING,
-        "MVIT.DIM_MUL_IN_ATT": m.DIM_MUL_IN_ATT,
-        "MVIT.LAYER_SCALE_INIT_VALUE": m.LAYER_SCALE_INIT_VALUE > 0,
-        "MVIT.DROPOUT_RATE": m.DROPOUT_RATE > 0, "MVIT.NORM_STEM": m.NORM_STEM,
-        "MVIT.USE_FIXED_SINCOS_POS": m.USE_FIXED_SINCOS_POS, "MVIT.PATCH_2D": m.PATCH_2D,
-        "MVIT.HEAD_INIT_SCALE": m.HEAD_INIT_SCALE != 1.0,
-        f"MVIT.REV.RES_PATH={m.REV.RES_PATH}": m.REV.ENABLE and m.REV.RES_PATH != "conv",
-        "MASK.SCALE_INIT_BY_DEPTH": cfg.MASK.ENABLE and cfg.MASK.SCALE_INIT_BY_DEPTH,
-        "TPU.MESH_PIPE (GPipe)": int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1) > 1,
+        "MVIT.POOL_FIRST": (m.POOL_FIRST, "A 20"),
+        f"MVIT.MODE={m.MODE}": (m.MODE != "conv", "A 20"),
+        "MVIT.SEPARATE_QKV": (m.SEPARATE_QKV, "A 20"),
+        "MVIT.LAYER_SCALE_INIT_VALUE": (m.LAYER_SCALE_INIT_VALUE > 0, "A 20"),
+        "MVIT.DROPOUT_RATE": (m.DROPOUT_RATE > 0, "A 20"),
+        "MVIT.NORM_STEM": (m.NORM_STEM, "A 20"),
+        "MVIT.PATCH_2D": (m.PATCH_2D, "A 20"),
+        "MVIT.HEAD_INIT_SCALE": (m.HEAD_INIT_SCALE != 1.0, "A 20"),
+        f"MVIT.REV.RES_PATH={m.REV.RES_PATH}": (m.REV.ENABLE and m.REV.RES_PATH != "conv", "A 20"),
+        "TPU.MESH_PIPE (GPipe)": (int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1) > 1, "A 16"),
     }
-    named = [name for name, on in unported.items() if on]
+    named = [f"{name} (ROADMAP {item})" for name, (on, item) in unported.items() if on]
     if named:
         raise NotImplementedError(f"not ported yet: {', '.join(named)}")
 
 
 def _attention_kwargs(cfg, spec, dtype) -> dict:
-    return dict(qkv_bias=cfg.MVIT.QKV_BIAS, kernel_q=spec["kernel_q"], kernel_kv=spec["kernel_kv"],
+    m = cfg.MVIT
+    return dict(qkv_bias=m.QKV_BIAS, kernel_q=spec["kernel_q"], kernel_kv=spec["kernel_kv"],
                 stride_q=spec["stride_q"], stride_kv=spec["stride_kv"],
                 flash=bool(cfg.TPU.FLASH_ATTENTION),
-                flash_native_dim_only=bool(cfg.TPU.FLASH_NATIVE_DIM_ONLY), dtype=dtype)
+                flash_native_dim_only=bool(cfg.TPU.FLASH_NATIVE_DIM_ONLY), dtype=dtype,
+                input_size=tuple(spec["input_size"]), rel_pos_spatial=bool(m.REL_POS_SPATIAL),
+                rel_pos_temporal=bool(m.REL_POS_TEMPORAL), rel_pos_zero_init=bool(m.REL_POS_ZERO_INIT),
+                residual_pooling=bool(m.RESIDUAL_POOLING))
+
+
+def init_div(cfg, i: int) -> float:
+    """MASK.SCALE_INIT_BY_DEPTH (MAE's fix_init_weight): block ``i``'s
+    attention projection and fc2 start divided by sqrt(2 (i + 1))."""
+    return (2.0 * (i + 1)) ** 0.5 if (cfg.MASK.ENABLE and cfg.MASK.SCALE_INIT_BY_DEPTH) else 1.0
 
 
 class RevAttnSub(nn.Module):
@@ -276,7 +290,11 @@ class MViT(nn.Module):
         if self.cls_on:
             free_param("cls_token", (1, 1, embed_dim))
         self.abs_pos, self.sep_pos = bool(m.USE_ABS_POS), bool(m.SEP_POS_EMBED)
-        if self.abs_pos:
+        self.fixed_pos = bool(m.USE_FIXED_SINCOS_POS)
+        if self.fixed_pos:  # added to the patch tokens whatever USE_ABS_POS says, as in JAX
+            self.register_buffer("sincos_pos", torch.from_numpy(
+                get_3d_sincos_pos_embed(embed_dim, h, t)[None]), persistent=False)
+        elif self.abs_pos:
             if self.sep_pos:
                 free_param("pos_embed_spatial", (1, h * w, embed_dim))
                 free_param("pos_embed_temporal", (1, t, embed_dim))
@@ -338,6 +356,7 @@ class MViT(nn.Module):
                 self.add_module(f"blocks_{i}", MultiScaleBlock(
                     spec["dim"], spec["dim_out"], spec["num_heads"], m.MLP_RATIO,
                     drop_path=self.dpr[i], has_cls_embed=self.cls_on,
+                    dim_mul_in_att=bool(m.DIM_MUL_IN_ATT), init_div=init_div(cfg, i),
                     **_attention_kwargs(cfg, spec, dtype)))
                 self.plan.append(("block", i))
                 if i in ri:
@@ -376,9 +395,11 @@ class MViT(nn.Module):
         b = x.shape[0]
         if token_mask is not None and mask_token is not None:
             x = torch.where(token_mask[..., None], mask_token.to(x.dtype), x)
+        if self.fixed_pos:
+            x = x + self.sincos_pos
         if self.cls_on:
             x = torch.cat([self.cls_token.expand(b, -1, -1).to(x.dtype), x], dim=1)
-        if self.abs_pos:
+        if self.abs_pos and not self.fixed_pos:
             if self.sep_pos:
                 pe = (self.pos_embed_spatial.repeat(1, t, 1)
                       + torch.repeat_interleave(self.pos_embed_temporal, h * w, dim=1))

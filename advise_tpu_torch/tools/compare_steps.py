@@ -48,7 +48,8 @@ def step_run(cfg, dev, seed: int, epoch: float) -> SimpleNamespace:
     step of ``build_train_state`` and ``make_train_step`` (``aug`` the
     train aug), uint8 clips [B, K, T, H, W, 3] at the config's ingest
     geometry and ``infos`` from numpy's ``seed`` (item ids for
-    ContrastiveModel, a block mask a clip for MaskMViT, else speed labels),
+    ContrastiveModel, a block mask a clip for MaskMViT on loader masks,
+    none for its in-model masks, else speed labels),
     the aug's generator and the lr of the port's policy at ``epoch``.
     ``run.call(infos=None)`` takes one step and returns its stats."""
     import numpy as np
@@ -70,6 +71,8 @@ def step_run(cfg, dev, seed: int, epoch: float) -> SimpleNamespace:
     if cfg.MODEL.MODEL_NAME == "ContrastiveModel":
         infos = {"item_id": torch.arange(b, device=dev)}
         extra = (epoch,)
+    elif cfg.MODEL.MODEL_NAME == "MaskMViT" and cfg.MASK.MAE_RND_MASK:
+        infos = {}  # the model draws its masks from the step's generator
     elif cfg.MODEL.MODEL_NAME == "MaskMViT":
         from advise_tpu_torch.data.masking import build_mask_generator
 

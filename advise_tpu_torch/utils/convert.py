@@ -22,6 +22,14 @@ The port names its modules as the Flax modules are named, so a Flax path
   ``rev_seg{n}_f.{k}.`` ...; the depthwise pool convs' DHWIO kernels
   ``[k, k, k, 1, C]`` map like every conv.
 
+MaskMViT's MAE tree needs no rule of its own either: ``patch_embed/proj``,
+``pos_embed``, ``blocks_{i}``, ``norm``, ``decoder_embed``, ``mask_token``,
+``decoder_pos_embed`` (or ``dec_pos_embed_spatial`` / ``_temporal``) and
+``pred_head/transform_{i}``, ``pred_head/norm``, ``pred_head/projection``
+map by the rules above, as do MViTv2's ``attn/rel_pos_h``, ``rel_pos_w``
+and ``rel_pos_t`` (free parameters) and the DIM_MUL_IN_ATT block's
+``proj``.
+
 The stem's weight is the plain ``[kt, 7, 7, C, O]`` ``conv/kernel`` on the
 space-to-depth path too, so it maps like every other conv. X3D's and the
 Nonlocal block's leaves need no rule of their own: the channelwise

@@ -65,7 +65,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    grid pads 7 -> 8 and clamps its window to (8, 4, 4)) on 1 clip of 16
    frames, and AdViSe with the video_swin temporal head (TM.TEMPORAL_ARCH
    video_swin at TEMPORAL_EMBEDDING_DIM = TM.CHANNEL_POOL_DIM 384, 6 heads)
-   on 2 clips, the same way;
+   on 2 clips, the same way; then the MAE model of
+   configs/chip/mae_vismask_minik400.yaml (its prediction and VIS
+   reconstruction, the same random masks handed to both) on 2 clips of 8
+   frames at 112^2, and an MViTv2 classifier (MViT_S_rev_masked.yaml's
+   MViT-S trunk with REL_POS_SPATIAL, REL_POS_TEMPORAL, RESIDUAL_POOLING and
+   DIM_MUL_IN_ATT) on 2 clips of 8 frames at 112^2, bf16 on the card
+   against float32 on the CPU, no kernel launched;
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
    clips through the 'aa' augmentation, 2 warm-up and 5 timed steps; then
@@ -132,6 +138,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    attention's float32 chain (scores, bias, mask, softmax, cast) alone at
    each block shape on CUDA events, as its share of the step; no kernel
    launched;
+7f. the MAE path: the MAE step of configs/chip/mae_vismask_minik400.yaml
+   at one card (MViT 96 wide, 8 blocks, 1 head; 16 clips x 8 frames of
+   uint8 through OnlyCrop to 112^2, 784 of 3136 tokens visible at ratio
+   0.75; the decoder 64 wide and 2 deep; bf16, AdamW; VIS_MASK's videos
+   computed and dropped), 2 warm-up and 5 timed steps and one profiled
+   step; then the same YAML at ViT-B/16 MAE widths (VITB_MAE: 768 wide, 12
+   heads, 11 + 1 blocks, 2 x 16 x 16 patches of 16 frames at 224^2, 156 of
+   1568 tokens visible at 0.9, the decoder 512 wide and 4 deep with
+   separable position tables, 8 clips, VIS_MASK off), the same way; no
+   kernel launched: the MAE blocks run the dense chain, as JAX's do;
 8. the entry point: ``python -m advise_tpu_torch.tools.run`` on the BYOL
    preset at full width with synthetic videos (48 of them: 3 iterations an
    epoch), 2 epochs with a kNN probe and a checkpoint each, then the same
@@ -166,8 +182,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    iterations an epoch and the kNN probe), 2 epochs then a resume to 3,
    bit for bit by sha256; then AdViSe with the video_swin head, SSL.TASK
    speed_byol, one epoch of 2 iterations, the Swin layer's twin in its
-   checkpoint (no cv2, no dataset, no download). The script's wall time is
-   printed last.
+   checkpoint; then mae_vismask_minik400.yaml for 2 epochs of 32
+   synthetic videos and a resume to 3 (the model bit for bit by sha256),
+   whose VIS_MASK dump must hold 4 triples an epoch, float32 [3, 4, 112,
+   112, 3], with exactly 2352 hidden patches a clip and the reconstruction
+   EQUAL to the input on every visible one; then
+   configs/chip/maskfeat_minik400.yaml (the loader's block masks, HOG
+   targets) for one epoch of 32 videos, and maskfeat_probe_minik400.yaml
+   with RESUME at its checkpoint (a linear probe of 2 iterations that keeps
+   the encoder bit for bit, then action_infer over 32 videos x 4 views); no
+   kernel launched (no cv2, no dataset, no download). The script's wall
+   time is printed last.
 
 Reductions: one card (BN.NUM_SYNC_DEVICES 1, TPU.MESH_SYNC 1; shuffle-BN
 permutes the card's own batch; Swin-B's preset is 32 chips); widths, depth
@@ -278,6 +303,50 @@ SWIN_RUN_OVERRIDES = ONE_CARD + ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTH
                                  "TRAIN.SAVE_FREQ", "1"]
 ADVISE_SWIN_RUN_DIR = "build/chip_smoke_advise_swin"
 ADVISE_SWIN_RUN_OVERRIDES = ADVISE_RUN_OVERRIDES + [str(v) for kv in ADVISE_SWIN.items() for v in kv]
+# the MAE path (phase 7f): mae_vismask_minik400.yaml's MAE step at one card
+# (MViT 96 wide, 8 blocks, 1 head; 16 clips x 8 frames at 112^2, 784 of
+# 3136 tokens visible; a decoder 64 wide and 2 deep; VIS_MASK on), then the
+# same YAML at ViT-B/16 MAE widths (Feichtenhofer et al. 2022, "Masked
+# Autoencoders As Spatiotemporal Learners"): 16 frames at 224^2 in 2 x 16 x
+# 16 patches, 1568 tokens of which 156 visible at ratio 0.9, a decoder 512
+# wide and 4 deep with separable position tables, 8 clips
+MAE_CONFIG = "configs/chip/mae_vismask_minik400.yaml"
+MAE_EPOCH = 0.5  # inside the preset's warm-up epoch
+VITB_MAE = {"MVIT.EMBED_DIM": 768, "MVIT.NUM_HEADS": 12, "MVIT.DEPTH": 12, "MASK.PRETRAIN_DEPTH": [11],
+            "MVIT.PATCH_KERNEL": [2, 16, 16], "MVIT.PATCH_STRIDE": [2, 16, 16], "MVIT.PATCH_PADDING": [0, 0, 0],
+            "DATA.NUM_FRAMES": 16, "DATA.TRAIN_CROP_SIZE": 224, "DATA.TEST_CROP_SIZE": 224,
+            "AUG.TARGET_SIZE": 224, "AUG.MASK_RATIO": 0.9, "MASK.DECODER_EMBED_DIM": 512,
+            "MASK.DECODER_DEPTH": 4, "MASK.DECODER_SEP_POS_EMBED": True, "DATA.BATCHSIZE_PER_GPU": 8,
+            "VIS_MASK.ENABLE": False}
+MAE_VISIBLE = {"mae_vismask": (784, 3136), "ViT-B MAE": (156, 1568)}  # visible of all tokens a clip
+MAE_SMALL_CLIPS = 2  # phase 4: the MAE model on 2 clips of its 8 frames at 112^2
+# phase 4's MViTv2 forward: MViT_S_rev_masked.yaml's MViT-S trunk as a
+# classifier with MViTv2's options on, 2 clips of 8 frames at 112^2
+MVIT_S_CONFIG = "configs/pretrain/MViT_S_rev_masked.yaml"
+MVIT_V2 = {"MODEL.MODEL_NAME": "MViT", "MASK.ENABLE": False, "MVIT.REL_POS_SPATIAL": True,
+           "MVIT.REL_POS_TEMPORAL": True, "MVIT.RESIDUAL_POOLING": True, "MVIT.DIM_MUL_IN_ATT": True,
+           "DATA.NUM_FRAMES": 8, "DATA.TRAIN_CROP_SIZE": 112, "DATA.TEST_CROP_SIZE": 112, "AUG.TARGET_SIZE": 112}
+# phase 8: the MAE preset through the entry point, 2 epochs of 32 synthetic
+# videos (2 iterations and a VIS_MASK dump of 4 clips each), then a resume to
+# 3; then maskfeat_minik400.yaml (loader block masks, HOG) for one epoch and
+# maskfeat_probe_minik400.yaml from its checkpoint (a linear probe of 2
+# iterations, then action_infer over 32 videos x 4 views)
+MAE_RUN_DIR = "build/chip_smoke_mae"
+MAE_RUN_VIDEOS = 32
+MAE_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(MAE_RUN_VIDEOS),
+                     "TRAIN.SAVE_FREQ", "1"]
+MASKFEAT_CONFIG = "configs/chip/maskfeat_minik400.yaml"
+MASKFEAT_RUN_DIR = "build/chip_smoke_maskfeat"
+MASKFEAT_PROBE_CONFIG = "configs/chip/maskfeat_probe_minik400.yaml"
+MASKFEAT_PROBE_RUN_DIR = "build/chip_smoke_maskfeat_probe"
+MASKFEAT_RUN_VIDEOS = 32
+# the synthetic videos' labels in the presets' 4 classes (the default 101
+# would overrun the probe's 4-class head)
+MASKFEAT_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(MASKFEAT_RUN_VIDEOS),
+                          "DATA.SYNTHETIC_NUM_CLASSES", "4", "TRAIN.SAVE_FREQ", "1", "SOLVER.MAX_EPOCH", "1",
+                          "TRAIN.AUTO_RESUME", "False"]
+MASKFEAT_PROBE_OVERRIDES = MASKFEAT_RUN_OVERRIDES + [
+    "RESUME", f"{MASKFEAT_RUN_DIR}/checkpoints/Model_Epoch_0000"]
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
@@ -1326,6 +1395,242 @@ def advise_steps(acfg, label, warmup, timed, dev, profiled=False):
     return median_ms, peak, launches, tower_same, twins_moved
 
 
+def mae_forward(tconfig, dev) -> None:
+    """Phase 4's MAE check: mae_vismask_minik400.yaml's model at its width on
+    MAE_SMALL_CLIPS clips, bf16 on the card against the same weights'
+    float32 forward on the CPU, both with the same random masks (drawn on
+    the CPU, handed to both): the prediction and the VIS reconstruction."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.models.masked import random_masking
+    from advise_tpu_torch.models.mvit import patch_grid
+
+    cfg = one_card_cfg(tconfig, MAE_CONFIG)
+    ref_cfg = cfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    size = cfg.DATA.TRAIN_CROP_SIZE
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (MAE_SMALL_CLIPS, cfg.DATA.NUM_FRAMES, size, size, 3)).astype(np.float32))
+    masking = random_masking(MAE_SMALL_CLIPS, patch_grid(cfg), cfg.AUG.MASK_RATIO,
+                             generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        want = build_model(ref_cfg, "cpu", seed=0).eval()(x, masking=masking)
+        card = build_model(cfg, dev, seed=0).eval()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = card(x.to(dev).bfloat16(), masking=tuple(m.to(dev) for m in masking))
+    for out_name, a, r in (("pixel prediction", got[0][0], want[0][0]), ("VIS reconstruction", got[4][2], want[4][2])):
+        check(tuple(a.shape) == tuple(r.shape), f"MAE {out_name} has shape {tuple(a.shape)}")
+        rel = float((a.float().cpu() - r).abs().max() / r.abs().max())
+        # bf16 activations through 8 encoder and 2 decoder blocks, as the other phase-4 forwards
+        print(f"[small] MAE (mae_vismask) {out_name} {tuple(a.shape)}, {int(masking[0].shape[1])} of "
+              f"{masking[1].shape[1]} tokens visible: max rel err vs CPU float32 {rel} (bound 5e-2)")
+        check(math.isfinite(rel) and rel <= 5e-2, f"the card's MAE {out_name} disagrees with the CPU")
+    del card
+    torch.cuda.empty_cache()
+
+
+def mvit_v2_forward(tconfig, dev) -> None:
+    """Phase 4's MViTv2 check: the MViT-S trunk of MViT_S_rev_masked.yaml as
+    a 400-class classifier with REL_POS_SPATIAL, REL_POS_TEMPORAL,
+    RESIDUAL_POOLING and DIM_MUL_IN_ATT, on 2 clips of 8 frames at 112^2:
+    bf16 on the card against float32 on the CPU, eval mode; the blocks run
+    the dense chain (rel-pos turns flash off) and launch no kernel."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.models import build_model
+
+    cfg = one_card_cfg(tconfig, MVIT_S_CONFIG, MVIT_V2)
+    ref_cfg = cfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, cfg.DATA.NUM_FRAMES, 112, 112, 3)).astype(np.float32))
+    counters = counted_kernels()
+    with torch.no_grad():
+        want = build_model(ref_cfg, "cpu", seed=0).eval()(x)
+        card = build_model(cfg, dev, seed=0).eval()
+        for fn in counters:
+            fn.launches = 0
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = card(x.to(dev).bfloat16())
+    n_params = sum(p.numel() for p in card.parameters())
+    check(tuple(got.shape) == tuple(want.shape) == (2, cfg.MODEL.NUM_CLASSES), f"MViTv2 logits {tuple(got.shape)}")
+    rel = float((got.float().cpu() - want).abs().max() / want.abs().max())
+    print(f"[small] MViTv2-S ({n_params} params; rel-pos, residual pooling, DIM_MUL_IN_ATT) {tuple(x.shape)} -> "
+          f"{tuple(got.shape)} (bf16 on the card): max rel err vs CPU float32 {rel} (bound 5e-2), launches "
+          f"{ {fn.__name__: fn.launches for fn in counters} }")
+    check(math.isfinite(rel) and rel <= 5e-2, "the card's MViTv2 forward disagrees with the CPU")
+    check(not any(fn.launches for fn in counters), "the MViTv2 forward launched a kernel: rel-pos runs dense")
+    del card
+    torch.cuda.empty_cache()
+
+
+def mae_steps(mcfg, label, warmup, timed, dev):
+    """The MAE step of ``mcfg`` (``step_run``: uint8 clips through OnlyCrop,
+    the masks drawn in the model from the step's generator, AdamW), warmup +
+    timed steps (``time_steps``), then one profiled step; prints each step,
+    the median, clips/s, the peak memory and the visible tokens. Returns
+    (median ms, peak bytes, launches by kernel)."""
+    import torch
+
+    from advise_tpu_torch.models.mvit import patch_grid
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    run = step_run(mcfg, dev, 7, MAE_EPOCH)
+    model = run.state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    b, t = mcfg.DATA.BATCHSIZE_PER_GPU, mcfg.DATA.NUM_FRAMES
+    grid = patch_grid(mcfg)
+    tokens = math.prod(grid)
+    visible = max(int(tokens * (1 - mcfg.AUG.MASK_RATIO)), 2)
+    print(f"[mae] {label}: {n_params} params, clips {tuple(run.clips.shape)} uint8 -> OnlyCrop "
+          f"{mcfg.AUG.TARGET_SIZE}, encoder {mcfg.MVIT.EMBED_DIM} wide x {model.n_blocks} blocks "
+          f"({mcfg.MVIT.NUM_HEADS} heads), decoder {mcfg.MASK.DECODER_EMBED_DIM} wide x "
+          f"{mcfg.MASK.DECODER_DEPTH}, grid {grid}: {visible} of {tokens} tokens visible, "
+          f"{mcfg.TPU.COMPUTE_DTYPE}, VIS_MASK {mcfg.VIS_MASK.ENABLE}, {mcfg.SOLVER.OPTIMIZING_METHOD}, "
+          f"lr {run.lr} at epoch {MAE_EPOCH}")
+    check((visible, tokens) == MAE_VISIBLE[label], f"{label}: {visible} of {tokens} tokens visible")
+
+    def after_step(i, vals, ms):
+        print(f"[mae] {label} step {i}: {vals} ({ms} ms)")
+        check(all(math.isfinite(v) for v in vals.values()), f"{label} step {i} is not finite")
+
+    median_ms, step_ms, peak, launches = time_steps(run, warmup, timed, counted_kernels(), after_step=after_step)
+    check(run.state.step == warmup + timed, f"the {label} state did not advance")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), f"{label} params not finite")
+    print(f"[mae] {label}: median step {median_ms} ms over {timed} steps (all: {step_ms}), "
+          f"{b * 1e3 / median_ms} clips/s ({b} clips x {t} frames), peak allocated {peak} bytes, "
+          f"launches {launches}")
+    profile_step(f"{label} step", run.call, "mae")
+    del run, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return median_ms, peak, launches
+
+
+def mae_path(tconfig, dev) -> None:
+    """Phase 7f: the mae_vismask_minik400.yaml MAE step at one card, then
+    the same YAML at ViT-B/16 MAE widths (VITB_MAE); no kernel launched: the
+    MAE blocks run the dense chain, as JAX's do."""
+    for label, over in (("mae_vismask", None), ("ViT-B MAE", VITB_MAE)):
+        mcfg = one_card_cfg(tconfig, MAE_CONFIG, over)
+        _, _, launches = mae_steps(mcfg, label, WARMUP_STEPS, TIMED_STEPS, dev)
+        check(not any(launches.values()), f"the {label} step launched a kernel: its path has none")
+
+
+def mae_entry(tconfig) -> None:
+    """Phase 8's MAE run: mae_vismask_minik400.yaml through the entry point,
+    2 epochs then a resume to 3 (the model bit for bit by sha256), and its
+    VIS_MASK dump: 4 triples an epoch, float32 [3, T / 2, H, W, 3], the
+    masked input zero on exactly the hidden patches and the reconstruction
+    EQUAL to the input on every visible one."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.engine.checkpoint import STATE_FILE, tensors_digest
+    from advise_tpu_torch.models.mvit import patch_grid
+    from advise_tpu_torch.utils.visualization import vis_dir
+
+    mcfg = one_card_cfg(tconfig, MAE_CONFIG)
+    shutil.rmtree(MAE_RUN_DIR, ignore_errors=True)
+    m1 = run_entry_point(["SOLVER.MAX_EPOCH", "2"], "MAE preset, 2 epochs", MAE_CONFIG, MAE_RUN_DIR,
+                         MAE_RUN_OVERRIDES)
+    saved = tensors_digest(torch.load(Path(MAE_RUN_DIR) / "checkpoints" / "Model_Epoch_0001" / STATE_FILE,
+                                      map_location="cpu", weights_only=False)["model"])
+    m2 = run_entry_point(["SOLVER.MAX_EPOCH", "3", "TRAIN.AUTO_RESUME", "True"], "MAE preset, resume to 3",
+                         MAE_CONFIG, MAE_RUN_DIR, MAE_RUN_OVERRIDES)
+    iters = MAE_RUN_VIDEOS // mcfg.DATA.BATCHSIZE_PER_GPU
+    for rec, run, epochs in ((m1, "first run", 2), (m2, "resumed run", 1)):
+        print(f"[run] MAE {run}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats {rec['stats']}, "
+              f"iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait {[t * 1e3 for t in rec['wait_s']]} "
+              f"ms, peak allocated {rec['peak_allocated_bytes']} bytes, launches {rec['launches']}, "
+              f"{rec['seconds']} s with start-up")
+        check(len(rec["iter_s"]) == epochs * iters, f"MAE {run}: wrong schedule")
+        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"MAE {run}: not finite")
+        check(not any(rec["launches"].values()), f"the MAE {run} launched a kernel")
+    print(f"[run] MAE model sha256: end of the first run {m1['model_sha256_end']}, Model_Epoch_0001 {saved}, "
+          f"start of the resumed run {m2['model_sha256']}")
+    check(m2["start_epoch"] == 2 and m2["start_step"] == 2 * iters, "the MAE run did not resume at epoch 2")
+    check(m1["model_sha256_end"] == saved == m2["model_sha256"], "the resumed MAE model differs from the saved one")
+    mcfg.LOGDIR = MAE_RUN_DIR
+    out = vis_dir(mcfg)
+    names = sorted(n for n in os.listdir(out) if n.endswith(".npy"))
+    want = [f"vis_{e}_{i}.npy" for e in range(3) for i in range(4)]
+    check(names == want, f"the VIS_MASK dump holds {names}, not {want}")
+    t, h, w = patch_grid(mcfg)
+    p = mcfg.DATA.TRAIN_CROP_SIZE // h
+    visible = max(int(t * h * w * (1 - mcfg.AUG.MASK_RATIO)), 2)
+    hidden_counts = []
+    for name in names:
+        triple = np.load(os.path.join(out, name))
+        check(triple.shape == (3, t, mcfg.DATA.TRAIN_CROP_SIZE, mcfg.DATA.TRAIN_CROP_SIZE, 3)
+              and triple.dtype == np.float32, f"VIS_MASK {name} has shape {triple.shape} {triple.dtype}")
+        raw, masked, rec = (v.reshape(t, h, p, w, p, 3).transpose(0, 1, 3, 2, 4, 5).reshape(t * h * w, -1)
+                            for v in triple)
+        hidden = np.all(masked == 0, axis=1)
+        hidden_counts.append(int(hidden.sum()))
+        check(np.array_equal(masked[~hidden], raw[~hidden]), f"VIS_MASK {name}: the masked input is not the input")
+        check(np.array_equal(rec[~hidden], raw[~hidden]),
+              f"VIS_MASK {name}: the reconstruction differs from the input on a visible patch")
+        check(np.isfinite(rec).all(), f"VIS_MASK {name}: the reconstruction is not finite")
+    mp4s = sorted(n for n in os.listdir(out) if n.endswith(".mp4"))
+    print(f"[run] MAE VIS_MASK dump in {out}: {len(names)} .npy files and {len(mp4s)} .mp4 (cv2 where it imports), "
+          f"shape {triple.shape}; hidden patches a clip {hidden_counts} (expected {t * h * w - visible} of "
+          f"{t * h * w}); reconstruction equal to the input on every visible patch")
+    check(all(c == t * h * w - visible for c in hidden_counts), "VIS_MASK: the hidden patches are not the masked ones")
+
+
+def maskfeat_entries(tconfig) -> None:
+    """Phase 8's MaskFeat runs: maskfeat_minik400.yaml (the loader's block
+    masks, HOG targets, REMAT) for one epoch through the entry point, then
+    maskfeat_probe_minik400.yaml with RESUME at its checkpoint: a linear
+    probe of the MViT (the encoder's parameters kept bit for bit, the head
+    trained), then action_infer; no kernel launched on either."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from advise_tpu_torch.engine.checkpoint import STATE_FILE
+
+    fcfg = one_card_cfg(tconfig, MASKFEAT_CONFIG)
+    pcfg = one_card_cfg(tconfig, MASKFEAT_PROBE_CONFIG)
+    shutil.rmtree(MASKFEAT_RUN_DIR, ignore_errors=True)
+    shutil.rmtree(MASKFEAT_PROBE_RUN_DIR, ignore_errors=True)
+    mf = run_entry_point([], "MaskFeat preset, 1 epoch", MASKFEAT_CONFIG, MASKFEAT_RUN_DIR, MASKFEAT_RUN_OVERRIDES)
+    prb = run_entry_point([], "MaskFeat linear probe + action_infer", MASKFEAT_PROBE_CONFIG, MASKFEAT_PROBE_RUN_DIR,
+                          MASKFEAT_PROBE_OVERRIDES)
+    for rec, label, cfg in ((mf, "MaskFeat", fcfg), (prb, "MaskFeat probe", pcfg)):
+        print(f"[run] {label}: stats {rec['stats']}, iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait "
+              f"{[t * 1e3 for t in rec['wait_s']]} ms, peak allocated {rec['peak_allocated_bytes']} bytes, "
+              f"launches {rec['launches']}, {rec['seconds']} s with start-up")
+        check(len(rec["iter_s"]) == MASKFEAT_RUN_VIDEOS // cfg.DATA.BATCHSIZE_PER_GPU and rec["start_step"] == 0,
+              f"{label}: wrong schedule")
+        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label}: not finite")
+        check(not any(rec["launches"].values()), f"the {label} run launched a kernel")
+    inf = prb["action_infer"]
+    views = pcfg.INFER.NUM_CLIPS * pcfg.INFER.NUM_CROPS
+    print(f"[run] MaskFeat action_infer: {inf['total']} videos, {inf['views']} views in {inf['batches']} batches, "
+          f"{inf['seconds']} s, {inf['views_per_s']} views/s, median batch {inf['batch_ms_median']} ms, "
+          f"acc {inf['acc']}")
+    check(inf["total"] == MASKFEAT_RUN_VIDEOS and inf["views"] == MASKFEAT_RUN_VIDEOS * views,
+          "MaskFeat action_infer did not see every view of every video")
+    pretrained = torch.load(Path(MASKFEAT_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE,
+                            map_location="cpu", weights_only=False)["model"]
+    probed = torch.load(Path(MASKFEAT_PROBE_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE,
+                        map_location="cpu", weights_only=False)["model"]
+    frozen = [k for k in probed if "head" not in k and f"encoder.{k}" in pretrained]
+    print(f"[run] MaskFeat probe: {len(frozen)} of {len(probed)} tensors from the MaskFeat encoder")
+    check(len(frozen) > 0 and all(torch.equal(probed[k], pretrained[f"encoder.{k}"]) for k in frozen),
+          "the MaskFeat probe's encoder differs from the pretrain checkpoint")
+
+
 def main() -> None:
     import torch
 
@@ -1782,6 +2087,8 @@ def main() -> None:
     advise_forward(tconfig, dev, "ViT-B/16 + video_swin", ADVISE_SWIN)
     small_forwards(tconfig, dev)
     swin_forward(tconfig, dev)
+    mae_forward(tconfig, dev)
+    mvit_v2_forward(tconfig, dev)
 
     # -- 5. the BYOL path ---------------------------------------------------------
     model = build_model(cfg, dev, seed=0)
@@ -2080,10 +2387,12 @@ def main() -> None:
         check(task == "speed" or twins_moved, "AdViSe video_swin speed_byol: the twins did not move")
         check(not any(v_launches.values()), f"the AdViSe video_swin {task} step launched a kernel")
 
-    # -- 7c. the X3D path, 7d. the MoCo path, 7e. the Swin path: no kernel --------
+    # -- 7c. the X3D path, 7d. the MoCo path, 7e. the Swin path, 7f. the MAE
+    # path: no kernel -------------------------------------------------------------
     x3d_path(tconfig, dev)
     moco_path(tconfig, dev)
     swin_path(tconfig, dev)
+    mae_path(tconfig, dev)
 
     # -- 8. the entry point ---------------------------------------------------------
     import shutil
@@ -2233,6 +2542,8 @@ def main() -> None:
     moco_entry(tconfig)
     moco_entry(tconfig, "Swin-B MoCo", SWIN_CONFIG, SWIN_RUN_DIR, SWIN_RUN_OVERRIDES, SWIN_RUN_VIDEOS)
     advise_swin_entry(tconfig)
+    mae_entry(tconfig)
+    maskfeat_entries(tconfig)
     print(f"[total] chip_smoke.py wall time {time.perf_counter() - t_start} s")
 
     launches.update(probe_launches)

@@ -202,8 +202,10 @@ def test_port_imports_no_jax():
     a MaskingGenerator3D draw, one AdViSe step (the TemporalModel with
     its CLIP tower, the XLA simple aug with hue, BYOL twins), the eval
     modules with a speed_val eval step, ContrastiveModel over ResNet3D, an
-    X3D speed step (drop-connect on) and a MoCo step (the rbyol aug,
-    shuffle-BN, the queue) loads no jax, flax, optax or advise_tpu module."""
+    X3D speed step (drop-connect on), a MoCo step (the rbyol aug,
+    shuffle-BN, the queue) and an MAE step with rel-pos, residual pooling
+    and the fixed sin-cos table, then its VIS_MASK dump, loads no jax, flax,
+    optax or advise_tpu module."""
     code = (
         "import sys, torch\n"
         "from advise_tpu_torch.config import get_cfg, assert_and_infer_cfg\n"
@@ -302,6 +304,22 @@ def test_port_imports_no_jax():
         "    {'item_id': torch.arange(4)}, g, 1e-3, 0.5)\n"
         "assert set(stats) == {'loss_nce', 'acc_ins', 'grad_norm'} and int(state.ssl['ptr']) == 4\n"
         "assert all(bool(torch.isfinite(v)) for v in stats.values())\n"
+        "import tempfile\n"
+        "from advise_tpu_torch.models import masked\n"
+        "from advise_tpu_torch.utils import visualization\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/chip/mae_vismask_minik400.yaml')\n"
+        "cfg.MVIT.EMBED_DIM = 16; cfg.MVIT.DEPTH = 2; cfg.MASK.PRETRAIN_DEPTH = [1]; cfg.MASK.DECODER_EMBED_DIM = 16\n"
+        "cfg.MVIT.REL_POS_SPATIAL = True; cfg.MVIT.RESIDUAL_POOLING = True; cfg.MVIT.USE_FIXED_SINCOS_POS = True\n"
+        "cfg.DATA.NUM_FRAMES = 4; cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = cfg.AUG.TARGET_SIZE = 32\n"
+        "cfg.TPU.COMPUTE_DTYPE = 'float32'; cfg.NUM_WORLDS = 1; cfg = assert_and_infer_cfg(cfg)\n"
+        "cfg.LOGDIR = tempfile.mkdtemp()\n"
+        "state, bundle = build_train_state(cfg, 'cpu')\n"
+        "assert isinstance(state.model, masked.MaskMViT) and state.model.mae\n"
+        "aug = build_device_aug(cfg)\n"
+        "u8 = torch.randint(0, 256, (2, 1, 4, 32, 42, 3), dtype=torch.uint8)\n"
+        "stats = make_train_step(cfg, bundle, aug)(state, u8, {}, g, 1e-3)\n"
+        "assert set(stats) == {'loss_mask', 'grad_norm'} and all(bool(torch.isfinite(v)) for v in stats.values())\n"
+        "assert visualization.dump_mask_visualization(cfg, state.model, u8, aug, g, 0) is not None\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -355,12 +355,13 @@ def test_trainer_pieces():
     assert torch.equal(torch.rand(4, generator=a), torch.rand(4, generator=b))
     assert not torch.equal(torch.rand(4, generator=seeded_generator("cpu", 0, 1, 3)),
                            torch.rand(4, generator=seeded_generator("cpu", 0, 2, 2)))
-    for key, value, item in (("TPU.PARTITION_MODE", "auto", "A 16"), ("VIS_MASK.ENABLE", True, "A 11")):
-        bad = cfg.clone()
-        section, leaf = key.split(".")
-        bad[section][leaf] = value
-        with pytest.raises(NotImplementedError, match=item):
-            check_ported(bad)
+    bad = cfg.clone()
+    bad.TPU.PARTITION_MODE = "auto"
+    with pytest.raises(NotImplementedError, match="A 16"):
+        check_ported(bad)
+    bad = cfg.clone()
+    bad.VIS_MASK.ENABLE = True
+    check_ported(bad)  # the VIS_MASK dump is ported (tests/test_torch_mae.py)
     bad = cfg.clone()
     bad.MODEL.SPATIAL_MODEL_PATH = "no_such_clip_checkpoint"
     check_ported(bad)  # the CLIP tower loads now; a missing checkpoint raises where it is read

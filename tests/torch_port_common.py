@@ -261,3 +261,95 @@ def tm_variables(model, seed=0, t=TM_T, s=TM_S):
         jnp.zeros((2, t, s, s, 3), jnp.float32), train=False, method="init_all",
     ))()
     return jax.device_get(v["params"]), jax.device_get(v.get("batch_stats", {}))
+
+
+# configs/chip/mae_vismask_minik400.yaml (MViT MAE with the VIS_MASK dump)
+# cut to CPU size: 2 encoder blocks of width 16 (1 head), a decoder of 2
+# blocks 16 wide, 4 frames at 32^2 (a 2 x 8 x 8 patch grid, 32 of its 128
+# tokens visible at the preset's ratio 0.75), float32
+MAE_B, MAE_T, MAE_S = 2, 4, 32  # clips, frames, crop
+
+
+def mae_cfg(mod=jconfig, **overrides):
+    cfg = mod.get_cfg()
+    cfg.merge_from_file("configs/chip/mae_vismask_minik400.yaml")
+    cfg.NUM_GPUS = 1
+    cfg.NUM_WORLDS = 1
+    cfg.TPU.MESH_SYNC = 1
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.DONATE = False
+    cfg.MVIT.EMBED_DIM = 16
+    cfg.MVIT.DEPTH = 2
+    cfg.MASK.PRETRAIN_DEPTH = [1]
+    cfg.MASK.DECODER_EMBED_DIM = 16
+    cfg.MASK.DECODER_DEPTH = 2
+    cfg.DATA.NUM_FRAMES = MAE_T
+    cfg.DATA.TRAIN_CROP_SIZE = MAE_S
+    cfg.DATA.TEST_CROP_SIZE = MAE_S
+    cfg.AUG.TARGET_SIZE = MAE_S
+    cfg.DATA.BATCHSIZE_PER_GPU = MAE_B
+    _override(cfg, overrides)
+    return mod.assert_and_infer_cfg(cfg)
+
+
+def model_variables(model, t, s, seed=0):
+    """A JAX MaskMViT's (or MViT's) initial params for clips of ``t``
+    frames at ``s``^2, as a numpy tree."""
+    v = jax.jit(lambda: model.init(
+        {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed + 1),
+         "mask": jax.random.PRNGKey(seed + 2)},
+        jnp.zeros((1, t, s, s, 3), jnp.float32), train=False,
+    ))()
+    return jax.device_get(v["params"])
+
+
+def record_jax_masks(monkeypatch):
+    """Wrap the JAX package's ``models.masked.random_masking`` so that every
+    call its programs make appends the (ids_keep, mask, ids_restore) it drew,
+    as numpy, to the returned list (read it after ``jax.effects_barrier()``)."""
+    from advise_tpu.models import masked as jmasked
+
+    drawn = []
+    orig = jmasked.random_masking
+
+    def recording(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        jax.debug.callback(lambda *v: drawn.append(tuple(np.asarray(a) for a in v)), *out)
+        return out
+
+    monkeypatch.setattr(jmasked, "random_masking", recording)
+    return drawn
+
+
+def hand_port_masks(monkeypatch, drawn):
+    """Make the port's ``models.masked.random_masking`` return the entries
+    of ``drawn`` in order (as torch tensors on the noise's device)."""
+    import torch
+
+    from advise_tpu_torch.models import masked as tmasked
+
+    queue = list(drawn)
+
+    def handed(b, thw, mask_ratio, tube=False, per_frame=False, generator=None, noise=None):
+        ids_keep, mask, ids_restore = queue.pop(0)
+        assert ids_keep.shape[0] == mask.shape[0] == b and mask.shape[1] == thw[0] * thw[1] * thw[2]
+        return tuple(torch.from_numpy(np.array(a)) for a in (ids_keep, mask, ids_restore))
+
+    monkeypatch.setattr(tmasked, "random_masking", handed)
+    return queue
+
+
+def optimizer_masks_disagree(jcfg, tcfg, jparams, model):
+    """Names of the parameters whose optimizer label or weight decay in the
+    port (``solver/optimizer.py classify_params``, ``wd_tree``) differs
+    from the JAX package's for the same tree."""
+    from advise_tpu.solver import optimizer as jopt
+    from advise_tpu_torch.solver import optimizer as topt
+    from advise_tpu_torch.utils.convert import _flatten, param_key
+
+    params = dict(model.named_parameters())
+    j_labels = {param_key(p): v for p, v in _flatten(jopt.classify_params(jcfg, jparams))}
+    j_wd = {param_key(p): v for p, v in _flatten(jopt.wd_tree(jcfg, jparams))}
+    assert set(j_labels) == set(params), set(j_labels) ^ set(params)
+    t_labels, t_wd = topt.classify_params(tcfg, params), topt.wd_tree(tcfg, params)
+    return [n for n in params if t_labels[n] != j_labels[n] or abs(t_wd[n] - float(j_wd[n])) > 1e-12]
