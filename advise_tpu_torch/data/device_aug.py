@@ -1,7 +1,8 @@
 """On-device augmentation (counterpart of ``advise_tpu/data/device_aug.py``):
 the train pipelines 'aa' with AUG.FUSED_RA, 'simple' (the fused kernel
 with TPU.PALLAS_AUG, else the XLA path), 'OnlyCrop' (RandomResizedCrop +
-normalize), 'rbyol' (the MoCo-v2 / BYOL stack) and 'none' (normalize only);
+normalize), 'rbyol' (the MoCo-v2 / BYOL stack), 'clip_aug' (the crop with
+camera dynamics) and 'none' (normalize only);
 the speed_val pipeline (the RRC with VAL's size, scale and ratio) and the
 inference crop.
 
@@ -27,6 +28,9 @@ a clip share its parameters.
   AUG.COLOR with a real hue, grayscale with probability AUG.GRAYSCALE, the
   Gaussian blur with probability 0.5, the flip with AUG.RANDOM_FLIP,
   normalize.
+- 'clip_aug': per clip, one RandomResizedCrop box moved, zoomed and shaken
+  frame by frame, each frame's box resized, clip to [0, 255], the ramped
+  brightness, saturation and white balance, normalize.
 - mode 'action': per clip, a random INFER.RES square crop (the ingest
   resized the short side to INFER.RES), normalize.
 
@@ -231,7 +235,8 @@ class AAAug:
         from advise_tpu_torch.data.rand_augment import FusedRandAugment
 
         if not cfg.AUG.FUSED_RA:
-            raise NotImplementedError("the op-exact RandAugment path is not ported yet")
+            raise NotImplementedError(
+                "AUG.FUSED_RA False (the op-exact RandAugment) is not ported yet (ROADMAP A 15)")
         if cfg.AUG.RA_BATCHED:
             raise NotImplementedError("AUG.RA_BATCHED is a TPU layout of the same math")
         self.size = int(cfg.AUG.TARGET_SIZE)
@@ -591,13 +596,62 @@ class RByolAug:
         return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
 
 
-_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug, "OnlyCrop": RRCAug, "rbyol": RByolAug, "none": NoAug}
+class ClipAug:
+    """AUG.TYPE 'clip_aug' (``make_clip_aug``): per clip one RandomResizedCrop
+    box with scale (AUG.MIN_AREA, 1) and AUG.RAND_CROP_RATIO, the camera
+    dynamics over the frames (AUG.CAMERA_SHIFT, ZOOM, CAMERA_SHAKE), the
+    per-frame box crop to AUG.TARGET_SIZE, the colour ramps (AUG.COLOR_BRI,
+    COLOR_SAT, WHITE_BALANCE; ``erasing.clip_random_resized_crop``), then
+    normalize. ``aug(batch_u8, generator)``, or ``apply(batch_u8,
+    sample(...))`` with parameters from elsewhere."""
+
+    def __init__(self, cfg):
+        self.size = int(cfg.AUG.TARGET_SIZE)
+        self.scale = (cfg.AUG.MIN_AREA, 1.0)
+        self.ratio = tuple(cfg.AUG.RAND_CROP_RATIO)
+        self.dynamics = {"jitter": float(cfg.AUG.CAMERA_SHAKE), "shift": float(cfg.AUG.CAMERA_SHIFT),
+                         "zoom": float(cfg.AUG.ZOOM), "brightness": float(cfg.AUG.COLOR_BRI),
+                         "saturation": float(cfg.AUG.COLOR_SAT),
+                         "white_balance": float(cfg.AUG.WHITE_BALANCE)}
+        self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
+        self.out_dtype = aug_out_dtype(cfg)
+
+    def sample(self, n: int, t: int, h: int, w: int, c: int,
+               generator: torch.Generator) -> Dict[str, Any]:
+        """Parameters for n clips of [t, h, w, c]: ``box`` [N, 4] and the
+        uniform [0, 1) draws ``shift`` [N, 2], ``zoom`` [N], ``shake`` [N,
+        2, t], ``bri``, ``sat`` [N] and ``wb`` [N, 3]."""
+        dev = generator.device
+
+        def rand(*shape):
+            return torch.rand((n, *shape), generator=generator, device=dev)
+
+        return {"box": sample_rrc_box(n, h, w, self.scale, self.ratio, generator),
+                "shift": rand(2), "zoom": rand(), "shake": rand(2, t), "bri": rand(), "sat": rand(),
+                "wb": rand(3)}
+
+    def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+        from advise_tpu_torch.data.erasing import clip_random_resized_crop
+
+        b, k = batch_u8.shape[:2]
+        flat = batch_u8.reshape(b * k, *batch_u8.shape[2:]).float()
+        clips = clip_random_resized_crop(flat, params, self.size, **self.dynamics)
+        out = normalize(clips, self.mean, self.std, by_reciprocal=True).to(self.out_dtype)
+        return out.reshape(b, k, *out.shape[1:])
+
+    def __call__(self, batch_u8: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        b, k, t, h, w, c = batch_u8.shape
+        return self.apply(batch_u8, self.sample(b * k, t, h, w, c, generator))
+
+
+_TRAIN_AUGS = {"aa": AAAug, "simple": SimpleAug, "OnlyCrop": RRCAug, "rbyol": RByolAug, "clip_aug": ClipAug,
+               "none": NoAug}
 
 
 def _build_device_aug(cfg, mode: str):
     if mode == "train":
         if cfg.AUG.TYPE not in _TRAIN_AUGS:
-            raise NotImplementedError(f"AUG.TYPE={cfg.AUG.TYPE} is not ported yet (ROADMAP A 14)")
+            raise KeyError(f"AUG.TYPE={cfg.AUG.TYPE!r}: one of {sorted(_TRAIN_AUGS)}")
         return _TRAIN_AUGS[cfg.AUG.TYPE](cfg)
     if mode == "speed":
         return RRCAug(cfg, size=cfg.VAL.TARGET_SIZE, scale=(cfg.VAL.MIN_AREA, 1.0),
@@ -610,7 +664,7 @@ def _build_device_aug(cfg, mode: str):
 def build_device_aug(cfg, mode: str = "train"):
     """The pipeline of ``mode`` (``advise_tpu/data/device_aug.py
     build_device_aug``): 'train' by AUG.TYPE ('aa', 'simple', 'OnlyCrop',
-    'rbyol', 'none'; 'clip_aug' is not ported yet), 'speed' the RRC of VAL.*,
+    'rbyol', 'clip_aug', 'none'), 'speed' the RRC of VAL.*,
     'action' the INFER.RES crop. DATA.REVERSE_INPUT_CHANNEL flips the channel
     axis of the raw batch first."""
     aug = _build_device_aug(cfg, mode)

@@ -4,14 +4,20 @@ action_recog; MaskMViT's masked step), the AdViSe step and the eval step of
 speed_val and inference.
 
 Order inside the contrastive step, as in the JAX package: augmentation ->
-cast to TPU.COMPUTE_DTYPE -> EMA update -> the algorithm's loss (BYOL:
-online views with per-view BN, momentum-encoder keys, kNN scatter; MoCo:
-the online view 0, shuffle-BN keys of the other views, the queue's
-negatives, the queue update, kNN scatter) -> backward -> BN running
+cast to TPU.COMPUTE_DTYPE -> EMA update (BYOL, MoCo) -> the algorithm's loss
+(BYOL: online views with per-view BN, momentum-encoder keys, kNN scatter;
+MoCo: the online view 0, shuffle-BN keys of the other views, the queue's
+negatives, the queue update, kNN scatter; SimCLR: NT-Xent over two views;
+SwAV: prototype scores, Sinkhorn codes and the feature queue; mem: the
+memory bank's NCE and its momentum update) -> backward -> BN running
 statistics committed once -> global grad norm -> the optimizer's direction
--> parameters updated. The task step: augmentation -> cast -> forward (all
-B*K clips as one batch, head dropout) -> task loss -> backward -> BN commit
--> global grad norm -> SGD direction -> update; MaskMViT's task step runs
+-> parameters updated. With CONTRASTIVE.SEQUENTIAL the loss and backward
+run per clip (:func:`advise_tpu_torch.engine.contrastive.sequential_contrastive_grads`).
+The task step: augmentation -> cast -> forward (all B*K clips as one
+batch, head dropout; with TRAIN.SEQUENTIAL one clip of each video at a
+time, the gradients summed and divided by K) -> task loss -> backward -> BN
+commit -> global grad norm -> the optimizer's direction -> update;
+MaskMViT's task step runs
 the masked MSE over the pretrain depths plus, with MASK.JOINT_CONTRASTIVE,
 the NT-Xent between the two views' projections, then AdamW. The AdViSe
 step (TemporalModel): augmentation -> cast -> the BYOL twins' EMA update
@@ -31,7 +37,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from advise_tpu_torch.engine.contrastive import CONTRASTIVE_LOSSES, momentum_at, update_ema
+from advise_tpu_torch.engine.contrastive import (
+    CONTRASTIVE_LOSSES,
+    loss_grads,
+    momentum_at,
+    per_clip_grads,
+    sequential_contrastive_grads,
+    update_ema,
+)
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.models import compute_dtype as cfg_compute_dtype
 from advise_tpu_torch.models import losses as L
@@ -48,15 +61,17 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
     """Returns ``step(state, clips_u8, infos, generator, lr, epoch_exact) ->
     stats``: ``clips_u8`` [B, K, T, H, W, 3] uint8 at ingest geometry (or
     already-augmented float clips when ``device_aug`` is None), ``infos``
-    with ``item_id`` [B], ``generator`` drawing the augmentation on the
-    clips' device and then the dropout masks and MoCo's shuffle-BN
-    permutations."""
-    if cfg.CONTRASTIVE.SEQUENTIAL:
-        raise NotImplementedError("CONTRASTIVE.SEQUENTIAL is not ported yet (ROADMAP A 14)")
-    if cfg.CONTRASTIVE.TYPE not in CONTRASTIVE_LOSSES:
-        raise NotImplementedError(
-            f"CONTRASTIVE.TYPE={cfg.CONTRASTIVE.TYPE} is not ported yet (ROADMAP A 14)")
-    algo = CONTRASTIVE_LOSSES[cfg.CONTRASTIVE.TYPE]
+    with ``item_id`` [B] (and for mem ``time_idx`` [B]), ``generator``
+    drawing the augmentation on the clips' device and then the dropout
+    masks, MoCo's shuffle-BN permutations and mem's random rows.
+    ``epoch_exact`` sets the momentum and opens SwAV's queue."""
+    ctype = cfg.CONTRASTIVE.TYPE
+    if ctype not in CONTRASTIVE_LOSSES:
+        raise KeyError(f"CONTRASTIVE.TYPE={ctype!r}: one of {sorted(CONTRASTIVE_LOSSES)}")
+    sequential = bool(cfg.CONTRASTIVE.SEQUENTIAL)
+    if sequential and ctype not in ("byol", "moco"):
+        raise ValueError(f"CONTRASTIVE.SEQUENTIAL supports byol and moco only, not {ctype!r}")
+    algo = CONTRASTIVE_LOSSES[ctype]
     dtype = cfg_compute_dtype(cfg)
 
     def step(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
@@ -71,11 +86,15 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
         if "ema_model" in ssl:
             ssl["ema_model"].train()
             update_ema(ssl, model, momentum_at(cfg, epoch_exact))
-        with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
-            loss, ssl, stats = algo(cfg, model, ssl, views, infos, generator)
+        infos = dict(infos, epoch_exact=epoch_exact)
         params = dict(model.named_parameters())
-        grads = torch.autograd.grad(loss, list(params.values()))
-        grads = dict(zip(params, grads))
+        with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            if sequential:
+                grads, ssl, stats = sequential_contrastive_grads(cfg, model, ssl, views, infos, generator)
+            else:
+                loss, ssl, stats = algo(cfg, model, ssl, views, infos, generator)
+        if not sequential:
+            grads = loss_grads(loss, params)
         commit_bn_stats(model)
         if "ema_model" in ssl:
             commit_bn_stats(ssl["ema_model"])
@@ -192,17 +211,43 @@ TASK_LOSSES = {"speed": speed_task_loss, "action_recog": action_task_loss,
 
 def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):
     """Returns ``step(state, clips_u8, infos, generator, lr) -> stats`` for
-    cfg.TASK (MaskMViT: the masked loss, whatever TASK says): ``clips_u8`` [B, K, T, H, W, 3] uint8 at ingest geometry (or
-    already-augmented float clips when ``device_aug`` is None), ``generator``
-    drawing the augmentation and then the dropout mask on the clips'
-    device (the masked step: the drop-path masks). ``state.ssl`` stays {}."""
-    if cfg.TRAIN.SEQUENTIAL:
-        raise NotImplementedError("TRAIN.SEQUENTIAL is not ported yet (ROADMAP A 14)")
+    cfg.TASK (MaskMViT: the masked loss, whatever TASK says): ``clips_u8``
+    [B, K, T, H, W, 3] uint8 at ingest geometry (or already-augmented float
+    clips when ``device_aug`` is None), ``generator`` drawing the
+    augmentation and then the dropout mask on the clips' device (the masked
+    step: the drop-path masks). ``state.ssl`` stays {}.
+
+    TRAIN.SEQUENTIAL with K > 1 (``advise_tpu/engine/steps.py``'s scan):
+    the augmentation runs once, then clip i of every video [B, 1, ...] goes
+    through the loss and its backward alone, with the [B, K, ...] infos
+    sliced to [B, 1, ...]; the gradients are summed and divided by K, the
+    BN running statistics chain from clip to clip, every clip draws the same
+    dropout masks (JAX reuses one key), and each statistic is its mean over
+    the clips."""
     task = "masked" if cfg.MODEL.MODEL_NAME == "MaskMViT" else cfg.TASK
     if task not in TASK_LOSSES:
         raise NotImplementedError(f"TASK={task} train step is not ported yet")
     task_loss = TASK_LOSSES[task]
     dtype = cfg_compute_dtype(cfg)
+    autocast = dtype != torch.float32
+
+    def loss_and_grads(model, clips, infos, generator):
+        params = dict(model.named_parameters())
+        with torch.autocast(clips.device.type, dtype=dtype, enabled=autocast):
+            loss, stats = task_loss(cfg, model, clips, infos, generator)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return dict(zip(params, grads)), {name: v.detach() for name, v in stats.items()}
+
+    def sequential_grads(model, clips, infos, generator):
+        k = clips.shape[1]
+
+        def clip_grads(i):
+            infos_i = {name: v[:, i:i + 1] if v.ndim >= 2 else v for name, v in infos.items()}
+            return loss_and_grads(model, clips[:, i:i + 1], infos_i, generator)
+
+        grads, per_clip = per_clip_grads(k, generator, clip_grads)
+        stats = {name: torch.stack([st[name].float() for st in per_clip]).mean() for name in per_clip[0]}
+        return {n: g / k for n, g in grads.items()}, stats
 
     def step(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator], lr: float) -> Dict[str, torch.Tensor]:
@@ -210,12 +255,12 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
         model.train()
         clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
         clips = clips.to(dtype)
-        with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
-            loss, stats = task_loss(cfg, model, clips, infos, generator)
+        if cfg.TRAIN.SEQUENTIAL and clips.shape[1] > 1:
+            grads, stats = sequential_grads(model, clips, infos, generator)
+        else:
+            grads, stats = loss_and_grads(model, clips, infos, generator)
         params = dict(model.named_parameters())
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         commit_bn_stats(model)
-        stats = {name: v.detach() for name, v in stats.items()}
         stats["grad_norm"] = global_grad_norm(grads)
         direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
         apply_direction(params, direction, lr, bundle.lr_scales)
@@ -330,9 +375,7 @@ def make_tmodeling_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional
         with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
             loss, stats = tmodeling_loss(cfg, model, state.ssl, clips, infos, generator)
         params = dict(model.named_parameters())
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g
-                 for (n, p), g in zip(params.items(), grads)}
+        grads = loss_grads(loss, params)
         commit_bn_stats(model)
         stats = {name: v.detach() for name, v in stats.items()}
         stats["grad_norm"] = global_grad_norm(grads)

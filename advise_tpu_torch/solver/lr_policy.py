@@ -1,8 +1,7 @@
-"""Learning-rate policy (the port's own copy of the cosine policy of
-``advise_tpu/solver/lr_policy.py``, which is pure Python; a test holds the
-two equal), with the warm-up of the plateau policy and its
-:class:`PlateauController`. Every preset of the repo uses the cosine
-policy; the relative-step policy is not ported yet.
+"""Learning-rate policies (the port's own copy of
+``advise_tpu/solver/lr_policy.py``, which is pure Python; tests hold the two
+equal): cosine and steps_with_relative_lrs under a linear warm-up, and the
+warm-up of the plateau policy with its :class:`PlateauController`.
 
 The reference schedule math (reference ``utils/lr_policy.py:9-94``):
 cosine with linear warmup and an optional cosine-after-warmup offset,
@@ -33,6 +32,24 @@ def lr_func_cosine(cfg, cur_epoch: float) -> float:
     )
 
 
+def get_step_index(cfg, cur_epoch: float) -> int:
+    """The index of the step of SOLVER.STEPS (then MAX_EPOCH) that
+    ``cur_epoch`` lies in: the last step at or before it."""
+    steps = list(cfg.SOLVER.STEPS) + [cfg.SOLVER.MAX_EPOCH]
+    for ind, step in enumerate(steps):
+        if cur_epoch < step:
+            break
+    return ind - 1
+
+
+def lr_func_steps_with_relative_lrs(cfg, cur_epoch: float) -> float:
+    """SOLVER.LRS[i] * BASE_LR in step i of SOLVER.STEPS."""
+    return cfg.SOLVER.LRS[get_step_index(cfg, cur_epoch)] * cfg.SOLVER.BASE_LR
+
+
+_POLICIES = {"cosine": lr_func_cosine, "steps_with_relative_lrs": lr_func_steps_with_relative_lrs}
+
+
 def get_lr_at_epoch(cfg, cur_epoch: float) -> float:
     """Policy value with linear warmup below WARMUP_EPOCHS (reference
     lr_policy.py:9-28). Under the plateau policy: the linear warm-up to
@@ -42,12 +59,11 @@ def get_lr_at_epoch(cfg, cur_epoch: float) -> float:
             alpha = (cfg.SOLVER.BASE_LR - cfg.SOLVER.WARMUP_START_LR) / cfg.SOLVER.WARMUP_EPOCHS
             return cur_epoch * alpha + cfg.SOLVER.WARMUP_START_LR
         return cfg.SOLVER.BASE_LR
-    if cfg.SOLVER.LR_POLICY != "cosine":
-        raise NotImplementedError(f"SOLVER.LR_POLICY={cfg.SOLVER.LR_POLICY} is not ported yet")
-    lr = lr_func_cosine(cfg, cur_epoch)
+    fn = _POLICIES[cfg.SOLVER.LR_POLICY]
+    lr = fn(cfg, cur_epoch)
     if cur_epoch < cfg.SOLVER.WARMUP_EPOCHS:
         lr_start = cfg.SOLVER.WARMUP_START_LR
-        lr_end = lr_func_cosine(cfg, cfg.SOLVER.WARMUP_EPOCHS)
+        lr_end = fn(cfg, cfg.SOLVER.WARMUP_EPOCHS)
         alpha = (lr_end - lr_start) / cfg.SOLVER.WARMUP_EPOCHS
         lr = cur_epoch * alpha + lr_start
     return lr

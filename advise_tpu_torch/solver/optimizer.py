@@ -1,5 +1,6 @@
-"""SGD + LARS and AdamW on named parameters (counterpart of
-``advise_tpu/solver/optimizer.py``, those two chains).
+"""The optimizer chains on named parameters (counterpart of
+``advise_tpu/solver/optimizer.py``): SGD, Adam and AdamW, each with LARS,
+and the per-parameter lr scales of SOLVER.LAYER_DECAY.
 
 As in the JAX package the transformation produces an lr-free *direction*
 and the step applies ``p -= lr * lr_scale * direction``, so momentum
@@ -14,14 +15,16 @@ buffers accumulate unscaled directions. The SGD chain, in order:
    Nesterov, ``g + momentum * t``.
 
 This is not torch's usual LARS: the trust ratio sits after the weight decay
-and before the momentum, and the lr comes last. The AdamW chain (optax's
-``clip_by_global_norm`` -> ``scale_by_adam`` -> ``+ wd * param``) is
-:class:`AdamW`.
+and before the momentum, and the lr comes last. The Adam chains
+(:class:`Adam`) put LARS in the same place, just before the last
+transformation: 'adamw' is Adam, then LARS, then ``+ wd * p``; 'adam' is
+``+ wd * p``, then LARS, then Adam.
 
 Weight-decay groups follow the JAX tree: its reversible MViT stacks a
 segment's parameters on a leading axis, so a LayerNorm scale or a bias there
 is 2-D and decays under SOLVER.ZERO_WD_1D_PARAM; the port's per-block copies
-(``rev_seg{n}_f.{k}.``) are counted with that axis.
+(``rev_seg{n}_f.{k}.``) are counted with that axis. The layer-decay scales
+are read off each parameter's Flax path (:func:`flax_path`).
 """
 
 from __future__ import annotations
@@ -62,6 +65,21 @@ def _path_str(name: str) -> str:
     return name.replace(".", "/")
 
 
+_STACKED_BLOCK = re.compile(r"(^|\.)(rev_seg\d+_[fg])\.\d+\.")
+_BLOCK_INDEX = re.compile(r"blocks?_?(\d+)")
+
+
+def flax_path(name: str, p: torch.Tensor) -> str:
+    """The JAX package's path string of the parameter the torch parameter
+    ``name`` comes from (the inverse of ``utils/convert.py param_key``): a
+    reversible segment's block index dropped (JAX stacks the segment), a
+    conv or dense ``weight`` as ``kernel``, a norm's as ``scale``."""
+    parts = _STACKED_BLOCK.sub(r"\1\2.", name).split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel" if p.ndim > 1 else "scale"
+    return "/".join(parts)
+
+
 def classify_params(cfg, params: Tensors) -> Dict[str, str]:
     """Label per parameter: 'frozen' | 'bn' | 'no_decay' | 'one_d' | 'default'."""
 
@@ -95,16 +113,48 @@ def wd_tree(cfg, params: Tensors) -> Dict[str, float]:
 
 
 def lr_scales(cfg, params: Tensors) -> Dict[str, float]:
-    """Per-parameter lr multipliers: 0 for frozen parameters, else 1
-    (SOLVER.LAYER_DECAY is a transformer knob, not ported yet)."""
-    if cfg.SOLVER.LAYER_DECAY != 1.0:
-        raise NotImplementedError("SOLVER.LAYER_DECAY is not ported yet")
-    return {n: 0.0 if l == "frozen" else 1.0 for n, l in classify_params(cfg, params).items()}
+    """Per-parameter lr multipliers (``layer_decay_scales`` of the JAX
+    package): 0 for frozen parameters; else 1, or with SOLVER.LAYER_DECAY d
+    != 1 ``d ** (MVIT.DEPTH + 1 - i)``, where on the parameter's Flax path
+    i is 1 + the number after the first ``block``/``blocks``(``_``), or
+    DEPTH + 1 for a path with ``head`` or ``projection`` (the regex comes
+    first), else 0."""
+    decay, depth = cfg.SOLVER.LAYER_DECAY, cfg.MVIT.DEPTH
+
+    def scale(name: str, p: torch.Tensor) -> float:
+        if decay == 1.0:
+            return 1.0
+        path = flax_path(name, p)
+        m = _BLOCK_INDEX.search(path)
+        if m:
+            i = int(m.group(1)) + 1
+        elif "head" in path or "projection" in path:
+            i = depth + 1
+        else:
+            i = 0
+        return decay ** (depth + 1 - i)
+
+    labels = classify_params(cfg, params)
+    return {n: 0.0 if labels[n] == "frozen" else scale(n, p) for n, p in params.items()}
 
 
 def global_grad_norm(grads: Tensors) -> torch.Tensor:
     """Global 2-norm over all gradients, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+
+
+def trust_ratio(updates: Tensors, params: Tensors) -> Tensors:
+    """LARS's layer-wise trust ratio (``optax.masked(scale_by_trust_ratio(),
+    ndim > 1)``): ``u * ||p|| / ||u||`` on parameters with ndim > 1, ``u``
+    where either norm is 0 and on the others."""
+    out = dict(updates)
+    for n, v in updates.items():
+        if params[n].ndim > 1:
+            p_norm = torch.linalg.vector_norm(params[n])
+            u_norm = torch.linalg.vector_norm(v)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
+            out[n] = v * ratio
+    return out
 
 
 class SGDLars:
@@ -133,13 +183,7 @@ class SGDLars:
             g = {n: v * scale.to(v.dtype) for n, v in g.items()}
         g = {n: v + self.wds[n] * params[n] for n, v in g.items()}
         if self.lars:
-            for n, v in g.items():
-                if params[n].ndim > 1:
-                    p_norm = torch.linalg.vector_norm(params[n])
-                    u_norm = torch.linalg.vector_norm(v)
-                    ratio = torch.where((p_norm == 0) | (u_norm == 0),
-                                        torch.ones_like(p_norm), p_norm / u_norm)
-                    g[n] = v * ratio
+            g = trust_ratio(g, params)
         trace = {n: g[n] + self.momentum * state["trace"][n] for n in g}
         if self.nesterov:
             direction = {n: g[n] + self.momentum * trace[n] for n in g}
@@ -148,29 +192,45 @@ class SGDLars:
         return direction, {"trace": trace}
 
 
-class AdamW:
-    """optax's chain for SOLVER.OPTIMIZING_METHOD adamw, as ``init(params)
-    -> state`` and ``update(grads, state, params) -> (direction, state)``:
+class Adam:
+    """optax's Adam chains for SOLVER.OPTIMIZING_METHOD adamw (``decoupled``)
+    and adam, as ``init(params) -> state`` and ``update(grads, state,
+    params) -> (direction, state)``:
 
     1. clip by global norm (SOLVER.CLIP_GRAD_NORM > 0): g / ||g|| * clip
        when ||g|| >= clip;
-    2. Adam moments mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, and
-       the direction mu_hat / (sqrt(nu_hat) + eps), each bias-corrected by
-       1 - b^count in float32;
-    3. decoupled weight decay: direction += wd * param (the lr multiplies
-       both later).
+    2. adam only: coupled weight decay, g += wd * param;
+    3. adamw: the Adam step (4) comes here, before LARS;
+    3'. LARS (``lars``): :func:`trust_ratio`;
+    4. the Adam moments mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu,
+       and the direction mu_hat / (sqrt(nu_hat) + eps), each bias-corrected
+       by 1 - b^count in float32;
+    5. adamw only: decoupled weight decay, direction += wd * param (the lr
+       multiplies both later).
 
     The state is {'mu': {...}, 'nu': {...}, 'count': int}."""
 
     def __init__(self, wds: Dict[str, float], b1: float, b2: float, eps: float = 1e-8,
-                 clip_norm: float = 0.0):
+                 clip_norm: float = 0.0, decoupled: bool = True, lars: bool = False):
         self.wds = wds
         self.b1, self.b2, self.eps = b1, b2, eps
         self.clip_norm = clip_norm
+        self.decoupled = decoupled
+        self.lars = lars
 
     def init(self, params: Tensors) -> Dict[str, Union[Tensors, int]]:
         return {"mu": {n: torch.zeros_like(p) for n, p in params.items()},
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()}, "count": 0}
+
+    def _adam(self, g: Tensors, state):
+        count = state["count"] + 1
+        b1, b2 = self.b1, self.b2
+        mu = {n: (1 - b1) * v + b1 * state["mu"][n] for n, v in g.items()}
+        nu = {n: (1 - b2) * (v * v) + b2 * state["nu"][n] for n, v in g.items()}
+        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        direction = {n: (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + self.eps) for n in g}
+        return direction, {"mu": mu, "nu": nu, "count": count}
 
     @torch.no_grad()
     def update(self, grads: Tensors, state, params: Tensors):
@@ -179,38 +239,37 @@ class AdamW:
             norm = global_grad_norm(g)
             keep = norm < self.clip_norm
             g = {n: torch.where(keep, v, v / norm.to(v.dtype) * self.clip_norm) for n, v in g.items()}
-        count = state["count"] + 1
-        b1, b2 = self.b1, self.b2
-        mu = {n: (1 - b1) * v + b1 * state["mu"][n] for n, v in g.items()}
-        nu = {n: (1 - b2) * (v * v) + b2 * state["nu"][n] for n, v in g.items()}
-        c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        direction = {n: (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + self.eps) + self.wds[n] * params[n]
-                     for n in g}
-        return direction, {"mu": mu, "nu": nu, "count": count}
+        if not self.decoupled:
+            g = {n: v + self.wds[n] * params[n] for n, v in g.items()}
+            if self.lars:
+                g = trust_ratio(g, params)
+            return self._adam(g, state)
+        direction, state = self._adam(g, state)
+        if self.lars:
+            direction = trust_ratio(direction, params)
+        return {n: d + self.wds[n] * params[n] for n, d in direction.items()}, state
 
 
 class OptimizerBundle(NamedTuple):
-    tx: Union[SGDLars, AdamW]  # grads -> lr-free direction
+    tx: Union[SGDLars, Adam]  # grads -> lr-free direction
     lr_scales: Dict[str, float]  # per-parameter lr multipliers
 
 
 def build_tx(cfg, params: Tensors) -> OptimizerBundle:
-    """SOLVER.OPTIMIZING_METHOD sgd (with LARS_ON) or adamw over named
-    parameters."""
+    """SOLVER.OPTIMIZING_METHOD sgd, adamw or adam (each with LARS_ON) over
+    named parameters, with the lr scales of :func:`lr_scales`."""
     method = cfg.SOLVER.OPTIMIZING_METHOD
     wds = wd_tree(cfg, params)
+    lars, clip = cfg.SOLVER.LARS_ON, cfg.SOLVER.CLIP_GRAD_NORM
     if method in ("sgd", "simple_sgd"):
         if cfg.SOLVER.DAMPENING != 0.0:
             raise NotImplementedError("dampening unsupported")
-        tx = SGDLars(wds, cfg.SOLVER.MOMENTUM, cfg.SOLVER.NESTEROV, cfg.SOLVER.LARS_ON,
-                     cfg.SOLVER.CLIP_GRAD_NORM)
-    elif method in ("adamw", "simple_adamw", "mt_adamw"):
-        if cfg.SOLVER.LARS_ON:
-            raise NotImplementedError("LARS over AdamW is not ported yet")
-        tx = AdamW(wds, cfg.SOLVER.BETAS[0], cfg.SOLVER.BETAS[1], 1e-8, cfg.SOLVER.CLIP_GRAD_NORM)
+        tx = SGDLars(wds, cfg.SOLVER.MOMENTUM, cfg.SOLVER.NESTEROV, lars, clip)
+    elif method in ("adamw", "simple_adamw", "mt_adamw", "adam"):
+        tx = Adam(wds, cfg.SOLVER.BETAS[0], cfg.SOLVER.BETAS[1], 1e-8, clip,
+                  decoupled=method != "adam", lars=lars)
     else:
-        raise NotImplementedError(f"SOLVER.OPTIMIZING_METHOD={method} is not ported yet")
+        raise NotImplementedError(f"SOLVER.OPTIMIZING_METHOD={method}")
     return OptimizerBundle(tx=tx, lr_scales=lr_scales(cfg, params))
 
 

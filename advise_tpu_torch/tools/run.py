@@ -20,7 +20,10 @@ model's sha256 at the start and the end, per-iteration time, wait and stats, the
 profile window's idle share), one entry per eval phase under its name
 (wall seconds, batches and their median time, clips or views and their
 rate, the loader's wait, the result, the phase's peak allocated memory),
-each kernel's launch count and the peak allocated memory on the card.
+each kernel's launch count and the peak allocated memory on the card;
+``main`` returns the same record. The launch counts are the process's:
+a caller that runs ``main`` more than once in one process sets each of
+:func:`counted_wrappers`' ``launches`` to 0 before each run.
 """
 
 from __future__ import annotations
@@ -42,19 +45,23 @@ from advise_tpu_torch.utils.logging import get_commit_sha, setup_logger
 logger = logging.getLogger(__name__)
 
 
-def kernel_launches():
-    """Every kernel wrapper's launch count, by name."""
+def counted_wrappers():
+    """Every kernel wrapper that counts its launches (``fn.launches``)."""
     from advise_tpu_torch.ops import flash_attention as fl
     from advise_tpu_torch.ops import fused_aug as fa
     from advise_tpu_torch.ops import stem_conv as sc
     from advise_tpu_torch.ops import window_probe as wp
 
-    counted = [sc.stem_conv_fwd, sc.stem_conv_wgrad, fa.fused_simple_aug, fl.flash_mha_fwd,
-               fl.flash_mha_bwd, *wp.ENTRIES.values()]
-    return {fn.__name__: fn.launches for fn in counted}
+    return [sc.stem_conv_fwd, sc.stem_conv_wgrad, fa.fused_simple_aug, fl.flash_mha_fwd,
+            fl.flash_mha_bwd, *wp.ENTRIES.values()]
 
 
-def main(argv=None) -> None:
+def kernel_launches():
+    """Every kernel wrapper's launch count, by name."""
+    return {fn.__name__: fn.launches for fn in counted_wrappers()}
+
+
+def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg = assert_and_infer_cfg(load_config(args))
     cfg.RANK, cfg.LOCAL_RANK, cfg.NUM_WORLDS = 0, 0, 1
@@ -108,6 +115,7 @@ def main(argv=None) -> None:
                   device=torch.cuda.get_device_name(0))
     logger.info("run record: %s", json.dumps(record))
     logger.info("pipeline complete")
+    return record
 
 
 def _load_eval_state(cfg, device) -> TrainState:

@@ -15,8 +15,8 @@ The port names its modules as the Flax modules are named, so a Flax path
 - BN and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``, and the batch
   statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
 - a free parameter (``mask_token``, ``pos_embed_spatial``,
-  ``class_embedding``, ``positional_embedding``, ``proj``, ...) keeps its
-  name and layout;
+  ``class_embedding``, ``positional_embedding``, ``proj``, SwAV's
+  ``swav_prototypes``, ...) keeps its name and layout;
 - the reversible MViT's stacked segment parameters (``rev_seg{n}_f`` /
   ``rev_seg{n}_g``, one slice per block on axis 0) -> one module per block,
   ``rev_seg{n}_f.{k}.`` ...; the depthwise pool convs' DHWIO kernels
@@ -126,9 +126,15 @@ def convert_train_state(params: Mapping, batch_stats: Mapping,
       (a tree shaped like ``params``);
     - ``ema``: the momentum encoder's state_dict from ``ssl['ema_params']``
       and ``ssl['ema_batch_stats']``;
-    - ``knn_mem``: the kNN bank;
+    - ``knn_mem``, ``queue_x``, ``queue_swav``, ``memory``: the kNN bank,
+      MoCo's and SwAV's queues and the memory bank, as they are;
+    - ``ptr``: MoCo's pointer as int64 (int32 in JAX), ``swav_started`` a
+      bool tensor;
     - ``ema_temporal`` and ``ema_projector``: the TemporalModel's BYOL twins,
       {name: tensor} relative to ``temporal_encoder`` and ``head_projector``.
+
+    SwAV's ``swav_prototypes`` [DIM, 1000] is a free parameter of the model:
+    it keeps its name and layout.
     """
     out: Dict[str, Any] = {"model": flax_to_state_dict(params, batch_stats)}
     if momentum is not None:
@@ -136,8 +142,13 @@ def convert_train_state(params: Mapping, batch_stats: Mapping,
     if ssl is not None:
         if "ema_params" in ssl:
             out["ema"] = flax_to_state_dict(ssl["ema_params"], ssl["ema_batch_stats"])
-        if "knn_mem" in ssl:
-            out["knn_mem"] = torch.from_numpy(np.array(ssl["knn_mem"]))
+        for name in ("knn_mem", "queue_x", "queue_swav", "memory"):
+            if name in ssl:
+                out[name] = torch.from_numpy(np.array(ssl[name]))
+        if "ptr" in ssl:
+            out["ptr"] = torch.tensor(int(ssl["ptr"]), dtype=torch.int64)
+        if "swav_started" in ssl:
+            out["swav_started"] = torch.tensor(bool(ssl["swav_started"]))
         for twin in ("ema_temporal", "ema_projector"):
             if twin in ssl:
                 out[twin] = params_to_torch(ssl[twin])

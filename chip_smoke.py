@@ -11,7 +11,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    started together, each timed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs (TF32 off): the stem kernels at the BYOL path's stem shape
-   and a ragged small shape, each with its plan (ops/stem_conv.py plan():
+   (both views, 32 clips), at one view's 16 clips (mem, and
+   CONTRASTIVE.SEQUENTIAL's clip by clip) and at a ragged small shape,
+   each with its plan (ops/stem_conv.py plan():
    tile, grid, waves, ring, partials) and its registers, spills and shared
    memory from the build's ptxas -v report (a spill in K1 or K2 fails); the
    fused aug K3 with its instances' registers, spills (a spill fails) and
@@ -148,7 +150,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    1568 tokens visible at 0.9, the decoder 512 wide and 4 deep with
    separable position tables, 8 clips, VIS_MASK off), the same way; no
    kernel launched: the MAE blocks run the dense chain, as JAX's do;
-8. the entry point: ``python -m advise_tpu_torch.tools.run`` on the BYOL
+7g. the rest of the contrastive engine and the solver: the BYOL preset's
+   step at full width (16 videos x 2 clips x 32 frames at 224^2, REMAT,
+   the 'aa' aug, K1 and K2) with CONTRASTIVE.TYPE simclr, swav (a
+   3840-row queue full of unit rows at epoch 15: the loss's swav_gate
+   stat open from the first step), mem 1d and mem 2d (DURATION 4, INTERP_MEMORY; the 65,536
+   random rows of the preset's QUEUE_LEN a video), BYOL with
+   CONTRASTIVE.SEQUENTIAL (its peak beside phase 5's batched step) and
+   BYOL with AUG.TYPE clip_aug (CLIP_AUG_DYNAMICS), 2 warm-up and 3 timed
+   steps each: median ms, peak memory, finite losses, moving parameters,
+   and K1/K2 launches equal to each variant's schedule (CON_VARIANTS), and
+   one more step of mem 1d, mem 2d and SEQUENTIAL under torch.profiler;
+   then SpeedPro_R50.yaml with TRAIN.SEQUENTIAL (one of the 4 clips at a
+   time, its peak beside phase 6's batched step, K3 once a step, one
+   profiled step); then one
+   step each of 'adam', LARS over AdamW and SOLVER.LAYER_DECAY 0.75 on
+   configs/chip/mae_vismask_minik400.yaml, and the steps_with_relative_lrs
+   lr at its boundaries;
+8. the entry point: ``advise_tpu_torch.tools.run.main``, what ``python -m
+   advise_tpu_torch.tools.run`` calls, run in this process with every
+   launch count set to 0 before each run (``run_entry_point``), on the BYOL
    preset at full width with synthetic videos (48 of them: 3 iterations an
    epoch), 2 epochs with a kNN probe and a checkpoint each, then the same
    command with 3 epochs and TRAIN.AUTO_RESUME, which must resume at epoch 2
@@ -191,8 +212,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    targets) for one epoch of 32 videos, and maskfeat_probe_minik400.yaml
    with RESUME at its checkpoint (a linear probe of 2 iterations that keeps
    the encoder bit for bit, then action_infer over 32 videos x 4 views); no
-   kernel launched (no cv2, no dataset, no download). The script's wall
-   time is printed last.
+   kernel launched (no cv2, no dataset, no download); then the BYOL preset
+   with CONTRASTIVE.TYPE swav (a 32-row queue) and with mem 2d (DURATION 4,
+   INTERP_MEMORY), each one epoch of 32 synthetic videos from
+   SOLVER.START_EPOCH 15 and a resume to a second, whose model and SSL
+   state (the queue and swav_started, or the bank) must start as saved, by
+   their sha256; K1/K2 by the schedule; SwAV's queue shut after the first
+   epoch and open after the second (swav_started in the checkpoints, the
+   loss's swav_gate stat in every iteration). The script's wall time is printed
+   last.
 
 Reductions: one card (BN.NUM_SYNC_DEVICES 1, TPU.MESH_SYNC 1; shuffle-BN
 permutes the card's own batch; Swin-B's preset is 32 chips); widths, depth
@@ -230,7 +258,6 @@ RUN_VIDEOS = 48  # 3 iterations an epoch at the preset's 16 clips
 RUN_KNN_BATCHES = 1  # kNN probe batches an epoch
 RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(RUN_VIDEOS),
                  "TRAIN.SAVE_FREQ", "1", "CONTRASTIVE.KNN_EVAL_BATCHES", str(RUN_KNN_BATCHES)]
-RUN_TIMEOUT_S = 600
 # then the speed preset through the entry point: one epoch of synthetic videos
 SPEED_RUN_DIR = "build/chip_smoke_speed"
 SPEED_RUN_VIDEOS = 16  # 2 iterations at the preset's 8 videos x 4 clips
@@ -347,6 +374,44 @@ MASKFEAT_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SI
                           "TRAIN.AUTO_RESUME", "False"]
 MASKFEAT_PROBE_OVERRIDES = MASKFEAT_RUN_OVERRIDES + [
     "RESUME", f"{MASKFEAT_RUN_DIR}/checkpoints/Model_Epoch_0000"]
+# the rest of the contrastive engine (phase 7g) on the BYOL preset at full
+# width: each variant's overrides, its step's K1/K2 launches worked out from
+# the code (the fast stem outside REMAT's checkpoints: K1 once a forward of
+# the online model or the momentum encoder, K2 once a backward through the
+# online one) and its loss's name. SimCLR and SwAV run the 2 views as one
+# batch (VMAP_VIEWS), mem view 0 alone; CONTRASTIVE.SEQUENTIAL the keys of
+# both views as one batch without a gradient, then each clip's query forward
+# and backward; clip_aug is BYOL's step (online and momentum encoders)
+CON_WARMUP, CON_TIMED = 2, 3
+CLIP_AUG_DYNAMICS = {"AUG.CAMERA_SHAKE": 0.05, "AUG.CAMERA_SHIFT": 0.2, "AUG.ZOOM": 0.2, "AUG.COLOR_BRI": 0.3,
+                     "AUG.COLOR_SAT": 0.3, "AUG.WHITE_BALANCE": 0.1}
+CON_VARIANTS = [
+    ("simclr", {"CONTRASTIVE.TYPE": "simclr"}, (1, 1), "loss_simclr"),
+    ("swav", {"CONTRASTIVE.TYPE": "swav", "CONTRASTIVE.SWAV_QEUE_LEN": 3840}, (1, 1), "loss_swav"),
+    ("mem 1d", {"CONTRASTIVE.TYPE": "mem"}, (1, 1), "loss_nce"),
+    ("mem 2d interp", {"CONTRASTIVE.TYPE": "mem", "CONTRASTIVE.MEM_TYPE": "2d", "CONTRASTIVE.DURATION": 4,
+                       "CONTRASTIVE.INTERP_MEMORY": True}, (1, 1), "loss_nce"),
+    ("byol sequential", {"CONTRASTIVE.SEQUENTIAL": True}, (3, 2), "loss_byol"),
+    ("byol clip_aug", {"AUG.TYPE": "clip_aug", **CLIP_AUG_DYNAMICS}, (2, 1), "loss_byol"),
+]
+SWAV_EPOCH = 15.0  # the SwAV queue's scores join the codes from this epoch on
+# the variants given one more step under torch.profiler: where their time goes
+CON_PROFILED = ("mem 1d", "mem 2d interp", "byol sequential")
+# the solver's chains (phase 7g): one step each on the MAE preset
+SOLVER_VARIANTS = [("adam", {"SOLVER.OPTIMIZING_METHOD": "adam"}),
+                   ("LARS over AdamW", {"SOLVER.LARS_ON": True}),
+                   ("layer decay 0.75", {"SOLVER.LAYER_DECAY": 0.75})]
+# phase 8: SwAV and the 2-D memory bank through the entry point on the BYOL
+# preset, 2 iterations an epoch from epoch 15 (SwAV's gate), one epoch and a
+# resume to a second; SwAV's 32-row queue fills in the first epoch's two
+# iterations and opens in the second epoch
+CON_RUN_VIDEOS = 32
+CON_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(CON_RUN_VIDEOS),
+                     "TRAIN.SAVE_FREQ", "1", "CONTRASTIVE.KNN_EVAL_BATCHES", str(RUN_KNN_BATCHES),
+                     "SOLVER.START_EPOCH", "15"]
+CON_ENTRIES = [("swav", "build/chip_smoke_swav", {"CONTRASTIVE.TYPE": "swav", "CONTRASTIVE.SWAV_QEUE_LEN": 32}),
+               ("mem 2d", "build/chip_smoke_mem", {"CONTRASTIVE.TYPE": "mem", "CONTRASTIVE.MEM_TYPE": "2d",
+                                                   "CONTRASTIVE.DURATION": 4, "CONTRASTIVE.INTERP_MEMORY": True})]
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
@@ -715,27 +780,51 @@ def window_probes(wp, dev, in_turns, results):
 
 
 def run_entry_point(extra, label, config=BYOL_CONFIG, out_dir=RUN_DIR, overrides=RUN_OVERRIDES):
-    """``python -m advise_tpu_torch.tools.run`` on ``config`` into
-    ``out_dir`` with ``overrides`` and ``extra``; returns its run record."""
-    cmd = [sys.executable, "-m", "advise_tpu_torch.tools.run", "--cfg", config,
-           "--output", out_dir] + overrides + extra
-    print(f"[run] {label}: {' '.join(cmd[1:])}")
+    """The entry point, ``advise_tpu_torch.tools.run.main`` (what ``python
+    -m advise_tpu_torch.tools.run`` calls), on ``config`` into ``out_dir``
+    with ``overrides`` and ``extra``, every launch count set to 0 first;
+    returns its run record. It runs in this process, so that the imports,
+    the CUDA context and the libraries' first-use loading are paid once
+    for the script and not once a run; its log is captured, and the lines
+    that matter are printed after it."""
+    import contextlib
+    import io
+    import logging
+
+    import torch
+
+    from advise_tpu_torch.tools import run as entry
+
+    argv = ["--cfg", config, "--output", out_dir] + overrides + extra
+    print(f"[run] {label}: -m advise_tpu_torch.tools.run {' '.join(argv)}")
+    for fn in entry.counted_wrappers():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[run]   the script holds {torch.cuda.memory_allocated()} bytes on the card as the run starts "
+          "(inside the run's peak)")
+    log = io.StringIO()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
+    try:
+        with contextlib.redirect_stdout(log):
+            record = entry.main(argv)
+    except BaseException:
+        print(log.getvalue()[-4000:])
+        raise
+    finally:
+        root = logging.getLogger()  # the run's handlers: its stdout and its log.txt
+        for handler in list(root.handlers):
+            root.removeHandler(handler)
+            handler.close()
     seconds = time.perf_counter() - t0
-    lines = proc.stdout.splitlines()
-    for line in lines:
+    for line in log.getvalue().splitlines():
         if any(key in line for key in ("device:", "start:", "Epoch", "kNN", "saved", "best",
                                        "resuming", "profiler trace stopped")):
             print(f"[run]   {line}")
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:])
-        print(proc.stderr[-4000:], file=sys.stderr)
-    check(proc.returncode == 0, f"the entry point exited with {proc.returncode} ({label})")
-    records = [line.split("run record: ", 1)[1] for line in lines if "run record: " in line]
-    check(len(records) == 1, f"the entry point printed no run record ({label})")
-    record = json.loads(records[0])
+    check(isinstance(record, dict) and "launches" in record, f"the entry point returned no run record ({label})")
     record["seconds"] = seconds
+    gc.collect()
+    torch.cuda.empty_cache()
     return record
 
 
@@ -1631,6 +1720,216 @@ def maskfeat_entries(tconfig) -> None:
           "the MaskFeat probe's encoder differs from the pretrain checkpoint")
 
 
+def contrastive_path(tconfig, dev, byol_ms, byol_peak) -> dict:
+    """Phase 7g: the BYOL preset's step at full width under each of
+    CON_VARIANTS (``step_run`` / ``time_steps``: uint8 clips through the
+    preset's aug, or clip_aug), CON_WARMUP + CON_TIMED steps each: median
+    ms, peak memory and the K1/K2 launches, which must equal the variant's
+    schedule; finite losses and moving parameters; one more step of each of
+    CON_PROFILED under torch.profiler. SwAV starts from a full
+    queue of unit rows at epoch 15 (a later epoch's state), so that the gate
+    is open from the first step; mem draws its rows from the step's
+    generator and takes each video's time from ``time_idx``. The SEQUENTIAL
+    step's peak is read beside the batched BYOL step's of phase 5 (same
+    call). Returns the K1/K2 launches of all the variants' steps."""
+    import torch
+
+    from advise_tpu_torch.engine.contrastive import l2_normalize
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    n_steps = CON_WARMUP + CON_TIMED
+    totals = {"stem_conv_fwd": 0, "stem_conv_wgrad": 0}
+    for label, over, per_step, loss_name in CON_VARIANTS:
+        ccfg = one_card_cfg(tconfig, BYOL_CONFIG, over)
+        epoch = SWAV_EPOCH if ccfg.CONTRASTIVE.TYPE == "swav" else EPOCH_EXACT
+        run = step_run(ccfg, dev, 7, epoch)
+        state, model = run.state, run.state.model
+        b = ccfg.DATA.BATCHSIZE_PER_GPU
+        ssl = state.ssl
+        if "queue_swav" in ssl:
+            rows = torch.randn(ssl["queue_swav"].shape, generator=torch.Generator(device=dev).manual_seed(3),
+                               device=dev)
+            ssl["queue_swav"] = l2_normalize(rows)
+            ssl["swav_started"] = torch.ones((), dtype=torch.bool, device=dev)
+        sizes = {n: f"{tuple(v.shape)} {v.dtype} ({v.numel() * v.element_size()} bytes)"
+                 for n, v in ssl.items() if isinstance(v, torch.Tensor) and v.ndim > 1}
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        gates = []
+
+        def after_step(i, vals, ms):
+            if "queue_swav" in ssl:
+                gates.append(vals.get("swav_gate"))  # the share of the views whose gate the loss found open
+            print(f"[con] {label} step {i}: {vals} ({ms} ms)")
+            check(all(math.isfinite(v) for v in vals.values()), f"{label} step {i} is not finite")
+            check(loss_name in vals, f"{label} step {i} reports no {loss_name}")
+
+        times = torch.rand(b, generator=torch.Generator().manual_seed(5)).to(dev)
+        median_ms, step_ms, peak, launches = time_steps(
+            run, CON_WARMUP, CON_TIMED, counted_kernels(),
+            infos_fn=lambda i: {"item_id": torch.arange(b, device=dev) + i * b, "time_idx": times},
+            after_step=after_step)
+        got = (launches["stem_conv_fwd"], launches["stem_conv_wgrad"])
+        want = (per_step[0] * n_steps, per_step[1] * n_steps)
+        moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+        print(f"[con] {label} ({over}): median step {median_ms} ms over {CON_TIMED} steps (all: {step_ms}), "
+              f"{2 * b * 1e3 / median_ms} clip-views/s, peak allocated {peak} bytes, K1/K2 launches {got} "
+              f"(schedule {want}), other launches {launches}, {moved} of {len(before)} parameters moved, "
+              f"state {sizes}")
+        check(got == want, f"{label}: the K1/K2 launches differ from the schedule")
+        totals = {name: n + launches[name] for name, n in totals.items()}
+        check(not any(n for name, n in launches.items() if name not in ("stem_conv_fwd", "stem_conv_wgrad")),
+              f"{label}: a kernel off the path was launched")
+        check(moved > 0 and all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+              f"{label}: the parameters did not move or are not finite")
+        if "queue_swav" in ssl:
+            print(f"[con] {label}: the loss's swav_gate at each step {gates}")
+            check(gates == [1.0] * n_steps, "swav: the queue's gate was not open from the first step")
+        if ccfg.CONTRASTIVE.SEQUENTIAL:
+            print(f"[con] CONTRASTIVE.SEQUENTIAL peak {peak} bytes against the batched BYOL step's {byol_peak} "
+                  f"(phase 5, this call): {peak / byol_peak} of it; median {median_ms} ms against {byol_ms} ms")
+        if label in CON_PROFILED:
+            profile_step(label, run.call, "con")
+        del run, state, model, ssl, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+def speed_sequential(tconfig, dev, speed_ms, speed_peak) -> int:
+    """Phase 7g's TRAIN.SEQUENTIAL: SpeedPro_R50.yaml's speed step at full
+    width (8 videos x 4 clips, K3 in the aug), one clip of each video at a
+    time, CON_WARMUP + CON_TIMED steps: median ms, peak memory against the
+    batched speed step of phase 6 (same call), K3 once a step, then one
+    step under torch.profiler. Returns K3's launches."""
+    import torch
+
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    scfg = one_card_cfg(tconfig, SPEED_CONFIG, {"TRAIN.SEQUENTIAL": True})
+    run = step_run(scfg, dev, 8, SPEED_EPOCH)
+
+    def after_step(i, vals, ms):
+        print(f"[seq] TRAIN.SEQUENTIAL speed step {i}: {vals} ({ms} ms)")
+        check(all(math.isfinite(v) for v in vals.values()), f"TRAIN.SEQUENTIAL step {i} is not finite")
+
+    median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
+                                                    after_step=after_step)
+    n_steps = CON_WARMUP + CON_TIMED
+    print(f"[seq] TRAIN.SEQUENTIAL speed ({scfg.DATA.BATCHSIZE_PER_GPU} videos x {scfg.DATA.NUM_CLIP} clips, "
+          f"one clip at a time): median step {median_ms} ms over {CON_TIMED} steps (all: {step_ms}), peak "
+          f"allocated {peak} bytes against the batched speed step's {speed_peak} (phase 6, this call): "
+          f"{peak / speed_peak} of it; median {median_ms} ms against {speed_ms} ms; launches {launches}")
+    check(launches["fused_simple_aug"] == n_steps, "TRAIN.SEQUENTIAL: K3 was not launched once a step")
+    check(run.state.step == n_steps, "TRAIN.SEQUENTIAL: the state did not advance")
+    profile_step("TRAIN.SEQUENTIAL speed", run.call, "seq")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["fused_simple_aug"]
+
+
+def solver_chains(tconfig, dev) -> None:
+    """Phase 7g's solver: one step each of SOLVER_VARIANTS on the MAE
+    preset (finite stats, moving parameters; with layer decay the lr
+    scales of the tree's depths), then the steps_with_relative_lrs policy
+    at its boundaries on the BYOL preset."""
+    import torch
+
+    from advise_tpu_torch.solver.lr_policy import get_lr_at_epoch
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    for label, over in SOLVER_VARIANTS:
+        mcfg = one_card_cfg(tconfig, MAE_CONFIG, over)
+        run = step_run(mcfg, dev, 9, 1.0)
+        before = {n: p.detach().clone() for n, p in run.state.model.named_parameters()}
+        stats = {}
+        median_ms, step_ms, peak, launches = time_steps(run, 0, 1, counted_kernels(),
+                                                        after_step=lambda i, vals, ms: stats.update(vals))
+        moved = sum(not torch.equal(p, before[n]) for n, p in run.state.model.named_parameters())
+        scales = sorted(set(run.bundle.lr_scales.values()))
+        print(f"[solver] {label} ({over}: {type(run.bundle.tx).__name__}): stats {stats}, {step_ms[0]} ms, "
+              f"peak allocated {peak} bytes, {moved} of {len(before)} parameters moved, lr scales {scales}")
+        check(stats and all(math.isfinite(v) for v in stats.values()) and moved > 0,
+              f"solver {label}: stats not finite or nothing moved")
+        check(not any(launches.values()), f"solver {label}: a kernel was launched")
+        if "SOLVER.LAYER_DECAY" in over:
+            check(len(scales) > 2, "layer decay: the lr scales do not spread over the depths")
+        del run, before
+        gc.collect()
+        torch.cuda.empty_cache()
+    lcfg = one_card_cfg(tconfig, BYOL_CONFIG, {"SOLVER.LR_POLICY": "steps_with_relative_lrs",
+                                               "SOLVER.STEPS": [0, 100, 150], "SOLVER.LRS": [1.0, 0.1, 0.01]})
+    base = lcfg.SOLVER.BASE_LR
+    lrs = {e: get_lr_at_epoch(lcfg, e) for e in (0.0, 5.0, 99.99, 100.0, 149.99, 150.0, 199.99)}
+    print(f"[solver] steps_with_relative_lrs over STEPS [0, 100, 150], LRS [1, 0.1, 0.01], BASE_LR {base}, "
+          f"warm-up {lcfg.SOLVER.WARMUP_EPOCHS} from {lcfg.SOLVER.WARMUP_START_LR}: {lrs}")
+    check(lrs[99.99] == base and lrs[100.0] == 0.1 * base and lrs[149.99] == 0.1 * base
+          and lrs[150.0] == 0.01 * base and lrs[199.99] == 0.01 * base, "steps_with_relative_lrs boundaries")
+    check(lrs[0.0] == lcfg.SOLVER.WARMUP_START_LR and lrs[0.0] < lrs[5.0] < base, "the warm-up is not linear")
+
+
+def contrastive_entries(tconfig) -> None:
+    """Phase 8's SwAV and 2-D memory-bank runs (CON_ENTRIES) through the
+    entry point on the BYOL preset: one epoch from epoch 15 with the kNN
+    probe, then a resume to a second that starts from the saved model and
+    SSL state (the queue and swav_started, or the bank) bit for bit; K1/K2
+    launches by the schedule; SwAV's queue shut in the first epoch and open
+    in the second (``swav_started`` in the checkpoints)."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from advise_tpu_torch.engine.checkpoint import STATE_FILE
+    from advise_tpu_torch.engine.train import ssl_digest
+
+    for label, run_dir, over in CON_ENTRIES:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        overrides = CON_RUN_OVERRIDES + [str(x) for item in over.items() for x in item]
+        ccfg = one_card_cfg(tconfig, BYOL_CONFIG, over)
+        r1 = run_entry_point(["SOLVER.MAX_EPOCH", "16"], f"{label}, epoch 15", BYOL_CONFIG, run_dir, overrides)
+        ckpt = Path(run_dir) / "checkpoints"
+        saved = torch.load(ckpt / "Model_Epoch_0015" / STATE_FILE, map_location="cpu", weights_only=False)
+        saved_ssl = ssl_digest(saved["ssl"])
+        r2 = run_entry_point(["SOLVER.MAX_EPOCH", "17", "TRAIN.AUTO_RESUME", "True"], f"{label}, resume to 17",
+                             BYOL_CONFIG, run_dir, overrides)
+        final = torch.load(ckpt / "Model_Epoch_0016" / STATE_FILE, map_location="cpu", weights_only=False)
+        iters = CON_RUN_VIDEOS // ccfg.DATA.BATCHSIZE_PER_GPU
+        for rec, run, start in ((r1, "first run", 0), (r2, "resumed run", iters)):
+            n_iter = len(rec["iter_s"])
+            got = (rec["launches"]["stem_conv_fwd"], rec["launches"]["stem_conv_wgrad"])
+            want = (n_iter + RUN_KNN_BATCHES, n_iter)  # + the probe batch's forward
+            print(f"[run] {label} {run}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats "
+                  f"{rec['stats']}, iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait "
+                  f"{[t * 1e3 for t in rec['wait_s']]} ms, peak allocated {rec['peak_allocated_bytes']} bytes, "
+                  f"K1/K2 launches {got} (expected {want}), {rec['seconds']} s with start-up")
+            check(n_iter == iters and rec["start_step"] == start, f"{label} {run}: wrong schedule")
+            check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label} {run}: not finite")
+            check(got == want, f"{label} {run}: K1/K2 launches differ from the schedule")
+        state_text = {n: (tuple(v.shape), str(v.dtype)) for n, v in final["ssl"].items()
+                      if isinstance(v, torch.Tensor)}
+        print(f"[run] {label}: SSL state {state_text}; model sha256 end of the first run {r1['model_sha256_end']}, "
+              f"start of the resumed run {r2['model_sha256']}; SSL sha256 end {r1['ssl_sha256_end']}, saved "
+              f"{saved_ssl}, resumed {r2['ssl_sha256']}")
+        check(r2["start_epoch"] == 16, f"the {label} run did not resume at epoch 16")
+        check(r1["model_sha256_end"] == r2["model_sha256"], f"the resumed {label} model differs from the saved one")
+        check(r1["ssl_sha256_end"] == saved_ssl == r2["ssl_sha256"],
+              f"the resumed {label} SSL state differs from the saved one")
+        if "swav_started" in saved["ssl"]:
+            gates = [[st.get("swav_gate") for st in rec["stats"]] for rec in (r1, r2)]
+            print(f"[run] {label}: swav_started {bool(saved['ssl']['swav_started'])} after epoch 15, "
+                  f"{bool(final['ssl']['swav_started'])} after epoch 16; the loss's swav_gate in each "
+                  f"iteration of epoch 15 {gates[0]}, of epoch 16 {gates[1]}")
+            check(not bool(saved["ssl"]["swav_started"]) and bool(final["ssl"]["swav_started"]),
+                  f"{label}: the queue did not open in the second epoch")
+            check(gates == [[0.0] * iters, [1.0] * iters], f"{label}: the loss's gate was not shut in epoch 15 "
+                  "and open in epoch 16")
+        else:
+            check(tuple(final["ssl"]["memory"].shape) == (ccfg.CONTRASTIVE.LENGTH, 4, ccfg.CONTRASTIVE.DIM),
+                  f"{label}: the checkpoint's bank has the wrong shape")
+            check(not torch.equal(final["ssl"]["memory"], saved["ssl"]["memory"]), f"{label}: the bank did not move")
+
+
 def main() -> None:
     import torch
 
@@ -1743,8 +2042,9 @@ def main() -> None:
               f"loads {use['spill_loads']} B, static shared {use['smem']} B")
         if name in ("stem_fwd_kernel", "stem_wgrad_partial_kernel"):
             check(use["spill_stores"] == use["spill_loads"] == 0, f"{name} spills registers")
-    # the BYOL path runs both views as one batch: the stem sees k * b clips
-    for shape in [(k * b, t, s, s, 3), (2, 7, 37, 45, 3)]:
+    # the BYOL path runs both views as one batch: the stem sees k * b clips;
+    # mem, and CONTRASTIVE.SEQUENTIAL's clip by clip, run one view: b clips
+    for shape in [(k * b, t, s, s, 3), (b, t, s, s, 3), (2, 7, 37, 45, 3)]:
         x = torch.randn(shape, device=dev, generator=g).bfloat16()
         w = (torch.randn((kt, 7, 7, 3, 8), device=dev, generator=g) * 0.1).bfloat16()
         splan = sc.plan(*shape[:4], kt)
@@ -2138,6 +2438,7 @@ def main() -> None:
           f"peak allocated {peak} bytes")
     print(f"[byol] launches during the steps: {launches}, fused_simple_aug "
           f"{fa.fused_simple_aug.launches}")
+    byol_ms, byol_peak = median_ms, peak  # phase 7g reads CONTRASTIVE.SEQUENTIAL's peak against these
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the BYOL path")
     del model, params, bundle, ssl, state, step, stats
@@ -2232,6 +2533,7 @@ def main() -> None:
           f"stem kernels {speed_stem} (the slow stem is a plain conv)")
     check(launches["fused_simple_aug"] == WARMUP_STEPS + TIMED_STEPS,
           "fused_simple_aug was not launched once per speed step")
+    speed_ms, speed_peak = median_ms, peak  # phase 7g reads TRAIN.SEQUENTIAL's peak against these
     del model, params, bundle, state, step, clips, stats
     torch.cuda.empty_cache()
 
@@ -2394,6 +2696,13 @@ def main() -> None:
     swin_path(tconfig, dev)
     mae_path(tconfig, dev)
 
+    # -- 7g. the rest of the contrastive engine and the solver: K1/K2 (and K3
+    # on TRAIN.SEQUENTIAL) by each variant's schedule -------------------------
+    for name, n in contrastive_path(tconfig, dev, byol_ms, byol_peak).items():
+        launches[name] += n
+    launches["fused_simple_aug"] += speed_sequential(tconfig, dev, speed_ms, speed_peak)
+    solver_chains(tconfig, dev)
+
     # -- 8. the entry point ---------------------------------------------------------
     import shutil
     from pathlib import Path
@@ -2544,6 +2853,7 @@ def main() -> None:
     advise_swin_entry(tconfig)
     mae_entry(tconfig)
     maskfeat_entries(tconfig)
+    contrastive_entries(tconfig)
     print(f"[total] chip_smoke.py wall time {time.perf_counter() - t_start} s")
 
     launches.update(probe_launches)

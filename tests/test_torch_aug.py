@@ -94,8 +94,8 @@ def test_erasing_region_from_jax_draws():
         region = er.region_from_uniforms(*u, 16, 16)
         _, top, left, eh, ew = (int(v) for v in region[0].tolist())
         noise = np.array(jax.random.normal(r_fill, x.shape))
-        params = {"region": region,
-                  "noise": [torch.from_numpy(noise[:, top:top + eh, left:left + ew])]}
+        params = {"region": region[:, None],
+                  "noise": [[torch.from_numpy(noise[:, top:top + eh, left:left + ew])]]}
         got = er.apply(torch.from_numpy(x.copy())[None], params)[0].numpy()
         np.testing.assert_array_equal(got, want)
 
@@ -132,7 +132,7 @@ def _jax_params(cfg, key, n, t, h, w):
             "sign": torch.from_numpy(np.stack([p[2] for p in plans])),
         },
         "flip": torch.tensor(flips),
-        "erase": {"region": torch.stack(regions), "noise": noises},
+        "erase": {"region": torch.stack(regions)[:, None], "noise": [[fill] for fill in noises]},
     }
     return params, [p[3] for p in plans]
 
@@ -206,9 +206,9 @@ def test_sampling_draws_are_in_range():
     assert (top >= 0).all() and (left >= 0).all()
     assert (top + bh <= h).all() and (left + bw <= w).all() and (bh >= 1).all()
     assert 0.4 < float(p["flip"].float().mean()) < 0.6
-    region = p["erase"]["region"]
+    region = p["erase"]["region"][:, 0]  # RE_COUNT 1: one region a clip
     assert abs(float(region[:, 0].mean()) - cfg.AUG.RE_PROB) < 0.06
-    for (apply, top, left, eh, ew), noise in zip(region.tolist(), p["erase"]["noise"]):
+    for (apply, top, left, eh, ew), (noise,) in zip(region.tolist(), p["erase"]["noise"]):
         assert (noise is not None) == bool(apply)
         if apply:
             assert noise.shape == (t, int(eh), int(ew), 3)

@@ -254,5 +254,6 @@ def test_device_aug_simple_pipeline():
     out = xla(batch, torch.Generator().manual_seed(5))
     assert not xla.pallas and out.shape == (2, 3, 4, 32, 32, 3)
     assert fa.fused_simple_aug.launches == launches
-    with pytest.raises(NotImplementedError):
-        build_device_aug(_simple_cfg(**{"AUG.TYPE": "clip_aug"}), "train")
+    clip_aug = build_device_aug(_simple_cfg(**{"AUG.TYPE": "clip_aug"}), "train")
+    assert type(clip_aug).__name__ == "ClipAug"
+    assert clip_aug(batch, torch.Generator().manual_seed(5)).shape == out.shape

@@ -145,9 +145,10 @@ def test_init_ssl_state():
     assert all(torch.equal(a, b) for a, b in zip(ssl["ema_model"].state_dict().values(),
                                                   model.state_dict().values()))
     assert not any(p.requires_grad for p in ssl["ema_model"].parameters())
-    bad = moco_cfg(tconfig, **{"CONTRASTIVE.TYPE": "simclr"})
-    with pytest.raises(NotImplementedError, match="A 14"):
-        tc.init_ssl_state(bad, model, torch.Generator())
+    simclr = tc.init_ssl_state(moco_cfg(tconfig, **{"CONTRASTIVE.TYPE": "simclr"}), model,
+                               torch.Generator().manual_seed(0))
+    assert set(simclr) == {"knn_mem"} == set(jc.init_ssl_state(
+        moco_cfg(jconfig, **{"CONTRASTIVE.TYPE": "simclr"}), {}, {}, jax.random.PRNGKey(0)))
 
 
 def test_shuffle_round_trip():
@@ -350,11 +351,17 @@ def test_knn_probe_on_batch_statistics_matches_jax(setup):
         TrainState(model, {}, 0, tssl), torch.from_numpy(x), {"cls_id": torch.from_numpy(cls)}, None)) < 1.0
 
 
-@pytest.mark.parametrize("ctype", ["simclr", "swav", "mem"])
-def test_unported_contrastive_types_raise_naming_the_roadmap_item(ctype):
-    """The contrastive step of a type the port does not carry raises
-    NotImplementedError naming ROADMAP A 14, not a bare KeyError."""
+@pytest.mark.parametrize("ctype", ["byol", "moco", "simclr", "swav", "mem"])
+def test_every_contrastive_type_builds_its_step(ctype):
+    """Each CONTRASTIVE.TYPE of the JAX package builds its contrastive step
+    and its state: the momentum encoder for byol and moco only, the queue
+    for moco, the bank for mem, and for swav the prototypes."""
     from advise_tpu_torch.engine.steps import make_contrastive_train_step
 
-    with pytest.raises(NotImplementedError, match="A 14"):
-        make_contrastive_train_step(moco_cfg(tconfig, **{"CONTRASTIVE.TYPE": ctype}), None, None)
+    cfg = moco_cfg(tconfig, **{"CONTRASTIVE.TYPE": ctype})
+    assert callable(make_contrastive_train_step(cfg, None, None))
+    model = build_model(cfg, "cpu")
+    ssl = tc.init_ssl_state(cfg, model, torch.Generator().manual_seed(0))
+    assert ("ema_model" in ssl) == (ctype in ("byol", "moco"))
+    assert ("queue_x" in ssl) == (ctype == "moco") and ("memory" in ssl) == (ctype == "mem")
+    assert hasattr(model, "swav_prototypes") == (ctype == "swav")

@@ -353,3 +353,170 @@ def optimizer_masks_disagree(jcfg, tcfg, jparams, model):
     assert set(j_labels) == set(params), set(j_labels) ^ set(params)
     t_labels, t_wd = topt.classify_params(tcfg, params), topt.wd_tree(tcfg, params)
     return [n for n in params if t_labels[n] != j_labels[n] or abs(t_wd[n] - float(j_wd[n])) > 1e-12]
+
+
+# configs/chip/moco_knn_minik400.yaml cut to a Slow R10 (basic transform,
+# width 8) with a 16-wide projection, 4 videos x 2 clips of 4 frames at
+# 32^2, float32: the contrastive algorithms' parity tests
+CON_B, CON_K, CON_T, CON_S = 4, 2, 4, 32  # videos, clips (views), frames, pixels
+CON_DIM = 16
+
+
+def contrastive_cfg(mod=jconfig, ctype="moco", **overrides):
+    cfg = mod.get_cfg()
+    cfg.merge_from_file("configs/chip/moco_knn_minik400.yaml")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.DONATE = False
+    cfg.NUM_WORLDS = 1
+    cfg.RESNET.DEPTH = 10
+    cfg.RESNET.WIDTH_PER_GROUP = 8
+    cfg.CONTRASTIVE.TYPE = ctype
+    cfg.CONTRASTIVE.DIM = CON_DIM
+    cfg.CONTRASTIVE.MLP_DIM = 32
+    cfg.CONTRASTIVE.QUEUE_LEN = 16
+    cfg.CONTRASTIVE.LENGTH = 32
+    cfg.DATA.NUM_FRAMES = CON_T
+    cfg.DATA.BATCHSIZE_PER_GPU = CON_B
+    cfg.AUG.TARGET_SIZE = CON_S
+    _override(cfg, overrides)
+    return mod.assert_and_infer_cfg(cfg)
+
+
+def contrastive_clips(seed, k=CON_K):
+    """Augmented-clip stand-ins [B, K, T, S, S, 3], float32."""
+    return np.random.default_rng(seed).standard_normal((CON_B, k, CON_T, CON_S, CON_S, 3)).astype(np.float32)
+
+
+def contrastive_setup(ctype, **overrides):
+    """(jcfg, tcfg, params, batch_stats, ssl): the JAX model's initial
+    variables and SSL state for ``contrastive_cfg(ctype, **overrides)``, as
+    numpy trees."""
+    from advise_tpu.engine import contrastive as jc
+    from advise_tpu.models import build_model as jbuild_model
+
+    jcfg, tcfg = contrastive_cfg(jconfig, ctype, **overrides), contrastive_cfg(tconfig, ctype, **overrides)
+    jinit = jbuild_model(jcfg, sync_axes=())
+    v = jax.jit(lambda: jinit.init({"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+                                   jnp.zeros((1, CON_T, CON_S, CON_S, 3), jnp.float32), train=False))()
+    params, batch_stats = jax.device_get(v["params"]), jax.device_get(v["batch_stats"])
+    ssl = jax.device_get(jc.init_ssl_state(jcfg, params, batch_stats, jax.random.PRNGKey(3)))
+    return jcfg, tcfg, params, batch_stats, ssl
+
+
+def port_contrastive(tcfg, params, batch_stats, ssl):
+    """The port's model and SSL state holding the JAX ones (through
+    ``utils/convert.py``), in train mode."""
+    import torch
+
+    from advise_tpu_torch.engine import contrastive as tc
+    from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.utils.convert import convert_train_state
+
+    conv = convert_train_state(params, batch_stats, ssl=ssl)
+    model = build_model(tcfg, "cpu")
+    model.load_state_dict(conv["model"])
+    tssl = tc.init_ssl_state(tcfg, model, torch.Generator().manual_seed(0))
+    if "ema_model" in tssl:
+        tssl["ema_model"].load_state_dict(conv["ema"])
+        tssl["ema_model"].train()
+    for name in ("knn_mem", "queue_x", "ptr", "queue_swav", "swav_started", "memory"):
+        if name in conv:
+            tssl[name] = conv[name].clone()
+    model.train()
+    return model, tssl
+
+
+def contrastive_step_pair(jcfg, tcfg, params, batch_stats, ssl):
+    """The JAX step (jitted, state on a one-device mesh) and the port's over
+    the same initial state: (jstep, jstate, tstep, tstate)."""
+    from advise_tpu.engine.state import TrainState as JState
+    from advise_tpu.engine.steps import make_train_step as jmake_step
+    from advise_tpu.models import build_model as jbuild_model
+    from advise_tpu.parallel import build_mesh
+    from advise_tpu.solver import build_tx as jbuild_tx
+    from advise_tpu_torch.engine.state import TrainState
+    from advise_tpu_torch.engine.steps import make_train_step
+    from advise_tpu_torch.solver.optimizer import build_tx
+
+    mesh = build_mesh(jcfg, jax.devices()[:1])
+    bundle = jbuild_tx(jcfg, params)
+    jstate = on_mesh(JState(params=params, batch_stats=batch_stats, opt_state=bundle.tx.init(params),
+                            step=jnp.zeros((), jnp.int32), ssl=ssl), mesh)
+    model, tssl = port_contrastive(tcfg, params, batch_stats, ssl)
+    named = dict(model.named_parameters())
+    tbundle = build_tx(tcfg, named)
+    tstate = TrainState(model, tbundle.tx.init(named), 0, tssl)
+    return jmake_step(jcfg, mesh, jbuild_model(jcfg), bundle, None), jstate, make_train_step(tcfg, tbundle, None), tstate
+
+
+def moved_within(got, want, init, tol=5e-2, floor=1e-6):
+    """Names where what a tensor moved from ``init`` disagrees with what
+    JAX's moved by more than ``tol`` of JAX's move plus ``floor`` of the
+    tree's largest value (the trajectory tests' bound)."""
+    top = max(float(np.abs(np.asarray(v)).max()) for v in want.values())
+    bad = []
+    for k, v in want.items():
+        g, w, i0 = (np.asarray(a, np.float32) for a in (got[k], v, init[k]))
+        if np.abs(g - w).max() > tol * np.abs(w - i0).max() + floor * top:
+            bad.append(k)
+    return bad
+
+
+def run_cfg(yaml, logdir, **overrides):
+    """The port's config of ``yaml`` for ``trainer(cfg, device='cpu')``: one
+    device, float32, synthetic videos of 4 frames at 48^2, a checkpoint an
+    epoch, LOGDIR ``logdir``, then ``overrides``."""
+    cfg = tconfig.get_cfg()
+    cfg.merge_from_file(yaml)
+    _override(cfg, {"NUM_GPUS": 1, "TPU.MESH_SYNC": 1, "BN.NUM_SYNC_DEVICES": 1,
+                    "TPU.COMPUTE_DTYPE": "float32", "DATA.DECODE_BACKEND": "synthetic",
+                    "DATA.SYNTHETIC_RES": 48, "DATA.WORKERS": 2, "DATA.NUM_FRAMES": 4,
+                    "TRAIN.SAVE_FREQ": 1, "TRAIN.AUTO_RESUME": False, **overrides})
+    cfg = tconfig.assert_and_infer_cfg(cfg)
+    cfg.LOGDIR = str(logdir)
+    return cfg
+
+
+def contrastive_run_cfg(logdir, ctype, **overrides):
+    """configs/chip/moco_knn_minik400cc.yaml with CONTRASTIVE.TYPE ``ctype``,
+    cut to a Slow R10 of width 8 on 8 synthetic videos of 4 frames at
+    24^2: 2 iterations an epoch and a kNN probe batch."""
+    return run_cfg("configs/chip/moco_knn_minik400cc.yaml", logdir, **{
+        "CONTRASTIVE.TYPE": ctype, "RESNET.DEPTH": 10, "RESNET.WIDTH_PER_GROUP": 8, "CONTRASTIVE.DIM": 16,
+        "CONTRASTIVE.MLP_DIM": 32, "CONTRASTIVE.QUEUE_LEN": 8, "CONTRASTIVE.LENGTH": 16,
+        "CONTRASTIVE.KNN_EVAL_BATCHES": 1, "AUG.TARGET_SIZE": 24, "DATA.BATCHSIZE_PER_GPU": 4,
+        "DATA.SYNTHETIC_SIZE": 8, **overrides})
+
+
+def resume_matches_straight(tmp_path, ctype, names, **overrides):
+    """A 2-epoch run from SOLVER.START_EPOCH and the same run cut after its
+    first epoch and resumed: returns (straight state, resumed state,
+    straight record, cut record, the first epoch's saved state), after
+    checking that the resumed run's stats, model and ``names`` of the SSL
+    state equal the straight run's bit for bit."""
+    import torch
+
+    from advise_tpu_torch.engine import checkpoint as ck
+    from advise_tpu_torch.engine.train import trainer
+
+    first = int(overrides.get("SOLVER.START_EPOCH", 0))
+    over = {"SOLVER.MAX_EPOCH": first + 2, **overrides}
+    straight, cut = {}, {}
+    state = trainer(contrastive_run_cfg(tmp_path / "straight", ctype, **over), device="cpu", record=straight)
+    assert len(straight["stats"]) == 4
+    assert all(np.isfinite(v) for st in straight["stats"] for v in st.values())
+    name = f"Model_Epoch_{first:04d}"
+    saved = torch.load(tmp_path / "straight" / "checkpoints" / name / ck.STATE_FILE, weights_only=False)
+    kept = tmp_path / "cut" / "checkpoints"
+    kept.mkdir(parents=True)
+    for f in (name, f"{name}.meta.npy"):
+        (tmp_path / "straight" / "checkpoints" / f).rename(kept / f)
+    resumed = trainer(contrastive_run_cfg(tmp_path / "cut", ctype, **over, **{"TRAIN.AUTO_RESUME": True}),
+                      device="cpu", record=cut)
+    assert (cut["start_epoch"], cut["start_step"], len(cut["stats"])) == (first + 1, 2, 2)
+    assert cut["stats"] == straight["stats"][2:]
+    assert cut["model_sha256_end"] == straight["model_sha256_end"]
+    assert cut["ssl_sha256_end"] == straight["ssl_sha256_end"]
+    for n in names:
+        assert torch.equal(resumed.ssl[n], state.ssl[n]), n
+    return state, resumed, straight, cut, saved
