@@ -85,12 +85,14 @@ def _mode_cfg(cfg, mode: str):
 def build_dataset(cfg, mode: str = "train") -> ClipDataset:
     """The dataset of ``mode``: its sampler, its data, label dir and split
     file, and its ingest geometry; the synthetic backend's settings are
-    DATA.*'s in every mode."""
+    DATA.*'s in every mode. With TPU.DEVICE_AUG False the train items come
+    out of the host aug (``data/host_aug.py``), normalized float32."""
     data_dir, label_dir, split = _mode_cfg(cfg, mode)
+    host_aug = None
     if mode == "train" and not cfg.TPU.DEVICE_AUG:
-        raise NotImplementedError(
-            "TPU.DEVICE_AUG False (the host-side PIL augmentation, host_aug) is not "
-            "ported yet (ROADMAP A 15)")
+        from advise_tpu_torch.data.host_aug import build_host_aug
+
+        host_aug = build_host_aug(cfg, mode)
     mask_gen = None
     if mode == "train" and cfg.TASK == "masked" and not cfg.MASK.MAE_RND_MASK:
         from advise_tpu_torch.data.masking import build_mask_generator
@@ -111,6 +113,7 @@ def build_dataset(cfg, mode: str = "train") -> ClipDataset:
         synthetic_motion=cfg.DATA.SYNTHETIC_MOTION,
         synthetic_class_coded=cfg.DATA.SYNTHETIC_CLASS_CODED,
         mask_gen=mask_gen,
+        host_aug=host_aug,
     )
 
 

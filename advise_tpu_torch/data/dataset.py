@@ -6,8 +6,9 @@ decode failure, uint8 channel-last clips ``[K, T, H, W, C]`` at a fixed
 ingest geometry, every random draw from a per-(seed, epoch, index) numpy
 Generator, and a synthetic dataset that needs no media.
 
-The host-side PIL augmentation (TPU.DEVICE_AUG False) is not ported: the
-data factory raises for it (ROADMAP A).
+With TPU.DEVICE_AUG False a ``host_aug`` (``data/host_aug.py``) turns each
+clip into normalized float32 ``[K, T, S, S, C]`` on the host, one seed per
+clip from the item's generator.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from advise_tpu_torch.data.video_io import SyntheticReader, VideoReader, open_video
+from advise_tpu_torch.utils.host_times import HOST_TIMES
 
 logger = logging.getLogger(__name__)
 
@@ -60,7 +62,8 @@ class ClipDataset:
 
     ``sampler`` maps (rng, video_length, infos) -> (stamps [K,T], infos).
     ``ingest_wh`` is the fixed (W, H) frames are resized to at decode time.
-    ``mask_gen`` (the masked task) draws one block mask per clip.
+    ``mask_gen`` (the masked task) draws one block mask per clip;
+    ``host_aug(clip, seed)`` (TPU.DEVICE_AUG False) augments each clip.
     """
 
     def __init__(
@@ -80,11 +83,13 @@ class ClipDataset:
         synthetic_class_coded: bool = False,
         retries: int = 10,
         mask_gen=None,
+        host_aug=None,
     ):
         self.name = name
         self.data_dir = data_dir
         self.sampler = sampler
         self.mask_gen = mask_gen
+        self.host_aug = host_aug
         self.ingest_wh = tuple(ingest_wh)
         self.backend = backend
         self.retries = retries
@@ -144,4 +149,10 @@ class ClipDataset:
         # normalized time of the first clip's start in [0, 1]
         infos.setdefault("time_idx", np.float32(stamps[0, 0] / max(video_length - 1, 1)))
         frames = reader.get_frames(stamps.reshape(-1), resize_wh=self.ingest_wh)
-        return frames.reshape(k, t, *frames.shape[1:]), infos
+        clips = frames.reshape(k, t, *frames.shape[1:])
+        if self.host_aug is not None:
+            # one seed per clip, re-used for every frame (the JAX loader's draw)
+            seeds = rng.integers(0, 2**31 - 1, size=k)
+            with HOST_TIMES("host_aug"):
+                clips = np.stack([self.host_aug(c, int(s)) for c, s in zip(clips, seeds)])
+        return clips, infos

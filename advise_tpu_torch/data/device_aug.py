@@ -10,9 +10,10 @@ uint8 ``[B, K, T, H, W, C]`` at the ingest geometry goes in, and float32
 or, with TPU.AUG_COMPUTE_OUT under bf16, bfloat16 comes out. All frames of
 a clip share its parameters.
 
-- 'aa': per clip, RandomResizedCrop, RandAugment (one composed bilinear
-  warp, then the color ops), the horizontal flip (inside the warp),
-  RandomErasing and normalize.
+- 'aa': per clip, RandomResizedCrop, RandAugment (with AUG.FUSED_RA one
+  composed bilinear warp, then the color ops, the flip inside the warp;
+  otherwise op by op at AUG.INTERPOLATION, then the flip), RandomErasing
+  and normalize.
 - 'simple': the fixed Resize happened at ingest; per clip, a random crop,
   the colour jitter and normalize: in one kernel (``ops/fused_aug.py``)
   with TPU.PALLAS_AUG, else op by op (:func:`color_jitter`), each op's
@@ -227,17 +228,23 @@ def aug_out_dtype(cfg) -> torch.dtype:
 
 
 class AAAug:
-    """AUG.TYPE 'aa' with AUG.FUSED_RA: ``aug(batch_u8, generator)``, or
-    ``apply(batch_u8, sample(...))`` with parameters from elsewhere."""
+    """AUG.TYPE 'aa': ``aug(batch_u8, generator)``, or ``apply(batch_u8,
+    sample(...))`` with parameters from elsewhere. Both paths draw the same
+    parameters: the RRC box, the RandAugment plan, the flip and the erasing.
+
+    - AUG.FUSED_RA: the RRC, the plan's geometric ops and the flip as one
+      bilinear gather, then the color ops.
+    - Otherwise the op-exact path: the RRC resized as OnlyCrop resizes it
+      and clipped to [0, 255], every RandAugment op in turn at
+      AUG.INTERPOLATION (``rand_augment.ExactRandAugment``), then the flip.
+
+    Then RandomErasing at AUG.RE_PROB and normalize by the reciprocal."""
 
     def __init__(self, cfg):
         from advise_tpu_torch.data.erasing import RandomErasing
-        from advise_tpu_torch.data.rand_augment import FusedRandAugment
+        from advise_tpu_torch.data.rand_augment import ExactRandAugment, FusedRandAugment
 
-        if not cfg.AUG.FUSED_RA:
-            raise NotImplementedError(
-                "AUG.FUSED_RA False (the op-exact RandAugment) is not ported yet (ROADMAP A 15)")
-        if cfg.AUG.RA_BATCHED:
+        if cfg.AUG.RA_BATCHED and cfg.AUG.FUSED_RA:
             raise NotImplementedError("AUG.RA_BATCHED is a TPU layout of the same math")
         self.size = int(cfg.AUG.TARGET_SIZE)
         self.scale = (cfg.AUG.MIN_AREA, cfg.AUG.MAX_AREA)
@@ -245,7 +252,9 @@ class AAAug:
         self.random_flip = cfg.AUG.RANDOM_FLIP
         self.mean, self.std = tuple(cfg.DATA.MEAN), tuple(cfg.DATA.STD)
         self.out_dtype = aug_out_dtype(cfg)
-        self.ra = FusedRandAugment(cfg.AUG.AA_TYPE)
+        self.fused = bool(cfg.AUG.FUSED_RA)
+        self.ra = (FusedRandAugment(cfg.AUG.AA_TYPE) if self.fused
+                   else ExactRandAugment(cfg.AUG.AA_TYPE, interpolation=cfg.AUG.INTERPOLATION))
         self.erasing = (
             RandomErasing(cfg.AUG.RE_PROB, cfg.AUG.RE_MODE, count=cfg.AUG.RE_COUNT)
             if cfg.AUG.RE_PROB > 0 else None
@@ -267,18 +276,26 @@ class AAAug:
             params["erase"] = self.erasing.sample(n, (t, self.size, self.size, c), generator)
         return params
 
-    def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+    def _fused(self, flat: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
         from advise_tpu_torch.data.rand_augment import fused_warp_coords, warp_gather
 
-        b, k = batch_u8.shape[:2]
-        flat = batch_u8.reshape(b * k, *batch_u8.shape[2:])
         dev = flat.device
         sx, sy, valid = fused_warp_coords(
             {kk: v.to(dev) for kk, v in params["plan"].items()},
             params["box"].to(dev), params["flip"].to(dev), self.size,
         )
-        clips = warp_gather(flat, sx, sy, valid)
-        clips = self.ra.color_apply(clips, params["plan"])
+        return self.ra.color_apply(warp_gather(flat, sx, sy, valid), params["plan"])
+
+    def _exact(self, flat: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+        clips = torch.clamp(resized_crop_clips(flat.to(torch.float32), params["box"], self.size), 0.0, 255.0)
+        clips = self.ra.apply(clips, params["plan"])
+        flip = params["flip"].to(clips.device).view(-1, 1, 1, 1, 1)
+        return torch.where(flip, clips.flip(3), clips)
+
+    def apply(self, batch_u8: torch.Tensor, params: Dict[str, Any]) -> torch.Tensor:
+        b, k = batch_u8.shape[:2]
+        flat = batch_u8.reshape(b * k, *batch_u8.shape[2:])
+        clips = self._fused(flat, params) if self.fused else self._exact(flat, params)
         if self.erasing is not None:
             clips = self.erasing.apply(clips, params["erase"])
         out = normalize(clips, self.mean, self.std, by_reciprocal=True).to(self.out_dtype)

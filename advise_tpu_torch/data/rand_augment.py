@@ -1,5 +1,5 @@
-"""Fused RandAugment (counterpart of ``advise_tpu/data/rand_augment.py``,
-the AUG.FUSED_RA subset).
+"""RandAugment (counterpart of ``advise_tpu/data/rand_augment.py``): the
+fused path of AUG.FUSED_RA and the op-exact path (AUG.FUSED_RA False).
 
 Every op is split into sampling its parameters (torch, an explicit
 generator) and applying them, so tests can hand both sides the same
@@ -13,6 +13,14 @@ affine 3x3; with the RandomResizedCrop box and the flip they compose into
 one bilinear gather from the ingest frame (``fused_warp_coords`` and
 ``warp_gather``), fill 128 where a stage leaves the frame. The color ops
 then run in slot order on the warped clip.
+
+The op-exact path (:class:`ExactRandAugment`) runs the sampled ops one
+slot after another, as PIL would: each geometric op is its own warp of the
+current image (:func:`warp_affine`: bilinear, or at AUG.INTERPOLATION
+bicubic PIL's 16-tap transform kernel at a = -1), fill 128 per tap, rounded
+to uint8. Where JAX maps a ``lax.switch`` over the clips one by one, the
+port gathers, per slot, the clips that chose each op and runs the op once
+over them: at most 15 op calls a slot, whatever the batch.
 
 Tensors are float clips in [0, 255], batched as [N, T, H, W, C] with
 per-clip parameters of shape [N].
@@ -224,18 +232,27 @@ class FusedRandAugment:
             return sharpness(x, self._enh(m, sign))
         return x  # geometric slots: already in the warp
 
-    def color_apply(self, clips: torch.Tensor, plan: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _by_slot(self, clips: torch.Tensor, plan: Dict[str, torch.Tensor], op_fn,
+                 skip=()) -> torch.Tensor:
+        """Slot by slot, each op that some clips chose, run by ``op_fn(op,
+        clips, m_eff, sign)`` once over those clips, which are gathered and
+        scattered back into one copy of ``clips``."""
+        dev = clips.device
+        clips = clips.clone()
         sel_host = plan["sel"].tolist()
+        m_eff, sign = plan["m_eff"].to(dev), plan["sign"].to(dev)
         for i in range(self.n):
             for op in sorted({row[i] for row in sel_host}):
-                if op in _GEO_IDS:
+                if op in skip:
                     continue
-                idx = torch.tensor([k for k, row in enumerate(sel_host) if row[i] == op],
-                                   device=clips.device)
-                sub = self._op(op, clips.index_select(0, idx),
-                               plan["m_eff"][idx, i], plan["sign"][idx, i])
-                clips = clips.index_copy(0, idx, sub)
+                idx = torch.tensor([k for k, row in enumerate(sel_host) if row[i] == op], device=dev)
+                sub = op_fn(op, clips.index_select(0, idx), m_eff[idx, i], sign[idx, i])
+                clips.index_copy_(0, idx, sub)
         return clips
+
+    def color_apply(self, clips: torch.Tensor, plan: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The color slots in order (the geometric ones are in the warp)."""
+        return self._by_slot(clips, plan, self._op, skip=_GEO_IDS)
 
 
 def fused_warp_coords(plan: Dict[str, torch.Tensor], box: torch.Tensor,
@@ -299,3 +316,113 @@ def warp_gather(clips: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     out = torch.where(valid.reshape(-1, 1), out, fill)
     out = out.reshape(n, s1, s2, t, c).permute(0, 3, 1, 2, 4)
     return _round_u8(out)
+
+
+# --- the op-exact path (AUG.FUSED_RA False) ------------------------------------
+
+
+def cubic_weights(frac: torch.Tensor):
+    """PIL's transform bicubic taps at offsets (-1, 0, 1, 2) from the floor
+    sample: the Keys cubic at a = -1 (not the resize path's -0.5), with the
+    JAX package's float32 operation order (``x ** 3`` as ``x * (x * x)``)."""
+    a = -1.0
+
+    def k(x):
+        ax = torch.abs(x)
+        ax2 = ax * ax
+        ax3 = ax * ax2
+        near = ((a + 2.0) * ax3 - (a + 3.0) * ax2) + 1.0
+        far = ((a * ax3 - (5.0 * a) * ax2) + (8.0 * a) * ax) - 4.0 * a
+        return torch.where(ax <= 1.0, near, torch.where(ax < 2.0, far, torch.zeros_like(ax)))
+
+    return [k(frac + 1.0), k(frac), k(frac - 1.0), k(frac - 2.0)]
+
+
+def warp_affine(clips: torch.Tensor, inv: torch.Tensor, fill: float = 128.0,
+                method: str = "bilinear") -> torch.Tensor:
+    """PIL ``transform(AFFINE)`` of every frame of clips [N, T, H, W, C] by
+    each clip's inverse matrix ``inv`` [N, 2, 3] (output (x, y) samples the
+    input at (a x + b y + c, d x + e y + f)): bilinear, or ``'bicubic'``'s
+    16 taps summed x inside y, each tap ``fill`` outside the frame, then
+    rounded to the uint8 grid. The taps accumulate one at a time, so a
+    group holds a few copies of itself, not 16."""
+    n, t, h, w, c = clips.shape
+    dev = clips.device
+    inv = inv.to(dev, torch.float32)
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    coef = [inv[:, r, k].view(n, 1, 1) for r in range(2) for k in range(3)]
+    sx = (coef[0] * gx + coef[1] * gy) + coef[2]
+    sy = (coef[3] * gx + coef[4] * gy) + coef[5]
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    wx, wy = (sx - x0).reshape(-1, 1), (sy - y0).reshape(-1, 1)
+    flat = clips.permute(0, 2, 3, 1, 4).reshape(n * h * w, t * c)
+    base = (torch.arange(n, device=dev) * (h * w)).view(n, 1, 1)
+
+    def gather(yi, xi):
+        valid = ((xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)).reshape(-1, 1)
+        xi = torch.clamp(xi, 0, w - 1).to(torch.int64)
+        yi = torch.clamp(yi, 0, h - 1).to(torch.int64)
+        vals = flat.index_select(0, (base + yi * w + xi).reshape(-1)).to(torch.float32)
+        return torch.where(valid, vals, fill)
+
+    if method == "bicubic":
+        kx, ky = cubic_weights(wx), cubic_weights(wy)
+        out = None
+        for j in range(4):
+            row = None
+            for i in range(4):
+                tap = gather(y0 + (j - 1), x0 + (i - 1)) * kx[i]
+                row = tap if row is None else row + tap
+            term = row * ky[j]
+            out = term if out is None else out + term
+    else:
+        out = (gather(y0, x0) * ((1 - wx) * (1 - wy)) + gather(y0, x0 + 1) * (wx * (1 - wy))
+               + gather(y0 + 1, x0) * ((1 - wx) * wy) + gather(y0 + 1, x0 + 1) * (wx * wy))
+    return _round_u8(out.reshape(n, h, w, t, c).permute(0, 3, 1, 2, 4))
+
+
+def geo_inv(op: int, level: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The inverse matrices [N, 2, 3] of a geometric op at its signed
+    ``level`` per clip: shear by the level, translate by the level times
+    the clip's width (x) or height (y), rotate by the level in degrees about
+    ((w - 1) / 2, (h - 1) / 2)."""
+    one, zero = torch.ones_like(level), torch.zeros_like(level)
+    if op == GEO_ROTATE:
+        theta = (-level * math.pi) / 180.0
+        cos, sin = torch.cos(theta), torch.sin(theta)
+        cx, cy = (w - 1) / 2.0, (h - 1) / 2.0
+        rows = [(cos, -sin, (cx - cos * cx) - (-sin) * cy), (sin, cos, (cy - sin * cx) - cos * cy)]
+    elif op == GEO_SHEAR_X:
+        rows = [(one, level, zero), (zero, one, zero)]
+    elif op == GEO_SHEAR_Y:
+        rows = [(one, zero, zero), (level, one, zero)]
+    elif op == GEO_TRANS_X:
+        rows = [(one, zero, level * w), (zero, one, zero)]
+    else:
+        rows = [(one, zero, zero), (zero, one, level * h)]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+_GEO_FRAC = {GEO_ROTATE: 30.0, GEO_SHEAR_X: 0.3, GEO_SHEAR_Y: 0.3, GEO_TRANS_X: 0.45, GEO_TRANS_Y: 0.45}
+
+
+class ExactRandAugment(FusedRandAugment):
+    """The op-exact RandAugment (``make_rand_augment``): the same plan as
+    the fused path (``sample``), applied op after op by :meth:`apply`, the
+    geometric ops as their own warps at ``interpolation``."""
+
+    def __init__(self, config_str: str, num_ops: Optional[int] = None,
+                 interpolation: str = "bilinear"):
+        super().__init__(config_str, num_ops)
+        self.method = "bicubic" if interpolation in ("bicubic", "cubic") else "bilinear"
+
+    def _exact_op(self, op: int, x: torch.Tensor, m: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
+        if op in _GEO_IDS:
+            level = self._lvl(m, _GEO_FRAC[op]) * sign
+            return warp_affine(x, geo_inv(op, level, x.shape[2], x.shape[3]), method=self.method)
+        return self._op(op, x, m, sign)
+
+    def apply(self, clips: torch.Tensor, plan: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Every slot in order on float clips [N, T, H, W, C] in [0, 255]."""
+        return self._by_slot(clips, plan, self._exact_op)

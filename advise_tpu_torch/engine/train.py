@@ -3,6 +3,9 @@
 
 Per iteration: the host loader's batch -> the card (pinned, prefetched on a
 side stream, TPU.PREFETCH batches in flight) -> one train step -> meters.
+With TPU.DEVICE_AUG False the loader's host aug has made the clips
+(normalized float32) and every step, the kNN probe and the VIS_MASK dump
+take them as they are.
 The lr comes from the lr policy at ``epoch + (it + 1) / iters`` (the
 PlateauController's after the warm-up under the plateau policy). At each
 epoch's end: the online kNN probe on CONTRASTIVE.KNN_EVAL_BATCHES batches of
@@ -231,7 +234,8 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
                       ssl_sha256=ssl_digest(state.ssl),
                       iter_s=[], wait_s=[], stats=[])
 
-    device_aug = build_device_aug(cfg, "train")
+    # TPU.DEVICE_AUG False: the loader's host aug made the clips (no K3)
+    device_aug = build_device_aug(cfg, "train") if cfg.TPU.DEVICE_AUG else None
     step_fn = make_train_step(cfg, bundle, device_aug)
     knn_probe_fn = None
     if contrastive and cfg.CONTRASTIVE.KNN_ON and cfg.CONTRASTIVE.KNN_EVAL_BATCHES > 0:

@@ -1,8 +1,10 @@
 """Contrastive model (counterpart of ``advise_tpu/models/contrastive.py``):
-the backbone of MODEL.ARCH (SlowFast, X3D, Video Swin for 'swin',
+the backbone of MODEL.ARCH (SlowFast, X3D, MViT, Video Swin for 'swin',
 'video_swin' and 'swin3d', or a single-pathway ResNet3D for 'slow', 'c2d',
-'i3d' and 'slow_c2d') with its CONTRASTIVE.DIM head and BYOL predictor, and
-for SwAV the prototypes. The algorithm state (EMA twin, queues, memory and
+'i3d' and 'slow_c2d') with its CONTRASTIVE.DIM head (and, on the ResNets
+and X3D, the BYOL predictor), and for SwAV the prototypes. MViT's and
+Swin's transformer heads carry no predictor, as in JAX, so BYOL over them
+raises as JAX's ``byol_loss`` asserts. The algorithm state (EMA twin, queues, memory and
 kNN banks) lives in the train state (``engine/contrastive.py``), as in the
 JAX package."""
 
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from advise_tpu_torch.models.layers.common import trunc_normal_init
+from advise_tpu_torch.models.mvit import MViT
 from advise_tpu_torch.models.resnet3d import ResNet3D
 from advise_tpu_torch.models.slowfast import SlowFast
 from advise_tpu_torch.models.swin3d import SwinTransformer3D
@@ -23,8 +26,7 @@ SWAV_NUM_PROTOTYPES = 1000  # the JAX package's (and the reference's) fixed coun
 
 
 def _backbone_cls(arch: str):
-    """The backbone of MODEL.ARCH (``_backbone_cls`` of the JAX package);
-    the MViT backbone is not ported yet."""
+    """The backbone of MODEL.ARCH (``_backbone_cls`` of the JAX package)."""
     arch = arch.lower()
     if arch == "slowfast":
         return SlowFast
@@ -35,7 +37,7 @@ def _backbone_cls(arch: str):
     if arch in ("swin", "video_swin", "swin3d"):
         return SwinTransformer3D
     if arch == "mvit":
-        raise NotImplementedError(f"ContrastiveModel over MODEL.ARCH={arch} is not ported yet (ROADMAP A 20)")
+        return MViT
     raise KeyError(f"ContrastiveModel: unknown MODEL.ARCH={arch!r}")
 
 
@@ -73,5 +75,5 @@ class ContrastiveModel(nn.Module):
     def forward(self, x: torch.Tensor, views: int = 1,
                 generator: Optional[torch.Generator] = None):
         """``generator`` draws the backbone's dropout masks in training (and
-        X3D's drop-connect and Swin's drop-path masks)."""
+        X3D's drop-connect and MViT's and Swin's drop-path masks)."""
         return self.backbone(x, views, generator)

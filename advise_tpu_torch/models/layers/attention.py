@@ -3,17 +3,26 @@
 with the flash / dense dispatch, and MultiScaleBlock.
 
 Tokens are ``[B, N, C]``; the pools run on ``[B * heads, c, T, H, W]`` views
-of the channel-last grid. The attention pools q, k and v with depthwise
-convs and LayerNorms (MVIT.MODE 'conv'). MViTv2's options: the decomposed
+of the channel-last grid. The attention pools q, k and v (MVIT.MODE) with
+depthwise convs and LayerNorms ('conv'; 'conv_unshared' also pools a
+transition's residual over one fold, not one per head), or with a max or
+average pool (padding k // 2: Flax pads a max pool with -inf and counts the
+padding in an average, as torch's pools do) and no norm; the cls token
+bypasses the pool. MVIT.SEPARATE_QKV projects q, k and v with three Dense
+layers; MVIT.POOL_FIRST pools the input folded into heads and then projects
+q, k and v at their pooled lengths. MViTv2's options: the decomposed
 relative position biases (MVIT.REL_POS_SPATIAL / REL_POS_TEMPORAL, their
 tables linearly resized, antialiased when they shrink, as
 ``jax.image.resize`` does), residual pooling (``out + q``) and
 DIM_MUL_IN_ATT (the attention widens, the skip is projected from the
-normalised input). A block with a relative position bias runs the dense
-chain, never flash attention, as in JAX. Not ported yet (they raise in
-``mvit.check_ported``, ROADMAP A 20): POOL_FIRST, the other pooling modes,
-SEPARATE_QKV, layer scale and dropout. The ring-attention branch
-(MVIT.SEQ_SHARD) is a no-op on one card, as JAX's ``nseq == 1`` branch is.
+normalised input). MVIT.LAYER_SCALE_INIT_VALUE scales each branch by a
+learned per-channel gamma; MVIT.DROPOUT_RATE drops after the attention's
+projection and in the MLP, from a generator the block seeds from a number
+the model drew before any block ran (so a recomputation draws the same
+masks). A block with a relative position bias runs the dense chain, never
+flash attention, as in JAX; every pooling mode keeps K4 otherwise. The
+ring-attention branch (MVIT.SEQ_SHARD) is a no-op on one card, as JAX's
+``nseq == 1`` branch is.
 
 Under bf16 autocast q, k and v are cast back to the compute dtype after
 their pools and LayerNorms (autocast runs ``layer_norm`` in float32, where
@@ -36,8 +45,11 @@ from advise_tpu_torch.models.layers.common import (
     Mlp,
     dense,
     divided_init,
+    dropout,
     layer_norm,
+    layer_scale_gamma,
     lecun_normal_init,
+    seeded_generator_from,
     trunc02,
     zeros_init,
 )
@@ -48,10 +60,10 @@ Thw = Tuple[int, int, int]
 
 def pool_tokens(x: torch.Tensor, thw: Sequence[int], kernel: Sequence[int],
                 stride: Sequence[int], has_cls: bool, conv: Optional[nn.Module] = None,
-                norm: Optional[nn.Module] = None) -> Tuple[torch.Tensor, Thw]:
+                norm: Optional[nn.Module] = None, mode: str = "max") -> Tuple[torch.Tensor, Thw]:
     """attention_pool on [B, H, L, c]: the depthwise ``conv`` then ``norm``,
-    or, without a conv, a max pool (padding k // 2); the cls token bypasses
-    the pool."""
+    or, without a conv, a max or (``mode`` 'avg') an average pool, padding
+    k // 2 counted in the average; the cls token bypasses the pool."""
     if not kernel:
         return x, tuple(thw)
     b, h, _, c = x.shape
@@ -60,7 +72,12 @@ def pool_tokens(x: torch.Tensor, thw: Sequence[int], kernel: Sequence[int],
         cls_tok, x = x[:, :, :1], x[:, :, 1:]
     t, hh, ww = thw
     grid = x.reshape(b * h, t, hh, ww, c).permute(0, 4, 1, 2, 3)
-    if conv is None:
+    if conv is None and mode == "avg":
+        # zeros padded first: torch's avg_pool3d refuses a window wider
+        # than the unpadded input, which Flax's pads to cover
+        pad = [p for k in reversed(tuple(kernel)) for p in (k // 2, k // 2)]
+        grid = F.avg_pool3d(F.pad(grid, pad), tuple(kernel), tuple(stride))
+    elif conv is None:
         grid = F.max_pool3d(grid, tuple(kernel), tuple(stride), tuple(k // 2 for k in kernel))
     else:
         grid = conv(grid)
@@ -172,11 +189,13 @@ def _no_trivial_pool(kernel, stride):
 
 class MultiScaleAttention(nn.Module):
     """Pooled multi-head attention on tokens of width ``dim``, ``dim_out``
-    wide: qkv projection, conv pooling of q and of k, v, attention through
-    K4 (``flash``) or the dense chain (with the relative position biases
-    of a block ``input_size`` on the grid), ``+ q`` under
-    ``residual_pooling``, output projection (its init divided by
-    ``proj_init_div``)."""
+    wide: the qkv projection (``separate_qkv``: q, k and v apart), the
+    pooling of q and of k, v (``mode``), attention through K4 (``flash``)
+    or the dense chain (with the relative position biases of a block
+    ``input_size`` on the grid), ``+ q`` under ``residual_pooling``, output
+    projection (its init divided by ``proj_init_div``), dropout at
+    ``drop_rate``. With ``pool_first`` the input is folded into heads and
+    pooled first, and q, k and v are projected after."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, qkv_bias: bool = False,
                  kernel_q: Sequence[int] = (), kernel_kv: Sequence[int] = (),
@@ -185,10 +204,16 @@ class MultiScaleAttention(nn.Module):
                  flash_native_dim_only: bool = False, dtype: Optional[torch.dtype] = None,
                  input_size: Sequence[int] = (), rel_pos_spatial: bool = False,
                  rel_pos_temporal: bool = False, rel_pos_zero_init: bool = False,
-                 residual_pooling: bool = False, proj_init_div: float = 1.0):
+                 residual_pooling: bool = False, proj_init_div: float = 1.0,
+                 mode: str = "conv", pool_first: bool = False, separate_qkv: bool = False,
+                 drop_rate: float = 0.0):
         super().__init__()
+        if mode not in ("conv", "conv_unshared", "avg", "max"):
+            raise NotImplementedError(f"MVIT.MODE={mode}")
         self.num_heads = num_heads
         self.dim_out = dim_out
+        self.mode, self.pool_first, self.separate_qkv = mode, pool_first, separate_qkv
+        self.drop_rate = drop_rate
         head_dim = dim_out // num_heads
         self.scale = head_dim ** -0.5
         self.kernel_q = _no_trivial_pool(kernel_q, stride_q)
@@ -200,17 +225,22 @@ class MultiScaleAttention(nn.Module):
         self.flash = (flash and not rel_pos_spatial and not rel_pos_temporal
                       and not (flash_native_dim_only and head_dim > 128 and head_dim % 128))
         self.dtype = dtype
-        self.qkv = dense(dim, 3 * dim_out, bias=qkv_bias, init=trunc02, bias_value=0.02)
+        if pool_first or separate_qkv:
+            for name in ("q", "k", "v"):
+                self.add_module(name, dense(dim, dim_out, bias=qkv_bias, init=trunc02, bias_value=0.02))
+        else:
+            self.qkv = dense(dim, 3 * dim_out, bias=qkv_bias, init=trunc02, bias_value=0.02)
+        dim_conv = dim // num_heads if pool_first else head_dim
         for name, kernel, stride in (("q", self.kernel_q, self.stride_q),
                                      ("k", self.kernel_kv, self.stride_kv),
                                      ("v", self.kernel_kv, self.stride_kv)):
-            if not kernel:
+            if not kernel or mode in ("avg", "max"):
                 continue
-            conv = nn.Conv3d(head_dim, head_dim, kernel, stride=stride,
-                             padding=tuple(k // 2 for k in kernel), groups=head_dim, bias=False)
+            conv = nn.Conv3d(dim_conv, dim_conv, kernel, stride=stride,
+                             padding=tuple(k // 2 for k in kernel), groups=dim_conv, bias=False)
             conv.weight_init = lecun_normal_init
             self.add_module(f"pool_{name}", conv)
-            self.add_module(f"norm_{name}", layer_norm(head_dim))
+            self.add_module(f"norm_{name}", layer_norm(dim_conv))
         self.proj = dense(dim_out, dim_out, init=divided_init(trunc02, proj_init_div), bias_value=0.02)
         self.param_inits = {}
         rel_init = zeros_init if rel_pos_zero_init else trunc02
@@ -231,7 +261,8 @@ class MultiScaleAttention(nn.Module):
     def _pool(self, x, thw, name):
         kernel, stride = (self.kernel_q, self.stride_q) if name == "q" else (self.kernel_kv, self.stride_kv)
         return pool_tokens(x, thw, kernel, stride, self.has_cls_embed,
-                           getattr(self, f"pool_{name}", None), getattr(self, f"norm_{name}", None))
+                           getattr(self, f"pool_{name}", None), getattr(self, f"norm_{name}", None),
+                           self.mode)
 
     def _rel_pos_bias(self, q, q_shape, k_shape):
         if not (self.rel_pos_spatial or self.rel_pos_temporal):
@@ -247,24 +278,39 @@ class MultiScaleAttention(nn.Module):
 
         return bias
 
-    def forward(self, x: torch.Tensor, thw: Sequence[int], x_res: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, thw: Sequence[int], x_res: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """``x_res``: a residual stream to pool through the SAME pool_q conv and
         norm_q as q (MVIT.REV.RES_PATH 'conv'); when given, returns (out,
-        q_shape, pooled residual), else (out, q_shape)."""
+        q_shape, pooled residual), else (out, q_shape). ``generator`` draws
+        the dropout mask in training."""
         b, n, _ = x.shape
         nh = self.num_heads
-        q, k, v = self.qkv(x).reshape(b, n, 3, nh, -1).permute(2, 0, 3, 1, 4).unbind(0)
+
+        def heads(t):
+            return t.reshape(b, t.shape[1], nh, -1).transpose(1, 2)
+
+        if self.pool_first:
+            q = k = v = heads(x)
+        elif self.separate_qkv:
+            q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
+        else:
+            q, k, v = self.qkv(x).reshape(b, n, 3, nh, -1).permute(2, 0, 3, 1, 4).unbind(0)
 
         res_pooled = None
         if x_res is not None:
             rc = x_res.shape[-1]
-            r = x_res.reshape(b, n, nh, rc // nh).transpose(1, 2)
+            fold = 1 if self.mode == "conv_unshared" else nh
+            r = x_res.reshape(b, n, fold, rc // fold).transpose(1, 2)
             r, _ = self._pool(r, thw, "q")
             res_pooled = r.transpose(1, 2).reshape(b, -1, rc)
 
         q, q_shape = self._pool(q, thw, "q")
         k, k_shape = self._pool(k, thw, "k")
         v, _ = self._pool(v, thw, "v")
+        if self.pool_first:
+            q, k, v = (heads(getattr(self, name)(t.transpose(1, 2).reshape(b, t.shape[2], -1)))
+                       for name, t in (("q", q), ("k", k), ("v", v)))
         if self.dtype is not None:
             q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
         if self.flash:
@@ -277,6 +323,8 @@ class MultiScaleAttention(nn.Module):
             else:
                 out = out + q
         out = self.proj(out.transpose(1, 2).reshape(b, -1, self.dim_out))
+        if self.training and self.drop_rate > 0.0:
+            out = dropout(out, self.drop_rate, generator)
         if x_res is not None:
             return out, q_shape, res_pooled
         return out, q_shape
@@ -290,7 +338,11 @@ class MultiScaleBlock(nn.Module):
     attention is ``dim_out`` wide and the skip is projected from the
     normalised input before its pool; otherwise the MLP's skip is projected
     from the second norm. ``init_div`` divides the initial weights of the
-    attention's projection and of fc2."""
+    attention's projection and of fc2. With ``layer_scale_init_value`` > 0
+    each branch is scaled by a learned per-channel gamma (``gamma_1`` the
+    attention's, ``gamma_2`` the MLP's) starting at that value; the
+    dropouts at ``drop_rate`` draw from a generator seeded by the caller's
+    ``seed``."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, drop_path: float = 0.0,
@@ -300,7 +352,9 @@ class MultiScaleBlock(nn.Module):
                  input_size: Sequence[int] = (), rel_pos_spatial: bool = False,
                  rel_pos_temporal: bool = False, rel_pos_zero_init: bool = False,
                  residual_pooling: bool = False, dim_mul_in_att: bool = False,
-                 init_div: float = 1.0):
+                 init_div: float = 1.0, mode: str = "conv", pool_first: bool = False,
+                 separate_qkv: bool = False, layer_scale_init_value: float = 0.0,
+                 drop_rate: float = 0.0):
         super().__init__()
         self.stride_q = tuple(stride_q)
         self.has_cls_embed = has_cls_embed
@@ -311,25 +365,35 @@ class MultiScaleBlock(nn.Module):
                                         stride_q, stride_kv, has_cls_embed, flash,
                                         flash_native_dim_only, dtype, input_size, rel_pos_spatial,
                                         rel_pos_temporal, rel_pos_zero_init, residual_pooling,
-                                        proj_init_div=init_div)
+                                        proj_init_div=init_div, mode=mode, pool_first=pool_first,
+                                        separate_qkv=separate_qkv, drop_rate=drop_rate)
         if dim != dim_out:
             self.proj = dense(dim, dim_out, init=trunc02, bias_value=0.02)
         self.drop_path = DropPath(drop_path)
         self.norm2 = layer_norm(att_dim)
-        self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out, fc2_init_div=init_div)
+        self.mlp = Mlp(att_dim, int(att_dim * mlp_ratio), dim_out, fc2_init_div=init_div,
+                       drop_rate=drop_rate)
+        layer_scale_gamma(self, "gamma_1", att_dim, layer_scale_init_value)
+        layer_scale_gamma(self, "gamma_2", dim_out, layer_scale_init_value)
 
-    def forward(self, x: torch.Tensor, thw: Sequence[int], keeps=(None, None)):
+    def forward(self, x: torch.Tensor, thw: Sequence[int], keeps=(None, None),
+                seed: Optional[int] = None):
+        gen = seeded_generator_from(seed, x.device)
         x_norm = self.norm1(x)
-        x_block, thw_new = self.attn(x_norm, thw)
+        x_block, thw_new = self.attn(x_norm, thw, generator=gen)
         if self.dim_mul_in_att and hasattr(self, "proj"):
             x = self.proj(x_norm)
         stride = self.stride_q
         if stride and math.prod(stride) > 1:
             kernel = tuple(s + 1 if s > 1 else s for s in stride)
             x = pool_tokens(x[:, None], thw, kernel, stride, self.has_cls_embed)[0][:, 0]
+        if hasattr(self, "gamma_1"):
+            x_block = self.gamma_1 * x_block
         x = x + self.drop_path(x_block, keeps[0])
         x_norm2 = self.norm2(x)
-        x_mlp = self.mlp(x_norm2)
+        x_mlp = self.mlp(x_norm2, gen)
         if not self.dim_mul_in_att and hasattr(self, "proj"):
             x = self.proj(x_norm2)
+        if hasattr(self, "gamma_2"):
+            x_mlp = self.gamma_2 * x_mlp
         return x + self.drop_path(x_mlp, keeps[1]), thw_new

@@ -1,5 +1,6 @@
 """Initializers and the common transformer blocks (counterpart of
-``advise_tpu/models/layers/common.py``): DropPath, Mlp, TwoStreamFusion.
+``advise_tpu/models/layers/common.py``): dropout, DropPath, Mlp,
+TwoStreamFusion.
 
 Modules record how their weights are initialized (``weight_init``, and
 ``bias_value`` for a constant bias; ``param_inits`` for free parameters)
@@ -28,6 +29,23 @@ def msra_init(w: torch.Tensor, generator: torch.Generator) -> None:
 
 def zeros_init(w: torch.Tensor, generator: torch.Generator) -> None:
     nn.init.zeros_(w)
+
+
+def constant_init(value: float):
+    """Flax ``initializers.constant(value)`` (the layer-scale gammas)."""
+
+    def init(w: torch.Tensor, generator: torch.Generator) -> None:
+        nn.init.constant_(w, value)
+
+    return init
+
+
+def layer_scale_gamma(module: nn.Module, name: str, dim: int, value: float) -> None:
+    """A layer-scale gamma [dim] on ``module`` starting at ``value`` (none
+    when 0; MVIT.LAYER_SCALE_INIT_VALUE)."""
+    if value > 0:
+        setattr(module, name, nn.Parameter(torch.zeros(dim)))
+        module.param_inits = {**getattr(module, "param_inits", {}), name: constant_init(value)}
 
 
 def xavier_init(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -115,6 +133,34 @@ def draw_keep(batch: int, rate: float, generator: Optional[torch.Generator]) -> 
     return torch.rand(batch, generator=generator, device=generator.device) < (1.0 - rate)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax ``nn.Dropout`` in training: keep each value with probability
+    1 - rate and scale it by 1 / (1 - rate), the mask drawn from
+    ``generator`` on its device (never the global RNG)."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def draw_seeds(n: int, generator: Optional[torch.Generator]):
+    """``n`` seeds (Python ints) drawn from ``generator`` in one call: a
+    block seeds its own dropout generator from one (:func:`seeded_generator_from`),
+    so a recomputation of the block (REMAT, the reversible backward) draws
+    the masks it drew the first time."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
+
+
+def seeded_generator_from(seed: Optional[int], device) -> Optional[torch.Generator]:
+    """A generator on ``device`` seeded with ``seed``; None for None."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
 class DropPath(nn.Module):
     """Stochastic depth per sample with its keep mask [B] given from outside
     (:func:`draw_keep`), so a recomputation (REMAT, the reversible backward)
@@ -134,16 +180,26 @@ class DropPath(nn.Module):
 
 class Mlp(nn.Module):
     """Transformer MLP: fc1 -> GELU (tanh approximation, Flax's ``nn.gelu``)
-    -> fc2, both with Flax's default init, fc2's divided by
-    ``fc2_init_div``."""
+    -> dropout -> fc2 -> dropout, both layers with Flax's default init,
+    fc2's divided by ``fc2_init_div``; the dropouts (training, ``drop_rate``
+    > 0) draw from ``generator``."""
 
-    def __init__(self, dim_in: int, hidden: int, dim_out: int, fc2_init_div: float = 1.0):
+    def __init__(self, dim_in: int, hidden: int, dim_out: int, fc2_init_div: float = 1.0,
+                 drop_rate: float = 0.0):
         super().__init__()
+        self.drop_rate = drop_rate
         self.fc1 = dense(dim_in, hidden, init=lecun_normal_init)
         self.fc2 = dense(hidden, dim_out, init=divided_init(lecun_normal_init, fc2_init_div))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        drop = self.training and self.drop_rate > 0.0
+        x = F.gelu(self.fc1(x), approximate="tanh")
+        if drop:
+            x = dropout(x, self.drop_rate, generator)
+        x = self.fc2(x)
+        if drop:
+            x = dropout(x, self.drop_rate, generator)
+        return x
 
 
 class TwoStreamFusion(nn.Module):

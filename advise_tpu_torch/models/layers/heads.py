@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from advise_tpu_torch.models.layers.common import conv3d, dense, fc_init, lecun_normal_init
+from advise_tpu_torch.models.layers.common import conv3d, dense, dropout, fc_init, lecun_normal_init
 from advise_tpu_torch.models.layers.norm import SyncBatchNorm
 
 
@@ -39,17 +39,6 @@ class MLPHead(nn.Module):
                 x = getattr(self, f"bn{i}")(x, views)
             x = F.relu(x)
         return getattr(self, f"fc{self.num_layers - 1}")(x)
-
-
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Flax ``nn.Dropout`` in training: keep each value with probability
-    1 - rate and scale it by 1 / (1 - rate), the mask drawn from
-    ``generator`` on its device (never the global RNG)."""
-    if generator is None:
-        raise ValueError("dropout in training needs a torch.Generator")
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
-    return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class ResNetBasicHead(nn.Module):
@@ -168,18 +157,25 @@ class TransformerBasicHead(nn.Module):
     """The transformer head on pooled features: dropout (training only) ->
     the projection -> softmax in evaluation when ``act_func`` says so. The
     projection is a Linear (normal(0, 0.01), zero bias) with
-    ``num_mlp_layers`` 1, else the contrastive MLPHead (``mlp_dim`` wide,
+    ``num_mlp_layers`` 1 (its initial weight times ``head_init_scale``,
+    MVIT.HEAD_INIT_SCALE), else the contrastive MLPHead (``mlp_dim`` wide,
     BN with ``bn_mlp``, per view)."""
 
     def __init__(self, dim_in: int, num_classes: int, dropout_rate: float = 0.0,
                  act_func: str = "softmax", detach_final_fc: bool = False,
-                 num_mlp_layers: int = 1, mlp_dim: int = 2048, bn_mlp: bool = False):
+                 num_mlp_layers: int = 1, mlp_dim: int = 2048, bn_mlp: bool = False,
+                 head_init_scale: float = 1.0):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.act_func = act_func
         self.detach_final_fc = detach_final_fc
         if num_mlp_layers == 1:
-            self.projection = dense(dim_in, num_classes, init=fc_init(0.01))
+            init = fc_init(0.01)
+            if head_init_scale != 1.0:
+                def init(w, generator, _base=init):
+                    _base(w, generator)
+                    w.mul_(head_init_scale)
+            self.projection = dense(dim_in, num_classes, init=init)
         else:
             self.projection = MLPHead(dim_in, num_classes, mlp_dim, num_mlp_layers, bn_on=bn_mlp)
 

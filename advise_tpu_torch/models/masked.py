@@ -162,13 +162,13 @@ class SeparateHead(nn.Module):
     """Per-depth prediction head: ``decoder_depth`` MultiScaleBlocks
     (``decoder_embed_dim`` wide, max(decoder_embed_dim // 64, 1) heads, no
     cls token, K/V pooled by ``kernel_kv``/``stride_kv`` on the
-    ``feat_size`` grid; the first projects a wider or narrower input), then
-    LayerNorm -> Linear."""
+    ``feat_size`` grid in MVIT.MODE ``mode``; the first projects a wider or
+    narrower input), then LayerNorm -> Linear."""
 
     def __init__(self, dim_in: int, num_classes: int, feat_size: Sequence[int] = (),
                  decoder_depth: int = 0, decoder_embed_dim: int = 512, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, kernel_kv: Sequence[int] = (), stride_kv: Sequence[int] = (),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mode: str = "conv"):
         super().__init__()
         self.feat_size = tuple(feat_size)
         self.decoder_depth = decoder_depth
@@ -177,7 +177,7 @@ class SeparateHead(nn.Module):
             self.add_module(f"transform_{i}", MultiScaleBlock(
                 dim, decoder_embed_dim, max(decoder_embed_dim // 64, 1), mlp_ratio, qkv_bias,
                 kernel_kv=tuple(kernel_kv), stride_kv=tuple(stride_kv), has_cls_embed=False,
-                dtype=dtype, input_size=self.feat_size))
+                dtype=dtype, input_size=self.feat_size, mode=mode))
             dim = decoder_embed_dim
         self.norm = layer_norm(dim)
         self.projection = dense(dim, num_classes, init=trunc02)
@@ -246,7 +246,7 @@ class MaskMViT(nn.Module):
             self.add_module(f"pred_head_{depth}", SeparateHead(
                 self.encoder.intermediate_dims[depth], num_class, feat_size,
                 mk.DECODER_DEPTH if xformer else 0, mk.DECODER_EMBED_DIM, cfg.MVIT.MLP_RATIO,
-                cfg.MVIT.QKV_BIAS, mk.DEC_KV_KERNEL, mk.DEC_KV_STRIDE, dtype))
+                cfg.MVIT.QKV_BIAS, mk.DEC_KV_KERNEL, mk.DEC_KV_STRIDE, dtype, mode=cfg.MVIT.MODE))
         self.joint = bool(mk.JOINT_CONTRASTIVE)
         if self.joint:
             width = self.encoder.intermediate_dims[self.pretrain_depth[-1]]
@@ -271,7 +271,7 @@ class MaskMViT(nn.Module):
             if loader_mask is None:
                 raise ValueError("MASK.MAE_RND_MASK=False needs loader-side masks (infos['mask'])")
             mask = loader_mask.reshape(b, t * h * w).to(x.device, torch.float32)
-        inter = self.encoder(x, generator, token_mask=mask.bool(), mask_token=self.mask_token)
+        inter = self.encoder(x, generator=generator, token_mask=mask.bool(), mask_token=self.mask_token)
 
         preds, labels, masks, weights = [], [], [], []
         for (feat, thw), depth in zip(inter, self.pretrain_depth):
@@ -327,7 +327,7 @@ class MaskMViT(nn.Module):
                 spec["dim"], spec["dim_out"], spec["num_heads"], m.MLP_RATIO, m.QKV_BIAS,
                 kernel_q=spec["kernel_q"], kernel_kv=spec["kernel_kv"], stride_q=spec["stride_q"],
                 stride_kv=spec["stride_kv"], has_cls_embed=False, dtype=dtype,
-                input_size=spec["input_size"], init_div=init_div(cfg, i)))
+                input_size=spec["input_size"], init_div=init_div(cfg, i), mode=m.MODE))
         width = schedule[self.n_blocks - 1]["dim_out"]
         self.norm = layer_norm(width)
         self.decoder_embed = dense(width, dec_dim, init=trunc02)
@@ -342,7 +342,7 @@ class MaskMViT(nn.Module):
         self.stride_hw = cfg.DATA.TRAIN_CROP_SIZE // h
         self.pred_head = SeparateHead(dec_dim, self.u * self.stride_hw ** 2 * 3, grid,
                                       mk.DECODER_DEPTH, dec_dim, kernel_kv=mk.DEC_KV_KERNEL,
-                                      stride_kv=mk.DEC_KV_STRIDE, dtype=dtype)
+                                      stride_kv=mk.DEC_KV_STRIDE, dtype=dtype, mode=m.MODE)
 
     def _mae_forward(self, imgs, generator, masking):
         cfg, mk = self.cfg, self.cfg.MASK

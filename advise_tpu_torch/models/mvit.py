@@ -21,8 +21,18 @@ embeddings), where the JAX bf16 model keeps them in bf16. MViTv2's relative
 position biases and residual pooling reach every attention (the reversible
 walk's too); DIM_MUL_IN_ATT the plain walk's blocks and the schedule's
 width rule; MVIT.USE_FIXED_SINCOS_POS adds the fixed 3-D sin-cos table in
-place of the learned ones. Knobs that are not ported yet raise
-(:func:`check_ported`).
+place of the learned ones. MVIT.MODE, POOL_FIRST, SEPARATE_QKV and
+DROPOUT_RATE reach every block, plain, reversible and transition;
+LAYER_SCALE_INIT_VALUE the plain blocks and the reversible sub-blocks (as in
+JAX, the transitions have no gammas). MVIT.DROPOUT_RATE also drops after the
+position embeddings, and each block's dropouts draw from a generator seeded
+by a number the model drew before any block ran. MVIT.NORM_STEM normalises
+the tokens before the blocks; MVIT.REV.RES_PATH 'max' max-pools a
+transition's residual at kernel s + 1 where its stride s > 1; the head's
+projection starts at MVIT.HEAD_INIT_SCALE times its init. Under MODEL_NAME
+ContrastiveModel the head is the CONTRASTIVE.DIM MLP projector
+(CONTRASTIVE.NUM_MLP_LAYERS, MLP_DIM, BN_MLP with per-view statistics), with
+no predictor, as in JAX. TPU.MESH_PIPE raises (:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -36,14 +46,18 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from advise_tpu_torch.models.layers.attention import MultiScaleAttention, MultiScaleBlock
+from advise_tpu_torch.models.layers.attention import MultiScaleAttention, MultiScaleBlock, pool_tokens
 from advise_tpu_torch.models.layers.common import (
     DropPath,
     Mlp,
     TwoStreamFusion,
     dense,
     draw_keep,
+    draw_seeds,
+    dropout,
     layer_norm,
+    layer_scale_gamma,
+    seeded_generator_from,
     trunc02,
 )
 from advise_tpu_torch.models.layers.heads import TransformerBasicHead
@@ -149,24 +163,10 @@ def fused_width(mode: str, dim: int) -> int:
 
 
 def check_ported(cfg) -> None:
-    """Raise NotImplementedError on an MViT knob the port does not carry
+    """Raise NotImplementedError on an MViT option the port does not carry
     yet, naming its ROADMAP.md item."""
-    m = cfg.MVIT
-    unported = {
-        "MVIT.POOL_FIRST": (m.POOL_FIRST, "A 20"),
-        f"MVIT.MODE={m.MODE}": (m.MODE != "conv", "A 20"),
-        "MVIT.SEPARATE_QKV": (m.SEPARATE_QKV, "A 20"),
-        "MVIT.LAYER_SCALE_INIT_VALUE": (m.LAYER_SCALE_INIT_VALUE > 0, "A 20"),
-        "MVIT.DROPOUT_RATE": (m.DROPOUT_RATE > 0, "A 20"),
-        "MVIT.NORM_STEM": (m.NORM_STEM, "A 20"),
-        "MVIT.PATCH_2D": (m.PATCH_2D, "A 20"),
-        "MVIT.HEAD_INIT_SCALE": (m.HEAD_INIT_SCALE != 1.0, "A 20"),
-        f"MVIT.REV.RES_PATH={m.REV.RES_PATH}": (m.REV.ENABLE and m.REV.RES_PATH != "conv", "A 20"),
-        "TPU.MESH_PIPE (GPipe)": (int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1) > 1, "A 16"),
-    }
-    named = [f"{name} (ROADMAP {item})" for name, (on, item) in unported.items() if on]
-    if named:
-        raise NotImplementedError(f"not ported yet: {', '.join(named)}")
+    if int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1) > 1:
+        raise NotImplementedError("not ported yet: TPU.MESH_PIPE (GPipe) (ROADMAP A 16)")
 
 
 def _attention_kwargs(cfg, spec, dtype) -> dict:
@@ -177,7 +177,8 @@ def _attention_kwargs(cfg, spec, dtype) -> dict:
                 flash_native_dim_only=bool(cfg.TPU.FLASH_NATIVE_DIM_ONLY), dtype=dtype,
                 input_size=tuple(spec["input_size"]), rel_pos_spatial=bool(m.REL_POS_SPATIAL),
                 rel_pos_temporal=bool(m.REL_POS_TEMPORAL), rel_pos_zero_init=bool(m.REL_POS_ZERO_INIT),
-                residual_pooling=bool(m.RESIDUAL_POOLING))
+                residual_pooling=bool(m.RESIDUAL_POOLING), mode=m.MODE, pool_first=bool(m.POOL_FIRST),
+                separate_qkv=bool(m.SEPARATE_QKV), drop_rate=float(m.DROPOUT_RATE))
 
 
 def init_div(cfg, i: int) -> float:
@@ -188,71 +189,107 @@ def init_div(cfg, i: int) -> float:
 
 class RevAttnSub(nn.Module):
     """F of the reversible coupling: norm1 -> pooled attention (width kept,
-    no Q pooling, no cls token) -> drop path."""
+    no Q pooling, no cls token) -> times ``gamma_1`` (layer scale) -> drop
+    path; the attention's dropout draws from a generator seeded by
+    ``seed``."""
 
-    def __init__(self, spec: dict, drop_path: float, **kw):
+    def __init__(self, spec: dict, drop_path: float, layer_scale: float = 0.0, **kw):
         super().__init__()
         dim = spec["dim"]
         self.norm1 = layer_norm(dim)
         self.attn = MultiScaleAttention(dim, dim, spec["num_heads"], has_cls_embed=False, **kw)
         self.thw = tuple(spec["input_size"])
+        layer_scale_gamma(self, "gamma_1", dim, layer_scale)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.drop_path(self.attn(self.norm1(x), self.thw)[0], keep)
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        out = self.attn(self.norm1(x), self.thw, generator=seeded_generator_from(seed, x.device))[0]
+        if hasattr(self, "gamma_1"):
+            out = self.gamma_1 * out
+        return self.drop_path(out, keep)
 
 
 class RevMlpSub(nn.Module):
-    """G of the reversible coupling: norm2 -> MLP -> drop path."""
+    """G of the reversible coupling: norm2 -> MLP (dropout from a generator
+    seeded by ``seed``) -> times ``gamma_2`` -> drop path."""
 
-    def __init__(self, dim: int, mlp_ratio: float, drop_path: float):
+    def __init__(self, dim: int, mlp_ratio: float, drop_path: float, layer_scale: float = 0.0,
+                 drop_rate: float = 0.0):
         super().__init__()
         self.norm2 = layer_norm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop_rate=drop_rate)
+        layer_scale_gamma(self, "gamma_2", dim, layer_scale)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.drop_path(self.mlp(self.norm2(x)), keep)
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        out = self.mlp(self.norm2(x), seeded_generator_from(seed, x.device))
+        if hasattr(self, "gamma_2"):
+            out = self.gamma_2 * out
+        return self.drop_path(out, keep)
 
 
 class StageTransitionBlock(nn.Module):
     """The non-reversible block between segments: fuse the two streams
-    (MVIT.REV.PRE_Q_FUSION), project the residual when the width changes,
-    pool it through the attention's own pool_q and norm_q (RES_PATH 'conv'),
-    add attention, then the MLP; drop path on the whole output."""
+    (MVIT.REV.PRE_Q_FUSION), project the residual when the width changes
+    (after its pooling under POOL_FIRST, before it otherwise), pool it
+    through the attention's own pool_q and norm_q (RES_PATH 'conv') or a max
+    pool of kernel s + 1 where the stride s > 1 ('max'), add attention, then
+    the MLP; drop path on the whole output; the dropouts from a generator
+    seeded by ``seed``."""
 
-    def __init__(self, spec: dict, mlp_ratio: float, drop_path: float, pre_q_fusion: str, **kw):
+    def __init__(self, spec: dict, mlp_ratio: float, drop_path: float, pre_q_fusion: str,
+                 res_path: str = "conv", **kw):
         super().__init__()
+        if res_path not in ("conv", "max"):
+            raise NotImplementedError(f"MVIT.REV.RES_PATH={res_path}")
         dim, dim_out = spec["dim"], spec["dim_out"]
+        self.res_path, self.pool_first = res_path, bool(kw.get("pool_first", False))
+        self.stride_q = tuple(spec["stride_q"])
         self.pre_q_fuse = TwoStreamFusion(pre_q_fusion)
         if dim != dim_out:
             self.res_proj = dense(dim, dim_out, init=trunc02)
         self.norm1 = layer_norm(dim)
         self.attn = MultiScaleAttention(dim, dim_out, spec["num_heads"], has_cls_embed=False, **kw)
         self.norm2 = layer_norm(dim_out)
-        self.mlp = Mlp(dim_out, int(dim_out * mlp_ratio), dim_out)
+        self.mlp = Mlp(dim_out, int(dim_out * mlp_ratio), dim_out, drop_rate=kw.get("drop_rate", 0.0))
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, thw: Sequence[int], keep: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, thw: Sequence[int], keep: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None):
+        gen = seeded_generator_from(seed, x.device)
         x = self.pre_q_fuse(x)
-        x_res = self.res_proj(x) if hasattr(self, "res_proj") else x
-        x_block, thw_new, x_res = self.attn(self.norm1(x), thw, x_res=x_res)
+        proj = hasattr(self, "res_proj")
+        x_res = self.res_proj(x) if proj and not self.pool_first else x
+        if self.res_path == "conv":
+            x_block, thw_new, x_res = self.attn(self.norm1(x), thw, x_res=x_res, generator=gen)
+        else:
+            x_block, thw_new = self.attn(self.norm1(x), thw, generator=gen)
+            if self.stride_q and math.prod(self.stride_q) > 1:
+                kernel = tuple(s + 1 if s > 1 else s for s in self.stride_q)
+                x_res = pool_tokens(x_res[:, None], thw, kernel, self.stride_q, False)[0][:, 0]
+        if proj and self.pool_first:
+            x_res = self.res_proj(x_res)
         x = x_res + x_block
-        x = x + self.mlp(self.norm2(x))
+        x = x + self.mlp(self.norm2(x), gen)
         return self.drop_path(x, keep), thw_new
 
 
-def _call_sub(mods: nn.ModuleList, keeps: List[Optional[torch.Tensor]], k: int, x: torch.Tensor):
-    return mods[k](x, keeps[k])
+def _call_sub(mods: nn.ModuleList, keeps: List[Optional[torch.Tensor]], k: int, x: torch.Tensor,
+              seeds: Optional[List[Optional[int]]] = None):
+    return mods[k](x, keeps[k], None if seeds is None else seeds[k])
 
 
-def _call_first(blk: nn.Module, thw, keeps, x: torch.Tensor):
-    return blk(x, thw, keeps)[0]
+def _call_first(blk: nn.Module, thw, keeps, x: torch.Tensor, seed: Optional[int] = None):
+    return blk(x, thw, keeps, seed)[0]
 
 
 class MViT(nn.Module):
     """PatchEmbed -> (mask tokens) -> cls token / position embeddings ->
-    blocks (plain or reversible walk) -> pooled LayerNorm -> head.
+    dropout (MVIT.DROPOUT_RATE) -> LayerNorm (MVIT.NORM_STEM) -> blocks
+    (plain or reversible walk) -> pooled LayerNorm -> head (the contrastive
+    projector under ContrastiveModel).
 
     ``return_intermediate`` (MaskMViT's pretrain depths) makes the forward
     return [(tokens, thw)] at those depths instead; in the reversible walk a
@@ -279,6 +316,9 @@ class MViT(nn.Module):
         if depth_override:
             final_dim = self.schedule[-1]["dim_out"]
         self.dpr = [float(r) for r in np.linspace(0, m.DROPPATH_RATE, m.DEPTH)]
+        self.drop_rate = float(m.DROPOUT_RATE)
+        if m.NORM_STEM:
+            self.norm_stem = layer_norm(embed_dim)
 
         self.param_inits = {}
         n_cls = 1 if self.cls_on else 0
@@ -322,7 +362,7 @@ class MViT(nn.Module):
                 kw = _attention_kwargs(cfg, spec, dtype)
                 if not uniform:
                     self.add_module(f"blocks_{i}", StageTransitionBlock(
-                        spec, m.MLP_RATIO, self.dpr[i], m.REV.PRE_Q_FUSION, **kw))
+                        spec, m.MLP_RATIO, self.dpr[i], m.REV.PRE_Q_FUSION, m.REV.RES_PATH, **kw))
                     self.plan.append(("transition", i))
                     if i in ri:
                         self.intermediate_dims[i] = spec["dim_out"]
@@ -337,10 +377,12 @@ class MViT(nn.Module):
                         f"return_intermediate depths {inside} fall inside the reversible "
                         f"segment [{i},{j}); with MVIT.REV.ENABLE only segment-boundary "
                         "depths are materialized")
+                ls = float(m.LAYER_SCALE_INIT_VALUE)
                 self.add_module(f"rev_seg{seg_id}_f", nn.ModuleList([
-                    RevAttnSub(spec, self.dpr[d], **kw) for d in range(i, j)]))
+                    RevAttnSub(spec, self.dpr[d], ls, **kw) for d in range(i, j)]))
                 self.add_module(f"rev_seg{seg_id}_g", nn.ModuleList([
-                    RevMlpSub(spec["dim"], m.MLP_RATIO, self.dpr[d]) for d in range(i, j)]))
+                    RevMlpSub(spec["dim"], m.MLP_RATIO, self.dpr[d], ls, self.drop_rate)
+                    for d in range(i, j)]))
                 if j - 1 in ri:
                     self.add_module(f"fuse_inter_{seg_id}", TwoStreamFusion(m.REV.RESPATH_FUSE))
                     self.intermediate_dims[j - 1] = fused_width(m.REV.RESPATH_FUSE, spec["dim"])
@@ -357,6 +399,7 @@ class MViT(nn.Module):
                     spec["dim"], spec["dim_out"], spec["num_heads"], m.MLP_RATIO,
                     drop_path=self.dpr[i], has_cls_embed=self.cls_on,
                     dim_mul_in_att=bool(m.DIM_MUL_IN_ATT), init_div=init_div(cfg, i),
+                    layer_scale_init_value=float(m.LAYER_SCALE_INIT_VALUE),
                     **_attention_kwargs(cfg, spec, dtype)))
                 self.plan.append(("block", i))
                 if i in ri:
@@ -365,9 +408,14 @@ class MViT(nn.Module):
             if not ri and include_head:
                 self.norm = layer_norm(final_dim)
         if not ri and include_head:
+            contrastive = cfg.MODEL.MODEL_NAME == "ContrastiveModel"
+            c = cfg.CONTRASTIVE
             self.head = TransformerBasicHead(
-                final_dim, cfg.MODEL.NUM_CLASSES, dropout_rate=cfg.MODEL.DROPOUT_RATE,
-                act_func=cfg.MODEL.HEAD_ACT, detach_final_fc=cfg.MODEL.DETACH_FINAL_FC)
+                final_dim, c.DIM if contrastive else cfg.MODEL.NUM_CLASSES,
+                dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
+                detach_final_fc=cfg.MODEL.DETACH_FINAL_FC,
+                num_mlp_layers=c.NUM_MLP_LAYERS if contrastive else 1, mlp_dim=c.MLP_DIM,
+                bn_mlp=bool(c.BN_MLP) if contrastive else False, head_init_scale=m.HEAD_INIT_SCALE)
 
     def _keeps(self, b: int, generator: Optional[torch.Generator]) -> Dict[int, tuple]:
         """The stochastic-depth keep masks of this forward, in block order:
@@ -385,12 +433,29 @@ class MViT(nn.Module):
                 out[i] = tuple(draw_keep(b, self.dpr[i], generator) for _ in range(n))
         return out
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+    def _seeds(self, generator: Optional[torch.Generator]) -> Dict[int, tuple]:
+        """The seeds of this forward's dropout generators, in block order,
+        all drawn in one call before any block runs: one per plain block or
+        transition, two (attention, MLP) per reversible block; none in
+        evaluation or without MVIT.DROPOUT_RATE."""
+        if not self.training or self.drop_rate <= 0.0:
+            return {}
+        counts = {}
+        for item in self.plan:
+            if item[0] == "segment":
+                counts.update({i: 2 for i in range(item[2], item[3])})
+            else:
+                counts[item[1]] = 1
+        flat = iter(draw_seeds(sum(counts.values()), generator))
+        return {i: tuple(next(flat) for _ in range(n)) for i, n in counts.items()}
+
+    def forward(self, x: torch.Tensor, views: int = 1, generator: Optional[torch.Generator] = None,
                 token_mask: Optional[torch.Tensor] = None,
                 mask_token: Optional[torch.Tensor] = None):
-        """x: clips [B, T, H, W, 3]; ``generator`` draws the drop-path masks
-        in training; ``token_mask`` [B, t*h*w] (True = masked) replaces those
-        tokens with ``mask_token`` before the position embeddings."""
+        """x: clips [B, T, H, W, 3]; ``views`` splits the contrastive head's
+        BN statistics; ``generator`` draws the dropout and drop-path masks
+        in training; ``token_mask`` [B, t*h*w] (True = masked) replaces
+        those tokens with ``mask_token`` before the position embeddings."""
         x, (t, h, w) = self.patch_embed(x)
         b = x.shape[0]
         if token_mask is not None and mask_token is not None:
@@ -408,7 +473,12 @@ class MViT(nn.Module):
             else:
                 pe = self.pos_embed
             x = x + pe
+        if self.training and self.drop_rate > 0.0:
+            x = dropout(x, self.drop_rate, generator)
+        if hasattr(self, "norm_stem"):
+            x = self.norm_stem(x)
         keeps = self._keeps(b, generator)
+        seeds = self._seeds(generator)
         thw = (t, h, w)
         inter = []
         if self.rev:
@@ -418,7 +488,8 @@ class MViT(nn.Module):
                     i = item[1]
                     spec = self.schedule[i]
                     blk = getattr(self, f"blocks_{i}")
-                    run = functools.partial(_call_first, blk, thw, keeps.get(i, (None,))[0])
+                    run = functools.partial(_call_first, blk, thw, keeps.get(i, (None,))[0],
+                                            seed=seeds.get(i, (None,))[0])
                     inp = torch.cat([x1, x2], dim=-1)
                     out = checkpoint(run, inp, use_reentrant=False) if self.remat else run(inp)
                     x1 = x2 = out
@@ -431,8 +502,10 @@ class MViT(nn.Module):
                 gs = getattr(self, f"rev_seg{seg_id}_g")
                 kf = [keeps.get(d, (None, None))[0] for d in range(i, j)]
                 kg = [keeps.get(d, (None, None))[1] for d in range(i, j)]
-                f = functools.partial(_call_sub, fs, kf)
-                g = functools.partial(_call_sub, gs, kg)
+                sf = [seeds.get(d, (None, None))[0] for d in range(i, j)]
+                sg = [seeds.get(d, (None, None))[1] for d in range(i, j)]
+                f = functools.partial(_call_sub, fs, kf, seeds=sf)
+                g = functools.partial(_call_sub, gs, kg, seeds=sg)
                 if self.o1_scan:
                     params = [list(fs[k].parameters()) + list(gs[k].parameters())
                               for k in range(j - i)]
@@ -451,7 +524,8 @@ class MViT(nn.Module):
             for _, i in self.plan:
                 spec = self.schedule[i]
                 blk = getattr(self, f"blocks_{i}")
-                run = functools.partial(_call_first, blk, thw, keeps.get(i, (None, None)))
+                run = functools.partial(_call_first, blk, thw, keeps.get(i, (None, None)),
+                                        seed=seeds.get(i, (None,))[0])
                 x = checkpoint(run, x, use_reentrant=False) if self.remat else run(x)
                 thw = pooled_thw(thw, spec["kernel_q"], spec["stride_q"])
                 if i in self.return_intermediate:
@@ -468,4 +542,4 @@ class MViT(nn.Module):
                 x = self.norm(x).mean(dim=1)
         if not self.include_head:
             return x
-        return self.head(x, generator=generator)
+        return self.head(x, generator, views)

@@ -8,9 +8,9 @@ buffers accumulate unscaled directions. The SGD chain, in order:
 
 1. clip by global norm (SOLVER.CLIP_GRAD_NORM > 0);
 2. coupled weight decay, ``g += wd * p`` with per-parameter wd;
-3. LARS (SOLVER.LARS_ON): ``g *= ||p|| / ||g||`` on parameters with
-   ndim > 1, and a ratio of 1 where either norm is 0
-   (``optax.scale_by_trust_ratio``);
+3. LARS (SOLVER.LARS_ON): ``g *= ||p|| / ||g||`` on the JAX leaves with
+   ndim > 1 (a reversible segment's blocks as one stacked leaf), and a
+   ratio of 1 where either norm is 0 (``optax.scale_by_trust_ratio``);
 4. the momentum trace, ``t = g + momentum * t``, emitting ``t`` or, with
    Nesterov, ``g + momentum * t``.
 
@@ -23,7 +23,8 @@ transformation: 'adamw' is Adam, then LARS, then ``+ wd * p``; 'adam' is
 Weight-decay groups follow the JAX tree: its reversible MViT stacks a
 segment's parameters on a leading axis, so a LayerNorm scale or a bias there
 is 2-D and decays under SOLVER.ZERO_WD_1D_PARAM; the port's per-block copies
-(``rev_seg{n}_f.{k}.``) are counted with that axis. The layer-decay scales
+(``rev_seg{n}_f.{k}.``) are counted with that axis, and LARS takes its
+norms over the group of them (:func:`trust_groups`). The layer-decay scales
 are read off each parameter's Flax path (:func:`flax_path`).
 """
 
@@ -143,17 +144,34 @@ def global_grad_norm(grads: Tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
 
 
+def trust_groups(names) -> Dict[str, list]:
+    """The parameters that share one JAX leaf, keyed by that leaf's path: a
+    reversible segment's per-block copies (``rev_seg{n}_f.{k}.``) form one
+    group, every other parameter a group of its own."""
+    groups: Dict[str, list] = {}
+    for n in names:
+        groups.setdefault(_STACKED_BLOCK.sub(r"\1\2.", n), []).append(n)
+    return groups
+
+
 def trust_ratio(updates: Tensors, params: Tensors) -> Tensors:
     """LARS's layer-wise trust ratio (``optax.masked(scale_by_trust_ratio(),
-    ndim > 1)``): ``u * ||p|| / ||u||`` on parameters with ndim > 1, ``u``
-    where either norm is 0 and on the others."""
+    ndim > 1)``) per JAX leaf: ``u * ||p|| / ||u||``, the norms taken over
+    the whole leaf, on leaves with ndim > 1; ``u`` where either norm is 0
+    and on the others. A reversible segment's blocks are one stacked leaf in
+    JAX (:func:`trust_groups`): one norm over the stack, the ratio applied
+    to every block, and the mask read at the stacked ndim, so a block's 1-D
+    LayerNorm scale gets a ratio too."""
     out = dict(updates)
-    for n, v in updates.items():
-        if params[n].ndim > 1:
-            p_norm = torch.linalg.vector_norm(params[n])
-            u_norm = torch.linalg.vector_norm(v)
-            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
-            out[n] = v * ratio
+    for names in trust_groups(updates).values():
+        stacked = _STACKED.search(names[0]) is not None
+        if params[names[0]].ndim + (1 if stacked else 0) <= 1:
+            continue
+        p_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(params[n]) for n in names]))
+        u_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(updates[n]) for n in names]))
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
+        for n in names:
+            out[n] = updates[n] * ratio
     return out
 
 

@@ -53,7 +53,7 @@ def counted_wrappers():
     from advise_tpu_torch.ops import window_probe as wp
 
     return [sc.stem_conv_fwd, sc.stem_conv_wgrad, fa.fused_simple_aug, fl.flash_mha_fwd,
-            fl.flash_mha_bwd, *wp.ENTRIES.values()]
+            fl.flash_mha_bwd, fl.flash_f32_fwd, fl.flash_f32_bwd, *wp.ENTRIES.values()]
 
 
 def kernel_launches():

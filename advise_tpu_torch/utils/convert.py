@@ -30,6 +30,13 @@ map by the rules above, as do MViTv2's ``attn/rel_pos_h``, ``rel_pos_w``
 and ``rel_pos_t`` (free parameters) and the DIM_MUL_IN_ATT block's
 ``proj``.
 
+MViT's other knobs map by the same rules: SEPARATE_QKV's and POOL_FIRST's
+``attn/q``, ``attn/k``, ``attn/v`` (plain Dense), the pools of MODE
+'conv_unshared' (depthwise convs like 'conv''s), ``norm_stem``, the
+layer-scale ``gamma_1`` / ``gamma_2`` (free parameters, stacked in a
+reversible segment like the rest of it), PATCH_2D's patch conv, and
+ContrastiveModel's ``backbone/...`` over MViT, reversible stacks included.
+
 The stem's weight is the plain ``[kt, 7, 7, C, O]`` ``conv/kernel`` on the
 space-to-depth path too, so it maps like every other conv. X3D's and the
 Nonlocal block's leaves need no rule of their own: the channelwise

@@ -3,7 +3,8 @@ over threads, with the number of times each stage ran. The loader's workers
 and the main thread add to one process-wide :data:`HOST_TIMES`; the trainer
 resets it at its start and puts a snapshot in its run record, so the
 loader's wait per iteration can be split into its stages (a worker's item:
-frame synthesis or decode, then the resize; the main thread: the wait for
+frame synthesis or decode, then the resize, and with TPU.DEVICE_AUG False
+the host aug; the main thread: the wait for
 items, the collate, the pinned copy)."""
 
 from __future__ import annotations

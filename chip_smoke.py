@@ -73,7 +73,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    frames at 112^2, and an MViTv2 classifier (MViT_S_rev_masked.yaml's
    MViT-S trunk with REL_POS_SPATIAL, REL_POS_TEMPORAL, RESIDUAL_POOLING and
    DIM_MUL_IN_ATT) on 2 clips of 8 frames at 112^2, bf16 on the card
-   against float32 on the CPU, no kernel launched;
+   against float32 on the CPU, no kernel launched; then the op-exact
+   RandAugment (AUG.FUSED_RA False) of the BYOL preset on 2 clips of 32
+   frames at 298x224, the card against the CPU with the same draws, each
+   of the 15 ops alone and the whole 'aa' pipeline (at most 0.1 % of the
+   values a flipped uint8 step apart); and MViT-S as a classifier with the
+   knobs of ROADMAP A 20 on (MVIT_KNOBS: plain and reversible), flash
+   attention, bf16 on the card against float32 on the CPU, K4 once a
+   block by its route (the bf16 pair to head dim 576, the float32 pair
+   above);
 5. the BYOL path: the SlowFast-R50 BYOL pretrain step of
    configs/pretrain/SlowFast_R50_K400.yaml at full width on one card, uint8
    clips through the 'aa' augmentation, 2 warm-up and 5 timed steps; then
@@ -167,6 +175,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    step each of 'adam', LARS over AdamW and SOLVER.LAYER_DECAY 0.75 on
    configs/chip/mae_vismask_minik400.yaml, and the steps_with_relative_lrs
    lr at its boundaries;
+7h. path (a), the op-exact RandAugment: the BYOL preset with AUG.FUSED_RA
+   False, first the op-exact aug alone on the step's batch (16 videos x 2
+   views x 32 frames at 298x224 -> 224^2, bicubic) against the fused aug
+   alone, their times and peaks and the op-exact aug's time by stage, then
+   2 warm-up and 3 timed steps and one profiled step, its time and peak
+   against phase 5's, K1/K2 (2, 1) a step; path (c), ContrastiveModel over
+   MViT: the BYOL preset's recipe (LARS-SGD, the fused 'aa' aug, 16 clips
+   x 2 views, the momentum encoder) with MODEL.ARCH mvit and
+   MViT_S_rev_masked.yaml's MVIT block at 16 frames of 224^2, reversible,
+   flash attention (its head dims 96-768, the reference's head schedule
+   not accumulating: K4 bf16 to 576, K4's float32 pair above), under MoCo
+   (BYOL needs a
+   predictor, which MViT's head has not: JAX's byol_loss asserts), 2
+   warm-up and 3 timed steps and one profiled step, K4's forward and
+   backward launches equal to ``k4_schedule``;
 8. the entry point: ``advise_tpu_torch.tools.run.main``, what ``python -m
    advise_tpu_torch.tools.run`` calls, run in this process with every
    launch count set to 0 before each run (``run_entry_point``), on the BYOL
@@ -219,8 +242,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    state (the queue and swav_started, or the bank) must start as saved, by
    their sha256; K1/K2 by the schedule; SwAV's queue shut after the first
    epoch and open after the second (swav_started in the checkpoints, the
-   loss's swav_gate stat in every iteration). The script's wall time is printed
-   last.
+   loss's swav_gate stat in every iteration); then path (b):
+   SpeedPro_R50.yaml with TPU.DEVICE_AUG False (the host aug in the
+   loader's workers, its seconds in the run record's host stages, no K3),
+   one epoch of 16 videos with a profiler window, and a resume to 2 bit
+   for bit; one iteration of X3D_M_K400.yaml the same way; then path (c)
+   through the entry point (one epoch of 32 videos, the kNN probe, a resume
+   to 2 bit for bit, K4 by the schedule) and MViT_S_rev_masked.yaml the
+   same way (ROADMAP A 7). The script's wall time is printed last.
 
 Reductions: one card (BN.NUM_SYNC_DEVICES 1, TPU.MESH_SYNC 1; shuffle-BN
 permutes the card's own batch; Swin-B's preset is 32 chips); widths, depth
@@ -232,6 +261,7 @@ just after. The line before the last is nvidia-smi's name and power limit;
 the last is {"ok": true, "device": {...}}.
 """
 
+import copy
 import gc
 import json
 import math
@@ -412,6 +442,50 @@ CON_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", 
 CON_ENTRIES = [("swav", "build/chip_smoke_swav", {"CONTRASTIVE.TYPE": "swav", "CONTRASTIVE.SWAV_QEUE_LEN": 32}),
                ("mem 2d", "build/chip_smoke_mem", {"CONTRASTIVE.TYPE": "mem", "CONTRASTIVE.MEM_TYPE": "2d",
                                                    "CONTRASTIVE.DURATION": 4, "CONTRASTIVE.INTERP_MEMORY": True})]
+# the op-exact RandAugment (AUG.FUSED_RA False) on the BYOL preset: phase 4
+# holds it on the card against the CPU on RA_SMALL_CLIPS clips of the
+# preset's 32 frames at its ingest, each op alone, then the pipeline with
+# the same draws; phase 7h times it alone against the fused aug on the
+# step's batch, then the step (path (a))
+RA_EXACT = {"AUG.FUSED_RA": False}
+RA_SMALL_CLIPS = 2
+RA_AUG_REPS = 3  # timed calls of each aug alone, after one warm-up
+# phase 4: MViT_S_rev_masked.yaml's MViT-S trunk as a 400-class classifier
+# with the A 20 knobs on, plain and reversible, flash attention (K4 by its
+# route at each head dim), 2 clips of 8 frames at 112^2, bf16 on the card
+# against float32 on the CPU
+MVIT_KNOB_BASE = {"MODEL.MODEL_NAME": "MViT", "MASK.ENABLE": False, "TPU.FLASH_ATTENTION": True,
+                  "DATA.NUM_FRAMES": 8, "DATA.TRAIN_CROP_SIZE": 112, "DATA.TEST_CROP_SIZE": 112,
+                  "AUG.TARGET_SIZE": 112}
+MVIT_KNOBS = [("plain", {"MVIT.MODE": "avg", "MVIT.SEPARATE_QKV": True, "MVIT.LAYER_SCALE_INIT_VALUE": 0.1,
+                         "MVIT.NORM_STEM": True, "MVIT.DROPOUT_RATE": 0.1, "MVIT.HEAD_INIT_SCALE": 0.5,
+                         "MVIT.PATCH_2D": True}),
+              ("reversible", {"MVIT.REV.ENABLE": True, "MVIT.REV.RES_PATH": "max", "MVIT.POOL_FIRST": True,
+                              "MVIT.MODE": "max", "MVIT.LAYER_SCALE_INIT_VALUE": 0.1, "MVIT.NORM_STEM": True})]
+# ContrastiveModel over MViT (path (c)): the BYOL preset's recipe (LARS-SGD,
+# the fused 'aa' aug, 16 clips x 2 views, the momentum encoder) with
+# MODEL.ARCH mvit, MViT_S_rev_masked.yaml's MVIT block (mvit_s_block) at 16
+# frames of 224^2, reversible, flash attention (head dims 96-768: the
+# reference's head schedule does not accumulate, so K4 bf16 to 576 and its
+# float32 pair at 768). CONTRASTIVE.TYPE moco: MViT's head carries no
+# predictor, so BYOL raises in both packages (JAX's byol_loss asserts)
+MVIT_CON = {"MODEL.ARCH": "mvit", "CONTRASTIVE.TYPE": "moco", "DATA.NUM_FRAMES": 16, "DATA.TRAIN_CROP_SIZE": 224,
+            "DATA.TEST_CROP_SIZE": 224, "MVIT.REV.ENABLE": True, "TPU.FLASH_ATTENTION": True}
+# phase 8: SpeedPro_R50.yaml with TPU.DEVICE_AUG False (the host aug in the
+# loader, no K3): one epoch of 16 synthetic videos, then a resume to 2; then
+# one iteration of X3D_M_K400.yaml the same way
+HOST_AUG_RUN_DIR = "build/chip_smoke_host_aug"
+HOST_AUG_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(SPEED_RUN_VIDEOS),
+                      "TRAIN.SAVE_FREQ", "1", "TPU.DEVICE_AUG", "False"]
+X3D_HOST_AUG_RUN_DIR = "build/chip_smoke_x3d_host_aug"
+# then ContrastiveModel over MViT (MVIT_CON) for one epoch of 32 synthetic
+# videos (2 iterations and the kNN probe) and a resume to 2; then
+# MViT_S_rev_masked.yaml itself (ROADMAP A 7) the same way
+MVIT_CON_RUN_DIR = "build/chip_smoke_mvit_con"
+MVIT_S_RUN_DIR = "build/chip_smoke_mvit_s"
+MVIT_RUN_VIDEOS = 32
+MVIT_RUN_OVERRIDES = ONE_CARD + ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(MVIT_RUN_VIDEOS),
+                                 "TRAIN.SAVE_FREQ", "1", "CONTRASTIVE.KNN_EVAL_BATCHES", str(RUN_KNN_BATCHES)]
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
@@ -470,9 +544,102 @@ def one_card_cfg(tconfig, path, overrides=None):
     cfg.TPU.MESH_SYNC = 1
     cfg.BN.NUM_SYNC_DEVICES = 1
     for key, value in (overrides or {}).items():
-        sec, leaf = key.split(".")
-        cfg[sec][leaf] = value
+        *path, leaf = key.split(".")
+        node = cfg
+        for part in path:
+            node = node[part]
+        node[leaf] = value
     return tconfig.assert_and_infer_cfg(cfg)
+
+
+def as_argv(overrides) -> list:
+    """{KEY: value} as the entry point's KEY VALUE arguments (Python
+    literals)."""
+    return [str(x) for item in overrides.items() for x in item]
+
+
+def mvit_s_block() -> dict:
+    """The MVIT options MViT_S_rev_masked.yaml sets, as {MVIT.KEY: value}."""
+    import yaml
+
+    with open(MVIT_S_CONFIG) as f:
+        return {f"MVIT.{k}": v for k, v in yaml.safe_load(f)["MVIT"].items()}
+
+
+def mvit_con_cfg(tconfig):
+    """Path (c)'s configuration: the BYOL preset at one card with MVIT_CON
+    and MViT-S's block."""
+    return one_card_cfg(tconfig, BYOL_CONFIG, {**mvit_s_block(), **MVIT_CON})
+
+
+def mvit_attentions(mvit):
+    """Each attention of an MViT in block order, with whether the backward
+    always runs its forward again: (attn, True) for a reversible block's F
+    (the reversible walk), (attn, False) for a transition or a plain block
+    (again only under REMAT, its checkpoint)."""
+    for item in mvit.plan:
+        if item[0] == "segment":
+            for sub in getattr(mvit, f"rev_seg{item[1]}_f"):
+                yield sub.attn, True
+        else:
+            yield getattr(mvit, f"blocks_{item[1]}").attn, False
+
+
+def k4_schedule(mvit, remat: bool, forwards_without_grad: int, backward: bool = True) -> dict:
+    """K4's launches a step of an MViT trained once a step, by kernel
+    (``flash_mha_fwd``/``_bwd``, the bf16 pair, or the float32 pair
+    ``flash_f32_fwd``/``_bwd`` for a head dim above 576: ``route``), worked
+    out from the code: each attention launches the forward in its forward
+    pass; the backward recomputes every reversible block's F (the
+    reversible walk) and, under REMAT, every transition (its checkpoint);
+    each forward without a gradient (the momentum encoder's keys) launches
+    once more; the backward launches once an attention. ``backward`` False:
+    a forward without a gradient alone (an eval forward, a kNN probe batch:
+    ``forwards_without_grad`` 0), once an attention, nothing recomputed."""
+    from advise_tpu_torch.ops.flash_attention import route
+
+    import torch
+
+    out = {name: 0 for name in ("flash_mha_fwd", "flash_mha_bwd", "flash_f32_fwd", "flash_f32_bwd")}
+    for attn, reversible in mvit_attentions(mvit):
+        recompute = 1 if backward and (reversible or remat) else 0
+        pair = "flash_mha" if route(torch.bfloat16, attn.dim_out // attn.num_heads) == "wgmma" else "flash_f32"
+        out[f"{pair}_fwd"] += 1 + recompute + forwards_without_grad
+        out[f"{pair}_bwd"] += 1 if backward else 0
+    return out
+
+
+def head_dims(mvit) -> list:
+    """Each attention's head dim in block order (reversible or plain walk)."""
+    return [attn.dim_out // attn.num_heads for attn, _ in mvit_attentions(mvit)]
+
+
+def path_c_shapes(tconfig) -> list:
+    """Path (c)'s attention shapes at full width: the MViT-S of
+    ``mvit_con_cfg`` built on the CPU, one view's clips a call (the online
+    forward and the keys each take one view)."""
+    from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.models.mvit import patch_grid
+
+    cfg = mvit_con_cfg(tconfig)
+    return mvit_attention_shapes(build_model(cfg, "cpu").backbone, patch_grid(cfg), cfg.DATA.BATCHSIZE_PER_GPU)
+
+
+def mvit_attention_shapes(mvit, thw, batch: int) -> list:
+    """(b, heads, nq, nk, head_dim) of each attention of a built MViT in
+    block order, from its own pooling kernels and strides, for a ``thw``
+    patch grid and ``batch`` clips a call."""
+    from advise_tpu_torch.models.mvit import pooled_thw
+
+    shapes = []
+    for attn, _ in mvit_attentions(mvit):
+        q_thw = pooled_thw(thw, attn.kernel_q, attn.stride_q) if attn.kernel_q else tuple(thw)
+        kv_thw = pooled_thw(thw, attn.kernel_kv, attn.stride_kv) if attn.kernel_kv else tuple(thw)
+        cls = int(attn.has_cls_embed)
+        shapes.append((batch, attn.num_heads, math.prod(q_thw) + cls, math.prod(kv_thw) + cls,
+                       attn.dim_out // attn.num_heads))
+        thw = q_thw
+    return shapes
 
 
 def attention_shapes(cfg, batch: int):
@@ -588,10 +755,11 @@ def tf32_mma_counts(lib_path, nvcc):
     return counts
 
 
-def flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms):
+def flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms, bf16_shapes=()):
     """K4's float32 pair at every distinct attention shape of the masked
     path's encoder in float32 (2 views), each weighted by the blocks that run
-    it, then at (1,3,777,555,640) float32 and (1,2,500,300,768) bf16: its
+    it, then at (1,3,777,555,640) float32, (1,2,500,300,768) bf16 and
+    ``bf16_shapes`` in bf16 (path (c)'s head dim 768): its
     plan, registers and spills (a spill in a float32 instance, which serves
     head dims up to 288, fails), the TF32 MMAs of its SASS (none fails),
     agreement with the plain versions (float32: 1e-4 of the largest entry;
@@ -619,6 +787,7 @@ def flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms):
               for name in ("flash_f32_fwd", "flash_f32_bwd")}
     cases = [(sh, torch.float32) for sh in sorted(uses, key=lambda sh: -uses[sh])]
     cases += [((1, 3, 777, 555, 640), torch.float32), ((1, 2, 500, 300, 768), torch.bfloat16)]
+    cases += [(sh, torch.bfloat16) for sh in bf16_shapes]
     for shape, dtype in cases:
         b_, h_, nq, nk, d = shape
         check(fl.route(dtype, d) == "f32", f"flash {shape} {dtype} does not route to the float32 pair")
@@ -1368,7 +1537,6 @@ def moco_entry(tconfig, label="MoCo cc", config=MOCO_CC_CONFIG, run_dir=MOCO_RUN
     ``config``): through the entry point, 2 epochs with the kNN probe, then a
     resume to 3 that starts from the saved model, momentum encoder, queue and
     pointer bit for bit."""
-    import shutil
     from pathlib import Path
 
     import torch
@@ -1376,35 +1544,21 @@ def moco_entry(tconfig, label="MoCo cc", config=MOCO_CC_CONFIG, run_dir=MOCO_RUN
     from advise_tpu_torch.engine.checkpoint import STATE_FILE
     from advise_tpu_torch.engine.train import ssl_digest
 
-    shutil.rmtree(run_dir, ignore_errors=True)
     ccfg = one_card_cfg(tconfig, config)
-    m1 = run_entry_point(["SOLVER.MAX_EPOCH", "2"], f"{label} preset, 2 epochs", config, run_dir, overrides)
+    iters = videos // ccfg.DATA.BATCHSIZE_PER_GPU
+    m1, m2 = resumed_pair(f"{label} preset", config, run_dir, overrides, ["SOLVER.MAX_EPOCH", "2"],
+                          ["SOLVER.MAX_EPOCH", "3"], iters, 2)
+    for rec in (m1, m2):
+        check(not any(rec["launches"].values()), f"the {label} run launched a kernel")
     saved = torch.load(Path(run_dir) / "checkpoints" / "Model_Epoch_0001" / STATE_FILE, map_location="cpu",
                        weights_only=False)
     saved_ssl = ssl_digest(saved["ssl"])
-    m2 = run_entry_point(["SOLVER.MAX_EPOCH", "3", "TRAIN.AUTO_RESUME", "True"], f"{label} preset, resume to 3",
-                         config, run_dir, overrides)
-    iters = videos // ccfg.DATA.BATCHSIZE_PER_GPU
-    for rec, run, epochs in ((m1, "first run", 2), (m2, "resumed run", 1)):
-        print(f"[run] {label} {run}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats "
-              f"{rec['stats']}, iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait "
-              f"{[t * 1e3 for t in rec['wait_s']]} ms, peak allocated {rec['peak_allocated_bytes']} bytes, "
-              f"launches {rec['launches']}, {rec['seconds']} s with start-up")
-        split = {stage: f"{s * 1e3 / n} ms x {n} ({s * 1e3} ms in all)" for stage, (s, n) in rec["host_s"].items()}
-        print(f"[run] {label} {run}: host stages {split}")
-        check(len(rec["iter_s"]) == epochs * iters, f"{label} {run}: wrong schedule")
-        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label} {run}: not finite")
-        check(not any(rec["launches"].values()), f"the {label} {run} launched a kernel")
-    print(f"[run] {label} ptr in Model_Epoch_0001 {int(saved['ssl']['ptr'])}; model sha256: end of the first run "
-          f"{m1['model_sha256_end']}, start of the resumed run {m2['model_sha256']}; SSL state (momentum "
-          f"encoder, queue, pointer, kNN bank) sha256: end {m1['ssl_sha256_end']}, saved {saved_ssl}, "
-          f"resumed {m2['ssl_sha256']}")
-    check(m2["start_epoch"] == 2 and m2["start_step"] == 2 * iters, f"the {label} run did not resume at epoch 2")
+    print(f"[run] {label} ptr in Model_Epoch_0001 {int(saved['ssl']['ptr'])}; SSL state (momentum encoder, queue, "
+          f"pointer, kNN bank) sha256 saved {saved_ssl}")
     check(int(saved["ssl"]["ptr"]) == 2 * iters * ccfg.DATA.BATCHSIZE_PER_GPU % ccfg.CONTRASTIVE.QUEUE_LEN,
           f"the {label} checkpoint's pointer is not where {2 * iters} steps leave it")
-    check(m1["model_sha256_end"] == m2["model_sha256"], f"the resumed {label} model differs from the saved one")
-    check(m1["ssl_sha256_end"] == saved_ssl == m2["ssl_sha256"],
-          f"the resumed {label} momentum encoder, queue or pointer differs from the saved one")
+    check(m1["ssl_sha256_end"] == saved_ssl,
+          f"the saved {label} momentum encoder, queue or pointer differs from the first run's")
 
 
 def advise_swin_entry(tconfig) -> None:
@@ -1616,7 +1770,6 @@ def mae_entry(tconfig) -> None:
     masked input zero on exactly the hidden patches and the reconstruction
     EQUAL to the input on every visible one."""
     import os
-    import shutil
     from pathlib import Path
 
     import numpy as np
@@ -1627,26 +1780,15 @@ def mae_entry(tconfig) -> None:
     from advise_tpu_torch.utils.visualization import vis_dir
 
     mcfg = one_card_cfg(tconfig, MAE_CONFIG)
-    shutil.rmtree(MAE_RUN_DIR, ignore_errors=True)
-    m1 = run_entry_point(["SOLVER.MAX_EPOCH", "2"], "MAE preset, 2 epochs", MAE_CONFIG, MAE_RUN_DIR,
-                         MAE_RUN_OVERRIDES)
+    iters = MAE_RUN_VIDEOS // mcfg.DATA.BATCHSIZE_PER_GPU
+    m1, m2 = resumed_pair("MAE preset", MAE_CONFIG, MAE_RUN_DIR, MAE_RUN_OVERRIDES, ["SOLVER.MAX_EPOCH", "2"],
+                          ["SOLVER.MAX_EPOCH", "3"], iters, 2)
+    for rec in (m1, m2):
+        check(not any(rec["launches"].values()), "the MAE run launched a kernel")
     saved = tensors_digest(torch.load(Path(MAE_RUN_DIR) / "checkpoints" / "Model_Epoch_0001" / STATE_FILE,
                                       map_location="cpu", weights_only=False)["model"])
-    m2 = run_entry_point(["SOLVER.MAX_EPOCH", "3", "TRAIN.AUTO_RESUME", "True"], "MAE preset, resume to 3",
-                         MAE_CONFIG, MAE_RUN_DIR, MAE_RUN_OVERRIDES)
-    iters = MAE_RUN_VIDEOS // mcfg.DATA.BATCHSIZE_PER_GPU
-    for rec, run, epochs in ((m1, "first run", 2), (m2, "resumed run", 1)):
-        print(f"[run] MAE {run}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats {rec['stats']}, "
-              f"iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait {[t * 1e3 for t in rec['wait_s']]} "
-              f"ms, peak allocated {rec['peak_allocated_bytes']} bytes, launches {rec['launches']}, "
-              f"{rec['seconds']} s with start-up")
-        check(len(rec["iter_s"]) == epochs * iters, f"MAE {run}: wrong schedule")
-        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"MAE {run}: not finite")
-        check(not any(rec["launches"].values()), f"the MAE {run} launched a kernel")
-    print(f"[run] MAE model sha256: end of the first run {m1['model_sha256_end']}, Model_Epoch_0001 {saved}, "
-          f"start of the resumed run {m2['model_sha256']}")
-    check(m2["start_epoch"] == 2 and m2["start_step"] == 2 * iters, "the MAE run did not resume at epoch 2")
-    check(m1["model_sha256_end"] == saved == m2["model_sha256"], "the resumed MAE model differs from the saved one")
+    print(f"[run] MAE model sha256 of Model_Epoch_0001 {saved}")
+    check(m1["model_sha256_end"] == saved, "the saved MAE model differs from the first run's")
     mcfg.LOGDIR = MAE_RUN_DIR
     out = vis_dir(mcfg)
     names = sorted(n for n in os.listdir(out) if n.endswith(".npy"))
@@ -1872,10 +2014,10 @@ def contrastive_entries(tconfig) -> None:
     """Phase 8's SwAV and 2-D memory-bank runs (CON_ENTRIES) through the
     entry point on the BYOL preset: one epoch from epoch 15 with the kNN
     probe, then a resume to a second that starts from the saved model and
-    SSL state (the queue and swav_started, or the bank) bit for bit; K1/K2
+    SSL state (the queue and swav_started, or the bank) bit for bit
+    (``resumed_pair``), the saved SSL state the first run's; K1/K2
     launches by the schedule; SwAV's queue shut in the first epoch and open
     in the second (``swav_started`` in the checkpoints)."""
-    import shutil
     from pathlib import Path
 
     import torch
@@ -1884,37 +2026,23 @@ def contrastive_entries(tconfig) -> None:
     from advise_tpu_torch.engine.train import ssl_digest
 
     for label, run_dir, over in CON_ENTRIES:
-        shutil.rmtree(run_dir, ignore_errors=True)
-        overrides = CON_RUN_OVERRIDES + [str(x) for item in over.items() for x in item]
         ccfg = one_card_cfg(tconfig, BYOL_CONFIG, over)
-        r1 = run_entry_point(["SOLVER.MAX_EPOCH", "16"], f"{label}, epoch 15", BYOL_CONFIG, run_dir, overrides)
+        iters = CON_RUN_VIDEOS // ccfg.DATA.BATCHSIZE_PER_GPU
+        r1, r2 = resumed_pair(label, BYOL_CONFIG, run_dir, CON_RUN_OVERRIDES + as_argv(over),
+                              ["SOLVER.MAX_EPOCH", "16"], ["SOLVER.MAX_EPOCH", "17"], iters, 1, start_epoch=15)
+        for rec, run in ((r1, "first run"), (r2, "resumed run")):
+            got = (rec["launches"]["stem_conv_fwd"], rec["launches"]["stem_conv_wgrad"])
+            want = (iters + RUN_KNN_BATCHES, iters)  # + the probe batch's forward
+            print(f"[run] {label} {run}: K1/K2 launches {got} (expected {want})")
+            check(got == want, f"{label} {run}: K1/K2 launches differ from the schedule")
         ckpt = Path(run_dir) / "checkpoints"
         saved = torch.load(ckpt / "Model_Epoch_0015" / STATE_FILE, map_location="cpu", weights_only=False)
-        saved_ssl = ssl_digest(saved["ssl"])
-        r2 = run_entry_point(["SOLVER.MAX_EPOCH", "17", "TRAIN.AUTO_RESUME", "True"], f"{label}, resume to 17",
-                             BYOL_CONFIG, run_dir, overrides)
         final = torch.load(ckpt / "Model_Epoch_0016" / STATE_FILE, map_location="cpu", weights_only=False)
-        iters = CON_RUN_VIDEOS // ccfg.DATA.BATCHSIZE_PER_GPU
-        for rec, run, start in ((r1, "first run", 0), (r2, "resumed run", iters)):
-            n_iter = len(rec["iter_s"])
-            got = (rec["launches"]["stem_conv_fwd"], rec["launches"]["stem_conv_wgrad"])
-            want = (n_iter + RUN_KNN_BATCHES, n_iter)  # + the probe batch's forward
-            print(f"[run] {label} {run}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats "
-                  f"{rec['stats']}, iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait "
-                  f"{[t * 1e3 for t in rec['wait_s']]} ms, peak allocated {rec['peak_allocated_bytes']} bytes, "
-                  f"K1/K2 launches {got} (expected {want}), {rec['seconds']} s with start-up")
-            check(n_iter == iters and rec["start_step"] == start, f"{label} {run}: wrong schedule")
-            check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label} {run}: not finite")
-            check(got == want, f"{label} {run}: K1/K2 launches differ from the schedule")
+        saved_ssl = ssl_digest(saved["ssl"])
         state_text = {n: (tuple(v.shape), str(v.dtype)) for n, v in final["ssl"].items()
                       if isinstance(v, torch.Tensor)}
-        print(f"[run] {label}: SSL state {state_text}; model sha256 end of the first run {r1['model_sha256_end']}, "
-              f"start of the resumed run {r2['model_sha256']}; SSL sha256 end {r1['ssl_sha256_end']}, saved "
-              f"{saved_ssl}, resumed {r2['ssl_sha256']}")
-        check(r2["start_epoch"] == 16, f"the {label} run did not resume at epoch 16")
-        check(r1["model_sha256_end"] == r2["model_sha256"], f"the resumed {label} model differs from the saved one")
-        check(r1["ssl_sha256_end"] == saved_ssl == r2["ssl_sha256"],
-              f"the resumed {label} SSL state differs from the saved one")
+        print(f"[run] {label}: SSL state {state_text}; SSL sha256 saved after epoch 15 {saved_ssl}")
+        check(r1["ssl_sha256_end"] == saved_ssl, f"the saved {label} SSL state differs from the first run's")
         if "swav_started" in saved["ssl"]:
             gates = [[st.get("swav_gate") for st in rec["stats"]] for rec in (r1, r2)]
             print(f"[run] {label}: swav_started {bool(saved['ssl']['swav_started'])} after epoch 15, "
@@ -1928,6 +2056,362 @@ def contrastive_entries(tconfig) -> None:
             check(tuple(final["ssl"]["memory"].shape) == (ccfg.CONTRASTIVE.LENGTH, 4, ccfg.CONTRASTIVE.DIM),
                   f"{label}: the checkpoint's bank has the wrong shape")
             check(not torch.equal(final["ssl"]["memory"], saved["ssl"]["memory"]), f"{label}: the bank did not move")
+
+
+def ra_exact_small(tconfig, dev) -> None:
+    """Phase 4's op-exact RandAugment: the BYOL preset with AUG.FUSED_RA
+    False (bicubic, RE_PROB 0.25, float32 out) on RA_SMALL_CLIPS uint8 clips
+    of 32 frames at the ingest 298x224, the card against the CPU with the
+    same parameters, drawn on the CPU. First each of the 15 ops alone on the
+    CPU's RandomResizedCrop of the clips (at magnitude 7 with each clip's
+    drawn sign), then the whole pipeline with the preset's draws. The
+    geometric ops take sin/cos and sample positions in float32, so a value
+    next to a rounding boundary may move one uint8 step: at most 0.1 % of
+    the values, by at most one step, alone and in the pipeline."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.data import build_device_aug, ingest_geometry
+    from advise_tpu_torch.data.device_aug import resized_crop_clips
+    from advise_tpu_torch.data.rand_augment import NUM_OPS
+
+    cfg = one_card_cfg(tconfig, BYOL_CONFIG, {**RA_EXACT, "TPU.AUG_COMPUTE_OUT": False})
+    aug = build_device_aug(cfg, "train")
+    n, t = RA_SMALL_CLIPS, cfg.DATA.NUM_FRAMES
+    w_in, h_in = ingest_geometry(cfg, "train")
+    batch = torch.from_numpy(np.random.default_rng(12).integers(0, 256, (n, 1, t, h_in, w_in, 3), dtype=np.uint8))
+    params = aug.sample(n, t, h_in, w_in, 3, torch.Generator().manual_seed(4))
+    crops = torch.clamp(resized_crop_clips(batch[:, 0].float(), params["box"], aug.size), 0.0, 255.0)
+    one = copy.copy(aug.ra)
+    one.n = 1
+    worst = []
+    for op in range(NUM_OPS):
+        plan = {"sel": torch.full((n, 1), op), "m_eff": torch.full((n, 1), 7.0), "sign": params["plan"]["sign"][:, :1]}
+        want = one.apply(crops, plan)
+        got = one.apply(crops.to(dev), {k: v.to(dev) for k, v in plan.items()}).cpu()
+        diff = (got - want).abs()
+        worst.append((op, float(diff.max()), float((diff > 0).float().mean())))
+        check(float(diff.max()) <= 1.0 and worst[-1][2] <= 1e-3, f"the card's op-exact op {op} disagrees with the CPU")
+    print(f"[small] op-exact RandAugment ops alone ({aug.ra.method}) on {tuple(crops.shape)}: card vs CPU (op, max abs "
+          f"err in uint8 steps, share differing) {worst} (bounds 1 step, 1e-3)")
+    step = 1.0 / (255.0 * min(cfg.DATA.STD)) + 1e-5  # one uint8 step, normalized
+    want = aug.apply(batch, params)
+    got = aug.apply(batch.to(dev), {**params, "plan": {k: v.to(dev) for k, v in params["plan"].items()}}).cpu()
+    diff = (got - want).abs()
+    share = float((diff > 1e-4).float().mean())
+    print(f"[small] op-exact 'aa' ({cfg.AUG.AA_TYPE}, {aug.ra.method}) {tuple(batch.shape)} -> {tuple(got.shape)}, "
+          f"ops {params['plan']['sel'].tolist()}: card vs CPU max abs err {float(diff.max())} (bound one step, "
+          f"{step}), share beyond 1e-4 {share} (bound 1e-3)")
+    check(tuple(got.shape) == (n, 1, t, cfg.AUG.TARGET_SIZE, cfg.AUG.TARGET_SIZE, 3), "op-exact aug shape")
+    check(float(diff.max()) <= step and share <= 1e-3, "the card's op-exact aug disagrees with the CPU")
+
+
+def mvit_knobs_forward(tconfig, dev) -> None:
+    """Phase 4's A 20 knobs: MViT-S as a classifier with MVIT_KNOBS on, in
+    the plain and the reversible walk, 2 clips of 8 frames at 112^2, eval
+    mode, bf16 on the card (flash attention: K4 once a block) against
+    float32 on the CPU."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.ops import flash_attention as fl
+
+    for walk, knobs in MVIT_KNOBS:
+        cfg = one_card_cfg(tconfig, MVIT_S_CONFIG, {**MVIT_KNOB_BASE, **knobs})
+        ref_cfg = cfg.clone()
+        ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+        x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+            (2, cfg.DATA.NUM_FRAMES, 112, 112, 3)).astype(np.float32))
+        with torch.no_grad():
+            want = build_model(ref_cfg, "cpu", seed=0).eval()(x)
+            card = build_model(cfg, dev, seed=0).eval()
+            fl.flash_mha_fwd.launches = fl.flash_f32_fwd.launches = 0
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                got = card(x.to(dev).bfloat16())
+        torch.cuda.synchronize()
+        rel = float((got.float().cpu() - want).abs().max() / want.abs().max())
+        dims = head_dims(card)
+        sched = k4_schedule(card, False, 0, backward=False)
+        want_launches = (sched["flash_mha_fwd"], sched["flash_f32_fwd"])
+        launches = (fl.flash_mha_fwd.launches, fl.flash_f32_fwd.launches)
+        print(f"[small] MViT-S {walk} with {knobs} ({sum(p.numel() for p in card.parameters())} params) "
+              f"{tuple(x.shape)} -> {tuple(got.shape)} (bf16 on the card): max rel err vs CPU float32 {rel} "
+              f"(bound 5e-2); head dims {dims}: K4 forward launches (bf16 pair, float32 pair above d "
+              f"{max(fl.TILES)}) {launches}, by k4_schedule {want_launches}")
+        check(tuple(got.shape) == (2, cfg.MODEL.NUM_CLASSES), f"MViT-S {walk} logits {tuple(got.shape)}")
+        check(math.isfinite(rel) and rel <= 5e-2, f"the card's MViT-S {walk} with the A 20 knobs disagrees")
+        check(launches == want_launches, f"MViT-S {walk}: K4 not launched once a block by its route")
+        del card
+        torch.cuda.empty_cache()
+
+
+def timed_aug(aug, batch, gen_seed, dev):
+    """RA_AUG_REPS calls of ``aug`` alone on ``batch`` after a warm-up, CUDA
+    events: (median ms, peak bytes above what was allocated before)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(gen_seed)
+    aug(batch, gen)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out_ms = []
+    for _ in range(RA_AUG_REPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = aug(batch, gen)
+        end.record()
+        end.synchronize()
+        out_ms.append(start.elapsed_time(end))
+        del out
+    return statistics.median(out_ms), torch.cuda.max_memory_allocated() - base
+
+
+def exact_aug_parts(aug, batch, dev):
+    """Where the op-exact aug's time goes on ``batch``: the RRC resize, each
+    RandAugment slot, the flip, the erasing and normalize, each stage timed
+    on CUDA events between synchronizations (ms)."""
+    import torch
+
+    from advise_tpu_torch.data.device_aug import normalize, resized_crop_clips
+
+    b, k, t, h, w, c = batch.shape
+    params = aug.sample(b * k, t, h, w, c, torch.Generator(device=dev).manual_seed(11))
+    flat = batch.reshape(b * k, t, h, w, c)
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        parts[name] = start.elapsed_time(end)
+        return out
+
+    clips = timed("rrc", lambda: torch.clamp(resized_crop_clips(flat.float(), params["box"], aug.size), 0, 255))
+    plan = params["plan"]
+    slot = copy.copy(aug.ra)
+    slot.n = 1
+    for i in range(aug.ra.n):
+        one = {key: v[:, i:i + 1] for key, v in plan.items()}
+        clips = timed(f"slot {i} ops {sorted(set(one['sel'][:, 0].tolist()))}", lambda: slot.apply(clips, one))
+    flip = params["flip"].view(-1, 1, 1, 1, 1)
+    clips = timed("flip", lambda: torch.where(flip, clips.flip(3), clips))
+    clips = timed("erasing", lambda: aug.erasing.apply(clips, params["erase"]))
+    timed("normalize", lambda: normalize(clips, aug.mean, aug.std, by_reciprocal=True).to(aug.out_dtype))
+    return parts
+
+
+def ra_exact_path(tconfig, dev, byol_ms, byol_peak) -> dict:
+    """Phase 7h, path (a): the BYOL preset with AUG.FUSED_RA False at full
+    width. First the op-exact aug alone on the step's batch (16 videos x 2
+    views x 32 frames at 298x224 -> 224^2, bicubic) against the fused aug
+    alone, in this call: median ms, the peak above the batch, and where the
+    op-exact aug's time goes; then CON_WARMUP + CON_TIMED steps and one
+    profiled step: median ms and peak against phase 5's batched step,
+    finite losses, K1/K2 (2, 1) a step. Returns its K1/K2 launches."""
+    import torch
+
+    from advise_tpu_torch.data import build_device_aug
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    cfg = one_card_cfg(tconfig, BYOL_CONFIG, RA_EXACT)
+    run = step_run(cfg, dev, 13, EPOCH_EXACT)
+    fused = build_device_aug(one_card_cfg(tconfig, BYOL_CONFIG), "train")
+    exact_ms, exact_peak = timed_aug(run.aug, run.clips, 1, dev)
+    fused_ms, fused_peak = timed_aug(fused, run.clips, 1, dev)
+    parts = exact_aug_parts(run.aug, run.clips, dev)
+    print(f"[7h] the op-exact 'aa' aug alone on {tuple(run.clips.shape)} uint8 ({cfg.AUG.AA_TYPE}, "
+          f"{run.aug.ra.method}, RE_PROB {cfg.AUG.RE_PROB}): {exact_ms} ms, peak {exact_peak} bytes above the "
+          f"batch; the fused aug alone {fused_ms} ms, peak {fused_peak} bytes; {exact_ms / fused_ms} of its time, "
+          f"{exact_peak / fused_peak} of its peak")
+    print(f"[7h] the op-exact aug by stage (ms, one call): {parts}")
+
+    def after_step(i, vals, ms):
+        print(f"[7h] FUSED_RA False BYOL step {i}: {vals} ({ms} ms)")
+        check(all(math.isfinite(v) for v in vals.values()), f"FUSED_RA False step {i} is not finite")
+
+    n_steps = CON_WARMUP + CON_TIMED
+    median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
+                                                    after_step=after_step)
+    got = (launches["stem_conv_fwd"], launches["stem_conv_wgrad"])
+    print(f"[7h] FUSED_RA False BYOL step: median {median_ms} ms over {CON_TIMED} steps (all: {step_ms}), peak "
+          f"allocated {peak} bytes; the batched BYOL step of phase 5 (this call): {byol_ms} ms, {byol_peak} "
+          f"bytes ({median_ms / byol_ms} of its time, {peak / byol_peak} of its peak); launches {launches}")
+    check(got == (2 * n_steps, n_steps), "FUSED_RA False: K1/K2 launches differ from (2, 1) a step")
+    check(launches["fused_simple_aug"] == 0 and launches["flash_mha_fwd"] == 0, "FUSED_RA False: a kernel off "
+          "the path was launched")
+    profile_step("FUSED_RA False BYOL", run.call, "7h")
+    del run, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stem_conv_fwd": got[0], "stem_conv_wgrad": got[1]}
+
+
+def mvit_con_path(tconfig, dev, byol_ms, byol_peak, k4_checked) -> dict:
+    """Phase 7h, path (c): ContrastiveModel over the reversible MViT-S
+    (MVIT_CON) on the BYOL preset's recipe at full width, CON_WARMUP +
+    CON_TIMED MoCo steps and one profiled step: median ms, peak, finite
+    losses, moving parameters, K4's forward and backward launches equal
+    to ``k4_schedule`` (the online forward and backward, the momentum
+    encoder's keys), and every attention shape the steps gave K4 among
+    ``k4_checked`` (phase 3's). Returns its K4 launches."""
+    import torch
+
+    from advise_tpu_torch.models.layers import attention
+    from advise_tpu_torch.tools.compare_steps import step_run, time_steps
+
+    cfg = mvit_con_cfg(tconfig)
+    run = step_run(cfg, dev, 14, EPOCH_EXACT)
+    model = run.state.model
+    sched = k4_schedule(model.backbone, bool(cfg.TPU.REMAT), 1)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[7h] ContrastiveModel over MViT-S ({n_params} params; plan {model.backbone.plan}; head dims "
+          f"{head_dims(model.backbone)}; REMAT {cfg.TPU.REMAT}, {cfg.CONTRASTIVE.TYPE}, "
+          f"{cfg.SOLVER.OPTIMIZING_METHOD} LARS {cfg.SOLVER.LARS_ON}), clips {tuple(run.clips.shape)} uint8 -> "
+          f"'aa' {cfg.AUG.TARGET_SIZE}; K4 a step by the schedule {sched}")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def after_step(i, vals, ms):
+        print(f"[7h] MViT-S MoCo step {i}: {vals} ({ms} ms)")
+        check(all(math.isfinite(v) for v in vals.values()), f"MViT-S MoCo step {i} is not finite")
+
+    n_steps = CON_WARMUP + CON_TIMED
+    seen, flash_mha = set(), attention.flash_mha
+
+    def recorded(q, k, v, scale):
+        seen.add((*q.shape[:3], k.shape[2], q.shape[3]))
+        return flash_mha(q, k, v, scale)
+
+    attention.flash_mha = recorded
+    try:
+        median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
+                                                        after_step=after_step)
+    finally:
+        attention.flash_mha = flash_mha
+    print(f"[7h] MViT-S MoCo: K4's attention shapes {sorted(seen)}, phase 3 checked each: {seen <= k4_checked}")
+    check(seen <= k4_checked, f"MViT-S MoCo: K4 ran at shapes phase 3 did not check: {seen - k4_checked}")
+    moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    got = {name: launches[name] for name in sched}
+    want = {name: n * n_steps for name, n in sched.items()}
+    print(f"[7h] MViT-S MoCo step: median {median_ms} ms over {CON_TIMED} steps (all: {step_ms}), "
+          f"{2 * cfg.DATA.BATCHSIZE_PER_GPU * 1e3 / median_ms} clip-views/s, peak allocated {peak} bytes "
+          f"({peak / byol_peak} of phase 5's BYOL step; its time {byol_ms} ms); K4 launches {got} (schedule "
+          f"{want}), launches {launches}; {moved} of {len(before)} parameters moved")
+    check(got == want, "MViT-S MoCo: K4 launches differ from the schedule")
+    check(launches["stem_conv_fwd"] == launches["fused_simple_aug"] == 0,
+          "MViT-S MoCo: a kernel off the path was launched")
+    check(moved > 0 and all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+          "MViT-S MoCo: the parameters did not move or are not finite")
+    profile_step("MViT-S MoCo", run.call, "7h")
+    del run, model, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def resumed_pair(label, config, run_dir, overrides, first_extra, second_extra, iters, epochs, start_epoch=0):
+    """An entry-point run of ``epochs`` epochs from ``start_epoch`` and its
+    resume (TRAIN.AUTO_RESUME) for one more: both records, after checking
+    the schedule, finite stats and that the resumed run starts from the
+    saved model (and SSL state) bit for bit by sha256."""
+    import shutil
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    r1 = run_entry_point(first_extra, f"{label}, {epochs} epoch(s)", config, run_dir, overrides)
+    r2 = run_entry_point(second_extra + ["TRAIN.AUTO_RESUME", "True"], f"{label}, resume", config, run_dir,
+                         overrides)
+    for rec, run, n in ((r1, "first run", epochs * iters), (r2, "resumed run", iters)):
+        split = {stage: f"{s * 1e3 / c} ms x {c} ({s * 1e3} ms in all)" for stage, (s, c) in rec["host_s"].items()}
+        print(f"[run] {label} {run}: start epoch {rec['start_epoch']} step {rec['start_step']}, stats "
+              f"{rec['stats']}, iterations {[t * 1e3 for t in rec['iter_s']]} ms, loader wait "
+              f"{[t * 1e3 for t in rec['wait_s']]} ms, peak allocated {rec['peak_allocated_bytes']} bytes, "
+              f"launches {rec['launches']}, {rec['seconds']} s with start-up; host stages {split}")
+        check(len(rec["iter_s"]) == n, f"{label} {run}: wrong schedule")
+        check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label} {run}: not finite")
+    print(f"[run] {label}: model sha256 end of the first run {r1['model_sha256_end']}, start of the resumed run "
+          f"{r2['model_sha256']}; SSL sha256 {r1.get('ssl_sha256_end')} / {r2.get('ssl_sha256')}")
+    check(r1["start_step"] == 0 and r2["start_epoch"] == start_epoch + epochs and r2["start_step"] == epochs * iters,
+          f"{label}: wrong start or resume point")
+    check(r1["model_sha256_end"] == r2["model_sha256"], f"the resumed {label} model differs from the saved one")
+    check(r1.get("ssl_sha256_end") == r2.get("ssl_sha256"), f"the resumed {label} SSL state differs")
+    return r1, r2
+
+
+def host_aug_entries(tconfig) -> None:
+    """Phase 8, path (b): SpeedPro_R50.yaml with TPU.DEVICE_AUG False
+    through the entry point, one epoch of 16 synthetic videos with a
+    profiler window over its second iteration, then a resume to 2 (bit for
+    bit); the host aug's seconds in the run record's host stages; no K3
+    launch (TPU.PALLAS_AUG stays on in the preset, as in JAX it launches
+    nothing without the device aug). Then one iteration of X3D_M_K400.yaml
+    the same way."""
+    import shutil
+
+    scfg = one_card_cfg(tconfig, SPEED_CONFIG, {"TPU.DEVICE_AUG": False})
+    iters = SPEED_RUN_VIDEOS // scfg.DATA.BATCHSIZE_PER_GPU
+    r1, r2 = resumed_pair("SpeedPro host aug", SPEED_CONFIG, HOST_AUG_RUN_DIR, HOST_AUG_OVERRIDES,
+                          ["SOLVER.MAX_EPOCH", "1", "TPU.PROFILE_DIR", f"{HOST_AUG_RUN_DIR}/profile",
+                           "TPU.PROFILE_START", "0", "TPU.PROFILE_STEPS", "1"], ["SOLVER.MAX_EPOCH", "2"], iters, 1)
+    for rec in (r1, r2):
+        check(rec["launches"]["fused_simple_aug"] == 0, "SpeedPro host aug: K3 was launched")
+        check(rec["host_s"].get("host_aug", (0, 0))[1] == iters * scfg.DATA.BATCHSIZE_PER_GPU,
+              "SpeedPro host aug: the host aug did not run once an item")
+    prof = r1.get("profile")
+    check(prof is not None, "the host-aug run's profile window did not close")
+    (aug_s, n_aug), (item_s, n_item) = r1["host_s"]["host_aug"], r1["host_s"]["item"]
+    print(f"[run] SpeedPro host aug profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device "
+          f"busy {prof['busy_ms']} ms, idle share {prof['idle_share']}; the host aug {aug_s * 1e3 / n_aug} ms an "
+          f"item, {aug_s / item_s} of a worker's item time ({item_s * 1e3 / n_item} ms an item), "
+          f"{scfg.DATA.WORKERS} workers")
+    xcfg = one_card_cfg(tconfig, X3D_CONFIG, {"TPU.DEVICE_AUG": False})
+    shutil.rmtree(X3D_HOST_AUG_RUN_DIR, ignore_errors=True)
+    x3d = run_entry_point(["TPU.DEVICE_AUG", "False", "DATA.SYNTHETIC_SIZE", str(xcfg.DATA.BATCHSIZE_PER_GPU)],
+                          "X3D-M host aug, 1 iteration", X3D_CONFIG, X3D_HOST_AUG_RUN_DIR, X3D_RUN_OVERRIDES)
+    split = {stage: f"{s * 1e3 / c} ms x {c} ({s * 1e3} ms in all)" for stage, (s, c) in x3d["host_s"].items()}
+    print(f"[run] X3D-M host aug: stats {x3d['stats']}, iterations {[t * 1e3 for t in x3d['iter_s']]} ms, loader "
+          f"wait {[t * 1e3 for t in x3d['wait_s']]} ms, peak allocated {x3d['peak_allocated_bytes']} bytes, "
+          f"launches {x3d['launches']}, {x3d['seconds']} s with start-up; host stages {split}")
+    check(len(x3d["iter_s"]) == 1 and all(math.isfinite(v) for v in x3d["stats"][0].values()),
+          "X3D-M host aug: wrong schedule or not finite")
+    check(not any(x3d["launches"].values()), "X3D-M host aug: a kernel was launched")
+
+
+def mvit_entries(tconfig) -> None:
+    """Phase 8, path (c) and ROADMAP A 7: ContrastiveModel over MViT
+    (MVIT_CON) through the entry point, one epoch of 32 synthetic videos (2
+    iterations, the kNN probe), K4 by the schedule (each probe batch's
+    forward once more an attention), then a resume to 2 bit for bit (model
+    and SSL state); then MViT_S_rev_masked.yaml the same way (the loader's
+    block masks, HOG; no kernel: the preset runs the dense chain)."""
+    from advise_tpu_torch.models import build_model
+
+    ccfg = mvit_con_cfg(tconfig)
+    over = MVIT_RUN_OVERRIDES + as_argv({**mvit_s_block(), **MVIT_CON})
+    iters = MVIT_RUN_VIDEOS // ccfg.DATA.BATCHSIZE_PER_GPU
+    probe = RUN_KNN_BATCHES if ccfg.CONTRASTIVE.KNN_ON else 0
+    plan_model = build_model(ccfg, "cpu")
+    step_sched = k4_schedule(plan_model.backbone, bool(ccfg.TPU.REMAT), 1)
+    # a probe batch runs under torch.no_grad(): one forward an attention
+    probe_sched = k4_schedule(plan_model.backbone, False, 0, backward=False)
+    del plan_model
+    want = {name: n * iters + probe_sched[name] * probe for name, n in step_sched.items()}
+    r1, r2 = resumed_pair("ContrastiveModel over MViT-S", BYOL_CONFIG, MVIT_CON_RUN_DIR, over,
+                          ["SOLVER.MAX_EPOCH", "1"], ["SOLVER.MAX_EPOCH", "2"], iters, 1)
+    for rec in (r1, r2):
+        got = {name: rec["launches"][name] for name in step_sched}
+        print(f"[run] ContrastiveModel over MViT-S: K4 launches {got} (schedule {want}: {iters} steps and "
+              f"{probe} probe batch)")
+        check(got == want, "ContrastiveModel over MViT-S: K4 launches differ from the schedule")
+    scfg = one_card_cfg(tconfig, MVIT_S_CONFIG)
+    s_iters = MVIT_RUN_VIDEOS // scfg.DATA.BATCHSIZE_PER_GPU
+    m1, m2 = resumed_pair("MViT_S_rev_masked.yaml", MVIT_S_CONFIG, MVIT_S_RUN_DIR, MVIT_RUN_OVERRIDES,
+                          ["SOLVER.MAX_EPOCH", "1"], ["SOLVER.MAX_EPOCH", "2"], s_iters, 1)
+    for rec in (m1, m2):
+        check(not any(rec["launches"].values()), "MViT_S_rev_masked.yaml: a kernel was launched")
 
 
 def main() -> None:
@@ -2193,11 +2677,17 @@ def main() -> None:
     mk = mvcfg.DATA.NUM_CLIP * mvcfg.DATA.BATCHSIZE_PER_GPU
     per_block = attention_shapes(mvcfg, mk)
     uses = {sh: per_block.count(sh) for sh in per_block}
+    # and path (c)'s (phase 7h): each attention of ContrastiveModel over
+    # MViT-S, one view's clips a call; checked, not timed (its step is)
+    con_shapes = path_c_shapes(tconfig)
+    con_bf16 = sorted({sh for sh in con_shapes if fl.route(torch.bfloat16, sh[4]) == "wgmma"} - set(uses))
+    con_f32 = sorted({sh for sh in con_shapes if fl.route(torch.bfloat16, sh[4]) != "wgmma"})
+    print(f"[kernel] flash: path (c)'s attention shapes {con_shapes}")
     totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=[0.0, 0.0], max_abs_err=0.0)
               for name in ("flash_mha_fwd", "flash_mha_bwd")}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     usage = fl.kernel_usage()  # ptxas -v of the build: registers and spills per kernel
-    for shape in sorted(uses, key=lambda sh: -uses[sh]) + [(2, 2, 1001, 77, 72)]:
+    for shape in sorted(uses, key=lambda sh: -uses[sh]) + [(2, 2, 1001, 77, 72)] + con_bf16:
         b_, h_, nq, nk, d = shape
         kplan = fl.plan(b_ * h_, nq, nk, d)
         per_sm = fl.occupancy(kplan)
@@ -2245,6 +2735,10 @@ def main() -> None:
         again = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
         check(all(torch.equal(a, bb) for a, bb in zip(again, (dq, dk, dv))),
               "flash attention backward is not deterministic")
+        if shape in con_bf16:
+            del q, k_, v, do, o, lse, dq, dk, dv, qr, kr, vr, ref, grads, again
+            torch.cuda.empty_cache()
+            continue
         n_use = uses.get(shape, 0)  # 0: the ragged check, timed but not in the totals
         # K4 and SDPA: K4_REPS calls back to back a sample, so the wrappers'
         # host time overlaps the card's work as it does on the path
@@ -2293,7 +2787,8 @@ def main() -> None:
     # K4's float32 pair (csrc/flash_attention_f32.cu): what the tensor-core
     # kernels do not take, routed by flash_mha_fwd/bwd, at every float32
     # shape of the masked path's encoder and two wide head dims
-    results.update(flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms))
+    results.update(flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms, con_f32))
+    k4_checked = set(uses) | set(con_bf16) | set(con_f32)
     print(f"[kernel] card after the flash timings: {card_state()}")
 
     # -- 4. small input: the card's bf16 forward against a CPU float32 one --------
@@ -2389,6 +2884,8 @@ def main() -> None:
     swin_forward(tconfig, dev)
     mae_forward(tconfig, dev)
     mvit_v2_forward(tconfig, dev)
+    ra_exact_small(tconfig, dev)
+    mvit_knobs_forward(tconfig, dev)
 
     # -- 5. the BYOL path ---------------------------------------------------------
     model = build_model(cfg, dev, seed=0)
@@ -2703,6 +3200,15 @@ def main() -> None:
     launches["fused_simple_aug"] += speed_sequential(tconfig, dev, speed_ms, speed_peak)
     solver_chains(tconfig, dev)
 
+    # -- 7h. the op-exact RandAugment (path (a)) and ContrastiveModel over
+    # MViT (path (c)): K1/K2 and K4 by their schedules -------------------------
+    t_7h = time.perf_counter()
+    for name, n in ra_exact_path(tconfig, dev, byol_ms, byol_peak).items():
+        launches[name] += n
+    for name, n in mvit_con_path(tconfig, dev, byol_ms, byol_peak, k4_checked).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"[7h] phase 7h {time.perf_counter() - t_7h} s")
+
     # -- 8. the entry point ---------------------------------------------------------
     import shutil
     from pathlib import Path
@@ -2854,6 +3360,10 @@ def main() -> None:
     mae_entry(tconfig)
     maskfeat_entries(tconfig)
     contrastive_entries(tconfig)
+    t_new = time.perf_counter()
+    host_aug_entries(tconfig)
+    mvit_entries(tconfig)
+    print(f"[run] phase 8's host-aug and MViT runs {time.perf_counter() - t_new} s")
     print(f"[total] chip_smoke.py wall time {time.perf_counter() - t_start} s")
 
     launches.update(probe_launches)

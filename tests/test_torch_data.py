@@ -188,8 +188,14 @@ def test_label_lists_and_retry_policy_match_jax(tmp_path):
 
 
 def test_factory_raises_for_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="host_aug"):
-        build_dataset(_cfg(tconfig, **{"TPU.DEVICE_AUG": False}))
+    """TPU.DEVICE_AUG False takes the host aug for AUG.TYPE 'simple' and,
+    as in JAX, raises for the other types; mode 'knn' and remote paths are
+    not ported."""
+    from advise_tpu_torch.data.host_aug import SimpleHostAug
+
+    assert isinstance(build_dataset(_cfg(tconfig, **{"TPU.DEVICE_AUG": False})).host_aug, SimpleHostAug)
+    with pytest.raises(NotImplementedError, match="host aug only supports AUG.TYPE='simple'"):
+        build_dataset(_cfg(tconfig, **{"TPU.DEVICE_AUG": False, "AUG.TYPE": "aa"}))
     with pytest.raises(NotImplementedError, match="mode=knn"):
         build_dataset(_cfg(tconfig), mode="knn")
     from advise_tpu_torch.utils import storage

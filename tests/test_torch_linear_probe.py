@@ -228,8 +228,7 @@ def test_byol_over_resnet3d_matches_jax():
             g, w, i0 = (np.asarray(a, np.float32) for a in (got[k], v, init[k]))
             assert np.abs(g - w).max() <= 5e-2 * np.abs(w - i0).max() + 1e-6 * top, k
 
-    with pytest.raises(NotImplementedError, match="A 20"):
-        build_model(_cfg(tconfig, **{"MODEL.ARCH": "mvit"}), "cpu")
+    assert type(build_model(_cfg(tconfig, **{"MODEL.ARCH": "mvit"}), "cpu").backbone).__name__ == "MViT"
     assert type(build_model(_cfg(tconfig, **{"MODEL.ARCH": "swin"}), "cpu").backbone).__name__ == "SwinTransformer3D"
     assert type(build_model(_cfg(tconfig, **{"MODEL.ARCH": "x3d"}), "cpu").backbone).__name__ == "X3D"
 

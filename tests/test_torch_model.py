@@ -204,8 +204,9 @@ def test_port_imports_no_jax():
     modules with a speed_val eval step, ContrastiveModel over ResNet3D, an
     X3D speed step (drop-connect on), a MoCo step (the rbyol aug,
     shuffle-BN, the queue) and an MAE step with rel-pos, residual pooling
-    and the fixed sin-cos table, then its VIS_MASK dump, loads no jax, flax,
-    optax or advise_tpu module."""
+    and the fixed sin-cos table, then its VIS_MASK dump, the host aug, the
+    op-exact 'aa' aug and ContrastiveModel over MViT, loads no jax, flax,
+    optax, advise_tpu or PIL module."""
     code = (
         "import sys, torch\n"
         "from advise_tpu_torch.config import get_cfg, assert_and_infer_cfg\n"
@@ -320,7 +321,20 @@ def test_port_imports_no_jax():
         "stats = make_train_step(cfg, bundle, aug)(state, u8, {}, g, 1e-3)\n"
         "assert set(stats) == {'loss_mask', 'grad_norm'} and all(bool(torch.isfinite(v)) for v in stats.values())\n"
         "assert visualization.dump_mask_visualization(cfg, state.model, u8, aug, g, 0) is not None\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu'))\n"
+        "from advise_tpu_torch.data import host_aug, rand_augment\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/pretrain/SpeedPro_R50.yaml'); cfg.TPU.DEVICE_AUG = False\n"
+        "cfg.AUG.RESIZE = [40, 36]; cfg.AUG.TARGET_SIZE = 32; cfg = assert_and_infer_cfg(cfg)\n"
+        "out = host_aug.build_host_aug(cfg)(np.random.default_rng(0).integers(0, 256, (2, 30, 44, 3), dtype=np.uint8), 7)\n"
+        "assert out.shape == (2, 32, 32, 3) and out.dtype == np.float32\n"
+        "cfg = get_cfg(); cfg.merge_from_file('configs/pretrain/SlowFast_R50_K400.yaml')\n"
+        "cfg.AUG.FUSED_RA = False; cfg.AUG.TARGET_SIZE = 16; cfg.NUM_WORLDS = 1; cfg = assert_and_infer_cfg(cfg)\n"
+        "aug = build_device_aug(cfg)\n"
+        "assert isinstance(aug.ra, rand_augment.ExactRandAugment)\n"
+        "assert aug(torch.randint(0, 256, (1, 2, 2, 20, 24, 3), dtype=torch.uint8), g).shape == (1, 2, 2, 16, 16, 3)\n"
+        "cfg.MODEL.ARCH = 'mvit'; cfg.MVIT.DEPTH = 2; cfg.MVIT.EMBED_DIM = 16; cfg.DATA.NUM_FRAMES = 4\n"
+        "cfg.DATA.TRAIN_CROP_SIZE = 32; cfg.CONTRASTIVE.MLP_DIM = 32\n"
+        "assert type(build_model(cfg, 'cpu').backbone).__name__ == 'MViT'\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -520,3 +520,34 @@ def resume_matches_straight(tmp_path, ctype, names, **overrides):
     for n in names:
         assert torch.equal(resumed.ssl[n], state.ssl[n]), n
     return state, resumed, straight, cut, saved
+
+
+# ContrastiveModel over MViT: the BYOL preset (configs/pretrain/
+# SlowFast_R50_K400.yaml: LARS-SGD, 'aa', 2 views) with MODEL.ARCH mvit and
+# MViT_S_rev_masked.yaml's MVIT block cut to 4 blocks 16 wide: a
+# dim-doubling transition (block 0), a Q-pooling transition (block 1) and a
+# uniform reversible segment of 2 blocks; 4 frames at 32^2 (a 2 x 8 x 8
+# patch grid)
+MVC_B, MVC_T, MVC_S = 4, 4, 32  # videos, frames, crop
+MVC_MVIT = {
+    "MODEL.ARCH": "mvit", "MVIT.EMBED_DIM": 16, "MVIT.NUM_HEADS": 1, "MVIT.DEPTH": 4,
+    "MVIT.PATCH_KERNEL": [3, 7, 7], "MVIT.PATCH_STRIDE": [2, 4, 4], "MVIT.PATCH_PADDING": [1, 3, 3],
+    "MVIT.CLS_EMBED_ON": False, "MVIT.USE_ABS_POS": True, "MVIT.SEP_POS_EMBED": True,
+    "MVIT.QKV_BIAS": True, "MVIT.DROPPATH_RATE": 0.0, "MVIT.DIM_MUL": [[1, 2.0]],
+    "MVIT.HEAD_MUL": [[1, 2.0]], "MVIT.POOL_KVQ_KERNEL": [3, 3, 3],
+    "MVIT.POOL_KV_STRIDE_ADAPTIVE": [1, 4, 4], "MVIT.POOL_Q_STRIDE": [[1, 1, 2, 2]],
+    "MVIT.REV.ENABLE": True,
+}
+
+
+def mvit_con_cfg(mod=jconfig, **overrides):
+    cfg = mod.get_cfg()
+    cfg.merge_from_file("configs/pretrain/SlowFast_R50_K400.yaml")
+    _override(cfg, {"NUM_WORLDS": 1, "NUM_GPUS": 1, "TPU.MESH_SYNC": 1, "BN.NUM_SYNC_DEVICES": 1,
+                    "TPU.COMPUTE_DTYPE": "float32", "TPU.REMAT": False, "TPU.DONATE": False,
+                    "TPU.PALLAS_STEM": False, "CONTRASTIVE.DIM": 16, "CONTRASTIVE.MLP_DIM": 32,
+                    "CONTRASTIVE.QUEUE_LEN": 8, "CONTRASTIVE.LENGTH": 32, "DATA.NUM_FRAMES": MVC_T,
+                    "DATA.TRAIN_CROP_SIZE": MVC_S, "AUG.TARGET_SIZE": MVC_S,
+                    "DATA.BATCHSIZE_PER_GPU": MVC_B, **MVC_MVIT})
+    _override(cfg, overrides)
+    return mod.assert_and_infer_cfg(cfg)
