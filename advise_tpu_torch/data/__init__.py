@@ -8,13 +8,16 @@ InferenceClipSampler over INFER.*), each with its own data dir, label dir
 and split file (:func:`_mode_cfg`) and ingest geometry. The eval phases
 fetch items through ``loader.threaded_items``.
 
-One process drives one card: the loader is rank 0 of a world of 1, and
-its batch is DATA.BATCHSIZE_PER_GPU times ``n_devices``, the number of
-cards this process drives (1). The host-side PIL augmentation
-(TPU.DEVICE_AUG False) is not ported and raises (ROADMAP A 15).
+One process drives one card: the train loader of rank r of a world of N
+(``parallel/mesh.py``) loads its share of the global batch,
+DATA.BATCHSIZE_PER_GPU x the batch-carrying ranks, over N, from its stride
+of the epoch's order. With TPU.DEVICE_AUG False the items come out of the
+host aug (``data/host_aug.py``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 from advise_tpu_torch.data import sampling as spl
 from advise_tpu_torch.data.dataset import ClipDataset
@@ -117,15 +120,23 @@ def build_dataset(cfg, mode: str = "train") -> ClipDataset:
     )
 
 
-def build_loader(cfg, mode: str = "train", n_devices: int = 1) -> ClipLoader:
-    """Host loader of the train mode: shuffled, drop_last, DATA.WORKERS
-    threads, a batch of DATA.BATCHSIZE_PER_GPU x ``n_devices`` (the cards
-    this process drives), rank 0 of a world of 1."""
+def build_loader(cfg, mode: str = "train", n_devices: Optional[int] = None) -> ClipLoader:
+    """Host loader of the train mode (``advise_tpu/data/__init__.py
+    build_loader``): shuffled, drop_last, DATA.WORKERS threads; this rank's
+    batch is the global batch (DATA.BATCHSIZE_PER_GPU x the batch-carrying
+    ones of ``n_devices``, by default the world's ranks) over the world, and
+    it takes the rank's stride of each epoch's order."""
+    from advise_tpu_torch.parallel.mesh import batch_device_count, world
+
+    rank, n = world()
+    global_batch = cfg.DATA.BATCHSIZE_PER_GPU * batch_device_count(cfg, n if n_devices is None else n_devices)
     return ClipLoader(
         build_dataset(cfg, mode),
-        batch_size=cfg.DATA.BATCHSIZE_PER_GPU * n_devices,
+        batch_size=max(global_batch // n, 1),
         shuffle=True,
         seed=cfg.TRAIN.SEED,
         num_workers=cfg.DATA.WORKERS,
         drop_last=True,
+        rank=rank,
+        world=n,
     )

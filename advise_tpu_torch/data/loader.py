@@ -29,12 +29,14 @@ Batch = Tuple[np.ndarray, Dict[str, np.ndarray]]
 
 
 def threaded_items(dataset, n_items: int, seed_stream: Callable[[int], List[int]],
-                   num_workers: int = 8, lookahead: int = 32) -> Iterator[Tuple[int, Batch]]:
+                   num_workers: int = 8, lookahead: int = 32, rank: int = 0,
+                   world: int = 1) -> Iterator[Tuple[int, Batch]]:
     """Ordered threaded fetch of ``dataset.get(idx, rng)`` for idx in
-    range(n_items), the eval phases' decode pool: ``rng`` is
-    ``default_rng(SeedSequence(seed_stream(idx)))``, so each item draws what
-    a serial loop would, whatever the worker schedule; at most ``lookahead``
-    items in flight."""
+    range(rank, n_items, world) (every item with the defaults), the eval
+    phases' decode pool: ``rng`` is ``default_rng(SeedSequence(
+    seed_stream(idx)))``, so each item draws what a serial loop would,
+    whatever the worker schedule; at most ``lookahead`` items in flight."""
+    order = list(range(rank, n_items, world))
 
     def fetch(idx: int):
         rng = np.random.default_rng(np.random.SeedSequence(seed_stream(idx)))
@@ -43,16 +45,16 @@ def threaded_items(dataset, n_items: int, seed_stream: Callable[[int], List[int]
 
     with ThreadPoolExecutor(max_workers=max(num_workers, 1)) as pool:
         inflight = {}
-        horizon = min(n_items, max(lookahead, 1))
+        horizon = min(len(order), max(lookahead, 1))
         for i in range(horizon):
-            inflight[i] = pool.submit(fetch, i)
+            inflight[i] = pool.submit(fetch, order[i])
         next_submit = horizon
-        for i in range(n_items):
+        for i in range(len(order)):
             out = inflight.pop(i).result()
-            if next_submit < n_items:
-                inflight[next_submit] = pool.submit(fetch, next_submit)
+            if next_submit < len(order):
+                inflight[next_submit] = pool.submit(fetch, order[next_submit])
                 next_submit += 1
-            yield i, out
+            yield order[i], out
 
 
 def _collate(samples) -> Batch:

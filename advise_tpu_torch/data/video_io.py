@@ -2,8 +2,9 @@
 (the readers and ``open_video``), with its own bilinear resize.
 
 The JAX package resizes frames with ``cv2.resize(..., INTER_LINEAR)``
-(``video_io.py:51-56``). The card's machine has no cv2, so
-:func:`resize_bilinear_u8` states cv2's uint8 arithmetic itself: the
+(``video_io.py:51-56``). A machine that runs the port need not have cv2,
+and the resize must not depend on it, so :func:`resize_bilinear_u8`
+states cv2's uint8 arithmetic itself: the
 coefficients are cv2's (source coordinate ``(d + 0.5) * scale - 0.5`` in
 float32, clamped at the edges, weights rounded to 11-bit fixed point), the
 horizontal pass is exact in integers, and the vertical pass rounds as cv2's

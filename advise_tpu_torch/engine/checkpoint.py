@@ -12,6 +12,10 @@ the kNN bank and its labels), the optimizer state, the step and the
 epoch. The remote mirror (TRAIN.CHECKPOINT_REMOTE) raises, as the port's
 ``utils/storage.py`` does for any remote path.
 
+Only rank 0 writes (``advise_tpu/engine/checkpoint.py:66``, ``:95``); every
+rank keeps the best criteria and waits for the write at a barrier, and
+every rank restores from the same file.
+
 Two restore modes, as in the JAX package: the strict resume of the whole
 state (TRAIN.RESUME / TRAIN.AUTO_RESUME, :func:`auto_resume`) and the
 filtered pretrain init of parameters and BN buffers (top-level RESUME,
@@ -32,6 +36,8 @@ import torch
 from torch import nn
 
 from advise_tpu_torch.engine.state import TrainState
+from advise_tpu_torch.parallel.collectives import barrier
+from advise_tpu_torch.parallel.mesh import world
 from advise_tpu_torch.utils.storage import local_path
 
 logger = logging.getLogger(__name__)
@@ -113,21 +119,26 @@ class CheckpointManager:
         return np.load(path + ".meta.npy", allow_pickle=True)[0]
 
     def save(self, state: TrainState, epoch: int, summary: Dict[str, float]):
-        """Periodic + best save (reference misc.py:280-349). TRAIN.SAVE_FREQ
-        <= 0 disables every write."""
+        """Periodic + best save (reference misc.py:280-349) by rank 0, the
+        other ranks waiting at a barrier. TRAIN.SAVE_FREQ <= 0 disables every
+        write."""
         if self.save_freq <= 0:
             return
+        writer = world()[0] == 0
         meta = {"epoch": epoch, "summary": dict(summary)}
         if (epoch + 1) % self.save_freq == 0 or epoch + 1 == self.cfg.SOLVER.MAX_EPOCH:
             p = self._path(f"Model_Epoch_{epoch:04d}")
-            self._save_at(p, state, meta)
-            logger.info("checkpoint saved: %s", p)
+            if writer:
+                self._save_at(p, state, meta)
+                logger.info("checkpoint saved: %s", p)
         crit = self.criteria_fn(summary)
         if crit < self.best:
             self.best = crit
             p = self._path("Model_Best")
-            self._save_at(p, state, {**meta, "best": crit})
-            logger.info("best checkpoint updated (criteria %.4f): %s", crit, p)
+            if writer:
+                self._save_at(p, state, {**meta, "best": crit})
+                logger.info("best checkpoint updated (criteria %.4f): %s", crit, p)
+        barrier()
 
     def _save_at(self, path: str, state: TrainState, meta: Dict):
         # write beside, then swap in: a crash mid-write leaves the old one

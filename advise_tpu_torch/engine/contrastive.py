@@ -1,6 +1,19 @@
-"""The contrastive algorithms on one device (counterpart of
+"""The contrastive algorithms (counterpart of
 ``advise_tpu/engine/contrastive.py``): BYOL, MoCo, SimCLR, SwAV and the
-memory bank, and CONTRASTIVE.SEQUENTIAL's per-clip gradients.
+memory bank, and CONTRASTIVE.SEQUENTIAL's per-clip gradients, each rank on
+its share of the batch with the JAX package's collectives
+(``parallel/collectives.py``; identities without a process group):
+
+- MoCo's shuffle-BN gathers each key view over the sync group
+  (CONTRASTIVE.LOCAL_SHUFFLE_BN) or the world, every rank of it in one
+  permutation drawn from ``infos['shared_generator']`` (seeded alike on
+  every rank; without it the step's generator) or handed over as
+  ``infos['shuffle_perm']`` (one a key view);
+- the queue, the kNN bank, the memory bank and SwAV's queue take the
+  world's rows, gathered, so the replicated state stays the same on every
+  rank;
+- SimCLR's negatives (SIMCLR_DIST_ON) are gathered with their gradient;
+- Sinkhorn's sums run over the world's batch.
 
 The JAX package keeps the algorithm state functional (``TrainState.ssl``);
 here it is a dict too, holding:
@@ -37,7 +50,14 @@ from torch import nn
 
 from advise_tpu_torch.data.device_aug import uniform_from
 from advise_tpu_torch.models import losses as L
-from advise_tpu_torch.parallel.collectives import batch_shuffle, batch_unshuffle
+from advise_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    batch_shuffle,
+    batch_unshuffle,
+    psum,
+    world_size,
+)
+from advise_tpu_torch.parallel.mesh import BATCH_AXES, SYNC_AXIS
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -162,33 +182,42 @@ def per_clip_grads(n: int, generator: Optional[torch.Generator],
 
 @torch.no_grad()
 def compute_keys(cfg, ssl: Dict[str, Any], views: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 infos: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Momentum-encoder keys [V, B, dim] (l2-normalized projections) of
     ``views`` [V, B, ...], BN in train mode and per view. Without shuffle-BN
     and with TPU.VMAP_VIEWS the views run as one batch; otherwise one view
-    after another, each in an order of its batch drawn from ``generator``
-    under shuffle-BN (:func:`shuffle_bn_on`), its keys put back in order.
-    ``generator`` also draws the encoder's dropout masks."""
+    after another, each under shuffle-BN (:func:`shuffle_bn_on`) in an order
+    of the group's batch (the sync group with CONTRASTIVE.LOCAL_SHUFFLE_BN,
+    else the world): ``infos['shuffle_perm'][i]`` when given, else drawn
+    from ``infos['shared_generator']`` or, without it, ``generator``; its
+    keys are put back in order. ``generator`` also draws the encoder's
+    dropout masks."""
     ema = ssl["ema_model"]
     shuffle = shuffle_bn_on(cfg)
     if cfg.TPU.VMAP_VIEWS and not shuffle and views.shape[0] > 1:
         return l2_normalize(_proj(views_apply(ema, views, generator)))
+    infos = infos or {}
+    axes = SYNC_AXIS if cfg.CONTRASTIVE.LOCAL_SHUFFLE_BN else BATCH_AXES
+    shared = infos.get("shared_generator", generator)
+    perms = infos.get("shuffle_perm")
     keys = []
-    for v in views:
+    for i, v in enumerate(views):
         if shuffle:
-            v, perm = batch_shuffle(v, generator)
+            v, perm = batch_shuffle(v, shared, axes, None if perms is None else perms[i])
         key = l2_normalize(_proj(ema(v, views=1, generator=generator)))
-        keys.append(batch_unshuffle(key, perm) if shuffle else key)
+        keys.append(batch_unshuffle(key, perm, axes) if shuffle else key)
     return torch.stack(keys)
 
 
 @torch.no_grad()
 def knn_update(cfg, ssl: Dict[str, Any], q: torch.Tensor, index: torch.Tensor) -> None:
-    """In place: knn_mem[index] = q (momentum-1 scatter)."""
+    """In place: knn_mem[index] = q (momentum-1 scatter) of the world's rows."""
     if not cfg.CONTRASTIVE.KNN_ON or "knn_mem" not in ssl:
         return
     mem = ssl["knn_mem"]
-    mem[index.to(mem.device)] = q.to(mem.dtype)
+    index = all_gather_cat(index.to(mem.device).long())
+    mem[index] = all_gather_cat(q.to(mem.dtype))
 
 
 def byol_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
@@ -207,7 +236,7 @@ def byol_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
     if not isinstance(out, list):
         raise ValueError("BYOL requires CONTRASTIVE.PREDICTOR_DEPTHS")
     proj, pred = out[0], l2_normalize(out[1])
-    keys = compute_keys(cfg, ssl, views, generator)
+    keys = compute_keys(cfg, ssl, views, generator, infos)
     loss = (
         -(torch.sum(pred[0] * keys[1], dim=-1)).mean() / t
         + -(torch.sum(pred[1] * keys[0], dim=-1)).mean() / t
@@ -219,11 +248,12 @@ def byol_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
 @torch.no_grad()
 def dequeue_and_enqueue(cfg, ssl: Dict[str, Any], keys: torch.Tensor) -> None:
     """In ``ssl``: the first view's keys (every view's with
-    CONTRASTIVE.MOCO_MULTI_VIEW_QUEUE) written into the queue at ``ptr``,
-    and ``ptr`` moved on by their count, back to 0 when it reaches the end.
-    QUEUE_LEN must be a multiple of that count, as the JAX package asserts."""
+    CONTRASTIVE.MOCO_MULTI_VIEW_QUEUE), each view's gathered over the world,
+    written into the queue at ``ptr``, and ``ptr`` moved on by their count,
+    back to 0 when it reaches the end. QUEUE_LEN must be a multiple of that
+    count, as the JAX package asserts."""
     use = keys if cfg.CONTRASTIVE.MOCO_MULTI_VIEW_QUEUE else keys[:1]
-    key = use.reshape(-1, use.shape[-1])
+    key = torch.cat([all_gather_cat(k) for k in use])
     queue, ptr = ssl["queue_x"], ssl["ptr"]
     k, n = queue.shape[0], key.shape[0]
     if k % n:
@@ -248,7 +278,7 @@ def moco_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
         raise ValueError("MoCo needs 2 clips per video")
     t = cfg.CONTRASTIVE.T
     q = l2_normalize(_proj(model(views[0], views=1, generator=generator)))
-    keys = compute_keys(cfg, ssl, views[1:], generator)
+    keys = compute_keys(cfg, ssl, views[1:], generator, infos)
     with torch.autocast(q.device.type, enabled=False):
         qf = q.float()
         queue_neg = qf @ ssl["queue_x"].T  # [B, QUEUE_LEN]
@@ -279,34 +309,37 @@ def simclr_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
     """NT-Xent over the l2-normalized projections of views 0 and 1 (``cat``
     [2B, dim]): -log(exp(q . q2 / T) / sum of exp(row . other / T)) over
     every row, the diagonal masked, in the dtype of the projections (as
-    JAX computes it). One device: SIMCLR_DIST_ON's gather is the
-    identity. Then, in place, the kNN scatter of view 0's projection."""
+    JAX computes it). With SIMCLR_DIST_ON both views' projections are
+    gathered over the world with their gradient first. Then, in place, the
+    kNN scatter of view 0's projection."""
     t = cfg.CONTRASTIVE.T
     proj = _online_views(cfg, model, views[:2], generator)
     q, q2 = l2_normalize(proj[0]), l2_normalize(proj[1])
-    cat = torch.cat([q, q2], dim=0)
+    qg, qg2 = (all_gather_cat(q), all_gather_cat(q2)) if cfg.CONTRASTIVE.SIMCLR_DIST_ON else (q, q2)
+    cat = torch.cat([qg, qg2], dim=0)
     sim = torch.exp(cat @ cat.T / t)
     mask = 1.0 - torch.eye(sim.shape[0], dtype=sim.dtype, device=sim.device)
     denom = torch.sum(sim * mask, dim=-1)
-    pos = torch.exp(torch.sum(q * q2, dim=-1) / t)
+    pos = torch.exp(torch.sum(qg * qg2, dim=-1) / t)
     pos = torch.cat([pos, pos], dim=0)
     loss = (-torch.log(pos / denom)).mean()
     knn_update(cfg, ssl, q.detach(), infos["item_id"])
     return loss, ssl, {"loss_simclr": loss.detach()}
 
 
-def sinkhorn(scores: torch.Tensor, iters: int = 3) -> torch.Tensor:
-    """Sinkhorn-Knopp on [B, K] scores (``advise_tpu/engine/contrastive.py
-    sinkhorn`` on one device): the total normalized to 1, then ``iters``
-    rounds of rows to 1 / K and columns to 1 / B, then each sample's column
-    to sum 1. Returns [B, K]."""
+def sinkhorn(scores: torch.Tensor, iters: int = 3, axes=BATCH_AXES) -> torch.Tensor:
+    """Sinkhorn-Knopp on this rank's [B, K] scores of the world's batch
+    (``advise_tpu/engine/contrastive.py sinkhorn``): the total normalized
+    to 1, then ``iters`` rounds of rows to 1 / K and columns to 1 / (B x
+    the world), the total and the row sums summed over ``axes``' ranks, then
+    each sample's column to sum 1. Returns [B, K]."""
     q = scores.T  # [K, B]
     k, b = q.shape
-    q = q / torch.sum(q)
+    q = q / psum(torch.sum(q), axes)
     r = torch.ones(k, dtype=q.dtype, device=q.device) / k
-    c = torch.ones(b, dtype=q.dtype, device=q.device) / b
+    c = torch.ones(b, dtype=q.dtype, device=q.device) / (b * world_size(axes))
     for _ in range(iters):
-        q = q * (r / (torch.sum(q, dim=1) + 1e-12))[:, None]
+        q = q * (r / (psum(torch.sum(q, dim=1), axes) + 1e-12))[:, None]
         q = q * (c / (torch.sum(q, dim=0) + 1e-12))[None, :]
     q = q / (torch.sum(q, dim=0, keepdim=True) + 1e-12)
     return q.T
@@ -330,7 +363,9 @@ def swav_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
     (exp gives 0) unless the queue has started (``swav_started``, or its
     last row written) and ``infos['epoch_exact']`` >= 15; ``swav_started``
     takes that value, read before view i's write; the queue rolls by the
-    batch and the view's embeddings go into its head. In place, like the
+    world's batch and the view's embeddings, gathered, go into its head
+    (Sinkhorn then normalizes the queue's columns on every rank, as JAX
+    does). In place, like the
     kNN scatter of view 0's embedding after. The stat ``swav_gate`` is the
     share of the assigning views whose gate was open (queue only)."""
     t = cfg.CONTRASTIVE.T
@@ -353,7 +388,7 @@ def swav_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
                 gates.append(gate)
                 out_ext = torch.cat([torch.where(gate, w, w.new_tensor(-1e9)), out_i], dim=0)
                 codes = sinkhorn(torch.exp(out_ext / SWAV_EPS))[-out_i.shape[0]:]
-                emb = embeddings[i].detach().to(queue.dtype)
+                emb = all_gather_cat(embeddings[i].detach().to(queue.dtype))
                 rolled = torch.roll(queue[i], emb.shape[0], dims=0)
                 rolled[:emb.shape[0]] = emb
                 queue[i] = rolled
@@ -402,7 +437,8 @@ def mem_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
     without it) times DURATION - 1, rounded, or with INTERP_MEMORY read
     between the adjacent slots with :func:`_mem_interp_weights`.
 
-    Then, in place, the momentum update of the item's rows
+    Then, in place, the momentum update of the world's items' rows (q, the
+    items and their times gathered)
     ``l2_normalize(q * m + old * (1 - m))`` (with INTERP_MEMORY each slot's
     q weighted by its interpolation weight, written to t0 and then t1, so
     the second write wins where they meet) and the kNN scatter of q."""
@@ -451,17 +487,20 @@ def mem_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
         loss = L.cross_entropy(logits, torch.zeros(b, dtype=torch.long, device=logits.device))
     m = cfg.CONTRASTIVE.MOMENTUM
     with torch.no_grad():
-        qd = q.detach().to(dev)
+        qd = all_gather_cat(q.detach().to(dev))
+        ind_all = all_gather_cat(index)
         if interp:
-            t0, t1, w_t1 = _mem_interp_weights(time01 * (duration - 1), duration)
-            old_t0, old_t1 = memory[index, t0], memory[index, t1]
+            time_all = all_gather_cat(time01 * (duration - 1))
+            t0, t1, w_t1 = _mem_interp_weights(time_all, duration)
+            old_t0, old_t1 = memory[ind_all, t0], memory[ind_all, t1]
             upd_t0 = l2_normalize(qd * (1.0 - w_t1) * m + old_t0 * (1.0 - m))
             upd_t1 = l2_normalize(qd * w_t1 * m + old_t1 * (1.0 - m))
-            memory[index, t0] = upd_t0
-            memory[index, t1] = upd_t1
+            memory[ind_all, t0] = upd_t0
+            memory[ind_all, t1] = upd_t1
         else:
-            old = memory[index, my_time]
-            memory[index, my_time] = l2_normalize(qd * m + old * (1.0 - m))
+            time_all = all_gather_cat(my_time)
+            old = memory[ind_all, time_all]
+            memory[ind_all, time_all] = l2_normalize(qd * m + old * (1.0 - m))
     knn_update(cfg, ssl, q.detach(), index)
     return loss, ssl, {"loss_nce": loss.detach()}
 
@@ -491,7 +530,7 @@ def sequential_contrastive_grads(cfg, model: nn.Module, ssl: Dict[str, Any], vie
     if n < 2:
         raise ValueError("CONTRASTIVE.SEQUENTIAL needs >= 2 clips")
     t = cfg.CONTRASTIVE.T
-    keys = compute_keys(cfg, ssl, views, generator)  # [V, B, dim]
+    keys = compute_keys(cfg, ssl, views, generator, infos)  # [V, B, dim]
     params = dict(model.named_parameters())
 
     def clip_grads(k_idx):

@@ -24,9 +24,18 @@ step (TemporalModel): augmentation -> cast -> the BYOL twins' EMA update
 from the pre-step parameters -> the tower's tokens (no gradient unless
 TM.FROM_SCRATCH) -> temporal head -> speed CE and/or BYOL against the twins
 -> backward (zeros for the frozen tower) -> BN commit -> global grad norm ->
-the optimizer's direction -> update. With one device the JAX step's
-``pmean``/``all_gather`` are identities. The steps run eagerly and update
+the optimizer's direction -> update. The steps run eagerly and update
 ``state`` in place.
+
+Each rank runs the step on its share of the global batch with the JAX
+step's collectives (``parallel/collectives.py``; identities without a
+process group): SyncBatchNorm's statistics over the sync group inside the
+forwards; after the backward the gradients and the stats averaged over the
+world (one all-reduce a dtype, :func:`average_over_world`), and after the BN
+commit the running statistics of the model (and of the momentum encoder)
+averaged too, so that weights, buffers and SSL state stay the same on every
+rank. Each rank draws its own augmentation and dropout from its own
+generator.
 """
 
 from __future__ import annotations
@@ -48,7 +57,8 @@ from advise_tpu_torch.engine.contrastive import (
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.models import compute_dtype as cfg_compute_dtype
 from advise_tpu_torch.models import losses as L
-from advise_tpu_torch.models.layers.norm import commit_bn_stats, drop_bn_records
+from advise_tpu_torch.models.layers.norm import SyncBatchNorm, commit_bn_stats, drop_bn_records
+from advise_tpu_torch.parallel.collectives import all_gather_cat, pmean, pmean_, pmean_tree
 from advise_tpu_torch.solver.optimizer import (
     OptimizerBundle,
     apply_direction,
@@ -56,15 +66,28 @@ from advise_tpu_torch.solver.optimizer import (
 )
 
 
+def average_over_world(grads: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor],
+                       *models: nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The gradients and stats averaged over the world, and in place every
+    SyncBatchNorm running buffer of ``models`` (called after the BN
+    commit): the JAX step's ``pmean`` of grads, stats and batch_stats."""
+    buffers = [b for model in models for m in model.modules() if isinstance(m, SyncBatchNorm)
+               for b in (m.running_mean, m.running_var)]
+    pmean_(buffers)
+    return pmean_tree(grads), pmean_tree(stats)
+
+
 def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
                                 device_aug: Optional[Callable]):
-    """Returns ``step(state, clips_u8, infos, generator, lr, epoch_exact) ->
-    stats``: ``clips_u8`` [B, K, T, H, W, 3] uint8 at ingest geometry (or
-    already-augmented float clips when ``device_aug`` is None), ``infos``
-    with ``item_id`` [B] (and for mem ``time_idx`` [B]), ``generator``
-    drawing the augmentation on the clips' device and then the dropout
-    masks, MoCo's shuffle-BN permutations and mem's random rows.
-    ``epoch_exact`` sets the momentum and opens SwAV's queue."""
+    """Returns ``step(state, clips_u8, infos, generator, lr, epoch_exact,
+    shared=None) -> stats``: ``clips_u8`` [B, K, T, H, W, 3] uint8 at ingest
+    geometry (or already-augmented float clips when ``device_aug`` is
+    None), ``infos`` with ``item_id`` [B] (and for mem ``time_idx`` [B]),
+    ``generator`` drawing the augmentation on the clips' device and then
+    the dropout masks, MoCo's shuffle-BN permutations (``shared``, a
+    generator seeded alike on every rank, draws them instead when given)
+    and mem's random rows. ``epoch_exact`` sets the momentum and opens
+    SwAV's queue."""
     ctype = cfg.CONTRASTIVE.TYPE
     if ctype not in CONTRASTIVE_LOSSES:
         raise KeyError(f"CONTRASTIVE.TYPE={ctype!r}: one of {sorted(CONTRASTIVE_LOSSES)}")
@@ -76,7 +99,7 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
 
     def step(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator], lr: float,
-             epoch_exact: float) -> Dict[str, torch.Tensor]:
+             epoch_exact: float, shared: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
         clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
@@ -87,6 +110,8 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
             ssl["ema_model"].train()
             update_ema(ssl, model, momentum_at(cfg, epoch_exact))
         infos = dict(infos, epoch_exact=epoch_exact)
+        if shared is not None:
+            infos["shared_generator"] = shared
         params = dict(model.named_parameters())
         with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
             if sequential:
@@ -98,6 +123,7 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
         commit_bn_stats(model)
         if "ema_model" in ssl:
             commit_bn_stats(ssl["ema_model"])
+        grads, stats = average_over_world(grads, stats, model, *([ssl["ema_model"]] if "ema_model" in ssl else []))
         stats["grad_norm"] = global_grad_norm(grads)
         direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
         apply_direction(params, direction, lr, bundle.lr_scales)
@@ -152,8 +178,9 @@ def masked_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
     the model's random masks; with MASK.JOINT_CONTRASTIVE plus JOINT_WEIGHT
     times the NT-Xent between the l2-normalized projections of views 0 and 1
     (temperature CONTRASTIVE.T, negatives: every other projection of the
-    batch; with one video the only other projection is the positive, and
-    the term is identically 0); under VIS_MASK the model's videos are
+    world's batch, gathered with their gradient; with one video in all the
+    only other projection is the positive, and the term is identically 0);
+    under VIS_MASK the model's videos are
     dropped. ``generator`` draws the random masks, then the drop-path
     masks."""
     from advise_tpu_torch.engine.contrastive import l2_normalize
@@ -175,8 +202,8 @@ def masked_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
             raise ValueError("MASK.JOINT_CONTRASTIVE needs DATA.NUM_CLIP >= 2")
         proj = out[4].reshape(b, k, -1)
         with torch.autocast(clips.device.type, enabled=False):  # float32, as JAX casts
-            q1 = l2_normalize(proj[:, 0].float())
-            q2 = l2_normalize(proj[:, 1].float())
+            q1 = all_gather_cat(l2_normalize(proj[:, 0].float()))
+            q2 = all_gather_cat(l2_normalize(proj[:, 1].float()))
             t = cfg.CONTRASTIVE.T
             cat = torch.cat([q1, q2], dim=0)
             sim = torch.exp(cat @ cat.T / t)
@@ -261,6 +288,7 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
             grads, stats = loss_and_grads(model, clips, infos, generator)
         params = dict(model.named_parameters())
         commit_bn_stats(model)
+        grads, stats = average_over_world(grads, stats, model)
         stats["grad_norm"] = global_grad_norm(grads)
         direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
         apply_direction(params, direction, lr, bundle.lr_scales)
@@ -377,7 +405,7 @@ def make_tmodeling_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional
         params = dict(model.named_parameters())
         grads = loss_grads(loss, params)
         commit_bn_stats(model)
-        stats = {name: v.detach() for name, v in stats.items()}
+        grads, stats = average_over_world(grads, {name: v.detach() for name, v in stats.items()}, model)
         stats["grad_norm"] = global_grad_norm(grads)
         direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
         apply_direction(params, direction, lr, bundle.lr_scales)
@@ -430,7 +458,8 @@ def make_knn_probe_step(cfg, device_aug: Optional[Callable], num_classes: Option
     of the first view -> l2-normalized float32 projection -> top-k vote
     against ``state.ssl['knn_mem']`` with ``state.ssl['knn_labels']``, top-1
     accuracy against ``infos['cls_id']``. ``num_classes`` is the dataset's
-    label range (MODEL.NUM_CLASSES when None).
+    label range (MODEL.NUM_CLASSES when None). Each rank votes on its own
+    batch against the replicated bank; the accuracy is the world's mean.
 
     The forward is in eval mode, or with CONTRASTIVE.KNN_BATCH_STATS in
     train mode: BN on the batch's statistics and dropout live (its masks
@@ -459,7 +488,7 @@ def make_knn_probe_step(cfg, device_aug: Optional[Callable], num_classes: Option
         proj = out[0] if isinstance(out, (list, tuple)) else out
         q = l2_normalize(proj.float())
         ssl = state.ssl
-        return knn_probe(cfg, ssl, ssl["knn_labels"], q, infos["cls_id"], knn_k=knn_k,
-                         t=cfg.CONTRASTIVE.T, num_classes=num_classes)
+        return pmean(knn_probe(cfg, ssl, ssl["knn_labels"], q, infos["cls_id"], knn_k=knn_k,
+                               t=cfg.CONTRASTIVE.T, num_classes=num_classes))
 
     return probe

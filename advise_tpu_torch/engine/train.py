@@ -1,5 +1,13 @@
-"""Trainer: the epoch and iteration loop on one card, the counterpart of
+"""Trainer: the epoch and iteration loop of one rank, the counterpart of
 ``advise_tpu/engine/train.py:43-265`` (reference ``tools/train.py:250-344``).
+
+One process drives one card: rank r of a world of N (``parallel/mesh.py
+distributed_init``; rank 0 of 1 without a process group) loads its share
+of the global batch and runs the step with the JAX step's collectives.
+cfg.NUM_WORLDS is the batch-carrying ranks, which the lr scaling reads. The
+state is built alike on every rank (the same seeds), and its digest is
+checked to agree across the ranks at the start (after any resume) and at
+the end. Only rank 0 writes checkpoints and the VIS_MASK dump.
 
 Per iteration: the host loader's batch -> the card (pinned, prefetched on a
 side stream, TPU.PREFETCH batches in flight) -> one train step -> meters.
@@ -18,9 +26,14 @@ port seeds one ``torch.Generator`` on the card per use from a numpy
 - model weights: ``build_model(seed=TRAIN.SEED)``;
 - the SSL state (the kNN bank's init): ``(TRAIN.SEED, 7)``;
 - iteration ``it`` of epoch ``epoch`` (augmentation, then dropout or drop
-  path): ``(TRAIN.SEED, epoch, it)``;
+  path): ``(TRAIN.SEED, epoch, it)``, and ``(TRAIN.SEED, epoch, it, r)`` on
+  rank r of a world of more than one, so that ranks draw their own, as
+  JAX folds the replica index into the step's key; there MoCo's
+  shuffle-BN permutations come from ``(TRAIN.SEED, epoch, it)``, alike on
+  every rank;
 - kNN probe batch ``i`` after epoch ``epoch``: ``(TRAIN.SEED, 2**31 - 1 -
-  epoch, i)``, as JAX's probe key is ``fold_in(rng, 2**31 - 1 - epoch)``;
+  epoch, i)`` (and r as above), as JAX's probe key is ``fold_in(rng,
+  2**31 - 1 - epoch)``;
 - the VIS_MASK dump after epoch ``epoch`` (its aug, then its masks):
   ``(TRAIN.SEED, 424243 + epoch)``, as JAX's ``fold_in(rng, 424243 +
   epoch)``.
@@ -29,12 +42,14 @@ So a resumed run draws what the uninterrupted run would have drawn.
 
 TPU.PROFILE_DIR runs ``torch.profiler`` over the steps
 (PROFILE_START, PROFILE_START + PROFILE_STEPS] of the step counter, writes
-``trace.json`` there and logs the device's busy and idle shares of that
+``trace.json`` there (rank r > 0: ``trace.rank{r}.json``) and logs the
+device's busy and idle shares of that
 window. With VIS_MASK.ENABLE (the MAE path) each epoch ends with the first
 batch of a fresh shuffle (``loader.take_one(epoch + 424243)``) through the
 model in eval mode, dumped by ``utils/visualization.py
 dump_mask_visualization`` under ``LOGDIR/vis_mask/vid/``. Not ported (it
-raises, naming the ROADMAP.md item): TPU.PARTITION_MODE 'auto' (A 16).
+raises, naming the ROADMAP.md item): TPU.PARTITION_MODE 'auto',
+TPU.MESH_SEQ and TPU.MESH_PIPE (A 16).
 
 The TemporalModel's CLIP tower takes its weights from
 MODEL.SPATIAL_MODEL_PATH (an open_clip checkpoint, or a directory holding
@@ -60,10 +75,12 @@ from advise_tpu_torch.engine.checkpoint import (
     load_pretrained,
     tensors_digest,
 )
-from advise_tpu_torch.engine.meters import TrainingHelper, busy_ms
+from advise_tpu_torch.engine.meters import TrainingHelper, busy_ms, device_events
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.engine.steps import make_knn_probe_step, make_train_step
 from advise_tpu_torch.models import build_model
+from advise_tpu_torch.parallel.collectives import check_same_on_every_rank
+from advise_tpu_torch.parallel.mesh import check_data_parallel, distributed_init, world
 from advise_tpu_torch.solver.lr_policy import PlateauController, get_lr_at_epoch
 from advise_tpu_torch.solver.optimizer import OptimizerBundle, adjust_base_lr, build_tx
 from advise_tpu_torch.utils.host_times import HOST_TIMES
@@ -111,8 +128,13 @@ def ssl_digest(ssl: Dict[str, Any]) -> str:
 
 def check_ported(cfg) -> None:
     """Raise for the trainer options the port does not carry yet."""
-    if cfg.TPU.PARTITION_MODE == "auto":
-        raise NotImplementedError("TPU.PARTITION_MODE 'auto' is not ported yet (ROADMAP A 16)")
+    check_data_parallel(cfg)
+
+
+def rank_keys() -> Tuple[int, ...]:
+    """What a rank adds to its generators' keys: nothing in a world of 1."""
+    rank, n = world()
+    return (rank,) if n > 1 else ()
 
 
 def spatial_checkpoint(path: str) -> str:
@@ -185,9 +207,9 @@ class ProfileWindow:
         wall_ms = (time.perf_counter() - self.t0) * 1e3
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
-        self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
-        kernels = [e for e in self.prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+        rank = world()[0]
+        self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json" if rank == 0 else f"trace.rank{rank}.json"))
+        busy = busy_ms((start, end) for _, start, end in device_events(self.prof))
         self.result = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
                        "steps": step - self.first}
         logger.info("profiler trace stopped: %d steps, wall %.3f ms, device busy %.3f ms, "
@@ -204,11 +226,13 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
     BN buffers after any resume) and ``ssl_sha256`` (:func:`ssl_digest`),
     and at the end ``model_sha256_end``, ``ssl_sha256_end`` and
     ``host_s``, the input pipeline's stages over the run
-    (:meth:`HostTimes.snapshot`, the kNN probe's batches included)."""
+    (:meth:`HostTimes.snapshot`, the kNN probe's batches included), and
+    ``rank`` and ``world``. ``device`` is this rank's (``distributed_init``
+    picks the card of a rank launched by torchrun)."""
     check_ported(cfg)
     HOST_TIMES.reset()
-    device = torch.device(device)
-    cfg.NUM_WORLDS = 1  # one process drives one card
+    device = distributed_init(cfg, device)  # sets cfg.NUM_WORLDS from the world
+    rank, n_ranks = world()
     adjust_base_lr(cfg)
 
     loader = build_loader(cfg, "train")
@@ -226,12 +250,14 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
     state, start_epoch, resumed = auto_resume(cfg, ckpt, state)
     if not resumed and cfg.RESUME:
         state, _, _ = load_pretrained(cfg.RESUME, state)
-    digest = tensors_digest(state.model.state_dict())
-    logger.info("start: epoch %d, step %d, model sha256 %s%s", start_epoch, state.step, digest,
-                " (resumed)" if resumed else "")
+    digest, ssl_sha = tensors_digest(state.model.state_dict()), ssl_digest(state.ssl)
+    check_same_on_every_rank(digest, device, "the model's digest at the start")
+    check_same_on_every_rank(ssl_sha, device, "the SSL state's digest at the start")
+    logger.info("start: epoch %d, step %d, model sha256 %s%s (rank %d of %d)", start_epoch, state.step, digest,
+                " (resumed)" if resumed else "", rank, n_ranks)
     if record is not None:
         record.update(start_epoch=start_epoch, start_step=state.step, model_sha256=digest,
-                      ssl_sha256=ssl_digest(state.ssl),
+                      ssl_sha256=ssl_sha, rank=rank, world=n_ranks,
                       iter_s=[], wait_s=[], stats=[])
 
     # TPU.DEVICE_AUG False: the loader's host aug made the clips (no K3)
@@ -265,9 +291,10 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
             else:
                 lr = get_lr_at_epoch(cfg, epoch_exact)
             helper.rt["curr_lr"] = lr
-            gen = seeded_generator(device, cfg.TRAIN.SEED, epoch, it)
+            gen = seeded_generator(device, cfg.TRAIN.SEED, epoch, it, *rank_keys())
             if contrastive:
-                stats = step_fn(state, clips_d, infos_d, gen, lr, epoch_exact)
+                shared = seeded_generator(device, cfg.TRAIN.SEED, epoch, it) if n_ranks > 1 else None
+                stats = step_fn(state, clips_d, infos_d, gen, lr, epoch_exact, shared)
             else:
                 stats = step_fn(state, clips_d, infos_d, gen, lr)
             stats = {k: float(v) for k, v in stats.items()}  # waits for the step
@@ -284,13 +311,13 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
             probe_iter = loader.epoch(epoch + 999983)  # a fresh shuffle
             for i, (clips, infos) in zip(range(cfg.CONTRASTIVE.KNN_EVAL_BATCHES), probe_iter):
                 clips_d, infos_d, _ = device_put_batch(clips, select_infos(cfg, infos), device)
-                gen = seeded_generator(device, cfg.TRAIN.SEED, 2**31 - 1 - epoch, i)
+                gen = seeded_generator(device, cfg.TRAIN.SEED, 2**31 - 1 - epoch, i, *rank_keys())
                 accs.append(float(knn_probe_fn(state, clips_d, infos_d, gen)))
             probe_iter.close()
             helper.rt["knn_acc"] = float(np.mean(accs))
             logger.info("epoch %d online kNN top-1: %.4f (%d batches)", epoch,
                         helper.rt["knn_acc"], len(accs))
-        if cfg.VIS_MASK.ENABLE and cfg.MODEL.MODEL_NAME == "MaskMViT":
+        if cfg.VIS_MASK.ENABLE and cfg.MODEL.MODEL_NAME == "MaskMViT" and rank == 0:
             from advise_tpu_torch.utils.visualization import dump_mask_visualization
 
             vis_batch = loader.take_one(epoch + 424243)
@@ -305,9 +332,12 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
             plateau.step(summary.get("loss_spd", summary.get("loss_cls", 0.0)))
         ckpt.save(state, epoch, summary)
     profile.close(state.step)  # a window that outlasts the run ends with it
+    digest, ssl_sha = tensors_digest(state.model.state_dict()), ssl_digest(state.ssl)
+    check_same_on_every_rank(digest, device, "the model's digest at the end")
+    check_same_on_every_rank(ssl_sha, device, "the SSL state's digest at the end")
     if record is not None:
-        record["model_sha256_end"] = tensors_digest(state.model.state_dict())
-        record["ssl_sha256_end"] = ssl_digest(state.ssl)
+        record["model_sha256_end"] = digest
+        record["ssl_sha256_end"] = ssl_sha
         record["host_s"] = HOST_TIMES.snapshot()
         if profile.result is not None:
             record["profile"] = profile.result

@@ -6,9 +6,11 @@ label of VAL.RANGE, so the clip count varies per video: the host flattens
 the clips into chunks of VAL.BATCHSIZE_PER_GPU (one card), pads the last
 chunk with its last clip under label -1 (run, then dropped), and counts
 each chunk's argmax into the confusion matrix. Every chunk's aug is drawn
-from the same seed, as JAX passes ``PRNGKey(0)`` (folded with replica 0) to
-every chunk. The per-class accuracies go to ``LOGDIR/Metrics.csv`` in the
-JAX package's format.
+from the same seed, as JAX passes ``PRNGKey(0)`` (folded with the replica)
+to every chunk. Rank r of a world of N takes the videos r, r + N, ...;
+the confusion matrix is summed over the world, and rank 0 writes the
+per-class accuracies to ``LOGDIR/Metrics.csv`` in the JAX package's
+format.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from advise_tpu_torch.data import build_dataset, build_device_aug, threaded_item
 from advise_tpu_torch.data.prefetch import device_put_batch
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.engine.steps import make_eval_step
+from advise_tpu_torch.parallel.collectives import psum_tree
+from advise_tpu_torch.parallel.mesh import world
 
 logger = logging.getLogger(__name__)
 
@@ -90,9 +94,10 @@ def validation(cfg, model: nn.Module, state: Optional[TrainState], device="cuda"
     the caller asks for the CPU). ``record``, when given, receives the
     phase's times (:meth:`EvalTimes.summary`, in clips), the confusion
     matrix and the accuracy."""
-    from advise_tpu_torch.engine.train import seeded_generator
+    from advise_tpu_torch.engine.train import rank_keys, seeded_generator
 
     device = torch.device(device)
+    rank, n_ranks = world()
     model = eval_model(model, state)
     n_labels = len(cfg.VAL.RANGE)
     dataset = build_dataset(cfg, "speed")
@@ -106,7 +111,7 @@ def validation(cfg, model: nn.Module, state: Optional[TrainState], device="cuda"
     def run(clips: List[np.ndarray], labels: List[int], real: int) -> None:
         t = time.perf_counter()
         batch, _, _ = device_put_batch(np.stack(clips)[:, None], {}, device)  # [B, 1, T, H, W, C]
-        logits = eval_step(model, batch, seeded_generator(device, 0, 0))
+        logits = eval_step(model, batch, seeded_generator(device, 0, 0, *rank_keys()))
         preds = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         times.batch_s.append(time.perf_counter() - t)
         for true, pred in zip(labels[:real], preds[:real]):
@@ -115,7 +120,7 @@ def validation(cfg, model: nn.Module, state: Optional[TrainState], device="cuda"
     pending_clips: List[np.ndarray] = []
     pending_labels: List[int] = []
     items = threaded_items(dataset, n_items, lambda idx: [cfg.INFER.SEED, 0, idx],
-                           num_workers=cfg.DATA.WORKERS)
+                           num_workers=cfg.DATA.WORKERS, rank=rank, world=n_ranks)
     for _, (clips, infos) in times.items(items):
         pending_clips.extend(clips)
         pending_labels.extend(int(v) for v in infos["spd_label"])
@@ -128,10 +133,13 @@ def validation(cfg, model: nn.Module, state: Optional[TrainState], device="cuda"
         pad = chunk - real
         run(pending_clips + [pending_clips[-1]] * pad, pending_labels + [-1] * pad, real)
 
+    summed = psum_tree({"confusion": torch.from_numpy(confusion).to(device),
+                        "clips": torch.tensor(n_clips, device=device)})
+    confusion, n_clips = summed["confusion"].cpu().numpy(), int(summed["clips"])
     per_class = confusion.diagonal() / np.maximum(confusion.sum(axis=1), 1)
     acc = confusion.diagonal().sum() / max(confusion.sum(), 1)
     logger.info("speed val acc: %.4f per-class: %s", acc, np.round(per_class, 4))
-    if getattr(cfg, "LOGDIR", None):
+    if getattr(cfg, "LOGDIR", None) and rank == 0:
         write_metrics_csv(cfg, confusion, per_class, acc)
     if record is not None:
         record.update(times.summary("clips", n_clips), confusion=confusion.tolist(), acc=float(acc))

@@ -5,7 +5,7 @@ contrastive MLP projector)."""
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,10 +17,12 @@ from advise_tpu_torch.models.layers.norm import SyncBatchNorm
 
 class MLPHead(nn.Module):
     """[Linear -> BN -> ReLU] x (n-1) -> Linear, Xavier-uniform init; the
-    hidden Linears drop their bias when BN follows them."""
+    hidden Linears drop their bias when BN follows them; the BN syncs over
+    ``sync_axes``."""
 
     def __init__(self, dim_in: int, dim_out: int, mlp_dim: int,
-                 num_layers: int, bn_on: bool = False, use_bias: bool = True):
+                 num_layers: int, bn_on: bool = False, use_bias: bool = True,
+                 sync_axes: Tuple[str, ...] = ()):
         super().__init__()
         self.num_layers = num_layers
         self.bn_on = bn_on
@@ -28,7 +30,7 @@ class MLPHead(nn.Module):
         for i in range(num_layers - 1):
             self.add_module(f"fc{i}", dense(dim, mlp_dim, bias=use_bias and not bn_on))
             if bn_on:
-                self.add_module(f"bn{i}", SyncBatchNorm(mlp_dim))
+                self.add_module(f"bn{i}", SyncBatchNorm(mlp_dim, sync_axes=sync_axes))
             dim = mlp_dim
         self.add_module(f"fc{num_layers - 1}", dense(dim, dim_out, bias=use_bias))
 
@@ -52,7 +54,7 @@ class ResNetBasicHead(nn.Module):
                  num_mlp_layers: int = 1, mlp_dim: int = 2048,
                  bn_mlp: bool = False, predictor_depths: Sequence[int] = (),
                  predictor_mlp_dim: int = 2048, predictor_bn: bool = False,
-                 fc_init_std: float = 0.01):
+                 fc_init_std: float = 0.01, bn_sync_axes: Tuple[str, ...] = ()):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.act_func = act_func
@@ -62,12 +64,12 @@ class ResNetBasicHead(nn.Module):
             self.projection = dense(dim_in, num_classes, init=fc_init(fc_init_std))
         else:
             self.projection = MLPHead(dim_in, num_classes, mlp_dim,
-                                      num_mlp_layers, bn_on=bn_mlp)
+                                      num_mlp_layers, bn_on=bn_mlp, sync_axes=bn_sync_axes)
         self.num_predictors = len(predictor_depths)
         for i, depth in enumerate(predictor_depths):
             self.add_module(f"predictor{i}", MLPHead(
                 num_classes, num_classes, predictor_mlp_dim, depth,
-                bn_on=predictor_bn,
+                bn_on=predictor_bn, sync_axes=bn_sync_axes,
             ))
 
     def forward(self, inputs: Sequence[torch.Tensor], views: int = 1,
@@ -114,7 +116,8 @@ class X3DHead(nn.Module):
                  norm: Callable, dropout_rate: float = 0.0, act_func: str = "softmax",
                  bn_lin5_on: bool = False, num_mlp_layers: int = 1, mlp_dim: int = 2048,
                  bn_mlp: bool = False, predictor_depths: Sequence[int] = (),
-                 predictor_mlp_dim: int = 2048, predictor_bn: bool = False):
+                 predictor_mlp_dim: int = 2048, predictor_bn: bool = False,
+                 bn_sync_axes: Tuple[str, ...] = ()):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.act_func = act_func
@@ -125,11 +128,13 @@ class X3DHead(nn.Module):
         if num_mlp_layers == 1:
             self.projection = dense(dim_out, num_classes, init=fc_init(0.01))
         else:
-            self.projection = MLPHead(dim_out, num_classes, mlp_dim, num_mlp_layers, bn_on=bn_mlp)
+            self.projection = MLPHead(dim_out, num_classes, mlp_dim, num_mlp_layers, bn_on=bn_mlp,
+                                      sync_axes=bn_sync_axes)
         self.num_predictors = len(predictor_depths)
         for i, depth in enumerate(predictor_depths):
             self.add_module(f"predictor{i}", MLPHead(
-                num_classes, num_classes, predictor_mlp_dim, depth, bn_on=predictor_bn))
+                num_classes, num_classes, predictor_mlp_dim, depth, bn_on=predictor_bn,
+                sync_axes=bn_sync_axes))
 
     def forward(self, inputs: Sequence[torch.Tensor], views: int = 1,
                 generator: Optional[torch.Generator] = None):
@@ -164,7 +169,7 @@ class TransformerBasicHead(nn.Module):
     def __init__(self, dim_in: int, num_classes: int, dropout_rate: float = 0.0,
                  act_func: str = "softmax", detach_final_fc: bool = False,
                  num_mlp_layers: int = 1, mlp_dim: int = 2048, bn_mlp: bool = False,
-                 head_init_scale: float = 1.0):
+                 head_init_scale: float = 1.0, bn_sync_axes: Tuple[str, ...] = ()):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.act_func = act_func
@@ -177,7 +182,8 @@ class TransformerBasicHead(nn.Module):
                     w.mul_(head_init_scale)
             self.projection = dense(dim_in, num_classes, init=init)
         else:
-            self.projection = MLPHead(dim_in, num_classes, mlp_dim, num_mlp_layers, bn_on=bn_mlp)
+            self.projection = MLPHead(dim_in, num_classes, mlp_dim, num_mlp_layers, bn_on=bn_mlp,
+                                      sync_axes=bn_sync_axes)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 views: int = 1) -> torch.Tensor:

@@ -1,8 +1,14 @@
-"""Batch normalization with per-split statistics (counterpart of
-``advise_tpu/models/layers/norm.py`` SyncBatchNorm, on one device).
+"""Batch normalization with per-split statistics synchronized over a group
+of ranks (counterpart of ``advise_tpu/models/layers/norm.py`` SyncBatchNorm).
 
 What it keeps from the JAX module:
 
+- ``sync_axes`` (``parallel/mesh.py bn_axis_names``): in training the
+  float32 mean and mean of squares of each split are averaged over the
+  ranks of this rank's sync group (the world under BN.GLOBAL_SYNC), one
+  all-reduce a forward, differentiable (``parallel/collectives.py pmean``),
+  and the unbiased variance counts the group's elements. Without a process
+  group, or with no axes, the statistics are the rank's own;
 - the statistics in float32, and the normalize + affine as ONE per-channel
   FMA in the input dtype (``y = x * w + b`` with ``w = scale * rsqrt(var +
   eps)``, ``b = bias - mean * w``);
@@ -26,23 +32,30 @@ Two differences of form, both forced by PyTorch:
   JAX step threads its ``batch_stats`` through both applies. Under
   ``torch.utils.checkpoint`` (TPU.REMAT) the forward is recomputed inside
   the backward; a forward run there records nothing, so a recomputation
-  never counts as a call.
+  never counts as a call; it issues its all-reduce again, in the same
+  order on every rank, as JAX's remat does.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import torch
 from torch import nn
+
+from advise_tpu_torch.parallel.collectives import pmean, world_size
+from advise_tpu_torch.parallel.mesh import bn_axis_names
 
 
 class SyncBatchNorm(nn.Module):
     """BatchNorm over every dim but the channel dim (dim 1)."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
-                 num_splits: int = 1, zero_init_scale: bool = False):
+                 num_splits: int = 1, zero_init_scale: bool = False,
+                 sync_axes: Tuple[str, ...] = ()):
         super().__init__()
+        self.sync_axes = tuple(sync_axes)
         self.momentum = momentum
         self.eps = eps
         self.num_splits = num_splits
@@ -81,7 +94,11 @@ class SyncBatchNorm(nn.Module):
         # mean and mean of squares in float32, as the JAX module reduces them
         xf = xs.float()
         mean = torch.mean(xf, dim=red)
-        var = torch.mean(torch.square(xf), dim=red) - torch.square(mean)
+        meansq = torch.mean(torch.square(xf), dim=red)
+        if self.sync_axes:
+            mean, meansq = pmean(torch.stack([mean, meansq]), self.sync_axes)
+            count *= world_size(self.sync_axes)
+        var = meansq - torch.square(mean)
         y = self._fold(xs, mean, var, (splits, 1, c) + tail).reshape(x.shape)
         if not _in_backward():
             with torch.no_grad():
@@ -117,11 +134,20 @@ def drop_bn_records(model: nn.Module) -> None:
             m.pending = []
 
 
+def head_sync_axes(norm, sync_mlp: bool) -> Tuple[str, ...]:
+    """The sync axes of a head's MLP BN: ``norm``'s, where the config's
+    BN_SYNC_MLP asks for them, else none."""
+    return tuple(getattr(norm, "keywords", {}).get("sync_axes", ())) if sync_mlp else ()
+
+
 def get_norm(cfg):
-    """Norm factory (``advise_tpu/models/layers/norm.py get_norm``). One
-    device, so 'sync_batchnorm' has no peers to sync with."""
-    if cfg.BN.NORM_TYPE in ("batchnorm", "sync_batchnorm"):
-        return SyncBatchNorm
+    """Norm factory (``advise_tpu/models/layers/norm.py get_norm``):
+    'sync_batchnorm' syncs over ``bn_axis_names(cfg)``, 'batchnorm' and
+    'sub_batchnorm' over nothing."""
+    if cfg.BN.NORM_TYPE == "batchnorm":
+        return functools.partial(SyncBatchNorm, sync_axes=())
+    if cfg.BN.NORM_TYPE == "sync_batchnorm":
+        return functools.partial(SyncBatchNorm, sync_axes=bn_axis_names(cfg))
     if cfg.BN.NORM_TYPE == "sub_batchnorm":
         return functools.partial(SyncBatchNorm, num_splits=cfg.BN.NUM_SPLITS)
     raise NotImplementedError(f"BN.NORM_TYPE={cfg.BN.NORM_TYPE}")

@@ -61,6 +61,7 @@ from advise_tpu_torch.models.layers.common import (
     trunc02,
 )
 from advise_tpu_torch.models.layers.heads import TransformerBasicHead
+from advise_tpu_torch.models.layers.norm import head_sync_axes
 from advise_tpu_torch.models.layers.stem import PatchEmbed
 from advise_tpu_torch.models.utils import get_3d_sincos_pos_embed, round_width
 from advise_tpu_torch.parallel.reversible import reversible_block_scan
@@ -415,7 +416,8 @@ class MViT(nn.Module):
                 dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
                 detach_final_fc=cfg.MODEL.DETACH_FINAL_FC,
                 num_mlp_layers=c.NUM_MLP_LAYERS if contrastive else 1, mlp_dim=c.MLP_DIM,
-                bn_mlp=bool(c.BN_MLP) if contrastive else False, head_init_scale=m.HEAD_INIT_SCALE)
+                bn_mlp=bool(c.BN_MLP) if contrastive else False, head_init_scale=m.HEAD_INIT_SCALE,
+                bn_sync_axes=head_sync_axes(norm, contrastive and c.BN_SYNC_MLP))
 
     def _keeps(self, b: int, generator: Optional[torch.Generator]) -> Dict[int, tuple]:
         """The stochastic-depth keep masks of this forward, in block order:

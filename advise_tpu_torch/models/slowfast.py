@@ -16,6 +16,7 @@ from torch import nn
 
 from advise_tpu_torch.models.layers.common import conv3d
 from advise_tpu_torch.models.layers.heads import ResNetBasicHead
+from advise_tpu_torch.models.layers.norm import head_sync_axes
 from advise_tpu_torch.models.layers.resnet import ResStage
 from advise_tpu_torch.models.layers.stem import ResNetBasicStem
 from advise_tpu_torch.models.utils import stage_remat
@@ -138,6 +139,8 @@ class SlowFast(nn.Module):
             predictor_mlp_dim=cfg.CONTRASTIVE.MLP_DIM,
             predictor_bn=cfg.CONTRASTIVE.BN_MLP,
             fc_init_std=cfg.MODEL.FC_INIT_STD,
+            bn_sync_axes=head_sync_axes(
+                norm, cfg.CONTRASTIVE.BN_SYNC_MLP if contrastive else cfg.SSL.BN_SYNC_MLP),
         )
 
     def forward(self, x: torch.Tensor, views: int = 1,

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from advise_tpu_torch.models.clip_vit import layer_norm, linear
 from advise_tpu_torch.models.layers.common import DropPath, Mlp, dense, draw_keep, lecun_normal_init, trunc02
 from advise_tpu_torch.models.layers.heads import TransformerBasicHead
+from advise_tpu_torch.models.layers.norm import head_sync_axes
 
 Triple = Tuple[int, int, int]
 Keeps = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
@@ -343,7 +344,7 @@ class SwinTransformer3D(nn.Module):
             self.head = TransformerBasicHead(
                 dim, c.DIM, dropout_rate=cfg.MODEL.DROPOUT_RATE, act_func=cfg.MODEL.HEAD_ACT,
                 detach_final_fc=cfg.MODEL.DETACH_FINAL_FC, num_mlp_layers=c.NUM_MLP_LAYERS,
-                mlp_dim=c.MLP_DIM, bn_mlp=c.BN_MLP)
+                mlp_dim=c.MLP_DIM, bn_mlp=c.BN_MLP, bn_sync_axes=head_sync_axes(norm, c.BN_SYNC_MLP))
         else:
             self.head = dense(dim, cfg.MODEL.NUM_CLASSES, init=trunc02)
 

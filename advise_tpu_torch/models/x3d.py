@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from advise_tpu_torch.models.layers.heads import X3DHead
+from advise_tpu_torch.models.layers.norm import head_sync_axes
 from advise_tpu_torch.models.layers.resnet import ResStage
 from advise_tpu_torch.models.layers.stem import X3DStem
 from advise_tpu_torch.models.utils import round_width, stage_remat
@@ -87,6 +88,7 @@ class X3D(nn.Module):
             predictor_depths=tuple(cfg.CONTRASTIVE.PREDICTOR_DEPTHS) if contrastive else (),
             predictor_mlp_dim=cfg.CONTRASTIVE.MLP_DIM,
             predictor_bn=cfg.CONTRASTIVE.BN_MLP if contrastive else False,
+            bn_sync_axes=head_sync_axes(norm, contrastive and cfg.CONTRASTIVE.BN_SYNC_MLP),
         )
 
     def forward(self, x: torch.Tensor, views: int = 1,

@@ -1,33 +1,183 @@
-"""Collectives of the contrastive step on one card (counterpart of
-``advise_tpu/parallel/collectives.py``): MoCo's shuffle-BN. With one
-process the shuffle permutes the local batch; the cross-card gather of the
-JAX version waits for the distributed port (ROADMAP A 16)."""
+"""Collectives of the data-parallel steps (counterpart of
+``advise_tpu/parallel/collectives.py``) over the groups of
+``parallel/mesh.py``: ``axes`` names mesh axes, ``('data', 'sync')`` (the
+default) the world, ``'sync'`` this rank's BN sync group. Without a process
+group every helper is the identity (world 1, index 0).
+
+| JAX                                  | here                                   |
+|--------------------------------------|----------------------------------------|
+| ``pmean``/``psum`` of a pytree       | one all-reduce over each dtype's flat   |
+|                                      | bucket (:func:`pmean_tree`)            |
+| ``lax.all_gather(tiled)``            | :func:`all_gather_cat`: all-gather as a |
+|                                      | list, concatenated in rank order; its  |
+|                                      | backward all-reduces the cotangent and |
+|                                      | keeps this rank's rows (the transpose  |
+|                                      | JAX takes, a reduce-scatter)           |
+| ``psum`` inside a differentiated fn  | :func:`psum` (its backward a psum)     |
+| shuffle-BN's shared key              | a permutation every rank of the group  |
+|                                      | draws from an identically seeded       |
+|                                      | generator: nothing is broadcast        |
+
+Only all-reduce, all-gather (as a list), broadcast and barrier are used: the
+collectives gloo takes on CUDA tensors (it has no reduce-scatter).
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-
-def _one_process() -> None:
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError("shuffle-BN across processes is not ported yet (ROADMAP A 16)")
+from advise_tpu_torch.parallel.mesh import BATCH_AXES, SYNC_AXIS, axis_group
 
 
-def batch_shuffle(x: torch.Tensor, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``x`` [B, ...] in a random order of its batch drawn from ``generator``
-    (on its device), and the permutation that :func:`batch_unshuffle` undoes."""
-    _one_process()
-    if generator is None:
-        raise ValueError("shuffle-BN needs a torch.Generator")
-    perm = torch.randperm(x.shape[0], generator=generator, device=generator.device).to(x.device)
-    return x[perm], perm
+def world_size(axes=BATCH_AXES) -> int:
+    g = axis_group(axes)
+    return 1 if g is None else g[1]
 
 
-def batch_unshuffle(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Undo :func:`batch_shuffle`: row ``perm[i]`` of the result is row ``i``
-    of ``x``."""
-    _one_process()
-    return x[torch.argsort(perm)]
+def replica_index(axes=BATCH_AXES) -> int:
+    """This rank's index within the ranks spanning ``axes`` (rank order)."""
+    g = axis_group(axes)
+    return 0 if g is None else g[2]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def psum(x: torch.Tensor, axes=BATCH_AXES) -> torch.Tensor:
+    """The sum of ``x`` over the ranks spanning ``axes``, differentiable:
+    the gradient is the sum of the ranks' cotangents, as JAX's psum
+    transposes."""
+    g = axis_group(axes)
+    return x if g is None else _AllReduceSum.apply(x, g[0])
+
+
+def pmean(x: torch.Tensor, axes=BATCH_AXES) -> torch.Tensor:
+    g = axis_group(axes)
+    return x if g is None else _AllReduceSum.apply(x, g[0]) / g[1]
+
+
+def _reduce_tensors(tensors: Sequence[torch.Tensor], axes, mean: bool):
+    g = axis_group(axes)
+    if g is None or not tensors:
+        return list(tensors)
+    group, size, _ = g
+    out = list(tensors)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        if mean:
+            flat = flat / size
+        offset = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[offset:offset + n].view(tensors[i].shape)
+            offset += n
+    return out
+
+
+def pmean_tree(tree: Dict[str, torch.Tensor], axes=BATCH_AXES) -> Dict[str, torch.Tensor]:
+    """{name: the tensor's mean over the ranks}: one all-reduce per dtype
+    over the tensors flattened into one bucket (no gradient)."""
+    return dict(zip(tree, _reduce_tensors(list(tree.values()), axes, mean=True)))
+
+
+def psum_tree(tree: Dict[str, torch.Tensor], axes=BATCH_AXES) -> Dict[str, torch.Tensor]:
+    return dict(zip(tree, _reduce_tensors(list(tree.values()), axes, mean=False)))
+
+
+@torch.no_grad()
+def pmean_(tensors: Sequence[torch.Tensor], axes=BATCH_AXES) -> None:
+    """In place: each of ``tensors`` (buffers) set to its mean over the ranks."""
+    if axis_group(axes) is None:
+        return
+    for t, m in zip(tensors, _reduce_tensors(list(tensors), axes, mean=True)):
+        t.copy_(m)
+
+
+class _GatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, index):
+        ctx.group, ctx.index, ctx.rows = group, index, x.shape[0]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad[ctx.index * ctx.rows:(ctx.index + 1) * ctx.rows], None, None, None
+
+
+def all_gather_cat(x: torch.Tensor, axes=BATCH_AXES) -> torch.Tensor:
+    """Every rank's ``x`` [n, ...] over ``axes``, concatenated on dim 0 in
+    rank order ([size * n, ...]); differentiable."""
+    g = axis_group(axes)
+    if g is None:
+        return x
+    return _GatherCat.apply(x, *g)
+
+
+def batch_shuffle(x: torch.Tensor, generator: Optional[torch.Generator], axes=SYNC_AXIS,
+                  perm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoCo's shuffle-BN: ``x`` [n, ...] of every rank over ``axes``
+    gathered, put in the order of ``perm`` (drawn from ``generator``, on its
+    device, when not given: a generator seeded alike on every rank of the
+    group, so every rank draws the same permutation), and this rank's n rows
+    of it; returns them and the permutation that :func:`batch_unshuffle`
+    undoes. Without a process group the rank's own batch is permuted."""
+    gathered = all_gather_cat(x, axes)
+    if perm is None:
+        if generator is None:
+            raise ValueError("shuffle-BN needs a torch.Generator")
+        perm = torch.randperm(gathered.shape[0], generator=generator, device=generator.device)
+    perm = perm.to(x.device)
+    my = replica_index(axes)
+    n = x.shape[0]
+    return gathered[perm[my * n:(my + 1) * n]], perm
+
+
+def batch_unshuffle(x: torch.Tensor, perm: torch.Tensor, axes=SYNC_AXIS) -> torch.Tensor:
+    """Undo :func:`batch_shuffle`: this rank's rows of the group's batch in
+    its original order."""
+    gathered = all_gather_cat(x, axes)
+    my = replica_index(axes)
+    n = x.shape[0]
+    return gathered[torch.argsort(perm)[my * n:(my + 1) * n]]
+
+
+def check_same_on_every_rank(digest: str, device, what: str) -> None:
+    """Raise unless every rank holds the same sha256 hex ``digest``."""
+    g = axis_group(BATCH_AXES)
+    if g is None:
+        return
+    mine = torch.tensor(list(bytes.fromhex(digest)), dtype=torch.int64, device=device)
+    parts = [torch.empty_like(mine) for _ in range(g[1])]
+    dist.all_gather(parts, mine, group=g[0])
+    differ = [r for r, p in enumerate(parts) if not torch.equal(p, mine)]
+    if differ:
+        raise RuntimeError(f"{what} differs between rank {g[2]} and ranks {differ}")
+
+
+def barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()

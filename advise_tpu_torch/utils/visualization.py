@@ -1,24 +1,29 @@
-"""The VIS_MASK dump (counterpart of ``advise_tpu/utils/visualization.py``,
-its ``denormalize`` and ``dump_mask_visualization``): at an epoch's end the
-trainer runs one batch through the MAE model in eval mode and writes, per
-clip, the (input, masked input, reconstruction) triple under
-``LOGDIR/vis_mask/vid/{prefix}vis_video_in_mask_out_mr{AUG.MASK_RATIO}/``:
+"""Offline visualization (counterpart of ``advise_tpu/utils/visualization.py``;
+reference ``utils/visualization.py:38-231``):
 
-- ``vis_{epoch}_{i}.npy``: float32 [3, T, H, W, 3], normalised as the model
-  saw it; always written;
-- ``vis_{epoch}_{i}.mp4``: the three side by side, de-normalised with
-  DATA.MEAN / DATA.STD; written only where ``cv2`` imports.
-
-``prefix`` is the basename of TEST.CHECKPOINT_FILE_PATH without its
-extension. The clip dumps, feature extraction and CAM heatmaps of the JAX
-module are not ported yet (ROADMAP A 17).
+- :func:`clips2videos`: normalised clips as .mp4 files (cv2), a speed label
+  written on each frame when given; raises where cv2 does not import;
+- :func:`get_features`: the pooled features of a backbone built with
+  ``include_head=False`` over the train aug, into an ``.npz`` (features,
+  labels, item ids) for ``tools/run_tsne.py``;
+- :func:`cam_heatmaps`: token-norm CAMs in [0, 1], resized to the frame by
+  cv2 where it imports, else at the token grid (the JAX module's branch);
+- the VIS_MASK dump: at an epoch's end the trainer runs one batch through
+  the MAE model in eval mode and writes, per clip, the (input, masked
+  input, reconstruction) triple under
+  ``LOGDIR/vis_mask/vid/{prefix}vis_video_in_mask_out_mr{AUG.MASK_RATIO}/``:
+  ``vis_{epoch}_{i}.npy``, float32 [3, T, H, W, 3], normalised as the model
+  saw it, always; ``vis_{epoch}_{i}.mp4``, the three side by side,
+  de-normalised with DATA.MEAN / DATA.STD, only where ``cv2`` imports.
+  ``prefix`` is the basename of TEST.CHECKPOINT_FILE_PATH without its
+  extension.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +45,86 @@ def _cv2():
     except ImportError:
         return None
     return cv2
+
+
+def clips2videos(clips: np.ndarray, out_dir: str, mean, std, labels: Optional[Sequence[int]] = None,
+                 fps: int = 8, prefix: str = "clip") -> List[str]:
+    """Normalised clips [N, T, H, W, C] as ``out_dir/{prefix}_{i:04d}.mp4``
+    (mp4v, ``fps``), de-normalised with ``mean`` / ``std``, with ``spd=`` and
+    ``labels[i]`` written on each frame when given. Returns the paths."""
+    cv2 = _cv2()
+    if cv2 is None:
+        raise ImportError("clips2videos writes .mp4 files with cv2 (opencv-python), which does not import here")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, clip in enumerate(np.asarray(clips)):
+        frames = denormalize(clip, mean, std)
+        _, h, w, _ = frames.shape
+        path = os.path.join(out_dir, f"{prefix}_{i:04d}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+        for f in frames:
+            bgr = cv2.cvtColor(f, cv2.COLOR_RGB2BGR)
+            if labels is not None:
+                cv2.putText(bgr, f"spd={labels[i]}", (4, 16), cv2.FONT_HERSHEY_SIMPLEX, 0.5, (0, 255, 0), 1)
+            writer.write(bgr)
+        writer.release()
+        paths.append(path)
+    logger.info("wrote %d clip videos to %s", len(paths), out_dir)
+    return paths
+
+
+@torch.no_grad()
+def get_features(cfg, model_backbone: torch.nn.Module, state, loader, out_path: str,
+                 max_batches: Optional[int] = None, device="cuda") -> str:
+    """The penultimate features of ``loader``'s epoch 0 (its first
+    ``max_batches`` batches) into ``out_path`` (.npz: ``features`` [N, D],
+    ``labels`` [N], ``item_ids`` [N]): each batch through the train aug (a
+    generator seeded with the batch's index) and ``model_backbone`` (built
+    with ``include_head=False``, holding ``state.model``'s weights but its
+    head) in eval mode; a list's first output; the features averaged over
+    every dim between the batch and the channels, then over a video's
+    clips. Returns ``out_path``."""
+    from advise_tpu_torch.data import build_device_aug
+    from advise_tpu_torch.engine.train import seeded_generator
+
+    device = torch.device(device)
+    if state is not None and state.model is not model_backbone:
+        model_backbone.load_state_dict(state.model.state_dict(), strict=False)
+    model_backbone.eval()
+    aug = build_device_aug(cfg, "train")
+    feats, labels, ids = [], [], []
+    for i, (clips, infos) in enumerate(loader.epoch(0)):
+        if max_batches is not None and i >= max_batches:
+            break
+        x = aug(torch.from_numpy(np.asarray(clips)).to(device), seeded_generator(device, i))
+        b, k = x.shape[:2]
+        out = model_backbone(x.reshape(b * k, *x.shape[2:]))
+        if isinstance(out, (list, tuple)):
+            out = out[0]
+        if out.ndim > 2:
+            out = out.mean(dim=tuple(range(1, out.ndim - 1)))
+        feats.append(out.reshape(b, k, -1).mean(dim=1).float().cpu().numpy())
+        labels.append(np.asarray(infos["cls_id"]).reshape(-1))
+        ids.append(np.asarray(infos["item_id"]).reshape(-1))
+    features = np.concatenate(feats)
+    np.savez(out_path, features=features, labels=np.concatenate(labels), item_ids=np.concatenate(ids))
+    logger.info("dumped %s features to %s", features.shape, out_path)
+    return out_path
+
+
+def cam_heatmaps(tokens: np.ndarray, grid_hw: int, frame_hw: int) -> np.ndarray:
+    """Token-norm CAMs (reference cam :165-231): tokens [N, L, D] -> the
+    tokens' norms on the [grid_hw, grid_hw] grid, each map shifted and
+    scaled into [0, 1] -> [N, frame_hw, frame_hw] by cv2's bilinear resize
+    where cv2 imports, else [N, grid_hw, grid_hw]."""
+    energy = np.linalg.norm(np.asarray(tokens), axis=-1)  # [N, L]
+    maps = energy.reshape(energy.shape[0], grid_hw, grid_hw)
+    maps = maps - maps.min(axis=(1, 2), keepdims=True)
+    maps = maps / np.maximum(maps.max(axis=(1, 2), keepdims=True), 1e-6)
+    cv2 = _cv2()
+    if cv2 is not None:
+        maps = np.stack([cv2.resize(m, (frame_hw, frame_hw)) for m in maps])
+    return maps
 
 
 def vis_dir(cfg) -> str:

@@ -194,9 +194,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    advise_tpu_torch.tools.run`` calls, run in this process with every
    launch count set to 0 before each run (``run_entry_point``), on the BYOL
    preset at full width with synthetic videos (48 of them: 3 iterations an
-   epoch), 2 epochs with a kNN probe and a checkpoint each, then the same
-   command with 3 epochs and TRAIN.AUTO_RESUME, which must resume at epoch 2
-   from Model_Epoch_0001 with the saved model bit for bit and run 3 more
+   epoch), one epoch with a kNN probe and a checkpoint, then the same
+   command with 2 epochs and TRAIN.AUTO_RESUME, which must resume at epoch 1
+   from Model_Epoch_0000 with the saved model bit for bit and run 3 more
    iterations (a torch.profiler window over two of them gives the device's
    idle share); checked: the files, finite losses, the step counter, the
    model's digests, the K1/K2 launches; then the SpeedPro preset through
@@ -218,12 +218,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    through the trainer, a profiler window over the second iteration; then
    X3D_M_K400.yaml (one epoch of 32 synthetic videos, 2 iterations, a
    profiler window over the second; no kernel launched); then
-   configs/chip/moco_knn_minik400cc.yaml for 2 epochs of 32 synthetic
-   videos with the kNN probe each epoch, and the same command to 3 epochs
+   configs/chip/moco_knn_minik400cc.yaml for one epoch of 32 synthetic
+   videos with the kNN probe, and the same command to 2 epochs
    with TRAIN.AUTO_RESUME, whose model and SSL state (momentum encoder,
    queue, pointer, kNN bank) must start as saved, by their sha256; then
    SwinB_moco_32chips.yaml the same way (one card, 16 synthetic videos: 4
-   iterations an epoch and the kNN probe), 2 epochs then a resume to 3,
+   iterations an epoch and the kNN probe), one epoch then a resume to 2,
    bit for bit by sha256; then AdViSe with the video_swin head, SSL.TASK
    speed_byol, one epoch of 2 iterations, the Swin layer's twin in its
    checkpoint; then mae_vismask_minik400.yaml for 2 epochs of 32
@@ -249,12 +249,41 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    for bit; one iteration of X3D_M_K400.yaml the same way; then path (c)
    through the entry point (one epoch of 32 videos, the kNN probe, a resume
    to 2 bit for bit, K4 by the schedule) and MViT_S_rev_masked.yaml the
-   same way (ROADMAP A 7). The script's wall time is printed last.
+   same way;
+9. MViT-L through the entry point (ROADMAP A 7):
+   configs/pretrain/MViT_L_32x312_joint.yaml at full width and depth
+   (260,815,160 params: reversible, REMAT, bf16, AdamW, flash attention),
+   one epoch of 2 synthetic videos (2 iterations of one video x 2 views,
+   a profiler window over the second: iteration time, loader wait, idle
+   share, peak) and a resume to 2, bit for bit by sha256; K4's forward and
+   backward launches equal ``k4_schedule`` in each run;
+10. data parallel on the BYOL preset at full width, 16 clips a rank, its
+   sync groups cut to the 2 ranks: first NCCL asked to run two ranks on the
+   one card (its answer printed: it refuses a device shared by two ranks);
+   (i) two ranks on the one card through the entry point under
+   ``torch.distributed.run`` with gloo, one epoch of 64 synthetic videos (2
+   iterations and a kNN probe batch a rank) and a resume to 2: finite
+   losses, equal stats and model and SSL digests on both ranks after each
+   run, the resume from the saved state, K1/K2 (2, 1) a step and the
+   probe's forward on each rank; (ii) on two gloo ranks, the fast
+   pathway's first BN on its real input (the stem kernel's output of 16
+   clips a rank), synced, against one BN over both ranks' rows within
+   SYNCBN_Y_BOUND (output) and SYNCBN_DX_BOUND (input gradient), and
+   all_gather_cat's gradient exactly the ranks' sum; (iii) one NCCL rank
+   through the entry point against the same run in this process with no
+   process group, both at lr 0 (every digest then depends on the forward
+   only: the stem's max-pool backward adds with atomics, so no two
+   processes' gradients agree bit for bit): the model and SSL digests at
+   the start and the end, every loss and every launch count bit for bit.
+   The two ranks share one card: this phase measures the semantics, not
+   scaling. The script's wall time is printed last.
 
 Reductions: one card (BN.NUM_SYNC_DEVICES 1, TPU.MESH_SYNC 1; shuffle-BN
-permutes the card's own batch; Swin-B's preset is 32 chips); widths, depth
-and per-card batches are the presets', but AdViSe's video_swin head at 384
-wide (the preset's 512 does not build in the JAX package).
+permutes the card's own batch; Swin-B's preset is 32 chips), but phase 10,
+which runs the BYOL preset's 8-card sync groups cut to 2 ranks on the one
+card; widths, depth and per-card batches are the presets', but AdViSe's
+video_swin head at 384 wide (the preset's 512 does not build in the JAX
+package).
 
 Each path's kernel launch counts are reset just before its steps and read
 just after. The line before the last is nvidia-smi's name and power limit;
@@ -333,8 +362,8 @@ X3D_RUN_VIDEOS = 32
 ONE_CARD = ["NUM_GPUS", "1", "BN.NUM_SYNC_DEVICES", "1", "TPU.MESH_SYNC", "1"]
 X3D_RUN_OVERRIDES = ONE_CARD + ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(X3D_RUN_VIDEOS),
                                 "SOLVER.MAX_EPOCH", "1", "TRAIN.AUTO_RESUME", "False"]
-# then moco_knn_minik400cc.yaml: 2 epochs of 32 videos (2 iterations and the
-# kNN probe on batch statistics each), then a resume to 3
+# then moco_knn_minik400cc.yaml: one epoch of 32 videos (2 iterations and the
+# kNN probe on batch statistics), then a resume to 2
 MOCO_RUN_DIR = "build/chip_smoke_moco"
 MOCO_RUN_VIDEOS = 32
 MOCO_RUN_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(MOCO_RUN_VIDEOS),
@@ -351,8 +380,8 @@ SWIN_SMALL_CLIPS, SWIN_SMALL_SIZE = 1, 112
 # package builds it: the head keeps TM.CHANNEL_POOL_DIM = TEMPORAL_EMBEDDING_DIM
 ADVISE_SWIN = {"TM.TEMPORAL_ARCH": "video_swin", "MODEL.TEMPORAL_EMBEDDING_DIM": 384,
                "TM.CHANNEL_POOL_DIM": 384, "TM.NUM_HEADS": 6}
-# phase 8: Swin-B MoCo through the entry point, 2 epochs of 16 videos (4
-# iterations and the kNN probe each), then a resume to 3; and AdViSe with the
+# phase 8: Swin-B MoCo through the entry point, one epoch of 16 videos (4
+# iterations and the kNN probe), then a resume to 2; and AdViSe with the
 # video_swin head, one epoch of 2 iterations of speed_byol
 SWIN_RUN_DIR = "build/chip_smoke_swin"
 SWIN_RUN_VIDEOS = 16
@@ -486,6 +515,39 @@ MVIT_S_RUN_DIR = "build/chip_smoke_mvit_s"
 MVIT_RUN_VIDEOS = 32
 MVIT_RUN_OVERRIDES = ONE_CARD + ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(MVIT_RUN_VIDEOS),
                                  "TRAIN.SAVE_FREQ", "1", "CONTRASTIVE.KNN_EVAL_BATCHES", str(RUN_KNN_BATCHES)]
+# phase 9: MViT_L_32x312_joint.yaml through the entry point at full width
+# and depth (ROADMAP A 7): one epoch of 2 synthetic videos (the preset's one
+# video a card: 2 iterations, a profiler window over the second), then a
+# resume to 2
+MVIT_L_RUN_DIR = "build/chip_smoke_mvit_l"
+MVIT_L_RUN_VIDEOS = 2
+MVIT_L_RUN_OVERRIDES = ONE_CARD + ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(MVIT_L_RUN_VIDEOS),
+                                   "TRAIN.SAVE_FREQ", "1"]
+# phase 10: data parallel on the BYOL preset (its BN.NUM_SYNC_DEVICES 8 and
+# TPU.MESH_SYNC 8 cut to the 2 ranks: one sync group), 16 clips a rank:
+# (i) 2 ranks on the one card through the entry point under
+# torch.distributed.run (gloo: NCCL refuses two ranks on one device), one
+# epoch of 64 synthetic videos (2 iterations and a kNN probe batch a rank),
+# then a resume to 2; (ii) SyncBN and all_gather_cat across the 2 ranks on
+# the fast pathway's first BN input; (iii) one NCCL rank against the
+# single-process run, both at lr 0 (every digest a function of the forward:
+# the stem's max-pool backward adds with atomics, so gradients are not
+# bit-reproducible across processes)
+DP_RUN_DIR = "build/chip_smoke_dp"
+DP_RANKS = 2
+DP_RUN_VIDEOS = 64
+DP_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(DP_RUN_VIDEOS), "TRAIN.SAVE_FREQ", "1",
+                "CONTRASTIVE.KNN_EVAL_BATCHES", str(RUN_KNN_BATCHES)]
+DP_SINGLE_VIDEOS = 32  # (iii): 2 iterations of one rank
+DP_LR0 = ["SOLVER.BASE_LR", "0.0", "SOLVER.WARMUP_START_LR", "0.0", "SOLVER.COSINE_END_LR", "0.0"]
+DP_TIMEOUT_S = 420  # a torchrun job that outlives this is killed, and the phase fails
+# (ii)'s bounds: the bf16 BN output one bf16 ulp (2^-7) of its largest value
+# apart from one BN over both ranks' batch; the input gradient 2^-6
+SYNCBN_Y_BOUND, SYNCBN_DX_BOUND = 2.0 ** -7, 2.0 ** -6
+# a run whose checkpoints nothing reads writes none: the card's machine caps
+# what the script writes to its disk (45 GiB, deleted files included), and a
+# MViT-L checkpoint with AdamW's moments is 3.1 GB
+NO_SAVE = ["TRAIN.SAVE_FREQ", "0"]
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
@@ -1177,6 +1239,8 @@ def time_channelwise(layers, batch, fwd_passes, dev, reps=3):
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
+    from advise_tpu_torch.engine.meters import device_events
+
     def timed(fn):
         out = []
         for _ in range(reps):
@@ -1217,7 +1281,7 @@ def time_channelwise(layers, batch, fwd_passes, dev, reps=3):
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     bwd()
                     torch.cuda.synchronize()
-                names |= {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+                names |= {name for name, _, _ in device_events(prof)}
             del x, w, y, gy
         flops = 2 * batch * math.prod(shape[1:]) // (stride[1] * stride[2]) * math.prod(wshape[2:])
         print(f"[x3d]   channelwise conv {(batch,) + shape[1:]} weight {wshape} stride {stride} x{count}: "
@@ -1235,18 +1299,18 @@ def profile_step(label, run_step, tag, kernel_names=frozenset()):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from advise_tpu_torch.engine.meters import busy_ms
+    from advise_tpu_torch.engine.meters import busy_ms, device_events
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run_step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    kernels = device_events(prof)
+    busy = busy_ms((start, end) for _, start, end in kernels)
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, start, end in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
     total = sum(by_name.values())
     dw = {n: ms for n, ms in by_name.items() if n in kernel_names}
     dw_text = (f"; kernels of the names the channelwise convolutions launch alone {sum(dw.values())} ms "
@@ -1534,9 +1598,9 @@ def x3d_entry(tconfig) -> None:
 def moco_entry(tconfig, label="MoCo cc", config=MOCO_CC_CONFIG, run_dir=MOCO_RUN_DIR,
                overrides=MOCO_RUN_OVERRIDES, videos=MOCO_RUN_VIDEOS) -> None:
     """Phase 8's MoCo runs (moco_knn_minik400cc.yaml, or the preset
-    ``config``): through the entry point, 2 epochs with the kNN probe, then a
-    resume to 3 that starts from the saved model, momentum encoder, queue and
-    pointer bit for bit."""
+    ``config``): through the entry point, one epoch with the kNN probe, then
+    a resume to 2 that starts from the saved model, momentum encoder, queue
+    and pointer bit for bit."""
     from pathlib import Path
 
     import torch
@@ -1546,17 +1610,17 @@ def moco_entry(tconfig, label="MoCo cc", config=MOCO_CC_CONFIG, run_dir=MOCO_RUN
 
     ccfg = one_card_cfg(tconfig, config)
     iters = videos // ccfg.DATA.BATCHSIZE_PER_GPU
-    m1, m2 = resumed_pair(f"{label} preset", config, run_dir, overrides, ["SOLVER.MAX_EPOCH", "2"],
-                          ["SOLVER.MAX_EPOCH", "3"], iters, 2)
+    m1, m2 = resumed_pair(f"{label} preset", config, run_dir, overrides, ["SOLVER.MAX_EPOCH", "1"],
+                          ["SOLVER.MAX_EPOCH", "2"] + NO_SAVE, iters, 1)
     for rec in (m1, m2):
         check(not any(rec["launches"].values()), f"the {label} run launched a kernel")
-    saved = torch.load(Path(run_dir) / "checkpoints" / "Model_Epoch_0001" / STATE_FILE, map_location="cpu",
+    saved = torch.load(Path(run_dir) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE, map_location="cpu",
                        weights_only=False)
     saved_ssl = ssl_digest(saved["ssl"])
-    print(f"[run] {label} ptr in Model_Epoch_0001 {int(saved['ssl']['ptr'])}; SSL state (momentum encoder, queue, "
+    print(f"[run] {label} ptr in Model_Epoch_0000 {int(saved['ssl']['ptr'])}; SSL state (momentum encoder, queue, "
           f"pointer, kNN bank) sha256 saved {saved_ssl}")
-    check(int(saved["ssl"]["ptr"]) == 2 * iters * ccfg.DATA.BATCHSIZE_PER_GPU % ccfg.CONTRASTIVE.QUEUE_LEN,
-          f"the {label} checkpoint's pointer is not where {2 * iters} steps leave it")
+    check(int(saved["ssl"]["ptr"]) == iters * ccfg.DATA.BATCHSIZE_PER_GPU % ccfg.CONTRASTIVE.QUEUE_LEN,
+          f"the {label} checkpoint's pointer is not where {iters} steps leave it")
     check(m1["ssl_sha256_end"] == saved_ssl,
           f"the saved {label} momentum encoder, queue or pointer differs from the first run's")
 
@@ -2414,6 +2478,261 @@ def mvit_entries(tconfig) -> None:
         check(not any(rec["launches"].values()), "MViT_S_rev_masked.yaml: a kernel was launched")
 
 
+def mvit_l_entry(tconfig) -> None:
+    """Phase 9 (ROADMAP A 7): MViT_L_32x312_joint.yaml through the entry
+    point at full width and depth on one card, one epoch of 2 iterations
+    (a profiler window over the second) and a resume to 2, bit for bit;
+    K4's forward and backward launches equal ``k4_schedule`` (REMAT, no
+    forward without a gradient) in each run."""
+    import torch
+
+    from advise_tpu_torch.models import MODEL_REGISTRY, compute_dtype
+    from advise_tpu_torch.models.layers.norm import get_norm
+
+    mcfg = one_card_cfg(tconfig, MASKED_CONFIG)
+    iters = MVIT_L_RUN_VIDEOS // mcfg.DATA.BATCHSIZE_PER_GPU
+    with torch.device("meta"):  # the block plan only: no weights drawn
+        plan_model = MODEL_REGISTRY[mcfg.MODEL.MODEL_NAME](mcfg, get_norm(mcfg), compute_dtype(mcfg))
+    n_params = sum(p.numel() for p in plan_model.parameters())
+    sched = k4_schedule(plan_model.encoder, bool(mcfg.TPU.REMAT), 0)
+    del plan_model
+    r1, r2 = resumed_pair("MViT-L 32x312 joint", MASKED_CONFIG, MVIT_L_RUN_DIR, MVIT_L_RUN_OVERRIDES,
+                          ["SOLVER.MAX_EPOCH", "1", "TPU.PROFILE_DIR", f"{MVIT_L_RUN_DIR}/profile",
+                           "TPU.PROFILE_START", "0", "TPU.PROFILE_STEPS", "1"],
+                          ["SOLVER.MAX_EPOCH", "2"] + NO_SAVE, iters, 1)
+    want = {name: n * iters for name, n in sched.items()}
+    for label, rec in (("first run", r1), ("resumed run", r2)):
+        got = {name: rec["launches"][name] for name in sched}
+        print(f"[run] MViT-L {label}: {n_params} params, iterations {[t * 1e3 for t in rec['iter_s']]} ms, "
+              f"loader wait {[t * 1e3 for t in rec['wait_s']]} ms, peak allocated {rec['peak_allocated_bytes']} "
+              f"bytes, K4 launches {got} (schedule {want}: {iters} steps)")
+        check(got == want, f"MViT-L {label}: K4 launches differ from the schedule")
+    check(n_params == 260_815_160, f"MViT-L has {n_params} params, not the preset's 260,815,160")
+    prof = r1.get("profile")
+    check(prof is not None, "the MViT-L run's profile window did not close")
+    print(f"[run] MViT-L profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device busy "
+          f"{prof['busy_ms']} ms, idle share {prof['idle_share']}")
+
+
+def torchrun(argv, label, log_path, env=None, timeout=DP_TIMEOUT_S) -> int:
+    """``python -m torch.distributed.run --standalone`` with ``argv`` from the
+    checkout's root, its output into ``log_path``; returns its exit code.
+    The job runs in a session of its own: on a timeout every process of it
+    is killed and the phase fails."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", *argv]
+    print(f"[dp] {label}: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, start_new_session=True,
+                                env={**os.environ, **(env or {})})
+        try:
+            code = proc.wait(timeout=timeout)
+        except BaseException:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise
+    print(f"[dp]   exit {code} after {time.perf_counter() - t0} s (log {log_path})")
+    return code
+
+
+def rank_records(run_dir, ranks):
+    """Each rank's run record (``tools.run`` writes one a rank in a world of
+    more than one)."""
+    records = []
+    for r in range(ranks):
+        with open(f"{run_dir}/run_record.rank{r}.json") as f:
+            records.append(json.load(f))
+    return records
+
+
+def nccl_shared_card_rank() -> None:
+    """One of two ranks on the one card with the NCCL backend (launched with
+    ``--nccl-shared-card``): an all-reduce, and what NCCL answered, into
+    ``DP_RUN_DIR/nccl_rank{r}.json``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    rank = int(os.environ["RANK"])
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl")
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        out["result"] = f"ran: all-reduce gave {x.tolist()}"
+    except Exception as err:  # the finding to record: NCCL's answer
+        out["result"] = f"refused: {type(err).__name__}: {str(err).splitlines()[0] if str(err) else ''}"
+    with open(f"{DP_RUN_DIR}/nccl_rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    os._exit(0)  # a communicator that failed to form can hang its teardown
+
+
+def syncbn_rank() -> None:
+    """Phase 10 (ii), one of two gloo ranks on the card (launched with
+    ``--syncbn-check``): the BYOL preset's model (seed 0, the same on both
+    ranks), this rank's 16 synthetic clips through the 'aa' aug and the
+    model's eval forward of view 0, the input of the fast pathway's first BN
+    (after the stem kernel K1) captured; that BN in train mode, synced over
+    the 2 ranks, against one BN over both ranks' rows gathered, forward and
+    the input's gradient of sum(y * g) (g drawn per rank); then
+    all_gather_cat's gradient: sum(gathered * w), w the same on both ranks,
+    must give each rank 2 w of its own rows exactly. Writes
+    ``DP_RUN_DIR/syncbn_rank{r}.json``."""
+    import copy
+
+    import torch
+
+    from advise_tpu_torch import config as tconfig
+    from advise_tpu_torch.data import build_device_aug, build_loader
+    from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.parallel.collectives import all_gather_cat, world_size
+    from advise_tpu_torch.parallel.mesh import distributed_init, world
+
+    cfg = tconfig.get_cfg()
+    cfg.merge_from_file(BYOL_CONFIG)
+    cfg.DATA.DECODE_BACKEND = "synthetic"
+    cfg.DATA.SYNTHETIC_SIZE = DP_RUN_VIDEOS
+    cfg = tconfig.assert_and_infer_cfg(cfg)
+    dev = distributed_init(cfg, "cuda")
+    rank, n = world()
+    model = build_model(cfg, dev, seed=cfg.TRAIN.SEED)
+    batches = build_loader(cfg, "train").epoch(0)
+    clips_u8, _ = next(batches)
+    batches.close()
+    gen = torch.Generator(device=dev).manual_seed(rank)
+    seen = {}
+    stem = model.backbone.s1_fast
+    hook = stem.bn.register_forward_pre_hook(lambda m, args: seen.setdefault("x", args[0].detach()))
+    model.eval()
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        clips = build_device_aug(cfg, "train")(torch.from_numpy(clips_u8).to(dev), gen).to(torch.bfloat16)
+        model(clips[:, 0])
+    hook.remove()
+    bn = stem.bn.train()
+    x = seen["x"].clone().requires_grad_(True)
+    g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(7 + rank), device=dev).to(x.dtype)
+    y = bn(x)
+    (y.float() * g.float()).sum().backward()
+    bn.pending = []
+    ref = copy.deepcopy(bn)
+    ref.sync_axes = ()
+    x_all = all_gather_cat(x.detach()).clone().requires_grad_(True)
+    y_all = ref(x_all)
+    (y_all.float() * all_gather_cat(g).float()).sum().backward()
+    rows = slice(rank * x.shape[0], (rank + 1) * x.shape[0])
+    y_ref, dx_ref = y_all[rows].detach().float(), x_all.grad[rows].float()
+    y_err = float((y.detach().float() - y_ref).abs().max() / y_ref.abs().max())
+    dx_err = float((x.grad.float() - dx_ref).abs().max() / dx_ref.abs().max())
+    v = x.detach()[:, :1].float().contiguous().requires_grad_(True)
+    w = torch.randn((n * v.shape[0], *v.shape[1:]), generator=torch.Generator(device=dev).manual_seed(11),
+                    device=dev)
+    (all_gather_cat(v) * w).sum().backward()
+    exact = bool(torch.equal(v.grad, world_size() * w[rows]))
+    with open(f"{DP_RUN_DIR}/syncbn_rank{rank}.json", "w") as f:
+        json.dump({"rank": rank, "world": n, "shape": list(x.shape), "dtype": str(x.dtype),
+                   "sync_axes": list(stem.bn.sync_axes), "y_err": y_err, "dx_err": dx_err,
+                   "gather_grad_exact": exact}, f)
+
+
+def dp_entries(tconfig) -> None:
+    """Phase 10: data parallel on the BYOL preset at full width, 16 clips a
+    rank (module constants above): NCCL with two ranks on the one card
+    (what it answers, recorded), then (i), (ii) and (iii)."""
+    import shutil
+    from pathlib import Path
+
+    bcfg = tconfig.get_cfg()
+    bcfg.merge_from_file(BYOL_CONFIG)
+    b = bcfg.DATA.BATCHSIZE_PER_GPU
+    shutil.rmtree(DP_RUN_DIR, ignore_errors=True)
+    Path(DP_RUN_DIR).mkdir(parents=True)
+    t0 = time.perf_counter()
+    torchrun(["--nproc_per_node", str(DP_RANKS), "chip_smoke.py", "--nccl-shared-card"],
+             "NCCL, two ranks on one card", f"{DP_RUN_DIR}/nccl.log", timeout=180)
+    for r in range(DP_RANKS):
+        path = Path(DP_RUN_DIR) / f"nccl_rank{r}.json"
+        print(f"[dp] NCCL with two ranks on the one card, rank {r}: "
+              f"{json.loads(path.read_text())['result'] if path.is_file() else 'no answer (killed)'}")
+
+    # (i) two gloo ranks through the entry point, then the resume
+    entry = ["--nproc_per_node", str(DP_RANKS), "-m", "advise_tpu_torch.tools.run", "--cfg", BYOL_CONFIG,
+             "--output", f"{DP_RUN_DIR}/run"] + DP_OVERRIDES
+    iters = DP_RUN_VIDEOS // (b * DP_RANKS)
+    runs = []
+    for label, extra, epochs in (("1 epoch", ["SOLVER.MAX_EPOCH", "1"], 1),
+                                 ("resume to 2", ["SOLVER.MAX_EPOCH", "2", "TRAIN.AUTO_RESUME", "True"] + NO_SAVE, 1)):
+        code = torchrun(entry + extra, f"(i) {DP_RANKS} gloo ranks, {label}", f"{DP_RUN_DIR}/run_{len(runs)}.log")
+        check(code == 0, f"data parallel (i), {label}: torchrun exited {code}")
+        recs = rank_records(f"{DP_RUN_DIR}/run", DP_RANKS)
+        runs.append(recs)
+        for rec in recs:
+            got = (rec["launches"]["stem_conv_fwd"], rec["launches"]["stem_conv_wgrad"])
+            want = (2 * iters + epochs * RUN_KNN_BATCHES, iters)
+            split = {st: f"{sec * 1e3 / c} ms x {c}" for st, (sec, c) in rec["host_s"].items()}
+            print(f"[dp] (i) {label}, rank {rec['rank']} of {rec['world']} on {rec['device']}: start epoch "
+                  f"{rec['start_epoch']} step {rec['start_step']}, stats {rec['stats']}, iterations "
+                  f"{[t * 1e3 for t in rec['iter_s']]} ms, loader wait {[t * 1e3 for t in rec['wait_s']]} ms, "
+                  f"peak allocated {rec['peak_allocated_bytes']} bytes, K1/K2 {got} (expected {want}); model "
+                  f"sha256 {rec['model_sha256']} -> {rec['model_sha256_end']}, SSL {rec['ssl_sha256_end']}; host "
+                  f"stages {split}")
+            check(rec["world"] == DP_RANKS and len(rec["iter_s"]) == iters, f"(i) {label}: wrong schedule")
+            check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"(i) {label}: not finite")
+            check(got == want, f"(i) {label}: K1/K2 launches differ from (2, 1) a step and the probe's forward")
+        for key in ("model_sha256", "ssl_sha256", "model_sha256_end", "ssl_sha256_end"):
+            check(len({rec[key] for rec in recs}) == 1, f"(i) {label}: the ranks' {key} differ")
+        check(recs[0]["stats"] == recs[1]["stats"], f"(i) {label}: the ranks' averaged stats differ")
+    (first, _), (resumed, _) = runs
+    print(f"[dp] (i) resume: end of the first run {first['model_sha256_end']} / {first['ssl_sha256_end']}, "
+          f"start of the resumed run {resumed['model_sha256']} / {resumed['ssl_sha256']}")
+    check((resumed["start_epoch"], resumed["start_step"]) == (1, iters), "(i): wrong resume point")
+    check(resumed["model_sha256"] == first["model_sha256_end"] and resumed["ssl_sha256"] == first["ssl_sha256_end"],
+          "(i): the resumed state differs from the saved one")
+
+    # (ii) SyncBN and all_gather_cat across the two ranks
+    code = torchrun(["--nproc_per_node", str(DP_RANKS), "chip_smoke.py", "--syncbn-check"],
+                    "(ii) SyncBN across the ranks", f"{DP_RUN_DIR}/syncbn.log")
+    check(code == 0, f"data parallel (ii): torchrun exited {code}")
+    for r in range(DP_RANKS):
+        res = json.loads((Path(DP_RUN_DIR) / f"syncbn_rank{r}.json").read_text())
+        print(f"[dp] (ii) rank {r}: the fast pathway's first BN input {res['shape']} {res['dtype']}, synced over "
+              f"{res['sync_axes']} of {res['world']} ranks, against one BN over both ranks' rows: output "
+              f"{res['y_err']} of its largest value (bound {SYNCBN_Y_BOUND}), input gradient {res['dx_err']} (bound "
+              f"{SYNCBN_DX_BOUND}); all_gather_cat's gradient exactly 2 w: {res['gather_grad_exact']}")
+        check(res["sync_axes"] == ["sync"] and res["world"] == DP_RANKS, "(ii): the BN was not synced over the ranks")
+        check(res["y_err"] <= SYNCBN_Y_BOUND and res["dx_err"] <= SYNCBN_DX_BOUND, "(ii): SyncBN off its bound")
+        check(res["gather_grad_exact"], "(ii): all_gather_cat's gradient is not the ranks' sum")
+
+    # (iii) one NCCL rank against the single-process run, both at lr 0
+    single = DP_OVERRIDES[:3] + [str(DP_SINGLE_VIDEOS)] + DP_OVERRIDES[4:] + DP_LR0 + ["SOLVER.MAX_EPOCH", "1"] + NO_SAVE
+    alone = run_entry_point(single, "(iii) single process, lr 0", BYOL_CONFIG, f"{DP_RUN_DIR}/alone", [])
+    code = torchrun(["--nproc_per_node", "1", "-m", "advise_tpu_torch.tools.run", "--cfg", BYOL_CONFIG,
+                     "--output", f"{DP_RUN_DIR}/nccl_one"] + single, "(iii) one NCCL rank, lr 0",
+                    f"{DP_RUN_DIR}/nccl_one.log")
+    check(code == 0, f"data parallel (iii): torchrun exited {code}")
+    log = Path(f"{DP_RUN_DIR}/nccl_one/log.txt").read_text()
+    one = json.loads(log.split("run record: ", 1)[1].splitlines()[0])
+    backend = [line for line in log.splitlines() if "process groups:" in line]
+    print(f"[dp] (iii) {backend[0].split(': ', 1)[1] if backend else 'no process group line'}")
+    for label, rec in (("single process", alone), ("one NCCL rank", one)):
+        print(f"[dp] (iii) {label}: losses {[st['loss_byol'] for st in rec['stats']]}, grad norms "
+              f"{[st['grad_norm'] for st in rec['stats']]}, model sha256 {rec['model_sha256']} -> "
+              f"{rec['model_sha256_end']}, SSL {rec['ssl_sha256']} -> {rec['ssl_sha256_end']}, launches "
+              f"{(rec['launches']['stem_conv_fwd'], rec['launches']['stem_conv_wgrad'])}")
+    check(backend and "nccl backend" in backend[0], "(iii): the rank did not run under NCCL")
+    for key in ("model_sha256", "ssl_sha256", "model_sha256_end", "ssl_sha256_end"):
+        check(alone[key] == one[key], f"(iii): {key} differs from the single-process run")
+    check([st["loss_byol"] for st in alone["stats"]] == [st["loss_byol"] for st in one["stats"]],
+          "(iii): the losses differ from the single-process run")
+    check(alone["launches"] == one["launches"], "(iii): the launches differ from the single-process run")
+    print(f"[dp] phase 10 {time.perf_counter() - t0} s")
+
+
 def main() -> None:
     import torch
 
@@ -3216,20 +3535,20 @@ def main() -> None:
     from advise_tpu_torch.engine.checkpoint import STATE_FILE, tensors_digest
 
     shutil.rmtree(RUN_DIR, ignore_errors=True)
-    first = run_entry_point(["SOLVER.MAX_EPOCH", "2"], "2 epochs")
+    first = run_entry_point(["SOLVER.MAX_EPOCH", "1"], "1 epoch")
     ckpt_dir = Path(RUN_DIR) / "checkpoints"
-    for name in ("Model_Epoch_0000", "Model_Epoch_0001", "Model_Best"):
+    for name in ("Model_Epoch_0000", "Model_Best"):
         check((ckpt_dir / name / STATE_FILE).is_file() and (ckpt_dir / f"{name}.meta.npy").is_file(),
               f"the entry point did not write {name}")
     check((Path(RUN_DIR) / "log.txt").is_file(), "the entry point wrote no log.txt")
-    saved = tensors_digest(torch.load(ckpt_dir / "Model_Epoch_0001" / STATE_FILE, map_location="cpu",
+    saved = tensors_digest(torch.load(ckpt_dir / "Model_Epoch_0000" / STATE_FILE, map_location="cpu",
                                       weights_only=False)["model"])
-    second = run_entry_point(["SOLVER.MAX_EPOCH", "3", "TRAIN.AUTO_RESUME", "True",
-                              "TPU.PROFILE_DIR", f"{RUN_DIR}/profile", "TPU.PROFILE_START", "6",
-                              "TPU.PROFILE_STEPS", "2"], "resume to 3 epochs")
-    check((ckpt_dir / "Model_Epoch_0002" / STATE_FILE).is_file(), "the resumed run wrote no Model_Epoch_0002")
     iters = RUN_VIDEOS // b
-    for rec, epochs, start_step, label in ((first, 2, 0, "first run"), (second, 1, 2 * iters, "resumed run")):
+    second = run_entry_point(["SOLVER.MAX_EPOCH", "2", "TRAIN.AUTO_RESUME", "True",
+                              "TPU.PROFILE_DIR", f"{RUN_DIR}/profile", "TPU.PROFILE_START", str(iters),
+                              "TPU.PROFILE_STEPS", "2"], "resume to 2 epochs")
+    check((ckpt_dir / "Model_Epoch_0001" / STATE_FILE).is_file(), "the resumed run wrote no Model_Epoch_0001")
+    for rec, epochs, start_step, label in ((first, 1, 0, "first run"), (second, 1, iters, "resumed run")):
         losses = [st["loss_byol"] for st in rec["stats"]]
         n_iter = len(rec["iter_s"])
         want = (2 * n_iter + epochs * RUN_KNN_BATCHES, n_iter)  # + the probe batch's forward
@@ -3249,8 +3568,8 @@ def main() -> None:
         check(n_iter == epochs * iters and rec["start_step"] == start_step, f"{label}: wrong schedule")
         check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label}: a loss is not finite")
         check(got == want, f"{label}: K1/K2 launches differ from the schedule")
-    check(second["start_epoch"] == 2, "the resumed run did not start at epoch 2")
-    print(f"[run] model sha256: end of the first run {first['model_sha256_end']}, Model_Epoch_0001 "
+    check(second["start_epoch"] == 1, "the resumed run did not start at epoch 1")
+    print(f"[run] model sha256: end of the first run {first['model_sha256_end']}, Model_Epoch_0000 "
           f"{saved}, start of the resumed run {second['model_sha256']}")
     check(first["model_sha256_end"] == saved == second["model_sha256"],
           "the resumed model differs from the saved one")
@@ -3364,6 +3683,15 @@ def main() -> None:
     host_aug_entries(tconfig)
     mvit_entries(tconfig)
     print(f"[run] phase 8's host-aug and MViT runs {time.perf_counter() - t_new} s")
+
+    # -- 9. MViT-L through the entry point -----------------------------------------
+    t9 = time.perf_counter()
+    mvit_l_entry(tconfig)
+    print(f"[run] phase 9 {time.perf_counter() - t9} s")
+
+    # -- 10. data parallel: two gloo ranks on the card, SyncBN across them,
+    # one NCCL rank ---------------------------------------------------------------
+    dp_entries(tconfig)
     print(f"[total] chip_smoke.py wall time {time.perf_counter() - t_start} s")
 
     launches.update(probe_launches)
@@ -3404,4 +3732,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--syncbn-check"]:
+        syncbn_rank()
+    elif sys.argv[1:] == ["--nccl-shared-card"]:
+        nccl_shared_card_rank()
+    else:
+        main()

@@ -519,3 +519,31 @@ def test_compare_steps_infer_batch_on_cpu():
         run.model, torch.from_numpy(videos[:, None]), seeded_generator("cpu", cfg.INFER.SEED, 0))
     assert len(step_ms) == 1
     assert int(run.call()["pred0"]) == int(torch.argmax(logits.reshape(1, 4, -1).float().mean(dim=1)))
+
+
+def test_device_events_read_the_raw_profile():
+    """``device_events`` keeps the device events of a stopped profiler window
+    (none from a CPU-only window) as (name, start, end) in microseconds from
+    the first of them, exactly, whatever the clock's origin."""
+    import types
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from advise_tpu_torch.engine.meters import device_events
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.randn(8).sum()
+    assert device_events(prof) == []
+
+    def event(name, kind, start, dur):
+        return types.SimpleNamespace(name=lambda: name, device_type=lambda: kind, start_ns=lambda: start,
+                                     duration_ns=lambda: dur)
+
+    t0 = 1_792_289_219_969_229_546  # a kineto timestamp: ns since the epoch
+    raw = [event("k1", DeviceType.CUDA, t0 + 1_500, 2_000), event("cpu", DeviceType.CPU, t0, 10),
+           event("k0", DeviceType.CUDA, t0 + 1_000, 1_000)]
+    fake = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: raw)))
+    assert device_events(fake) == [("k1", 0.5, 2.5), ("k0", 0.0, 1.0)]
+    assert busy_ms((s, e) for _, s, e in device_events(fake)) == 0.0025
