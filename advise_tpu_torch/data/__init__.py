@@ -124,19 +124,22 @@ def build_loader(cfg, mode: str = "train", n_devices: Optional[int] = None) -> C
     """Host loader of the train mode (``advise_tpu/data/__init__.py
     build_loader``): shuffled, drop_last, DATA.WORKERS threads; this rank's
     batch is the global batch (DATA.BATCHSIZE_PER_GPU x the batch-carrying
-    ones of ``n_devices``, by default the world's ranks) over the world, and
-    it takes the rank's stride of each epoch's order."""
-    from advise_tpu_torch.parallel.mesh import batch_device_count, world
+    ones of ``n_devices``, by default the world's ranks) over the ranks that
+    carry distinct batches, and it takes its batch index's stride of each
+    epoch's order (ranks that differ only in 'seq', 'pipe' or 'model' load
+    the same items)."""
+    from advise_tpu_torch.parallel.mesh import batch_device_count, batch_index, world
 
     rank, n = world()
+    index, n_batch = batch_index(cfg, rank, n)
     global_batch = cfg.DATA.BATCHSIZE_PER_GPU * batch_device_count(cfg, n if n_devices is None else n_devices)
     return ClipLoader(
         build_dataset(cfg, mode),
-        batch_size=max(global_batch // n, 1),
+        batch_size=max(global_batch // n_batch, 1),
         shuffle=True,
         seed=cfg.TRAIN.SEED,
         num_workers=cfg.DATA.WORKERS,
         drop_last=True,
-        rank=rank,
-        world=n,
+        rank=index,
+        world=n_batch,
     )

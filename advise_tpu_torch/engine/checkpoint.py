@@ -14,7 +14,11 @@ epoch. The remote mirror (TRAIN.CHECKPOINT_REMOTE) raises, as the port's
 
 Only rank 0 writes (``advise_tpu/engine/checkpoint.py:66``, ``:95``); every
 rank keeps the best criteria and waits for the write at a barrier, and
-every rank restores from the same file.
+every rank restores from the same file. Under TPU.PARTITION_MODE 'auto' a
+checkpoint holds whole tensors, gathered by every rank from the shards
+before rank 0 writes (``parallel/auto_shard.py``), and a restore cuts them
+to the rank's shards: a checkpoint written under 'auto' restores in a plain
+run, and the other way round.
 
 Two restore modes, as in the JAX package: the strict resume of the whole
 state (TRAIN.RESUME / TRAIN.AUTO_RESUME, :func:`auto_resume`) and the
@@ -36,6 +40,7 @@ import torch
 from torch import nn
 
 from advise_tpu_torch.engine.state import TrainState
+from advise_tpu_torch.parallel.auto_shard import layout_of, map_moments
 from advise_tpu_torch.parallel.collectives import barrier
 from advise_tpu_torch.parallel.mesh import world
 from advise_tpu_torch.utils.storage import local_path
@@ -60,22 +65,47 @@ def default_criteria(summary: Dict[str, float]) -> float:
     return 0.0
 
 
-def state_dict(state: TrainState) -> Dict[str, Any]:
-    """The whole train state as one dict of tensors and numbers."""
-    ssl = {k: (v.state_dict() if isinstance(v, nn.Module) else v) for k, v in state.ssl.items()}
-    return {"model": state.model.state_dict(), "opt_state": state.opt_state,
+def module_state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """``module.state_dict()`` with whole tensors: gathered from the shards
+    under 'auto' (a collective: every rank calls it)."""
+    layout = layout_of(module)
+    return module.state_dict() if layout is None else layout.full_state()
+
+
+def _load_module(module: nn.Module, saved: Dict[str, torch.Tensor]) -> None:
+    layout = layout_of(module)
+    if layout is None:
+        module.load_state_dict(saved)
+    else:
+        layout.load_full(saved)
+
+
+def state_dict(state) -> Dict[str, Any]:
+    """The whole train state as one dict of tensors and numbers, with whole
+    tensors under 'auto' (every rank calls it there); a dict it was already
+    made into passes through."""
+    if isinstance(state, dict):
+        return state
+    ssl = {k: (module_state(v) if isinstance(v, nn.Module) else v) for k, v in state.ssl.items()}
+    opt_state = state.opt_state
+    layout = layout_of(state.model)
+    if layout is not None:
+        opt_state = map_moments(opt_state, layout.full_tensors)
+    return {"model": module_state(state.model), "opt_state": opt_state,
             "step": int(state.step), "ssl": ssl}
 
 
 def load_state_dict(state: TrainState, saved: Dict[str, Any]) -> TrainState:
     """In place: ``saved`` (from :func:`state_dict`) into ``state``; the
-    modules keep their tensors' devices and layouts."""
-    state.model.load_state_dict(saved["model"])
-    state.opt_state = saved["opt_state"]
+    modules keep their tensors' devices and layouts (under 'auto' each rank
+    takes its shards of the whole tensors)."""
+    _load_module(state.model, saved["model"])
+    layout = layout_of(state.model)
+    state.opt_state = saved["opt_state"] if layout is None else map_moments(saved["opt_state"], layout.local_tensors)
     state.step = int(saved["step"])
     for k, v in saved["ssl"].items():
         if isinstance(state.ssl.get(k), nn.Module):
-            state.ssl[k].load_state_dict(v)
+            _load_module(state.ssl[k], v)
         else:
             state.ssl[k] = v
     return state
@@ -126,12 +156,15 @@ class CheckpointManager:
             return
         writer = world()[0] == 0
         meta = {"epoch": epoch, "summary": dict(summary)}
-        if (epoch + 1) % self.save_freq == 0 or epoch + 1 == self.cfg.SOLVER.MAX_EPOCH:
+        periodic = (epoch + 1) % self.save_freq == 0 or epoch + 1 == self.cfg.SOLVER.MAX_EPOCH
+        crit = self.criteria_fn(summary)
+        if (periodic or crit < self.best) and layout_of(state.model) is not None:
+            state = state_dict(state)  # whole tensors, gathered by every rank
+        if periodic:
             p = self._path(f"Model_Epoch_{epoch:04d}")
             if writer:
                 self._save_at(p, state, meta)
                 logger.info("checkpoint saved: %s", p)
-        crit = self.criteria_fn(summary)
         if crit < self.best:
             self.best = crit
             p = self._path("Model_Best")
@@ -140,7 +173,7 @@ class CheckpointManager:
                 logger.info("best checkpoint updated (criteria %.4f): %s", crit, p)
         barrier()
 
-    def _save_at(self, path: str, state: TrainState, meta: Dict):
+    def _save_at(self, path: str, state, meta: Dict):
         # write beside, then swap in: a crash mid-write leaves the old one
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)

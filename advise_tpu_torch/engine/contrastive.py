@@ -55,9 +55,10 @@ from advise_tpu_torch.parallel.collectives import (
     batch_shuffle,
     batch_unshuffle,
     psum,
+    replica_index,
     world_size,
 )
-from advise_tpu_torch.parallel.mesh import BATCH_AXES, SYNC_AXIS
+from advise_tpu_torch.parallel.mesh import BATCH_AXES, SYNC_AXIS, is_auto
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -365,7 +366,9 @@ def swav_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
     takes that value, read before view i's write; the queue rolls by the
     world's batch and the view's embeddings, gathered, go into its head
     (Sinkhorn then normalizes the queue's columns on every rank, as JAX
-    does). In place, like the
+    does; under TPU.PARTITION_MODE 'auto' the scores are gathered over the
+    batch and Sinkhorn runs once over the queue and the whole batch, as
+    JAX's GSPMD step's global arrays do). In place, like the
     kNN scatter of view 0's embedding after. The stat ``swav_gate`` is the
     share of the assigning views whose gate was open (queue only)."""
     t = cfg.CONTRASTIVE.T
@@ -386,8 +389,16 @@ def swav_loss(cfg, model: nn.Module, ssl: Dict[str, Any], views: torch.Tensor,
                 started = ssl["swav_started"] | torch.any(queue[i, -1] != 0)
                 gate = started & (epoch_exact >= SWAV_QUEUE_EPOCH)
                 gates.append(gate)
-                out_ext = torch.cat([torch.where(gate, w, w.new_tensor(-1e9)), out_i], dim=0)
-                codes = sinkhorn(torch.exp(out_ext / SWAV_EPS))[-out_i.shape[0]:]
+                w = torch.where(gate, w, w.new_tensor(-1e9))
+                if is_auto(cfg):
+                    # JAX's auto step holds the global batch: the queue's rows
+                    # enter Sinkhorn once, not once a rank
+                    out_all = all_gather_cat(out_i)
+                    codes = sinkhorn(torch.exp(torch.cat([w, out_all], dim=0) / SWAV_EPS), axes=())
+                    rows = replica_index() * out_i.shape[0]
+                    codes = codes[w.shape[0] + rows:w.shape[0] + rows + out_i.shape[0]]
+                else:
+                    codes = sinkhorn(torch.exp(torch.cat([w, out_i], dim=0) / SWAV_EPS))[-out_i.shape[0]:]
                 emb = all_gather_cat(embeddings[i].detach().to(queue.dtype))
                 rolled = torch.roll(queue[i], emb.shape[0], dims=0)
                 rolled[:emb.shape[0]] = emb

@@ -36,6 +36,17 @@ commit the running statistics of the model (and of the momentum encoder)
 averaged too, so that weights, buffers and SSL state stay the same on every
 rank. Each rank draws its own augmentation and dropout from its own
 generator.
+
+The model-parallel layouts (``parallel/mesh.py``): ranks that differ in
+'seq' or 'pipe' hold the same batch and parameters, and their gradients
+agree only in their mean, so gradients average over the world; under
+TPU.PARTITION_MODE 'auto' (``parallel/auto_shard.py``) the step first
+gathers the FSDP parameters of the model (and momentum encoder), averages
+the gradients over the 'data' ranks, keeps each FSDP gradient's slice and
+releases the whole parameters before the optimizer updates the slices
+(:func:`finish_step`), and the eval and kNN-probe forwards gather and
+release alike. JAX's auto step rejects TRAIN.SEQUENTIAL and
+CONTRASTIVE.SEQUENTIAL; so does this one.
 """
 
 from __future__ import annotations
@@ -58,7 +69,9 @@ from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.models import compute_dtype as cfg_compute_dtype
 from advise_tpu_torch.models import losses as L
 from advise_tpu_torch.models.layers.norm import SyncBatchNorm, commit_bn_stats, drop_bn_records
+from advise_tpu_torch.parallel.auto_shard import gather_step, grads_axes, layout_of
 from advise_tpu_torch.parallel.collectives import all_gather_cat, pmean, pmean_, pmean_tree
+from advise_tpu_torch.parallel.mesh import BATCH_AXES, WORLD_AXES, is_auto
 from advise_tpu_torch.solver.optimizer import (
     OptimizerBundle,
     apply_direction,
@@ -67,14 +80,50 @@ from advise_tpu_torch.solver.optimizer import (
 
 
 def average_over_world(grads: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor],
-                       *models: nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """The gradients and stats averaged over the world, and in place every
-    SyncBatchNorm running buffer of ``models`` (called after the BN
-    commit): the JAX step's ``pmean`` of grads, stats and batch_stats."""
+                       *models: nn.Module, grad_axes=BATCH_AXES
+                       ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The gradients averaged over ``grad_axes`` and the stats over the
+    batch's ranks, and in place every SyncBatchNorm running buffer of
+    ``models`` over the world (called after the BN commit; ranks that hold
+    the same batch hold the same buffers): the JAX step's ``pmean`` of
+    grads, stats and batch_stats."""
     buffers = [b for model in models for m in model.modules() if isinstance(m, SyncBatchNorm)
                for b in (m.running_mean, m.running_var)]
-    pmean_(buffers)
-    return pmean_tree(grads), pmean_tree(stats)
+    pmean_(buffers, WORLD_AXES)
+    return pmean_tree(grads, grad_axes), pmean_tree(stats)
+
+
+def check_auto(cfg) -> None:
+    """JAX's auto step's assertions (``advise_tpu/engine/steps.py:328-335``)."""
+    if not is_auto(cfg):
+        return
+    assert not cfg.TRAIN.SEQUENTIAL, (
+        "TRAIN.SEQUENTIAL clip micro-batching is a shard_map-path memory lever; use TPU.REMAT / "
+        "TPU.FSDP in auto mode")
+    assert not cfg.CONTRASTIVE.SEQUENTIAL, (
+        "CONTRASTIVE.SEQUENTIAL is a shard_map-path memory lever; use TPU.REMAT / TPU.FSDP in auto mode")
+
+
+def finish_step(cfg, state: TrainState, bundle: OptimizerBundle, grads: Dict[str, torch.Tensor],
+                stats: Dict[str, torch.Tensor], lr: float, *models: nn.Module) -> Dict[str, torch.Tensor]:
+    """The steps' common end, after the BN commit: gradients, stats and BN
+    buffers averaged (:func:`average_over_world`); under 'auto' each FSDP
+    gradient cut to its slice and every gathered parameter released; the
+    global gradient norm, the optimizer's direction and the update of
+    ``state.model``'s parameters; the step counted."""
+    grads, stats = average_over_world(grads, stats, *models, grad_axes=grads_axes(cfg))
+    layout = layout_of(state.model)
+    if layout is not None:
+        grads = layout.shard_grads(grads)
+    for model in models:
+        if layout_of(model) is not None:
+            layout_of(model).release()
+    params = dict(state.model.named_parameters())
+    stats["grad_norm"] = global_grad_norm(grads, getattr(bundle.tx, "reduce_sq", None))
+    direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
+    apply_direction(params, direction, lr, bundle.lr_scales)
+    state.step += 1
+    return stats
 
 
 def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
@@ -96,12 +145,14 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
         raise ValueError(f"CONTRASTIVE.SEQUENTIAL supports byol and moco only, not {ctype!r}")
     algo = CONTRASTIVE_LOSSES[ctype]
     dtype = cfg_compute_dtype(cfg)
+    check_auto(cfg)
 
     def step(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator], lr: float,
              epoch_exact: float, shared: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
+        gather_step(model, state.ssl.get("ema_model"))
         clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
         clips = clips.to(dtype)
         views = clips.transpose(0, 1)  # [K, B, T, H, W, C], view-major
@@ -123,13 +174,9 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
         commit_bn_stats(model)
         if "ema_model" in ssl:
             commit_bn_stats(ssl["ema_model"])
-        grads, stats = average_over_world(grads, stats, model, *([ssl["ema_model"]] if "ema_model" in ssl else []))
-        stats["grad_norm"] = global_grad_norm(grads)
-        direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
-        apply_direction(params, direction, lr, bundle.lr_scales)
-        state.step += 1
         state.ssl = ssl
-        return stats
+        return finish_step(cfg, state, bundle, grads, stats, lr, model,
+                           *([ssl["ema_model"]] if "ema_model" in ssl else []))
 
     return step
 
@@ -194,8 +241,9 @@ def masked_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
     joint = cfg.MASK.JOINT_CONTRASTIVE
     preds, labels, masks, weights = out[:4]
     loss = 0.0
+    axes = BATCH_AXES if is_auto(cfg) else None  # JAX's auto step counts the whole batch's tokens
     for p, lab, m, w in zip(preds, labels, masks, weights):
-        loss = loss + w * masked_mse(p, lab, m)
+        loss = loss + w * masked_mse(p, lab, m, axes)
     stats = {"loss_mask": loss}
     if joint:
         if k < 2:
@@ -257,6 +305,7 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
     task_loss = TASK_LOSSES[task]
     dtype = cfg_compute_dtype(cfg)
     autocast = dtype != torch.float32
+    check_auto(cfg)
 
     def loss_and_grads(model, clips, infos, generator):
         params = dict(model.named_parameters())
@@ -280,20 +329,15 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
              generator: Optional[torch.Generator], lr: float) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
+        gather_step(model)
         clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
         clips = clips.to(dtype)
         if cfg.TRAIN.SEQUENTIAL and clips.shape[1] > 1:
             grads, stats = sequential_grads(model, clips, infos, generator)
         else:
             grads, stats = loss_and_grads(model, clips, infos, generator)
-        params = dict(model.named_parameters())
         commit_bn_stats(model)
-        grads, stats = average_over_world(grads, stats, model)
-        stats["grad_norm"] = global_grad_norm(grads)
-        direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
-        apply_direction(params, direction, lr, bundle.lr_scales)
-        state.step += 1
-        return stats
+        return finish_step(cfg, state, bundle, grads, stats, lr, model)
 
     return step
 
@@ -391,26 +435,22 @@ def make_tmodeling_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional
     scale is 0, so they come out of the step unchanged."""
     dtype = cfg_compute_dtype(cfg)
     use_byol = "byol" in cfg.SSL.TASK
+    check_auto(cfg)
 
     def step(state: TrainState, clips_u8: torch.Tensor, infos: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator], lr: float) -> Dict[str, torch.Tensor]:
         model = state.model
         model.train()
+        gather_step(model)
         clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
         clips = clips.to(dtype)
         if use_byol:
             update_tmodeling_ema(cfg, state.ssl, model)
         with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
             loss, stats = tmodeling_loss(cfg, model, state.ssl, clips, infos, generator)
-        params = dict(model.named_parameters())
-        grads = loss_grads(loss, params)
+        grads = loss_grads(loss, dict(model.named_parameters()))
         commit_bn_stats(model)
-        grads, stats = average_over_world(grads, {name: v.detach() for name, v in stats.items()}, model)
-        stats["grad_norm"] = global_grad_norm(grads)
-        direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
-        apply_direction(params, direction, lr, bundle.lr_scales)
-        state.step += 1
-        return stats
+        return finish_step(cfg, state, bundle, grads, {name: v.detach() for name, v in stats.items()}, lr, model)
 
     return step
 
@@ -442,11 +482,14 @@ def make_eval_step(cfg, device_aug: Optional[Callable]):
     def eval_step(model: nn.Module, clips_u8: torch.Tensor,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
         model.eval()
+        layouts = gather_step(model)
         clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
         clips = clips.to(dtype)
         b, k = clips.shape[:2]
         with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
             logits = model(clips.reshape(b * k, *clips.shape[2:]))
+        for layout in layouts:
+            layout.release()
         return logits.reshape(b, k, -1)
 
     return eval_step
@@ -479,10 +522,13 @@ def make_knn_probe_step(cfg, device_aug: Optional[Callable], num_classes: Option
               generator: Optional[torch.Generator]) -> torch.Tensor:
         model = state.model
         model.train(use_batch_stats)
+        layouts = gather_step(model)
         clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
         clips = clips.to(dtype)
         with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
             out = model(clips[:, 0], generator=generator)  # the first view
+        for layout in layouts:
+            layout.release()
         if use_batch_stats:
             drop_bn_records(model)
         proj = out[0] if isinstance(out, (list, tuple)) else out

@@ -47,9 +47,11 @@ device's busy and idle shares of that
 window. With VIS_MASK.ENABLE (the MAE path) each epoch ends with the first
 batch of a fresh shuffle (``loader.take_one(epoch + 424243)``) through the
 model in eval mode, dumped by ``utils/visualization.py
-dump_mask_visualization`` under ``LOGDIR/vis_mask/vid/``. Not ported (it
-raises, naming the ROADMAP.md item): TPU.PARTITION_MODE 'auto',
-TPU.MESH_SEQ and TPU.MESH_PIPE (A 16).
+dump_mask_visualization`` under ``LOGDIR/vis_mask/vid/``. Under
+TPU.PARTITION_MODE 'auto' the state is split after any restore
+(``parallel/auto_shard.py shard_train_state``, keeping restored moments),
+and the digests are the whole tensors'; under TPU.MESH_SEQ and MESH_PIPE
+the ranks of a seq or pipe line load and draw alike (their batch index).
 
 The TemporalModel's CLIP tower takes its weights from
 MODEL.SPATIAL_MODEL_PATH (an open_clip checkpoint, or a directory holding
@@ -73,14 +75,16 @@ from advise_tpu_torch.engine.checkpoint import (
     CheckpointManager,
     auto_resume,
     load_pretrained,
+    module_state,
     tensors_digest,
 )
 from advise_tpu_torch.engine.meters import TrainingHelper, busy_ms, device_events
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.engine.steps import make_knn_probe_step, make_train_step
 from advise_tpu_torch.models import build_model
-from advise_tpu_torch.parallel.collectives import check_same_on_every_rank
-from advise_tpu_torch.parallel.mesh import check_data_parallel, distributed_init, world
+from advise_tpu_torch.parallel.auto_shard import describe_sharding, shard_train_state
+from advise_tpu_torch.parallel.collectives import check_same_on_every_rank, replica_index, world_size
+from advise_tpu_torch.parallel.mesh import distributed_init, is_auto, world
 from advise_tpu_torch.solver.lr_policy import PlateauController, get_lr_at_epoch
 from advise_tpu_torch.solver.optimizer import OptimizerBundle, adjust_base_lr, build_tx
 from advise_tpu_torch.utils.host_times import HOST_TIMES
@@ -118,7 +122,7 @@ def ssl_digest(ssl: Dict[str, Any]) -> str:
     for name in sorted(ssl):
         value = ssl[name]
         if isinstance(value, torch.nn.Module):
-            flat.update({f"{name}.{k}": v for k, v in value.state_dict().items()})
+            flat.update({f"{name}.{k}": v for k, v in module_state(value).items()})
         elif isinstance(value, dict):
             flat.update({f"{name}.{k}": v for k, v in value.items()})
         else:
@@ -127,14 +131,17 @@ def ssl_digest(ssl: Dict[str, Any]) -> str:
 
 
 def check_ported(cfg) -> None:
-    """Raise for the trainer options the port does not carry yet."""
-    check_data_parallel(cfg)
+    """Raise for the trainer options the port does not carry yet: none
+    since the model-parallel layouts landed (the config's own validation
+    rejects the combinations the JAX package rejects)."""
 
 
 def rank_keys() -> Tuple[int, ...]:
-    """What a rank adds to its generators' keys: nothing in a world of 1."""
-    rank, n = world()
-    return (rank,) if n > 1 else ()
+    """What a rank adds to its generators' keys: its batch index among the
+    ranks that carry distinct batches (ranks that differ only in 'seq',
+    'pipe' or 'model' draw alike); nothing when one rank carries the
+    batch."""
+    return (replica_index(),) if world_size() > 1 else ()
 
 
 def spatial_checkpoint(path: str) -> str:
@@ -250,7 +257,11 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
     state, start_epoch, resumed = auto_resume(cfg, ckpt, state)
     if not resumed and cfg.RESUME:
         state, _, _ = load_pretrained(cfg.RESUME, state)
-    digest, ssl_sha = tensors_digest(state.model.state_dict()), ssl_digest(state.ssl)
+    if is_auto(cfg):
+        # after any restore, as JAX shards at start-up keeping the restored moments
+        specs = shard_train_state(cfg, state, bundle)
+        logger.info(describe_sharding(specs)[1])
+    digest, ssl_sha = tensors_digest(module_state(state.model)), ssl_digest(state.ssl)
     check_same_on_every_rank(digest, device, "the model's digest at the start")
     check_same_on_every_rank(ssl_sha, device, "the SSL state's digest at the start")
     logger.info("start: epoch %d, step %d, model sha256 %s%s (rank %d of %d)", start_epoch, state.step, digest,
@@ -332,7 +343,7 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
             plateau.step(summary.get("loss_spd", summary.get("loss_cls", 0.0)))
         ckpt.save(state, epoch, summary)
     profile.close(state.step)  # a window that outlasts the run ends with it
-    digest, ssl_sha = tensors_digest(state.model.state_dict()), ssl_digest(state.ssl)
+    digest, ssl_sha = tensors_digest(module_state(state.model)), ssl_digest(state.ssl)
     check_same_on_every_rank(digest, device, "the model's digest at the end")
     check_same_on_every_rank(ssl_sha, device, "the SSL state's digest at the end")
     if record is not None:

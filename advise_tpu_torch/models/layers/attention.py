@@ -20,9 +20,27 @@ learned per-channel gamma; MVIT.DROPOUT_RATE drops after the attention's
 projection and in the MLP, from a generator the block seeds from a number
 the model drew before any block ran (so a recomputation draws the same
 masks). A block with a relative position bias runs the dense chain, never
-flash attention, as in JAX; every pooling mode keeps K4 otherwise. The
-ring-attention branch (MVIT.SEQ_SHARD) is a no-op on one card, as JAX's
-``nseq == 1`` branch is.
+flash attention, as in JAX; every pooling mode keeps K4 otherwise.
+
+The sequence-parallel branch (``seq_axis``, from MVIT.SEQ_SHARD under
+TPU.MESH_SEQ; JAX ``attention.py:260-308``): with no cls token and no
+relative position bias, and q's tokens dividing over the group, each rank
+takes its slice of q. Square attention (as many keys as queries) goes
+round the ring (``parallel/ring_attention.py``); pooled-KV attention keeps
+the whole k and v and runs the block's own chain (K4 or the dense chain,
+JAX's ``_dense_attention``) on the q slice. The slices are gathered over
+the group, the gather's backward summing the cotangents, as JAX transposes
+``all_gather``. Without a group of more than one rank it is the plain path.
+
+Tensor parallelism (TPU.PARTITION_MODE 'auto' with MESH_MODEL,
+``parallel/auto_shard.py`` sets ``tp``): the rank holds whole heads, the
+rows of qkv (q, k, v) and the columns of proj that belong to them
+(Megatron's split); the input enters through ``copy_to`` (its cotangent
+summed over 'model'), the pools' weights and norms and the relative
+position tables, shared by the heads, through ``copy_to`` too, and proj's
+partial products are summed over 'model' (``reduce_from``) before its
+bias. A transition's residual pools over all heads' folds, as without the
+split.
 
 Under bf16 autocast q, k and v are cast back to the compute dtype after
 their pools and LayerNorms (autocast runs ``layer_norm`` in float32, where
@@ -54,15 +72,23 @@ from advise_tpu_torch.models.layers.common import (
     zeros_init,
 )
 from advise_tpu_torch.ops.flash_attention import flash_mha
+from advise_tpu_torch.parallel.collectives import (
+    all_gather_dim,
+    copy_to,
+    reduce_from,
+    replica_index,
+    world_size,
+)
+from advise_tpu_torch.parallel.ring_attention import ring_attention
 
 Thw = Tuple[int, int, int]
 
 
 def pool_tokens(x: torch.Tensor, thw: Sequence[int], kernel: Sequence[int],
-                stride: Sequence[int], has_cls: bool, conv: Optional[nn.Module] = None,
-                norm: Optional[nn.Module] = None, mode: str = "max") -> Tuple[torch.Tensor, Thw]:
-    """attention_pool on [B, H, L, c]: the depthwise ``conv`` then ``norm``,
-    or, without a conv, a max or (``mode`` 'avg') an average pool, padding
+                stride: Sequence[int], has_cls: bool, conv=None, norm=None,
+                mode: str = "max") -> Tuple[torch.Tensor, Thw]:
+    """attention_pool on [B, H, L, c]: the depthwise ``conv`` then ``norm``
+    (modules, or functions of one tensor), or, without a conv, a max or (``mode`` 'avg') an average pool, padding
     k // 2 counted in the average; the cls token bypasses the pool."""
     if not kernel:
         return x, tuple(thw)
@@ -206,11 +232,14 @@ class MultiScaleAttention(nn.Module):
                  rel_pos_temporal: bool = False, rel_pos_zero_init: bool = False,
                  residual_pooling: bool = False, proj_init_div: float = 1.0,
                  mode: str = "conv", pool_first: bool = False, separate_qkv: bool = False,
-                 drop_rate: float = 0.0):
+                 drop_rate: float = 0.0, seq_axis: Optional[str] = None):
         super().__init__()
         if mode not in ("conv", "conv_unshared", "avg", "max"):
             raise NotImplementedError(f"MVIT.MODE={mode}")
         self.num_heads = num_heads
+        self.seq_axis = (seq_axis if seq_axis and not (rel_pos_spatial or rel_pos_temporal or has_cls_embed)
+                         else None)
+        self.tp = None  # (axes, size, index) once parallel/auto_shard.py splits the heads
         self.dim_out = dim_out
         self.mode, self.pool_first, self.separate_qkv = mode, pool_first, separate_qkv
         self.drop_rate = drop_rate
@@ -258,22 +287,58 @@ class MultiScaleAttention(nn.Module):
             self.rel_pos_t = nn.Parameter(torch.zeros(2 * input_size[0] - 1, head_dim))
             self.param_inits["rel_pos_t"] = rel_init
 
-    def _pool(self, x, thw, name):
+    def _pool(self, x, thw, name, split: bool = False):
+        """Pool q, k or v (``name``); ``split``: x holds this rank's heads,
+        so the pool's weights, shared by every head, enter through
+        ``copy_to`` over 'model'."""
         kernel, stride = (self.kernel_q, self.stride_q) if name == "q" else (self.kernel_kv, self.stride_kv)
-        return pool_tokens(x, thw, kernel, stride, self.has_cls_embed,
-                           getattr(self, f"pool_{name}", None), getattr(self, f"norm_{name}", None),
-                           self.mode)
+        conv, norm = getattr(self, f"pool_{name}", None), getattr(self, f"norm_{name}", None)
+        if split and conv is not None:
+            axes = self.tp[0]
+            c = conv
+            conv = lambda g: F.conv3d(g, copy_to(c.weight, axes), None, c.stride, c.padding, c.dilation,  # noqa: E731
+                                      c.groups)
+        if split and norm is not None:
+            axes, ln = self.tp[0], norm
+            norm = lambda t: F.layer_norm(t, ln.normalized_shape, copy_to(ln.weight, axes),  # noqa: E731
+                                          copy_to(ln.bias, axes), ln.eps)
+        return pool_tokens(x, thw, kernel, stride, self.has_cls_embed, conv, norm, self.mode)
+
+    def _attend(self, q, k, v, q_shape, k_shape):
+        """K4, or the dense chain with the relative position biases."""
+        if self.flash:
+            return flash_mha(q, k, v, self.scale)
+        return dense_attention(q, k, v, self.scale, self._rel_pos_bias(q, q_shape, k_shape))
+
+    def _seq_attention(self, q, k, v, q_shape, k_shape):
+        """The sequence-parallel branch (module docstring), or None where
+        the block takes the plain path."""
+        nseq = world_size(self.seq_axis) if self.seq_axis else 1
+        nq, nk = q.shape[2], k.shape[2]
+        if nseq <= 1 or nq % nseq:
+            return None
+        my = replica_index(self.seq_axis)
+        rows = slice(my * (nq // nseq), (my + 1) * (nq // nseq))
+        if nk == nq:
+            out = ring_attention(q[:, :, rows], k[:, :, rows], v[:, :, rows], self.seq_axis, self.scale)
+        else:
+            out = self._attend(q[:, :, rows], k, v, q_shape, k_shape)
+        return all_gather_dim(out, self.seq_axis, 2)
 
     def _rel_pos_bias(self, q, q_shape, k_shape):
         if not (self.rel_pos_spatial or self.rel_pos_temporal):
             return None
 
+        def table(t):
+            return t if self.tp is None else copy_to(t, self.tp[0])
+
         def bias(attn):
             if self.rel_pos_spatial:
                 attn = add_rel_pos_spatial(attn, q, self.has_cls_embed, q_shape, k_shape,
-                                           self.rel_pos_h, self.rel_pos_w)
+                                           table(self.rel_pos_h), table(self.rel_pos_w))
             if self.rel_pos_temporal:
-                attn = add_rel_pos_temporal(attn, q, self.has_cls_embed, q_shape, k_shape, self.rel_pos_t)
+                attn = add_rel_pos_temporal(attn, q, self.has_cls_embed, q_shape, k_shape,
+                                            table(self.rel_pos_t))
             return attn
 
         return bias
@@ -285,44 +350,53 @@ class MultiScaleAttention(nn.Module):
         q_shape, pooled residual), else (out, q_shape). ``generator`` draws
         the dropout mask in training."""
         b, n, _ = x.shape
-        nh = self.num_heads
+        tp = self.tp
+        nh = self.num_heads if tp is None else self.num_heads // tp[1]
 
         def heads(t):
             return t.reshape(b, t.shape[1], nh, -1).transpose(1, 2)
 
         if self.pool_first:
-            q = k = v = heads(x)
-        elif self.separate_qkv:
-            q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
+            q = k = v = x.reshape(b, n, self.num_heads, -1).transpose(1, 2)
         else:
-            q, k, v = self.qkv(x).reshape(b, n, 3, nh, -1).permute(2, 0, 3, 1, 4).unbind(0)
+            x_in = x if tp is None else copy_to(x, tp[0])
+            if self.separate_qkv:
+                q, k, v = heads(self.q(x_in)), heads(self.k(x_in)), heads(self.v(x_in))
+            else:
+                q, k, v = self.qkv(x_in).reshape(b, n, 3, nh, -1).permute(2, 0, 3, 1, 4).unbind(0)
 
         res_pooled = None
         if x_res is not None:
             rc = x_res.shape[-1]
-            fold = 1 if self.mode == "conv_unshared" else nh
+            fold = 1 if self.mode == "conv_unshared" else self.num_heads
             r = x_res.reshape(b, n, fold, rc // fold).transpose(1, 2)
             r, _ = self._pool(r, thw, "q")
             res_pooled = r.transpose(1, 2).reshape(b, -1, rc)
 
-        q, q_shape = self._pool(q, thw, "q")
-        k, k_shape = self._pool(k, thw, "k")
-        v, _ = self._pool(v, thw, "v")
+        split = tp is not None and not self.pool_first  # the pools act on this rank's heads
+        q, q_shape = self._pool(q, thw, "q", split)
+        k, k_shape = self._pool(k, thw, "k", split)
+        v, _ = self._pool(v, thw, "v", split)
         if self.pool_first:
-            q, k, v = (heads(getattr(self, name)(t.transpose(1, 2).reshape(b, t.shape[2], -1)))
-                       for name, t in (("q", q), ("k", k), ("v", v)))
+            q, k, v = (heads(getattr(self, name)(
+                t.transpose(1, 2).reshape(b, t.shape[2], -1) if tp is None
+                else copy_to(t.transpose(1, 2).reshape(b, t.shape[2], -1), tp[0])))
+                for name, t in (("q", q), ("k", k), ("v", v)))
         if self.dtype is not None:
             q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
-        if self.flash:
-            out = flash_mha(q, k, v, self.scale)
-        else:
-            out = dense_attention(q, k, v, self.scale, self._rel_pos_bias(q, q_shape, k_shape))
+        out = self._seq_attention(q, k, v, q_shape, k_shape)
+        if out is None:
+            out = self._attend(q, k, v, q_shape, k_shape)
         if self.residual_pooling:
             if self.has_cls_embed:
                 out = torch.cat([out[:, :, :1], out[:, :, 1:] + q[:, :, 1:]], dim=2)
             else:
                 out = out + q
-        out = self.proj(out.transpose(1, 2).reshape(b, -1, self.dim_out))
+        out = out.transpose(1, 2).reshape(b, out.shape[2], -1)
+        if tp is None:
+            out = self.proj(out)
+        else:
+            out = reduce_from(F.linear(out, self.proj.weight), tp[0]) + self.proj.bias
         if self.training and self.drop_rate > 0.0:
             out = dropout(out, self.drop_rate, generator)
         if x_res is not None:
@@ -354,7 +428,7 @@ class MultiScaleBlock(nn.Module):
                  residual_pooling: bool = False, dim_mul_in_att: bool = False,
                  init_div: float = 1.0, mode: str = "conv", pool_first: bool = False,
                  separate_qkv: bool = False, layer_scale_init_value: float = 0.0,
-                 drop_rate: float = 0.0):
+                 drop_rate: float = 0.0, seq_axis: Optional[str] = None):
         super().__init__()
         self.stride_q = tuple(stride_q)
         self.has_cls_embed = has_cls_embed
@@ -366,7 +440,8 @@ class MultiScaleBlock(nn.Module):
                                         flash_native_dim_only, dtype, input_size, rel_pos_spatial,
                                         rel_pos_temporal, rel_pos_zero_init, residual_pooling,
                                         proj_init_div=init_div, mode=mode, pool_first=pool_first,
-                                        separate_qkv=separate_qkv, drop_rate=drop_rate)
+                                        separate_qkv=separate_qkv, drop_rate=drop_rate,
+                                        seq_axis=seq_axis)
         if dim != dim_out:
             self.proj = dense(dim, dim_out, init=trunc02, bias_value=0.02)
         self.drop_path = DropPath(drop_path)

@@ -10,7 +10,7 @@ explicit ``torch.Generator``, so a model is a function of its seed.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,14 +133,23 @@ def draw_keep(batch: int, rate: float, generator: Optional[torch.Generator]) -> 
     return torch.rand(batch, generator=generator, device=generator.device) < (1.0 - rate)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            part: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Flax ``nn.Dropout`` in training: keep each value with probability
     1 - rate and scale it by 1 / (1 - rate), the mask drawn from
-    ``generator`` on its device (never the global RNG)."""
+    ``generator`` on its device (never the global RNG). ``part`` (size,
+    index): ``x`` is part ``index`` of ``size`` of a tensor split on its
+    last dim, and its mask that part of the whole tensor's draw."""
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    if part is None:
+        mask = torch.rand(x.shape, generator=generator, device=generator.device) < keep
+    else:
+        size, index = part
+        n = x.shape[-1]
+        whole = torch.rand(x.shape[:-1] + (n * size,), generator=generator, device=generator.device)
+        mask = whole[..., index * n:(index + 1) * n] < keep
     return torch.where(mask.to(x.device), x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -182,7 +191,13 @@ class Mlp(nn.Module):
     """Transformer MLP: fc1 -> GELU (tanh approximation, Flax's ``nn.gelu``)
     -> dropout -> fc2 -> dropout, both layers with Flax's default init,
     fc2's divided by ``fc2_init_div``; the dropouts (training, ``drop_rate``
-    > 0) draw from ``generator``."""
+    > 0) draw from ``generator``. Split over 'model' (``tp``, set by
+    ``parallel/auto_shard.py``) the rank holds its share of the hidden
+    units: the input enters through ``copy_to``, the hidden dropout's mask
+    is the whole layer's draw cut to the share, and fc2's partial products
+    are summed over 'model' before its bias."""
+
+    tp = None  # (axes, size, index) once split over 'model'
 
     def __init__(self, dim_in: int, hidden: int, dim_out: int, fc2_init_div: float = 1.0,
                  drop_rate: float = 0.0):
@@ -192,11 +207,17 @@ class Mlp(nn.Module):
         self.fc2 = dense(hidden, dim_out, init=divided_init(lecun_normal_init, fc2_init_div))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        from advise_tpu_torch.parallel.collectives import copy_to, reduce_from
+
         drop = self.training and self.drop_rate > 0.0
-        x = F.gelu(self.fc1(x), approximate="tanh")
+        tp = self.tp
+        x = F.gelu(self.fc1(x if tp is None else copy_to(x, tp[0])), approximate="tanh")
         if drop:
-            x = dropout(x, self.drop_rate, generator)
-        x = self.fc2(x)
+            x = dropout(x, self.drop_rate, generator, part=None if tp is None else tp[1:])
+        if tp is None:
+            x = self.fc2(x)
+        else:
+            x = reduce_from(F.linear(x, self.fc2.weight), tp[0]) + self.fc2.bias
         if drop:
             x = dropout(x, self.drop_rate, generator)
         return x

@@ -45,7 +45,7 @@ import torch
 from torch import nn
 
 from advise_tpu_torch.parallel.collectives import pmean, world_size
-from advise_tpu_torch.parallel.mesh import bn_axis_names
+from advise_tpu_torch.parallel.mesh import BATCH_AXES, bn_axis_names, is_auto
 
 
 class SyncBatchNorm(nn.Module):
@@ -135,15 +135,26 @@ def drop_bn_records(model: nn.Module) -> None:
 
 
 def head_sync_axes(norm, sync_mlp: bool) -> Tuple[str, ...]:
-    """The sync axes of a head's MLP BN: ``norm``'s, where the config's
-    BN_SYNC_MLP asks for them, else none."""
+    """The sync axes of a contrastive head's BN: the norm's own when
+    CONTRASTIVE.BN_SYNC_MLP (``sync_mlp``), else none; under
+    TPU.PARTITION_MODE 'auto' always the batch's (GSPMD reduces every BN
+    over the whole batch)."""
+    if getattr(norm, "global_batch", False):
+        return BATCH_AXES
     return tuple(getattr(norm, "keywords", {}).get("sync_axes", ())) if sync_mlp else ()
 
 
 def get_norm(cfg):
     """Norm factory (``advise_tpu/models/layers/norm.py get_norm``):
     'sync_batchnorm' syncs over ``bn_axis_names(cfg)``, 'batchnorm' and
-    'sub_batchnorm' over nothing."""
+    'sub_batchnorm' over nothing; under TPU.PARTITION_MODE 'auto'
+    'batchnorm' and 'sync_batchnorm' over the whole batch, the ranks of the
+    'data' axis (the JAX step's BN reduces over the global batch GSPMD
+    shards)."""
+    if is_auto(cfg) and cfg.BN.NORM_TYPE in ("batchnorm", "sync_batchnorm"):
+        norm = functools.partial(SyncBatchNorm, sync_axes=BATCH_AXES)
+        norm.global_batch = True
+        return norm
     if cfg.BN.NORM_TYPE == "batchnorm":
         return functools.partial(SyncBatchNorm, sync_axes=())
     if cfg.BN.NORM_TYPE == "sync_batchnorm":

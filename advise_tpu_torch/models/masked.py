@@ -151,11 +151,26 @@ def pool_mask(mask: torch.Tensor, src, dst) -> torch.Tensor:
     return F.max_pool3d(m, wins, wins)[:, 0]
 
 
-def masked_mse(pred: torch.Tensor, label: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mse(pred: torch.Tensor, label: torch.Tensor, mask: torch.Tensor,
+               axes=None) -> torch.Tensor:
     """Mean squared error over the masked tokens: per-token MSE in float32,
-    summed under ``mask`` over max(sum(mask), 1)."""
+    summed under ``mask`` over max(sum(mask), 1). ``axes``: the masked
+    tokens are the batch's over those ranks (the JAX auto step's global
+    arrays): this rank's sum over the whole batch's count, times the ranks,
+    so that the ranks' mean, and the mean of their gradients, is the whole
+    batch's."""
     err = torch.mean(torch.square(pred.float() - label.float()), dim=-1)
-    return torch.sum(err * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if axes is not None:
+        from advise_tpu_torch.parallel.collectives import world_size
+        from advise_tpu_torch.parallel.mesh import axis_group
+
+        g = axis_group(axes)
+        if g is not None:
+            count = count.detach().clone()
+            torch.distributed.all_reduce(count, group=g[0])
+            count = count / world_size(axes)
+    return torch.sum(err * mask) / torch.clamp(count, min=1.0 / world_size(axes) if axes else 1.0)
 
 
 class SeparateHead(nn.Module):

@@ -32,7 +32,20 @@ transition's residual at kernel s + 1 where its stride s > 1; the head's
 projection starts at MVIT.HEAD_INIT_SCALE times its init. Under MODEL_NAME
 ContrastiveModel the head is the CONTRASTIVE.DIM MLP projector
 (CONTRASTIVE.NUM_MLP_LAYERS, MLP_DIM, BN_MLP with per-view statistics), with
-no predictor, as in JAX. TPU.MESH_PIPE raises (:func:`check_ported`).
+no predictor, as in JAX.
+
+Model parallelism (JAX ``mvit.py:55-66``, ``:507-560``): under MVIT.SEQ_SHARD
+a block with no cls token and no relative position bias whose input holds
+at least SEQ_SHARD_MIN_TOKENS tokens takes the attention's sequence-parallel
+branch over 'seq' (:func:`block_seq_axis`). Under TPU.MESH_PIPE with a
+'pipe' group of more than one rank, each reversible segment whose length
+the pipe size divides runs GPipe (``parallel/pipeline.py``): stage s runs
+its contiguous block range through the reversible walk on microbatches of
+TPU.PIPE_MICROBATCH (0: the smallest divisor of the rows no smaller than
+the pipe size); microbatch m takes its rows of the drop-path keep masks
+drawn for the whole batch, and seeds its dropout generators with m folded
+in. A segment the pipe size does not divide runs on every stage as without
+the pipe; a pipe size that divides no segment raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -64,6 +77,9 @@ from advise_tpu_torch.models.layers.heads import TransformerBasicHead
 from advise_tpu_torch.models.layers.norm import head_sync_axes
 from advise_tpu_torch.models.layers.stem import PatchEmbed
 from advise_tpu_torch.models.utils import get_3d_sincos_pos_embed, round_width
+from advise_tpu_torch.parallel.collectives import world_size
+from advise_tpu_torch.parallel.mesh import PIPE_AXIS, SEQ_AXIS
+from advise_tpu_torch.parallel.pipeline import gpipe, resolve_microbatches, stage_slice, sync_cotangents
 from advise_tpu_torch.parallel.reversible import reversible_block_scan
 
 
@@ -163,16 +179,29 @@ def fused_width(mode: str, dim: int) -> int:
     return 2 * dim if mode == "concat" else dim
 
 
-def check_ported(cfg) -> None:
-    """Raise NotImplementedError on an MViT option the port does not carry
-    yet, naming its ROADMAP.md item."""
-    if int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1) > 1:
-        raise NotImplementedError("not ported yet: TPU.MESH_PIPE (GPipe) (ROADMAP A 16)")
+def block_seq_axis(cfg, spec) -> Optional[str]:
+    """'seq' for a block that takes the sequence-parallel branch under
+    MVIT.SEQ_SHARD: no cls token, no relative position bias, and at least
+    SEQ_SHARD_MIN_TOKENS tokens in its input."""
+    m = cfg.MVIT
+    if not m.SEQ_SHARD or m.CLS_EMBED_ON or m.REL_POS_SPATIAL or m.REL_POS_TEMPORAL:
+        return None
+    if math.prod(spec["input_size"]) < m.SEQ_SHARD_MIN_TOKENS:
+        return None
+    return SEQ_AXIS
+
+
+def fold_seed(seed: Optional[int], m: int) -> Optional[int]:
+    """The seed of a dropout generator for microbatch ``m`` of a pipelined
+    segment (JAX folds the microbatch index into the block's key)."""
+    if seed is None:
+        return None
+    return (int(seed) * 1_000_003 + m + 1) % 2**62
 
 
 def _attention_kwargs(cfg, spec, dtype) -> dict:
     m = cfg.MVIT
-    return dict(qkv_bias=m.QKV_BIAS, kernel_q=spec["kernel_q"], kernel_kv=spec["kernel_kv"],
+    return dict(seq_axis=block_seq_axis(cfg, spec), qkv_bias=m.QKV_BIAS, kernel_q=spec["kernel_q"], kernel_kv=spec["kernel_kv"],
                 stride_q=spec["stride_q"], stride_kv=spec["stride_kv"],
                 flash=bool(cfg.TPU.FLASH_ATTENTION),
                 flash_native_dim_only=bool(cfg.TPU.FLASH_NATIVE_DIM_ONLY), dtype=dtype,
@@ -302,7 +331,6 @@ class MViT(nn.Module):
                  include_head: bool = True, depth_override: Optional[int] = None,
                  return_intermediate: Sequence[int] = ()):
         super().__init__()
-        check_ported(cfg)
         m = cfg.MVIT
         self.include_head = include_head
         self.return_intermediate = tuple(return_intermediate)
@@ -346,6 +374,8 @@ class MViT(nn.Module):
 
         self.rev = bool(m.REV.ENABLE)
         self.o1_scan = bool(m.REV.O1_SCAN)
+        self.pipe = max(int(cfg.TPU.MESH_PIPE or 1), 1)
+        self.pipe_microbatch = int(cfg.TPU.PIPE_MICROBATCH or 0)
         self.remat = bool(cfg.TPU.REMAT or cfg.MODEL.ACT_CHECKPOINT)
         self.plan: List[tuple] = []
         self.intermediate_dims: Dict[int, int] = {}
@@ -451,6 +481,46 @@ class MViT(nn.Module):
         flat = iter(draw_seeds(sum(counts.values()), generator))
         return {i: tuple(next(flat) for _ in range(n)) for i, n in counts.items()}
 
+    def _pipelined_segment(self, fs, gs, kf, kg, sf, sg, x1, x2):
+        """One reversible segment under GPipe over 'pipe' (module
+        docstring): its parameters and inputs through ``sync_cotangents``,
+        this stage's blocks run on those tensors (``functional_call``)."""
+        subs = [m for k in range(len(fs)) for m in (fs[k], gs[k])]
+        names = [[n for n, _ in m.named_parameters()] for m in subs]
+        synced = sync_cotangents([p for m in subs for p in m.parameters()] + [x1, x2], PIPE_AXIS)
+        views, at = [], 0
+        for ns in names:
+            views.append(dict(zip(ns, synced[at:at + len(ns)])))
+            at += len(ns)
+        x1, x2 = synced[-2:]
+        first, end = stage_slice(fs, self.pipe, PIPE_AXIS)
+        n_micro = resolve_microbatches(self.pipe_microbatch, x1.shape[0], self.pipe)
+        bm = x1.shape[0] // n_micro
+
+        def rows(keep, m):
+            return None if keep is None else keep[m * bm:(m + 1) * bm]
+
+        def stage(pair, m):
+            def f(k, x):
+                k += first
+                return torch.func.functional_call(fs[k], views[2 * k], (x, rows(kf[k], m), fold_seed(sf[k], m)))
+
+            def g(k, x):
+                k += first
+                return torch.func.functional_call(gs[k], views[2 * k + 1],
+                                                  (x, rows(kg[k], m), fold_seed(sg[k], m)))
+
+            a1, a2 = pair
+            if self.o1_scan:
+                block = [list(views[2 * k].values()) + list(views[2 * k + 1].values()) for k in range(first, end)]
+                return reversible_block_scan(f, g, block, a1, a2)
+            for k in range(end - first):
+                a1 = a1 + f(k, a2)
+                a2 = a2 + g(k, a1)
+            return a1, a2
+
+        return gpipe(stage, (x1, x2), n_stage=self.pipe, n_micro=n_micro, axes=PIPE_AXIS)
+
     def forward(self, x: torch.Tensor, views: int = 1, generator: Optional[torch.Generator] = None,
                 token_mask: Optional[torch.Tensor] = None,
                 mask_token: Optional[torch.Tensor] = None):
@@ -485,6 +555,7 @@ class MViT(nn.Module):
         inter = []
         if self.rev:
             x1 = x2 = x
+            pipelined: List[int] = []  # the lengths of the segments that ran under GPipe
             for item in self.plan:
                 if item[0] == "transition":
                     i = item[1]
@@ -508,7 +579,10 @@ class MViT(nn.Module):
                 sg = [seeds.get(d, (None, None))[1] for d in range(i, j)]
                 f = functools.partial(_call_sub, fs, kf, seeds=sf)
                 g = functools.partial(_call_sub, gs, kg, seeds=sg)
-                if self.o1_scan:
+                if self.pipe > 1 and world_size(PIPE_AXIS) > 1 and (j - i) % self.pipe == 0:
+                    x1, x2 = self._pipelined_segment(fs, gs, kf, kg, sf, sg, x1, x2)
+                    pipelined.append(j - i)
+                elif self.o1_scan:
                     params = [list(fs[k].parameters()) + list(gs[k].parameters())
                               for k in range(j - i)]
                     x1, x2 = reversible_block_scan(f, g, params, x1, x2)
@@ -519,6 +593,12 @@ class MViT(nn.Module):
                 if j - 1 in self.return_intermediate:
                     fuse = getattr(self, f"fuse_inter_{seg_id}")
                     inter.append((fuse(torch.cat([x1, x2], dim=-1)), thw))
+            if self.pipe > 1 and world_size(PIPE_AXIS) > 1:
+                lens = [item[3] - item[2] for item in self.plan if item[0] == "segment"]
+                assert pipelined, (
+                    f"TPU.MESH_PIPE={self.pipe} divides none of the reversible segment lengths {lens} — "
+                    "every segment would fall back to replicated compute. Pick a pipe size that divides "
+                    "a segment, or force a split with MVIT.REV.BUFFER_LAYERS")
             if self.return_intermediate:
                 return inter
             x = self.norm(self.fuse(torch.cat([x1, x2], dim=-1)).mean(dim=1))

@@ -44,10 +44,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from advise_tpu_torch.models.clip_vit import layer_norm, linear
+from advise_tpu_torch.models.clip_vit import _cast, layer_norm, linear
 from advise_tpu_torch.models.layers.common import DropPath, Mlp, dense, draw_keep, lecun_normal_init, trunc02
 from advise_tpu_torch.models.layers.heads import TransformerBasicHead
 from advise_tpu_torch.models.layers.norm import head_sync_axes
+from advise_tpu_torch.parallel.collectives import copy_to, reduce_from
 
 Triple = Tuple[int, int, int]
 Keeps = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
@@ -157,7 +158,14 @@ def window_softmax(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor, mask: O
 
 class WindowAttention3D(nn.Module):
     """Multi-head self-attention inside windows of ``window_size`` (the
-    clamped window), with a learned relative position bias per head."""
+    clamped window), with a learned relative position bias per head. Split
+    over 'model' (``tp``, set by ``parallel/auto_shard.py``) the rank holds
+    whole heads: qkv's rows and proj's columns of its heads, the input
+    through ``copy_to``, the bias table (whole, every rank's) through
+    ``copy_to`` and cut to its heads' columns, proj's partial products
+    summed over 'model' before its bias."""
+
+    tp = None  # (axes, size, index) once split over 'model'
 
     def __init__(self, dim: int, window_size: Triple, num_heads: int, qkv_bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -176,15 +184,23 @@ class WindowAttention3D(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B*nW, n, C]; ``mask`` [nW, n, n] or None."""
         b_, n, c = x.shape
-        heads = self.num_heads
-        qkv = linear(self.qkv, x, self.dtype).reshape(b_, n, 3, heads, c // heads).permute(2, 0, 3, 1, 4)
+        tp = self.tp
+        heads = self.num_heads if tp is None else self.num_heads // tp[1]
+        table = self.relative_position_bias_table
+        if tp is not None:
+            x = copy_to(x, tp[0])
+            table = copy_to(table, tp[0])[:, tp[2] * heads:(tp[2] + 1) * heads]
+        qkv = linear(self.qkv, x, self.dtype).reshape(b_, n, 3, heads, c // self.num_heads).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
         with torch.autocast(x.device.type, enabled=False):
             idx = device_index(self.window_size, x.device)
-            bias = self.relative_position_bias_table[idx].reshape(n, n, heads).permute(2, 0, 1)
+            bias = table[idx].reshape(n, n, heads).permute(2, 0, 1)
             out = torch.matmul(window_softmax(q, k, bias, mask, self.scale, v.dtype), v)
-        out = out.transpose(1, 2).reshape(b_, n, c)
-        return linear(self.proj, out, self.dtype)
+        out = out.transpose(1, 2).reshape(b_, n, -1)
+        if tp is None:
+            return linear(self.proj, out, self.dtype)
+        out = F.linear(_cast(out, self.dtype), _cast(self.proj.weight, self.dtype))
+        return reduce_from(out, tp[0]) + _cast(self.proj.bias, self.dtype)
 
 
 class SwinTransformerBlock3D(nn.Module):
@@ -231,7 +247,15 @@ class SwinTransformerBlock3D(nn.Module):
         x = x[:, :d, :h, :w]
         x = shortcut + self.drop_path(x, keep_attn)
         y = layer_norm(self.norm2, x, self.dtype)
-        y = linear(self.mlp.fc2, F.gelu(linear(self.mlp.fc1, y, self.dtype), approximate="tanh"), self.dtype)
+        tp = self.mlp.tp  # split over 'model' (parallel/auto_shard.py): fc2's parts summed before its bias
+        if tp is not None:
+            y = copy_to(y, tp[0])
+        y = F.gelu(linear(self.mlp.fc1, y, self.dtype), approximate="tanh")
+        if tp is None:
+            y = linear(self.mlp.fc2, y, self.dtype)
+        else:
+            y = reduce_from(F.linear(y, _cast(self.mlp.fc2.weight, self.dtype)), tp[0])
+            y = y + _cast(self.mlp.fc2.bias, self.dtype)
         return x + self.drop_path(y, keep_mlp)
 
 

@@ -1,6 +1,6 @@
-"""Data-parallel layout and collectives (counterpart of
-``advise_tpu/parallel/__init__.py`` without its model-parallel names: the
-auto partition mode, sequence and pipeline axes are not ported)."""
+"""Process layout and collectives (counterpart of
+``advise_tpu/parallel/__init__.py``); the model-parallel modules are
+``ring_attention``, ``pipeline`` and ``auto_shard``."""
 
 from advise_tpu_torch.parallel.collectives import (
     all_gather_cat,
@@ -14,6 +14,9 @@ from advise_tpu_torch.parallel.collectives import (
 from advise_tpu_torch.parallel.mesh import (
     BATCH_AXES,
     DATA_AXIS,
+    MODEL_AXIS,
+    PIPE_AXIS,
+    SEQ_AXIS,
     SYNC_AXIS,
     batch_device_count,
     bn_axis_names,
@@ -25,6 +28,9 @@ from advise_tpu_torch.parallel.mesh import (
 __all__ = [
     "BATCH_AXES",
     "DATA_AXIS",
+    "MODEL_AXIS",
+    "PIPE_AXIS",
+    "SEQ_AXIS",
     "SYNC_AXIS",
     "batch_device_count",
     "bn_axis_names",

@@ -17,9 +17,18 @@ group every helper is the identity (world 1, index 0).
 | shuffle-BN's shared key              | a permutation every rank of the group  |
 |                                      | draws from an identically seeded       |
 |                                      | generator: nothing is broadcast        |
+| ``lax.ppermute`` (a ring shift)      | :func:`ppermute`: ``batch_isend_irecv``|
+|                                      | under NCCL and on the CPU; an          |
+|                                      | all-gather under gloo on CUDA tensors  |
+|                                      | (gloo's P2P hands the device pointer to|
+|                                      | its TCP socket and fails); its backward|
+|                                      | the reverse shift                      |
+| GSPMD's all-reduce after a row-      | :func:`reduce_from`: all-reduce ahead, |
+| parallel layer, and its transpose    | identity back; :func:`copy_to`: the    |
+|                                      | converse, at a column-parallel input   |
 
-Only all-reduce, all-gather (as a list), broadcast and barrier are used: the
-collectives gloo takes on CUDA tensors (it has no reduce-scatter).
+Besides P2P on the CPU and NCCL, only all-reduce, all-gather (as a list),
+broadcast and barrier are used: the collectives gloo takes on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from advise_tpu_torch.parallel.mesh import BATCH_AXES, SYNC_AXIS, axis_group
+from advise_tpu_torch.parallel.mesh import BATCH_AXES, SYNC_AXIS, WORLD_AXES, axis_group, axis_ranks
 
 
 def world_size(axes=BATCH_AXES) -> int:
@@ -166,8 +175,9 @@ def batch_unshuffle(x: torch.Tensor, perm: torch.Tensor, axes=SYNC_AXIS) -> torc
 
 
 def check_same_on_every_rank(digest: str, device, what: str) -> None:
-    """Raise unless every rank holds the same sha256 hex ``digest``."""
-    g = axis_group(BATCH_AXES)
+    """Raise unless every rank of the world holds the same sha256 hex
+    ``digest``."""
+    g = axis_group(WORLD_AXES)
     if g is None:
         return
     mine = torch.tensor(list(bytes.fromhex(digest)), dtype=torch.int64, device=device)
@@ -181,3 +191,100 @@ def check_same_on_every_rank(digest: str, device, what: str) -> None:
 def barrier() -> None:
     if dist.is_initialized():
         dist.barrier()
+
+
+def _p2p_takes(x: torch.Tensor) -> bool:
+    """Whether the backend's P2P takes ``x``: NCCL, and gloo on CPU tensors."""
+    return x.device.type == "cpu" or dist.get_backend() == "nccl"
+
+
+def shift(x: torch.Tensor, axes, offset: int = 1) -> torch.Tensor:
+    """``x`` of the rank ``offset`` places before this one in the group over
+    ``axes`` (ring order): each rank's ``x`` goes ``offset`` places on, as
+    ``lax.ppermute`` with ``perm = [(j, (j + offset) % n)]``. No gradient."""
+    g = axis_group(axes)
+    if g is None or g[1] == 1:
+        return x
+    group, size, index = g
+    ranks = axis_ranks(axes)
+    x = x.contiguous()
+    if _p2p_takes(x):
+        out = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, ranks[(index + offset) % size], group),
+               dist.P2POp(dist.irecv, out, ranks[(index - offset) % size], group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return parts[(index - offset) % size]
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, offset):
+        ctx.axes, ctx.offset = axes, offset
+        return shift(x, axes, offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return shift(grad, ctx.axes, -ctx.offset), None, None
+
+
+def ppermute(x: torch.Tensor, axes, offset: int = 1) -> torch.Tensor:
+    """:func:`shift`, differentiable: the cotangent travels back the other
+    way, as JAX transposes ``ppermute``."""
+    if axis_group(axes) is None:
+        return x
+    return _Shift.apply(x, axes, offset)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def reduce_from(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over ``axes``, its cotangent passed back
+    as it is: the all-reduce after a row-parallel layer, whose output every
+    rank of the group then uses alike."""
+    g = axis_group(axes)
+    return x if g is None or g[1] == 1 else _ReduceFrom.apply(x, g[0])
+
+
+def copy_to(x: torch.Tensor, axes) -> torch.Tensor:
+    """``x`` as it is, its cotangent summed over ``axes``: where a tensor
+    every rank of the group holds alike enters work split over the group (a
+    column-parallel layer's input, a weight shared by the heads a rank
+    holds)."""
+    g = axis_group(axes)
+    return x if g is None or g[1] == 1 else _CopyTo.apply(x, g[0])
+
+
+def all_gather_dim(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """:func:`all_gather_cat` along ``dim``: every rank's ``x`` over
+    ``axes`` concatenated there in rank order (``all_gather(tiled=True)``),
+    its backward the sum of the cotangents, this rank's part kept."""
+    if axis_group(axes) is None:
+        return x
+    return all_gather_cat(x.movedim(dim, 0), axes).movedim(0, dim)

@@ -1,16 +1,26 @@
-"""The process layout of data-parallel training (counterpart of
-``advise_tpu/parallel/mesh.py``): one process per card, and one rank in the
-place of one device of the JAX package's ``('data', 'sync')`` mesh.
+"""The process layout (counterpart of ``advise_tpu/parallel/mesh.py``): one
+process per card, and one rank in the place of one device of the JAX
+package's mesh, ``('data', 'sync')``, ``('data', 'sync', 'seq')`` under
+TPU.MESH_SEQ, ``('data', 'sync', 'pipe')`` under TPU.MESH_PIPE and
+``('data', 'model')`` under TPU.PARTITION_MODE 'auto'.
 
 The JAX package runs one program over a mesh; the port runs one process a
 card, the reference's own idiom, launched by ``torch.distributed.run``
 (torchrun), which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``. Rank r stands for
-the mesh device at (data r // sync, sync r % sync): the BN sync groups are
-contiguous runs of ``sync`` ranks, as ``devs.reshape(data, sync)`` puts
-adjacent devices in one group. Gradients, stats and running statistics
-average over the world; BN statistics over the rank's sync group (the
-world under BN.GLOBAL_SYNC).
+the mesh device at the coordinates of r in the row-major order of the mesh's
+axes (:func:`mesh_axes`), as ``devs.reshape(...)`` lays the devices out: the
+innermost axis ('sync', or 'seq', 'pipe' or 'model' where there is one) runs
+over adjacent ranks. The group over some axes holds the ranks that share
+every other coordinate (:func:`axis_group`). The batch axes ``('data',
+'sync')`` name the ranks that carry distinct batch shards: the group of
+ranks that share this rank's 'seq', 'pipe' or 'model' coordinate (under
+'auto' the 'data' axis alone). Batch gathers, stats and running statistics
+average over it, BN statistics over the rank's sync group (the batch group
+under BN.GLOBAL_SYNC, and under 'auto', where the JAX package's GSPMD
+reduces over the whole batch). Gradients average over the world
+(``WORLD_AXES``) in the shard_map layouts: seq and pipe ranks hold
+replicated parameters, and their gradients agree only in their sum.
 
 Without a process group there is one rank, world 1, and no collective:
 every helper of ``parallel/collectives.py`` is then the identity. The
@@ -18,9 +28,9 @@ backend is chosen by rule, never by catching a failure: NCCL where each
 rank has a card of its own, gloo on the CPU and where ranks share a card
 (NCCL refuses two ranks on one device).
 
-The model-parallel half of the JAX module (TPU.PARTITION_MODE 'auto',
-TPU.MESH_SEQ and TPU.MESH_PIPE) is not ported: :func:`check_data_parallel`
-raises for it (ROADMAP A 16).
+P2P peers (ring attention's and the pipeline's hand-offs) are global
+ranks: :func:`axis_ranks` lists a group's members in the order of its
+axis.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import logging
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -37,22 +48,28 @@ logger = logging.getLogger(__name__)
 
 DATA_AXIS = "data"
 SYNC_AXIS = "sync"
+SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
+MODEL_AXIS = "model"
 BATCH_AXES = (DATA_AXIS, SYNC_AXIS)
+WORLD_AXES = ("world",)
 # a collective that waits longer than this fails the run instead of hanging it
 PROCESS_GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
 # this process's groups, set by :func:`init_groups`: {axes: (group, size, index)}
 _GROUPS: Dict[Tuple[str, ...], Tuple[Any, int, int]] = {}
+# {axes: the global ranks of this process's group over them, in axis order}
+_RANKS: Dict[Tuple[str, ...], List[int]] = {}
+_LAYOUT: List[Any] = []  # the (axes, world) the groups were made for
 
 
-def check_data_parallel(cfg) -> None:
-    """Raise for the model-parallel layouts the port does not carry yet."""
-    if getattr(cfg.TPU, "PARTITION_MODE", "shard_map") == "auto":
-        raise NotImplementedError("TPU.PARTITION_MODE 'auto' is not ported yet (ROADMAP A 16)")
-    if int(getattr(cfg.TPU, "MESH_SEQ", 1) or 1) > 1:
-        raise NotImplementedError("not ported yet: TPU.MESH_SEQ (ring attention) (ROADMAP A 16)")
-    if int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1) > 1:
-        raise NotImplementedError("not ported yet: TPU.MESH_PIPE (GPipe) (ROADMAP A 16)")
+def is_auto(cfg) -> bool:
+    return getattr(cfg.TPU, "PARTITION_MODE", "shard_map") == "auto"
+
+
+def axis_size(cfg, name: str) -> int:
+    """TPU.MESH_SEQ, MESH_PIPE or MESH_MODEL, at least 1."""
+    return max(int(getattr(cfg.TPU, f"MESH_{name.upper()}", 1) or 1), 1)
 
 
 def mesh_shape(cfg, n_devices: int) -> Tuple[int, int]:
@@ -61,11 +78,11 @@ def mesh_shape(cfg, n_devices: int) -> Tuple[int, int]:
     cut to the largest divisor of the count; TPU.MESH_DATA, when > 0, must
     agree. A MESH_SEQ or MESH_PIPE axis is carved off first."""
     n = n_devices
-    seq = max(int(getattr(cfg.TPU, "MESH_SEQ", 1) or 1), 1)
+    seq = axis_size(cfg, SEQ_AXIS)
     if seq > 1:
         assert n % seq == 0, (n, seq)
         n = n // seq
-    pipe = max(int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1), 1)
+    pipe = axis_size(cfg, PIPE_AXIS)
     if pipe > 1:
         assert n % pipe == 0, (n, pipe)
         n = n // pipe
@@ -102,12 +119,68 @@ def batch_device_count(cfg, n_devices: int) -> int:
     """The ranks that carry distinct batch shards: ``n_devices`` over the
     batch-replicating axes (MESH_MODEL under 'auto', MESH_SEQ x MESH_PIPE
     otherwise); the reference's NUM_WORLDS."""
-    if getattr(cfg.TPU, "PARTITION_MODE", "shard_map") == "auto":
-        rep = max(int(getattr(cfg.TPU, "MESH_MODEL", 1) or 1), 1)
+    if is_auto(cfg):
+        rep = axis_size(cfg, MODEL_AXIS)
     else:
-        rep = max(int(getattr(cfg.TPU, "MESH_SEQ", 1) or 1), 1) * max(int(getattr(cfg.TPU, "MESH_PIPE", 1) or 1), 1)
+        rep = axis_size(cfg, SEQ_AXIS) * axis_size(cfg, PIPE_AXIS)
     assert n_devices % rep == 0, (n_devices, rep)
     return n_devices // rep
+
+
+def mesh_axes(cfg, n_devices: int) -> Tuple[Tuple[str, int], ...]:
+    """((axis, size), ...) of the JAX package's ``build_mesh`` for
+    ``n_devices``, outermost first: ('data', 'model') under 'auto', else
+    ('data', 'sync') with 'seq' or 'pipe' innermost when set (MESH_SEQ
+    wins, as in JAX; the config rejects both)."""
+    if is_auto(cfg):
+        model = axis_size(cfg, MODEL_AXIS)
+        assert n_devices % model == 0, (n_devices, model)
+        return ((DATA_AXIS, n_devices // model), (MODEL_AXIS, model))
+    data, sync = mesh_shape(cfg, n_devices)
+    axes = ((DATA_AXIS, data), (SYNC_AXIS, sync))
+    for name in (SEQ_AXIS, PIPE_AXIS):
+        if axis_size(cfg, name) > 1:
+            return axes + ((name, axis_size(cfg, name)),)
+    return axes
+
+
+def mesh_batch_axes(cfg) -> Tuple[str, ...]:
+    """The mesh axes that carry the batch: 'data' plus 'sync' where there is
+    one (JAX's ``mesh_batch_axes``)."""
+    return (DATA_AXIS,) if is_auto(cfg) else BATCH_AXES
+
+
+def layout_groups(cfg, n_devices: int) -> Dict[Tuple[str, ...], List[List[int]]]:
+    """{axes: the partition of the ranks into the groups over those axes}:
+    the batch axes, 'sync', and 'seq', 'pipe', 'model' where the mesh has
+    them ('data' too under 'auto', FSDP's axis), each group listing its
+    ranks in the order of its axes."""
+    axes = mesh_axes(cfg, n_devices)
+    names = [a for a, _ in axes]
+    coords = np.indices([s for _, s in axes]).reshape(len(axes), -1).T  # rank -> coordinates
+
+    def partition(over):
+        keep = [i for i, a in enumerate(names) if a not in over]
+        groups: Dict[tuple, List[int]] = {}
+        for r, c in enumerate(coords):
+            groups.setdefault(tuple(c[keep]), []).append(r)
+        return list(groups.values())
+
+    out = {BATCH_AXES: partition(mesh_batch_axes(cfg)),
+           (SYNC_AXIS,): partition(mesh_batch_axes(cfg) if is_auto(cfg) or cfg.BN.GLOBAL_SYNC else (SYNC_AXIS,))}
+    for name in names:
+        if name in (SEQ_AXIS, PIPE_AXIS, MODEL_AXIS) or (name == DATA_AXIS and is_auto(cfg)):
+            out[(name,)] = partition((name,))
+    return out
+
+
+def batch_index(cfg, rank: int, n_devices: int) -> Tuple[int, int]:
+    """(rank's index among the ranks that carry distinct batches, their
+    count): its place in its group over the batch axes."""
+    for group in layout_groups(cfg, n_devices)[BATCH_AXES]:
+        if rank in group:
+            return group.index(rank), len(group)
+    raise ValueError(f"rank {rank} is not among {n_devices}")
 
 
 def local_batch_size(cfg, n_devices: int) -> int:
@@ -120,7 +193,8 @@ def local_batch_size(cfg, n_devices: int) -> int:
 
 def sync_groups(cfg, n_devices: int) -> List[List[int]]:
     """The BN sync groups of ``n_devices`` ranks: contiguous runs of the
-    sync axis's size, the rows of ``devs.reshape(data, sync)``."""
+    sync axis's size, the rows of ``devs.reshape(data, sync)``, without a
+    seq, pipe or model axis (with one, :func:`layout_groups`)."""
     _, sync = mesh_shape(cfg, n_devices)
     return [list(range(first, first + sync)) for first in range(0, n_devices, sync)]
 
@@ -134,27 +208,35 @@ def choose_backend(device_type: str, local_world: int) -> str:
 
 
 def init_groups(cfg) -> None:
-    """Create this process's groups over the initialized default group: one
-    ``new_group`` a sync group, all made in the same order on every rank
-    (once a process). Without a process group: none (world 1)."""
+    """Create this process's groups over the initialized default group (one
+    ``new_group`` a group of :func:`layout_groups` whose ranks are not the
+    world's, all made in the same order on every rank; once a process and
+    layout). Without a process group: none (world 1)."""
     if not dist.is_initialized():
         _GROUPS.clear()
+        _RANKS.clear()
+        _LAYOUT.clear()
         return
     world, rank = dist.get_world_size(), dist.get_rank()
-    groups = sync_groups(cfg, world)
-    sync = len(groups[0])
-    if _GROUPS and _GROUPS[(SYNC_AXIS,)][1] == sync:
+    layout = (mesh_axes(cfg, world), world)
+    if _LAYOUT == [layout]:
         return  # made by an earlier call of this process
     _GROUPS.clear()
-    mine = None
-    for ranks in groups:
-        group = dist.new_group(ranks)
-        if rank in ranks:
-            mine = group
-    _GROUPS[BATCH_AXES] = (dist.group.WORLD, world, rank)
-    _GROUPS[(SYNC_AXIS,)] = (mine, sync, rank % sync)
-    logger.info("process groups: rank %d of %d, sync groups of %d (%s backend)", rank, world, sync,
-                dist.get_backend())
+    _RANKS.clear()
+    made: Dict[Tuple[int, ...], Any] = {tuple(range(world)): dist.group.WORLD}
+    for axes, partition in layout_groups(cfg, world).items():
+        for ranks in partition:
+            key = tuple(sorted(ranks))
+            if key not in made:
+                made[key] = dist.new_group(list(key))
+            if rank in ranks:
+                _GROUPS[axes] = (made[key], len(ranks), ranks.index(rank))
+                _RANKS[axes] = list(ranks)
+    _GROUPS[WORLD_AXES] = (dist.group.WORLD, world, rank)
+    _RANKS[WORLD_AXES] = list(range(world))
+    _LAYOUT[:] = [layout]
+    logger.info("process groups: rank %d of %d, mesh %s (%s backend)", rank, world,
+                dict(layout[0]), dist.get_backend())
 
 
 def axis_group(axes) -> Optional[Tuple[Any, int, int]]:
@@ -164,8 +246,17 @@ def axis_group(axes) -> Optional[Tuple[Any, int, int]]:
     if not axes or not _GROUPS:
         return None
     if axes not in _GROUPS:
+        if set(axes) <= {SEQ_AXIS, PIPE_AXIS, MODEL_AXIS}:
+            return None  # an axis this layout does not have: size 1
         raise ValueError(f"no process group over the axes {axes}")
     return _GROUPS[axes]
+
+
+def axis_ranks(axes) -> List[int]:
+    """The global ranks of this rank's group over ``axes`` in axis order
+    ([0] without a process group)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return _RANKS.get(axes, [0]) if _GROUPS else [0]
 
 
 def world() -> Tuple[int, int]:
@@ -184,7 +275,6 @@ def distributed_init(cfg, device="cuda") -> torch.device:
     turn). A process group initialized before the call is used as it is;
     without one, and outside torchrun, this is rank 0 of a world of 1 and
     no group is made."""
-    check_data_parallel(cfg)
     device = torch.device(device)
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
     if not dist.is_initialized() and "RANK" in os.environ and "WORLD_SIZE" in os.environ:

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import logging
 import re
-from typing import Dict, NamedTuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -139,9 +139,21 @@ def lr_scales(cfg, params: Tensors) -> Dict[str, float]:
     return {n: 0.0 if labels[n] == "frozen" else scale(n, p) for n, p in params.items()}
 
 
-def global_grad_norm(grads: Tensors) -> torch.Tensor:
-    """Global 2-norm over all gradients, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads.values()))
+SqReduce = Optional[Callable[[Tensors], Tensors]]
+
+
+def _sum_sq(tensors: Tensors, reduce_sq: SqReduce = None) -> Tensors:
+    """{name: the float32 sum of squares of the tensor}; ``reduce_sq``
+    (``parallel/auto_shard.py AutoLayout.reduce_sq``) turns a rank's sums
+    over its slices into the whole tensors' sums."""
+    sq = {n: torch.sum(torch.square(t.float())) for n, t in tensors.items()}
+    return sq if reduce_sq is None else reduce_sq(sq)
+
+
+def global_grad_norm(grads: Tensors, reduce_sq: SqReduce = None) -> torch.Tensor:
+    """Global 2-norm over all gradients, in float32 (over the whole tensors
+    of a sharded layout with its ``reduce_sq``)."""
+    return torch.sqrt(sum(_sum_sq(grads, reduce_sq).values()))
 
 
 def trust_groups(names) -> Dict[str, list]:
@@ -154,7 +166,7 @@ def trust_groups(names) -> Dict[str, list]:
     return groups
 
 
-def trust_ratio(updates: Tensors, params: Tensors) -> Tensors:
+def trust_ratio(updates: Tensors, params: Tensors, reduce_sq: SqReduce = None) -> Tensors:
     """LARS's layer-wise trust ratio (``optax.masked(scale_by_trust_ratio(),
     ndim > 1)``) per JAX leaf: ``u * ||p|| / ||u||``, the norms taken over
     the whole leaf, on leaves with ndim > 1; ``u`` where either norm is 0
@@ -163,12 +175,14 @@ def trust_ratio(updates: Tensors, params: Tensors) -> Tensors:
     to every block, and the mask read at the stacked ndim, so a block's 1-D
     LayerNorm scale gets a ratio too."""
     out = dict(updates)
-    for names in trust_groups(updates).values():
-        stacked = _STACKED.search(names[0]) is not None
-        if params[names[0]].ndim + (1 if stacked else 0) <= 1:
-            continue
-        p_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(params[n]) for n in names]))
-        u_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(updates[n]) for n in names]))
+    groups = {leaf: names for leaf, names in trust_groups(updates).items()
+              if params[names[0]].ndim + (1 if _STACKED.search(names[0]) else 0) > 1}
+    chosen = [n for names in groups.values() for n in names]
+    p_sq = _sum_sq({n: params[n] for n in chosen}, reduce_sq)
+    u_sq = _sum_sq({n: updates[n] for n in chosen}, reduce_sq)
+    for names in groups.values():
+        p_norm = torch.sqrt(sum(p_sq[n] for n in names))
+        u_norm = torch.sqrt(sum(u_sq[n] for n in names))
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
         for n in names:
             out[n] = updates[n] * ratio
@@ -187,6 +201,7 @@ class SGDLars:
         self.nesterov = nesterov
         self.lars = lars
         self.clip_norm = clip_norm
+        self.reduce_sq: SqReduce = None  # set for a sharded layout (parallel/auto_shard.py)
 
     def init(self, params: Tensors) -> Dict[str, Tensors]:
         return {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
@@ -195,13 +210,13 @@ class SGDLars:
     def update(self, grads: Tensors, state: Dict[str, Tensors], params: Tensors):
         g = dict(grads)
         if self.clip_norm > 0:
-            norm = global_grad_norm(g)
+            norm = global_grad_norm(g, self.reduce_sq)
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                 self.clip_norm / norm)
             g = {n: v * scale.to(v.dtype) for n, v in g.items()}
         g = {n: v + self.wds[n] * params[n] for n, v in g.items()}
         if self.lars:
-            g = trust_ratio(g, params)
+            g = trust_ratio(g, params, self.reduce_sq)
         trace = {n: g[n] + self.momentum * state["trace"][n] for n in g}
         if self.nesterov:
             direction = {n: g[n] + self.momentum * trace[n] for n in g}
@@ -235,6 +250,7 @@ class Adam:
         self.clip_norm = clip_norm
         self.decoupled = decoupled
         self.lars = lars
+        self.reduce_sq: SqReduce = None  # set for a sharded layout (parallel/auto_shard.py)
 
     def init(self, params: Tensors) -> Dict[str, Union[Tensors, int]]:
         return {"mu": {n: torch.zeros_like(p) for n, p in params.items()},
@@ -254,17 +270,17 @@ class Adam:
     def update(self, grads: Tensors, state, params: Tensors):
         g = dict(grads)
         if self.clip_norm > 0:
-            norm = global_grad_norm(g)
+            norm = global_grad_norm(g, self.reduce_sq)
             keep = norm < self.clip_norm
             g = {n: torch.where(keep, v, v / norm.to(v.dtype) * self.clip_norm) for n, v in g.items()}
         if not self.decoupled:
             g = {n: v + self.wds[n] * params[n] for n, v in g.items()}
             if self.lars:
-                g = trust_ratio(g, params)
+                g = trust_ratio(g, params, self.reduce_sq)
             return self._adam(g, state)
         direction, state = self._adam(g, state)
         if self.lars:
-            direction = trust_ratio(direction, params)
+            direction = trust_ratio(direction, params, self.reduce_sq)
         return {n: d + self.wds[n] * params[n] for n, d in direction.items()}, state
 
 

@@ -45,6 +45,9 @@ bottlenecks' ``b``) become ``[C, 1, kt, kh, kw]``, and SE's ``fc1``/``fc2``,
 the Nonlocal ``theta``/``phi``/``g``/``out`` with their biases, ``out_bn``,
 the head's ``conv_5``/``lin_5`` and ``projection`` map like any conv, BN
 and Dense.
+
+A module split for TPU.PARTITION_MODE 'auto' takes JAX's trees through
+:func:`flax_to_sharded` (each rank cuts its shards from the whole tensors).
 """
 
 from __future__ import annotations
@@ -121,6 +124,16 @@ def batch_stats_to_torch(batch_stats: Mapping) -> Dict[str, torch.Tensor]:
 def flax_to_state_dict(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """Flax ``params`` + ``batch_stats`` -> the port's model ``state_dict``."""
     return {**params_to_torch(params), **batch_stats_to_torch(batch_stats)}
+
+
+def flax_to_sharded(module, params: Mapping, batch_stats: Mapping) -> None:
+    """JAX's ``params`` and ``batch_stats`` (numpy trees) into ``module``
+    laid out for TPU.PARTITION_MODE 'auto' (``parallel/auto_shard.py
+    shard_module``): the whole tensors mapped as :func:`flax_to_state_dict`
+    maps them, each rank keeping its shards of them."""
+    from advise_tpu_torch.parallel.auto_shard import layout_of
+
+    layout_of(module).load_full(flax_to_state_dict(params, batch_stats))
 
 
 def convert_train_state(params: Mapping, batch_stats: Mapping,

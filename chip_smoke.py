@@ -276,12 +276,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    processes' gradients agree bit for bit): the model and SSL digests at
    the start and the end, every loss and every launch count bit for bit.
    The two ranks share one card: this phase measures the semantics, not
-   scaling. The script's wall time is printed last.
+   scaling;
+11. the model-parallel layouts on MViT_L_32x312_joint.yaml at full width
+   and depth in one ``torch.distributed.run`` of two gloo ranks on the one
+   card (``--model-parallel``): (a) TPU.MESH_SEQ 2, (b) TPU.MESH_PIPE 2, (c)
+   TPU.PARTITION_MODE 'auto' with MESH_MODEL 2, (d) 'auto' at data 2 with
+   TPU.FSDP, each from TRAIN.SEED's weights at MVIT.DROPPATH_RATE 0, its
+   first step against one rank's plain step (loss and grad norm within
+   MP_LOSS_BOUND and MP_GNORM_BOUND), then MP_TIMED timed steps: step time,
+   peak, the parameter and moment bytes a rank stores, the whole state's
+   digest equal on both ranks, K4's launches equal ``k4_schedule`` of the
+   layout (the ring launches none; a pipelined block once a tick), and
+   every attention shape the layouts gave K4 (a pooled-KV block's q slice,
+   a microbatch of one clip, half the heads) held against its plain
+   version as phase 3 holds the others; the ring alone at RING_SHAPE
+   against the dense chain within RING_BOUND; which of gloo's collectives
+   take CUDA tensors. The script's wall time is printed last.
 
 Reductions: one card (BN.NUM_SYNC_DEVICES 1, TPU.MESH_SYNC 1; shuffle-BN
-permutes the card's own batch; Swin-B's preset is 32 chips), but phase 10,
-which runs the BYOL preset's 8-card sync groups cut to 2 ranks on the one
-card; widths, depth and per-card batches are the presets', but AdViSe's
+permutes the card's own batch; Swin-B's preset is 32 chips), but phases 10
+and 11, which run 2 ranks on the one card (phase 10 the BYOL preset's
+8-card sync groups cut to them); widths, depth and per-card batches are the presets', but AdViSe's
 video_swin head at 384 wide (the preset's 512 does not build in the JAX
 package).
 
@@ -548,6 +563,41 @@ SYNCBN_Y_BOUND, SYNCBN_DX_BOUND = 2.0 ** -7, 2.0 ** -6
 # what the script writes to its disk (45 GiB, deleted files included), and a
 # MViT-L checkpoint with AdamW's moments is 3.1 GB
 NO_SAVE = ["TRAIN.SAVE_FREQ", "0"]
+# phase 11: the model-parallel layouts on MViT_L_32x312_joint.yaml at full
+# width and depth, two gloo ranks on the one card in one torchrun: (a)
+# TPU.MESH_SEQ 2, (b) TPU.MESH_PIPE 2, (c) PARTITION_MODE 'auto' with
+# MESH_MODEL 2, (d) 'auto' with data 2 and TPU.FSDP, each from the same
+# initial state (TRAIN.SEED), 1 video x 2 views a rank (in (a)-(c) the same
+# video on both ranks, in (d) one each), MVIT.DROPPATH_RATE 0 (a rank of
+# (d) draws its masks from its own batch index's generator, one rank over
+# both videos from one), clips and loader masks from numpy's seed; then the ring alone at [2, 8, 6400, 72] bf16 over the two ranks.
+# The comparisons, a step each, against one rank's plain step (run as
+# MESH_SEQ 2 with MVIT.SEQ_SHARD False: each rank alone in its batch group,
+# the same step on both): (a)-(c) on the same video (a data-parallel pair
+# would add the duplicate video to the joint NT-Xent's negatives); (d) on
+# both videos at once ("plain_both"), and against 'auto' at data 2 without
+# FSDP (the same global-batch loss). A reference: (overrides, the videos it
+# takes: "first", "own" (the rank's) or "both")
+MP_RUN_DIR = "build/chip_smoke_mp"
+MP_RANKS = 2
+MP_LAYOUTS = {"a": {"TPU.MESH_SEQ": 2}, "b": {"TPU.MESH_PIPE": 2},
+              "c": {"TPU.PARTITION_MODE": "auto", "TPU.MESH_MODEL": 2},
+              "d": {"TPU.PARTITION_MODE": "auto", "TPU.FSDP": True}}
+MP_PLAIN = {"TPU.MESH_SEQ": 2, "MVIT.SEQ_SHARD": False}
+MP_REFERENCES = {"plain": (MP_PLAIN, "first"), "plain_both": (MP_PLAIN, "both"),
+                 "auto_data": ({"TPU.PARTITION_MODE": "auto"}, "own")}
+MP_REFERENCE = {"a": ("plain",), "b": ("plain",), "c": ("plain",), "d": ("plain_both", "auto_data")}
+MP_TIMED = 1  # steps after the compared first one
+MP_LR = 1e-3
+MP_TIMEOUT_S = 600
+# bounds of the first step's stats against a reference (relative, a loss to
+# max(|loss|, 1e-2): the joint NT-Xent of one video is 0): bf16 sums over
+# 'model', the ring's float32 state and a batch split over ranks reassociate
+# what one rank sums in one matmul. The bounds sit a few times above the
+# largest readings on an H100 (losses 1.6e-4, grad norm 3.2e-4)
+MP_LOSS_BOUND, MP_GNORM_BOUND = 2e-3, 5e-3
+RING_SHAPE = (2, 8, 6400, 72)
+RING_BOUND = 2.0 ** -6  # of the dense chain's largest value: a few bf16 ulps of the output
 # the pl.pallas_call of each Mosaic probe in scripts/probe_mosaic_aot.py
 PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 138,
                "roll_dyn": 153, "aug_like": 180, "aug_like_aligned": 207, "roll_lane": 236,
@@ -647,7 +697,8 @@ def mvit_attentions(mvit):
             yield getattr(mvit, f"blocks_{item[1]}").attn, False
 
 
-def k4_schedule(mvit, remat: bool, forwards_without_grad: int, backward: bool = True) -> dict:
+def k4_schedule(mvit, remat: bool, forwards_without_grad: int, backward: bool = True, seq: int = 1,
+                thw=None, pipe: int = 1, n_micro: int = 1) -> dict:
     """K4's launches a step of an MViT trained once a step, by kernel
     (``flash_mha_fwd``/``_bwd``, the bf16 pair, or the float32 pair
     ``flash_f32_fwd``/``_bwd`` for a head dim above 576: ``route``), worked
@@ -657,17 +708,42 @@ def k4_schedule(mvit, remat: bool, forwards_without_grad: int, backward: bool = 
     each forward without a gradient (the momentum encoder's keys) launches
     once more; the backward launches once an attention. ``backward`` False:
     a forward without a gradient alone (an eval forward, a kNN probe batch:
-    ``forwards_without_grad`` 0), once an attention, nothing recomputed."""
+    ``forwards_without_grad`` 0), once an attention, nothing recomputed.
+
+    A rank of a model-parallel layout: ``seq`` > 1 (TPU.MESH_SEQ, the
+    blocks' ``thw`` grid given): an attention of the sequence-parallel
+    branch whose q and k hold as many tokens (which ``seq`` divides) goes
+    round the ring and launches no K4; a pooled-KV one launches K4 on its q
+    slice, once, as without the split. ``pipe`` > 1 (TPU.MESH_PIPE, with
+    ``n_micro`` microbatches): a reversible segment whose length ``pipe``
+    divides runs a stage's L / pipe blocks once a tick over n_micro + pipe
+    - 1 ticks, forward, recompute and backward alike."""
     from advise_tpu_torch.ops.flash_attention import route
 
     import torch
 
     out = {name: 0 for name in ("flash_mha_fwd", "flash_mha_bwd", "flash_f32_fwd", "flash_f32_bwd")}
-    for attn, reversible in mvit_attentions(mvit):
-        recompute = 1 if backward and (reversible or remat) else 0
-        pair = "flash_mha" if route(torch.bfloat16, attn.dim_out // attn.num_heads) == "wgmma" else "flash_f32"
-        out[f"{pair}_fwd"] += 1 + recompute + forwards_without_grad
-        out[f"{pair}_bwd"] += 1 if backward else 0
+    shapes = mvit_attention_shapes(mvit, thw, 1) if seq > 1 else None
+    ticks = n_micro + pipe - 1
+    index = 0
+    for item in mvit.plan:
+        if item[0] == "segment":
+            subs = [(sub.attn, True) for sub in getattr(mvit, f"rev_seg{item[1]}_f")]
+        else:
+            subs = [(getattr(mvit, f"blocks_{item[1]}").attn, False)]
+        piped = pipe > 1 and item[0] == "segment" and len(subs) % pipe == 0
+        times = ticks if piped else 1
+        for attn, reversible in subs[: len(subs) // pipe] if piped else subs:
+            nq, nk = (shapes[index][2], shapes[index][3]) if shapes else (0, 1)
+            index += 1
+            if shapes and attn.seq_axis and nq == nk and nq % seq == 0:
+                continue  # the ring
+            recompute = 1 if backward and (reversible or remat) else 0
+            pair = "flash_mha" if route(torch.bfloat16, attn.dim_out // attn.num_heads) == "wgmma" else "flash_f32"
+            out[f"{pair}_fwd"] += times * (1 + recompute + forwards_without_grad)
+            out[f"{pair}_bwd"] += times * (1 if backward else 0)
+        if piped:
+            index += len(subs) - len(subs) // pipe
     return out
 
 
@@ -719,6 +795,45 @@ def attention_shapes(cfg, batch: int):
                        spec["dim_out"] // spec["num_heads"]))
         thw = q_thw
     return shapes
+
+
+def k4_against_plain(fl, shape, dev, g):
+    """K4's bf16 pair at ``shape`` (b, heads, nq, nk, head_dim) on random
+    inputs from ``g`` against ``flash_mha_plain`` in float32: the output
+    within 2^-7 and dq, dk, dv within 2^-6 of the plain version's largest
+    value (the card tests' reasoning), the backward bit for bit again.
+    Returns the largest error by kernel, and the inputs, the kernel's
+    forward and the plain output (for timing)."""
+    import torch
+
+    b_, h_, nq, nk, d = shape
+    scale = d ** -0.5
+    q = torch.randn((b_, h_, nq, d), device=dev, generator=g).bfloat16()
+    k_, v = (torch.randn((b_, h_, nk, d), device=dev, generator=g).bfloat16() for _ in range(2))
+    do = torch.randn((b_, h_, nq, d), device=dev, generator=g).bfloat16()
+    o, lse = fl.flash_mha_fwd(q, k_, v, scale)
+    dq, dk, dv = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
+    qr, kr, vr = (t.float().requires_grad_() for t in (q, k_, v))
+    ref = fl.flash_mha_plain(qr, kr, vr, scale)
+    grads = torch.autograd.grad(ref, (qr, kr, vr), do.float(), retain_graph=True)
+    torch.cuda.synchronize()
+    pairs = {"o": (o, ref.detach(), 2 ** -7)}
+    pairs.update({f"d{n}": (a, r, 2 ** -6) for n, a, r in zip("qkv", (dq, dk, dv), grads)})
+    errs, said, off = {"flash_mha_fwd": 0.0, "flash_mha_bwd": 0.0}, [], []
+    for name, (a, r, tol) in pairs.items():
+        err = float((a.float() - r).abs().max())
+        top = float(r.abs().max())
+        said.append(f"{name} {err} (bound {tol} of max|ref| {top} = {tol * top})")
+        if not (math.isfinite(err) and err <= tol * top):
+            off.append(name)
+        key = "flash_mha_fwd" if name == "o" else "flash_mha_bwd"
+        errs[key] = max(errs[key], err)
+    print(f"[kernel] flash {shape} max_abs_err: {', '.join(said)}")
+    check(not off, f"flash attention {off} disagrees at {shape}")
+    again = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
+    check(all(torch.equal(a, bb) for a, bb in zip(again, (dq, dk, dv))),
+          "flash attention backward is not deterministic")
+    return errs, (q, k_, v, do, o, lse, qr, kr, vr, ref)
 
 
 def sdpa_backend(q, k, v, scale):
@@ -2733,6 +2848,293 @@ def dp_entries(tconfig) -> None:
     print(f"[dp] phase 10 {time.perf_counter() - t0} s")
 
 
+def mp_model(cfg, init, dev):
+    """``cfg``'s model on ``dev`` holding ``init`` (a state_dict), laid out
+    as ``build_model`` lays it (channels-last 3-D conv weights)."""
+    import torch
+
+    from advise_tpu_torch.models import MODEL_REGISTRY, compute_dtype
+    from advise_tpu_torch.models.layers.norm import get_norm
+
+    model = MODEL_REGISTRY[cfg.MODEL.MODEL_NAME](cfg, get_norm(cfg), compute_dtype(cfg))
+    model.load_state_dict(init)
+    model = model.to(dev)
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            if t.dim() == 5:
+                t.data = t.data.contiguous(memory_format=torch.channels_last_3d)
+    return model
+
+
+def mp_run(cfg, init, dev, clips, infos, steps, sched=None):
+    """``steps`` train steps of ``cfg`` (its layout's groups made) from
+    ``init`` on this rank's ``clips`` and ``infos``: each step's stats and
+    ms, the peak allocated bytes, K4's launches and the attention shapes it
+    ran at, the parameter and moment bytes this rank stores, and the whole
+    state's digest."""
+    import torch
+
+    from advise_tpu_torch.engine.checkpoint import module_state, tensors_digest
+    from advise_tpu_torch.models.layers import attention
+    from advise_tpu_torch.engine.state import TrainState
+    from advise_tpu_torch.engine.steps import make_train_step
+    from advise_tpu_torch.engine.train import rank_keys, seeded_generator
+    from advise_tpu_torch.ops import flash_attention as fl
+    from advise_tpu_torch.parallel.auto_shard import describe_sharding, shard_train_state
+    from advise_tpu_torch.parallel.mesh import batch_device_count, init_groups, is_auto, world
+    from advise_tpu_torch.solver.optimizer import build_tx
+
+    init_groups(cfg)
+    cfg.NUM_WORLDS = batch_device_count(cfg, world()[1])
+    model = mp_model(cfg, init, dev)
+    named = dict(model.named_parameters())
+    bundle = build_tx(cfg, named)
+    state = TrainState(model, bundle.tx.init(named), 0)
+    counts = None
+    if is_auto(cfg):
+        counts = describe_sharding(shard_train_state(cfg, state, bundle))[0]
+    step = make_train_step(cfg, bundle, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (fl.flash_mha_fwd, fl.flash_mha_bwd, fl.flash_f32_fwd, fl.flash_f32_bwd):
+        fn.launches = 0
+    stats, ms = [], []
+    seen, flash_mha = set(), attention.flash_mha
+
+    def recorded(q, k, v, scale):
+        seen.add((*q.shape[:3], k.shape[2], q.shape[3]))
+        return flash_mha(q, k, v, scale)
+
+    attention.flash_mha = recorded
+    try:
+        for i in range(steps):
+            gen = seeded_generator(dev, cfg.TRAIN.SEED, 0, i, *rank_keys())
+            t0 = time.perf_counter()
+            out = step(state, clips, infos, gen, MP_LR)
+            stats.append({k: float(v) for k, v in out.items()})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        attention.flash_mha = flash_mha
+    launches = {fn.__name__: fn.launches for fn in (fl.flash_mha_fwd, fl.flash_mha_bwd, fl.flash_f32_fwd,
+                                                    fl.flash_f32_bwd)}
+    stored = sum(p.numel() * p.element_size() for p in model.parameters())
+    moments = sum(t.numel() * t.element_size() for v in state.opt_state.values() if isinstance(v, dict)
+                  for t in v.values())
+    digest = tensors_digest(module_state(model))
+    peak = torch.cuda.max_memory_allocated()
+    del state, model, step, bundle, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"stats": stats, "ms": ms, "peak_allocated_bytes": peak, "launches": launches,
+            "param_bytes": stored, "moment_bytes": moments, "digest": digest, "counts": counts,
+            "schedule": sched, "k4_shapes": sorted(seen)}
+
+
+def ring_alone(dev) -> dict:
+    """The ring at ``RING_SHAPE`` (bf16, the token dim over the 2 ranks)
+    against the dense chain on one rank, the same inputs on both: the
+    largest error over the largest value, and each one's ms (CUDA events,
+    the median of 5)."""
+    import torch
+
+    from advise_tpu_torch.models.layers.attention import dense_attention
+    from advise_tpu_torch.parallel.collectives import replica_index
+    from advise_tpu_torch.parallel.ring_attention import ring_attention
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    scale = RING_SHAPE[-1] ** -0.5
+    n = RING_SHAPE[2] // MP_RANKS
+    rows = slice(replica_index("seq") * n, (replica_index("seq") + 1) * n)
+
+    def timed(fn):
+        out, times = None, []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return out, statistics.median(times)
+
+    got, ring_ms = timed(lambda: ring_attention(q[:, :, rows], k[:, :, rows], v[:, :, rows], "seq", scale))
+    want, dense_ms = timed(lambda: dense_attention(q, k, v, scale))
+    want = want[:, :, rows].float()
+    err = float((got.float() - want).abs().max() / want.abs().max())
+    return {"shape": list(RING_SHAPE), "err": err, "ring_ms": ring_ms, "dense_ms": dense_ms}
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Which of gloo's collectives beyond all-reduce take CUDA tensors here
+    (its P2P does not: ``writev ... Bad address``, and the failure closes
+    the group's connections, so it is not tried)."""
+    import torch
+    import torch.distributed as dist
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4 * n, 3), float(rank + 1), device=dev)
+    out = {}
+    for name, fn in (("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(torch.empty(4, 3, device=dev), x)),
+                     ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                         torch.empty(4 * n * n, 3, device=dev), x)),
+                     ("all_to_all_single", lambda: dist.all_to_all_single(torch.empty_like(x), x))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ran"
+        except Exception as err:  # the finding to record
+            out[name] = f"refused: {type(err).__name__}: {str(err).splitlines()[0][:160] if str(err) else ''}"
+    return out
+
+
+def mp_rank() -> None:
+    """Phase 11, one of two gloo ranks on the card (launched with
+    ``--model-parallel``): the references, the four layouts and the ring
+    alone (module constants above); writes ``MP_RUN_DIR/rank{r}.json``."""
+    import numpy as np
+    import torch
+
+    from advise_tpu_torch import config as tconfig
+    from advise_tpu_torch.data.masking import build_mask_generator
+    from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.models.mvit import patch_grid
+    from advise_tpu_torch.parallel.mesh import distributed_init, init_groups, world
+    from advise_tpu_torch.parallel.pipeline import resolve_microbatches
+
+    def layout_cfg(overrides):
+        return one_card_cfg(tconfig, MASKED_CONFIG, {"NUM_GPUS": MP_RANKS, "MVIT.DROPPATH_RATE": 0.0, **overrides})
+
+    t0 = time.perf_counter()
+    base = layout_cfg({})
+    dev = distributed_init(base, "cuda")
+    rank, n = world()
+    template = build_model(base, "cpu", seed=base.TRAIN.SEED)
+    init = {k: v.detach().clone() for k, v in template.state_dict().items()}
+    enc = template.encoder
+    b, k, t, s = 1, 2, base.DATA.NUM_FRAMES, base.DATA.TRAIN_CROP_SIZE
+    rng = np.random.default_rng(31)
+    videos = rng.standard_normal((MP_RANKS, k, t, s, s, 3)).astype(np.float32)
+    masks = np.stack([build_mask_generator(base)(rng) for _ in range(MP_RANKS * k)]).astype(np.int32)
+    masks = masks.reshape(MP_RANKS, k, *masks.shape[1:])
+
+    def batch(rows):
+        return (torch.from_numpy(videos[rows]).to(dev), {"mask": torch.from_numpy(masks[rows]).to(dev)})
+
+    rows = {"first": slice(0, b), "own": slice(rank * b, (rank + 1) * b), "both": slice(0, MP_RANKS * b)}
+
+    remat = bool(base.TPU.REMAT)
+    plain = k4_schedule(enc, remat, 0)
+    n_micro = resolve_microbatches(int(base.TPU.PIPE_MICROBATCH or 0), b * k, 2)
+    scheds = {"a": k4_schedule(enc, remat, 0, seq=2, thw=patch_grid(base)), "b": k4_schedule(enc, remat, 0, pipe=2,
+                                                                                          n_micro=n_micro),
+              "c": plain, "d": plain}
+    del template, enc
+    out = {"rank": rank, "world": n, "device": torch.cuda.get_device_name(dev), "n_micro": n_micro,
+           "setup_s": time.perf_counter() - t0}
+    out["references"] = {name: mp_run(layout_cfg(over), init, dev, *batch(rows[videos_of]), 1)
+                         for name, (over, videos_of) in MP_REFERENCES.items()}
+    for name, over in MP_LAYOUTS.items():
+        cfg = layout_cfg(over)
+        mine = rows["own" if cfg.TPU.FSDP else "first"]  # (d) carries the batch over 'data'; (a)-(c) replicate it
+        t1 = time.perf_counter()
+        out[name] = mp_run(cfg, init, dev, *batch(mine), 1 + MP_TIMED, {"per_step": scheds[name]})
+        out[name]["seconds"] = time.perf_counter() - t1
+        with open(f"{MP_RUN_DIR}/rank{rank}.json", "w") as f:  # what a later failure leaves
+            json.dump(out, f)
+    init_groups(layout_cfg(MP_LAYOUTS["a"]))
+    out["ring"] = ring_alone(dev)
+    out["gloo_cuda"] = gloo_cuda_probe(dev)
+    out["seconds"] = time.perf_counter() - t0
+    with open(f"{MP_RUN_DIR}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def mp_entries(k4_checked) -> tuple:
+    """Phase 11: the torchrun of ``mp_rank`` on 2 gloo ranks, each rank's
+    numbers printed beside the card, every check; K4 held against its plain
+    version at each attention shape the layouts gave it that is not among
+    ``k4_checked`` (phase 3's). Returns the K4 launches of the layouts'
+    steps on both ranks, by kernel, and the largest error of those checks."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from advise_tpu_torch.ops import flash_attention as fl
+
+    shutil.rmtree(MP_RUN_DIR, ignore_errors=True)
+    Path(MP_RUN_DIR).mkdir(parents=True)
+    t0 = time.perf_counter()
+    code = torchrun(["--nproc_per_node", str(MP_RANKS), "chip_smoke.py", "--model-parallel"],
+                    "model-parallel layouts, 2 gloo ranks", f"{MP_RUN_DIR}/ranks.log", timeout=MP_TIMEOUT_S)
+    if code != 0:
+        print(Path(f"{MP_RUN_DIR}/ranks.log").read_text()[-6000:])
+    check(code == 0, f"phase 11: torchrun exited {code}")
+    ranks = [json.loads((Path(MP_RUN_DIR) / f"rank{r}.json").read_text()) for r in range(MP_RANKS)]
+    card = card_line()
+    totals, shapes = {}, set()
+    for res in ranks:
+        r = res["rank"]
+        print(f"[mp] rank {r} of {res['world']} on {res['device']} ({card}): set-up {res['setup_s']} s, "
+              f"{res['n_micro']} microbatches")
+        for ref_name, ref in res["references"].items():
+            print(f"[mp]   reference {ref_name}: stats {ref['stats'][0]}, {ref['ms'][0]} ms, peak "
+                  f"{ref['peak_allocated_bytes']} bytes, K4 {ref['launches']}")
+            shapes.update(tuple(sh) for sh in ref["k4_shapes"])
+        for name in MP_LAYOUTS:
+            run = res[name]
+            first = run["stats"][0]
+            steps = 1 + MP_TIMED
+            sched = {key: v * steps for key, v in run["schedule"]["per_step"].items()}
+            layout_shapes = {tuple(sh) for sh in run["k4_shapes"]}
+            shapes |= layout_shapes
+            print(f"[mp]   ({name}) {MP_LAYOUTS[name]}: step ms {run['ms']}, peak {run['peak_allocated_bytes']} "
+                  f"bytes, parameters {run['param_bytes']} + moments {run['moment_bytes']} bytes stored, first "
+                  f"step {first}; K4 {run['launches']} (schedule {sched}) at {sorted(layout_shapes)}, of which "
+                  f"phase 3 did not check {sorted(layout_shapes - k4_checked)}; digest {run['digest']}; sharding "
+                  f"{run['counts']}; {run['seconds']} s")
+            check(all(math.isfinite(v) for st in run["stats"] for v in st.values()), f"phase 11 ({name}): not finite")
+            for ref_name in MP_REFERENCE[name]:
+                want = res["references"][ref_name]["stats"][0]
+                loss_err = max(abs(first[key] - want[key]) / max(abs(want[key]), 1e-2)
+                               for key in want if key.startswith("loss"))
+                gnorm_err = abs(first["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+                print(f"[mp]   ({name}) against {ref_name} {want}: losses {loss_err} (bound {MP_LOSS_BOUND}), "
+                      f"grad norm {gnorm_err} (bound {MP_GNORM_BOUND})")
+                check(loss_err <= MP_LOSS_BOUND and gnorm_err <= MP_GNORM_BOUND,
+                      f"phase 11 ({name}): the first step is off {ref_name}")
+            check(run["launches"] == sched, f"phase 11 ({name}): K4 launches differ from the schedule")
+            for key, v in run["launches"].items():
+                totals[key] = totals.get(key, 0) + v
+        ring = res["ring"]
+        print(f"[mp]   ring alone {ring['shape']} bf16 over {MP_RANKS} ranks: error {ring['err']} of the dense "
+              f"chain's largest value (bound {RING_BOUND}); ring {ring['ring_ms']} ms a rank, dense chain on one "
+              f"rank {ring['dense_ms']} ms")
+        check(ring["err"] <= RING_BOUND, "phase 11: the ring is off the dense chain")
+        print(f"[mp]   gloo with CUDA tensors: {res['gloo_cuda']}; rank {r} {res['seconds']} s")
+    for name in MP_LAYOUTS:
+        check(len({res[name]["digest"] for res in ranks}) == 1, f"phase 11 ({name}): the ranks' states differ")
+    # the shapes phase 3 did not check, held against the plain version here
+    # (this process holds the card alone again)
+    check(all(fl.route(torch.bfloat16, sh[4]) == "wgmma" for sh in shapes), "phase 11: K4's float32 pair ran")
+    new = sorted(shapes - k4_checked)
+    errs = {"flash_mha_fwd": 0.0, "flash_mha_bwd": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(29)
+    for shape in new:
+        got, _ = k4_against_plain(fl, shape, "cuda", g)
+        errs = {key: max(errs[key], got[key]) for key in errs}
+    torch.cuda.empty_cache()
+    print(f"[mp] K4 at the {len(shapes)} attention shapes of phase 11: {len(new)} beyond phase 3's, each held "
+          f"against its plain version above: {new}; largest errors {errs}")
+    d, c = ranks[0]["d"], ranks[0]["c"]
+    print(f"[mp] (d) against (c): {d['param_bytes'] + d['moment_bytes']} against "
+          f"{c['param_bytes'] + c['moment_bytes']} parameter and moment bytes a rank")
+    print(f"[mp] phase 11 {time.perf_counter() - t0} s")
+    return totals, errs
+
+
 def main() -> None:
     import torch
 
@@ -3032,30 +3434,11 @@ def main() -> None:
         print(f"[kernel] flash {shape}: width {kplan['dp']}, dK/dV splits {kplan['splits']} "
               f"(scratch {kplan['scratch_bytes']} B)")
         scale = d ** -0.5
-        q = torch.randn((b_, h_, nq, d), device=dev, generator=g).bfloat16()
-        k_, v = (torch.randn((b_, h_, nk, d), device=dev, generator=g).bfloat16() for _ in range(2))
-        do = torch.randn((b_, h_, nq, d), device=dev, generator=g).bfloat16()
-        o, lse = fl.flash_mha_fwd(q, k_, v, scale)
-        dq, dk, dv = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
-        qr, kr, vr = (t.float().requires_grad_() for t in (q, k_, v))
-        ref = fl.flash_mha_plain(qr, kr, vr, scale)
-        grads = torch.autograd.grad(ref, (qr, kr, vr), do.float(), retain_graph=True)
-        torch.cuda.synchronize()
-        errs = {"o": (o, ref.detach(), 2 ** -7)}
-        errs.update({f"d{n}": (a, r, 2 ** -6) for n, a, r in zip("qkv", (dq, dk, dv), grads)})
-        for name, (a, r, tol) in errs.items():
-            err = float((a.float() - r).abs().max())
-            top = float(r.abs().max())
-            print(f"[kernel] flash {shape} {name}: max_abs_err {err} (bound: {tol} of max|ref| "
-                  f"{top} = {tol * top})")
-            check(math.isfinite(err) and err <= tol * top, f"flash attention {name} disagrees at {shape}")
-            key = "flash_mha_fwd" if name == "o" else "flash_mha_bwd"
+        errs, (q, k_, v, do, o, lse, qr, kr, vr, ref) = k4_against_plain(fl, shape, dev, g)
+        for key, err in errs.items():
             totals[key]["max_abs_err"] = max(totals[key]["max_abs_err"], err)
-        again = fl.flash_mha_bwd(q, k_, v, o, lse, do, scale)
-        check(all(torch.equal(a, bb) for a, bb in zip(again, (dq, dk, dv))),
-              "flash attention backward is not deterministic")
         if shape in con_bf16:
-            del q, k_, v, do, o, lse, dq, dk, dv, qr, kr, vr, ref, grads, again
+            del q, k_, v, do, o, lse, qr, kr, vr, ref
             torch.cuda.empty_cache()
             continue
         n_use = uses.get(shape, 0)  # 0: the ragged check, timed but not in the totals
@@ -3091,7 +3474,7 @@ def main() -> None:
             tot["library_ms"] += n_use * vals[2]
             tot["bound"][0] += n_use * vals[3][0]
             tot["bound"][1] += n_use * (1.0 if vals[3][1] == "operations" else 0.0)
-        del q, k_, v, do, o, lse, dq, dk, dv, qr, kr, vr, ref, grads, again, ql, kl, vl, lib_out
+        del q, k_, v, do, o, lse, qr, kr, vr, ref, ql, kl, vl, lib_out
         torch.cuda.empty_cache()
     for key, tot in totals.items():
         # one pass of the 48-block encoder over both views: per-shape medians
@@ -3692,6 +4075,13 @@ def main() -> None:
     # -- 10. data parallel: two gloo ranks on the card, SyncBN across them,
     # one NCCL rank ---------------------------------------------------------------
     dp_entries(tconfig)
+
+    # -- 11. the model-parallel layouts: two gloo ranks on the card ---------------
+    mp_launches, mp_errs = mp_entries(k4_checked)
+    for name, n in mp_launches.items():
+        launches[name] += n
+    for name, err in mp_errs.items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     print(f"[total] chip_smoke.py wall time {time.perf_counter() - t_start} s")
 
     launches.update(probe_launches)
@@ -3736,5 +4126,7 @@ if __name__ == "__main__":
         syncbn_rank()
     elif sys.argv[1:] == ["--nccl-shared-card"]:
         nccl_shared_card_rank()
+    elif sys.argv[1:] == ["--model-parallel"]:
+        mp_rank()
     else:
         main()

@@ -6,7 +6,10 @@ package:
   ``local_batch_size`` equal JAX's pure functions for every device count
   from 1 to 32 under BN.GLOBAL_SYNC, BN.NUM_SYNC_DEVICES, TPU.MESH_SYNC and
   TPU.MESH_DATA (JAX's ValueError cases raise the same), and the port's
-  sync groups are the rows of JAX's ``build_mesh`` device grid;
+  sync groups are the rows of JAX's ``build_mesh`` device grid, its groups
+  over 'seq', 'pipe', 'model', 'data' and the batch axes JAX's mesh's
+  lines through each device under TPU.MESH_SEQ, MESH_PIPE and
+  PARTITION_MODE 'auto';
 - ``build_loader`` at rank r of N yields the items of JAX's
   ``ClipLoader(rank=r, world=N)``, through 3 gloo ranks (the epoch padded
   to a multiple of the world) and at every (r, N) up to 4 with the world
@@ -90,9 +93,26 @@ def test_sync_groups_are_the_jax_mesh_rows(n):
     ids = {d.id: i for i, d in enumerate(jax.devices()[:n])}
     rows = [[ids[d.id] for d in row] for row in np.asarray(mesh.devices).reshape(mesh.shape["data"], -1)]
     assert tmesh.sync_groups(tcfg, n) == rows
-    for overrides in ({"TPU.PARTITION_MODE": "auto"}, {"TPU.MESH_SEQ": 2}, {"TPU.MESH_PIPE": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A 16"):
-            tmesh.check_data_parallel(_cfgs(overrides)[1])
+    # the model-parallel layouts: rank r's group over each axis holds the
+    # devices JAX's mesh lays along that axis through device r
+    for overrides in ({"TPU.PARTITION_MODE": "auto", "TPU.MESH_MODEL": 2}, {"TPU.MESH_SEQ": 2},
+                      {"TPU.MESH_PIPE": 2}):
+        if n % 2:
+            continue
+        jcfg, tcfg = _cfgs({"TPU.MESH_SYNC": 1, **overrides})
+        mesh = jmesh.build_mesh(jcfg, jax.devices()[:n])
+        grid = np.vectorize(lambda d: ids[d.id])(np.asarray(mesh.devices))
+        groups = tmesh.layout_groups(tcfg, n)
+        assert tuple(a for a, _ in tmesh.mesh_axes(tcfg, n)) == mesh.axis_names
+        for axis in mesh.axis_names:
+            if (axis,) in groups:
+                moved = np.moveaxis(grid, mesh.axis_names.index(axis), -1).reshape(-1, mesh.shape[axis])
+                assert sorted(groups[(axis,)]) == sorted(moved.tolist()), (overrides, axis)
+        batch = [i for i, a in enumerate(mesh.axis_names) if a in ("data", "sync")]
+        moved = np.moveaxis(grid, batch, range(-len(batch), 0))
+        size = int(np.prod([grid.shape[i] for i in batch]))
+        assert sorted(groups[tmesh.BATCH_AXES]) == sorted(moved.reshape(-1, size).tolist()), overrides
+        assert tmesh.batch_device_count(tcfg, n) == jmesh.batch_device_count(jcfg, n)
 
 
 def _loader_cfgs():

@@ -206,7 +206,8 @@ def test_port_imports_no_jax():
     shuffle-BN, the queue) and an MAE step with rel-pos, residual pooling
     and the fixed sin-cos table, then its VIS_MASK dump, the host aug, the
     op-exact 'aa' aug and ContrastiveModel over MViT, and importing the
-    data-parallel layout and collectives and the offline tools (t-SNE,
+    data-parallel layout and collectives, the model-parallel modules (ring
+    attention, GPipe, the 'auto' layout) and the offline tools (t-SNE,
     clip videos, features), loads no jax, flax, optax, advise_tpu or PIL
     module."""
     code = (
@@ -336,9 +337,11 @@ def test_port_imports_no_jax():
         "cfg.MODEL.ARCH = 'mvit'; cfg.MVIT.DEPTH = 2; cfg.MVIT.EMBED_DIM = 16; cfg.DATA.NUM_FRAMES = 4\n"
         "cfg.DATA.TRAIN_CROP_SIZE = 32; cfg.CONTRASTIVE.MLP_DIM = 32\n"
         "assert type(build_model(cfg, 'cpu').backbone).__name__ == 'MViT'\n"
-        "from advise_tpu_torch.parallel import collectives, mesh\n"
+        "from advise_tpu_torch.parallel import auto_shard, collectives, mesh, pipeline, ring_attention\n"
         "from advise_tpu_torch.tools import run_tsne\n"
         "assert mesh.mesh_shape(cfg, 4) == (1, 4) and collectives.world_size() == 1 and run_tsne.main\n"
+        "assert callable(auto_shard.shard_train_state) and callable(pipeline.gpipe)\n"
+        "assert callable(ring_attention.ring_attention)\n"
         "assert callable(visualization.get_features) and callable(visualization.clips2videos)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'advise_tpu', 'PIL'))\n"
         "assert not bad, bad\n"

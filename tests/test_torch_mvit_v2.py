@@ -31,10 +31,10 @@ from advise_tpu.solver import build_tx as jbuild_tx
 from advise_tpu_torch import config as tconfig
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.engine.steps import make_train_step
+from advise_tpu_torch.engine.train import check_ported
 from advise_tpu_torch.models import build_model
 from advise_tpu_torch.models import utils as tutils
 from advise_tpu_torch.models.layers import attention as tattn
-from advise_tpu_torch.models.mvit import check_ported
 from advise_tpu_torch.ops import flash_attention as fa
 from advise_tpu_torch.solver import optimizer as topt
 from advise_tpu_torch.solver.optimizer import build_tx
@@ -289,12 +289,12 @@ def test_reversible_mvit_v2_matches_jax():
     ("MVIT.POOL_FIRST", True, None), ("MVIT.MODE", "max", None), ("MVIT.SEPARATE_QKV", True, None),
     ("MVIT.LAYER_SCALE_INIT_VALUE", 0.1, None), ("MVIT.DROPOUT_RATE", 0.1, None),
     ("MVIT.NORM_STEM", True, None), ("MVIT.PATCH_2D", True, None), ("MVIT.HEAD_INIT_SCALE", 0.5, None),
-    ("TPU.MESH_PIPE", 2, "A 16"),
+    ("TPU.MESH_PIPE", 2, None),
 ])
 def test_check_ported_names_what_is_left(knob, value, item):
-    """Only TPU.MESH_PIPE still raises, naming its ROADMAP item; the A 20
-    knobs (ported since), the MViTv2 options, the fixed sin-cos table and
-    SCALE_INIT_BY_DEPTH pass."""
+    """Nothing is left: the trainer's gate passes the A 20 knobs, the
+    MViTv2 options, the fixed sin-cos table, SCALE_INIT_BY_DEPTH and
+    TPU.MESH_PIPE (GPipe, tests/test_torch_pipeline.py)."""
     cfg = _port_cfg(_mvit_cfg())
     check_ported(_port_cfg(_mvit_cfg(**V2, **{"MVIT.USE_FIXED_SINCOS_POS": True, "MASK.ENABLE": True,
                                               "MASK.SCALE_INIT_BY_DEPTH": True})))
