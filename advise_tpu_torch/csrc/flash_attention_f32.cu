@@ -1,7 +1,7 @@
 // Flash attention, forward and backward, float32-accurate on Hopper's tensor
 // cores (3xTF32): the K4 pair for the inputs the bf16 kernels of
 // flash_attention.cu do not take, float32 q, k, v at any head dim and bf16
-// above 576.
+// above 768.
 //
 // Replaces, for those inputs, the TPU kernel K4 of
 // advise_tpu/ops/flash_attention.py flash_mha (JAX's library Pallas TPU

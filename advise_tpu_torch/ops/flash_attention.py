@@ -11,8 +11,8 @@ function's: q ``[b, h, nq, d]``, k and v ``[b, h, nk, d]``; the output is
   forward is :func:`flash_mha_fwd` and whose backward is
   :func:`flash_mha_bwd`.
 - Each of the two wrappers routes a CUDA tensor by :func:`route`: bf16 at a
-  head dim up to 576 to the bf16 kernels of ``csrc/flash_attention.cu``,
-  float32 at any head dim and bf16 above 576 to the float32 pair of
+  head dim up to 768 to the bf16 kernels of ``csrc/flash_attention.cu``,
+  float32 at any head dim and bf16 above 768 to the float32 pair of
   ``csrc/flash_attention_f32.cu`` (also tensor cores, in 3xTF32; :func:`flash_f32_fwd`,
   :func:`flash_f32_bwd`), and raises on any other dtype. It runs its plain
   version (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`) for a CPU
@@ -21,8 +21,10 @@ function's: q ``[b, h, nq, d]``, k and v ``[b, h, nk, d]``; the output is
   one per backward (whose kernels, D, dK/dV, the split reduce where there
   are splits, and dQ, run as one call).
 - :func:`plan` is how the bf16 kernels run a shape: the template width,
-  each kernel's warps, grid and shared memory, and the dK/dV kernel's
-  query-range splits with their float32 scratch; :func:`f32_plan` the same
+  each kernel's warps, grid and shared memory, the dK/dV kernel's
+  query-range splits with their float32 scratch, and at width 768 the
+  forward's split of its last query tiles over key ranges (their float32
+  partials) and the bf16 dS scratch of the dQ GEMM; :func:`f32_plan` the same
   for the float32 pair: the source's make_plan (:func:`f32_kernel_plan`:
   tiles, warps, column parts, shared memory; :func:`compiled_f32_plan` reads
   the built library's for the card tests) with the dK/dV splits. Both are
@@ -51,7 +53,7 @@ SOURCE_F32 = "flash_attention_f32.cu"
 LOG2E = 1.4426950408889634
 SMS = 132  # streaming multiprocessors of an H100
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use
-MAX_WARPS = 8
+MAX_WARPS = 8  # the dK/dV kernel's warps
 MAX_SPLITS = 16
 # the dK/dV split count's cost model: a block's sustained bf16 rate on one
 # SM (about a third of the 7.5 TFLOP/s peak of an SM) and the scratch's
@@ -60,8 +62,11 @@ SM_FLOPS = 2.5e12
 HBM_BYTES_PER_S = 3.0e12
 # tile widths per template width DP (csrc/flash_attention.cu Tiles<DP> holds
 # the same; the card tests compare them): forward and dQ (BK keys a loop
-# tile, DSPLIT warpgroups sharing 64 query rows, their columns split), dK/dV
-# (BKV keys a block, BQ queries a loop tile, WC warps sharing 16 keys)
+# tile; DSPLIT 1: two warpgroups of 64 query rows each, else DSPLIT
+# warpgroups sharing 64 rows, their columns split; DSPLIT 3 also splits S's
+# contraction, and its dQ is a GEMM on dS with BK keys a tile), dK/dV (BKV
+# keys a block, BQ queries a loop tile, WC warps sharing 16 keys; under 8
+# query columns a warp, the S^T and dP^T n-tiles share out d)
 TILES = {
     64: {"fwd": (64, 1), "dq": (64, 1), "dkdv": (128, 64, 1)},
     80: {"fwd": (64, 1), "dq": (64, 1), "dkdv": (128, 64, 1)},
@@ -69,6 +74,7 @@ TILES = {
     192: {"fwd": (64, 1), "dq": (64, 1), "dkdv": (64, 64, 2)},
     288: {"fwd": (64, 1), "dq": (32, 1), "dkdv": (64, 32, 2)},
     576: {"fwd": (32, 2), "dq": (16, 2), "dkdv": (32, 32, 4)},
+    768: {"fwd": (16, 3), "dq": (64, 3), "dkdv": (16, 16, 8)},
 }
 # the float32 pair, 3xTF32 on the tensor cores (csrc/flash_attention_f32.cu
 # holds the same): a row's pitch in shared memory is its width + F32_PAD
@@ -110,9 +116,9 @@ def _library():
     if _lib is None:
         lib = build.load(SOURCE)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [vp] * 5 + [ci] * 5 + [cf, vp]
+        lib.flash_fwd.argtypes = [vp] * 6 + [ci] * 5 + [cf, ci, ci, vp]
         lib.flash_fwd.restype = ci
-        lib.flash_bwd.argtypes = [vp] * 12 + [ci] * 5 + [cf, ci, vp]
+        lib.flash_bwd.argtypes = [vp] * 13 + [ci] * 5 + [cf, ci, vp]
         lib.flash_bwd.restype = ci
         lib.flash_tiles.argtypes = [ci, ctypes.POINTER(ci)]
         lib.flash_tiles.restype = ci
@@ -182,8 +188,8 @@ def _cdiv(a: int, b: int) -> int:
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel pair a CUDA tensor of ``dtype`` at head dim ``d`` takes:
-    "wgmma" (bf16 up to the widest template width) or "f32" (float32 at any
-    head dim, bf16 above it). Raises TypeError for any other dtype."""
+    "wgmma" (bf16 up to the widest template width, 768) or "f32" (float32 at
+    any head dim, bf16 above it). Raises TypeError for any other dtype."""
     if dtype == torch.bfloat16 and d <= max(TILES):
         return "wgmma"
     if dtype in (torch.bfloat16, torch.float32):
@@ -279,17 +285,35 @@ def f32_kernel_usage() -> dict:
     return usage
 
 
-def fwd_smem(dp: int, bq: int, bk: int) -> int:
-    # 32-column atoms of 64-byte rows, and 1 KB to align them
-    return 1024 + 64 * _cdiv(dp, 32) * (bq + 4 * bk)
+def block_rows(dsplit: int) -> int:
+    """Query rows of a forward or dQ block: two warpgroups of 64 at DSPLIT
+    1, else 64 that the DSPLIT warpgroups share."""
+    return 128 if dsplit == 1 else 64
 
 
-def dq_smem(dp: int, bq: int, bk: int) -> int:
-    return 1024 + 64 * _cdiv(dp, 32) * (2 * bq + 4 * bk)
+def block_warps(dsplit: int) -> int:
+    """Warps of a forward or dQ block: two warpgroups, or DSPLIT of them."""
+    return 4 * max(2, dsplit)
 
 
-def dkdv_smem(dp: int, bkv: int, bq: int) -> int:
-    return 2 * (2 * bkv + 4 * bq) * (dp + 8) + 4 * bkv * (bq + 8) + 16 * bq
+def fwd_smem(dp: int, bk: int, dsplit: int) -> int:
+    # 32-column atoms of 64-byte rows, and 1 KB to align them: Q and two
+    # stages of K and V; DSPLIT 3: the warpgroups' float32 partial S tiles
+    return (1024 + 64 * _cdiv(dp, 32) * (block_rows(dsplit) + 4 * bk)
+            + (4 * dsplit * 64 * bk if dsplit > 2 else 0))
+
+
+def dq_smem(dp: int, bk: int, dsplit: int) -> int:
+    if dsplit > 2:  # the GEMM on dS: two stages of a dS tile (64 x bk) and a K tile (bk x dp)
+        return 1024 + 2 * 64 * (_cdiv(bk, 32) * 64 + _cdiv(dp, 32) * bk)
+    return 1024 + 64 * _cdiv(dp, 32) * (2 * block_rows(dsplit) + 4 * bk)
+
+
+def dkdv_smem(dp: int, bkv: int, bq: int, wc: int) -> int:
+    # K, V, two stages of Q and dO, P^T and dS^T, lse and D; under 8 query
+    # columns a warp, the 8 warps' partial n-tiles
+    return (2 * (2 * bkv + 4 * bq) * (dp + 8) + 4 * bkv * (bq + 8) + 16 * bq
+            + (4 * MAX_WARPS * 32 * 4 if bq // wc < 8 else 0))
 
 
 def _splits(bh: int, nq: int, nk: int, d: int, dp: int) -> int:
@@ -308,25 +332,50 @@ def _splits(bh: int, nq: int, nk: int, d: int, dp: int) -> int:
     return best[1]
 
 
+def _fwd_tail(bh: int, nq: int, nk: int, dp: int) -> dict:
+    """DSPLIT 3's forward: its query tiles, slice-major on a 1-D grid, run
+    whole, one block each, but for the tiles past the last full wave of
+    SMS blocks (one block an SM), each of which runs as ``ksplit`` blocks
+    over contiguous key ranges (as many as the SMs over those tiles, at
+    most one a key tile) whose float32 partials (O, row max and sum: 64 x
+    dp + 128 floats) a combine kernel sums in range order. Elsewhere the
+    forward's 2-D grid, no split."""
+    bk, dsplit = TILES[dp]["fwd"]
+    if dsplit <= 2:
+        return {"whole": None, "ksplit": 1, "part_bytes": 0}
+    tiles = bh * _cdiv(nq, block_rows(dsplit))
+    rem = tiles % SMS if tiles > SMS else 0
+    ksplit = min(_cdiv(nk, bk), SMS // rem) if rem else 1
+    if ksplit <= 1:
+        rem, ksplit = 0, 1
+    whole = tiles - rem
+    return {"whole": whole, "ksplit": ksplit, "grid": (whole + rem * ksplit, 1, 1),
+            "part_bytes": 4 * rem * ksplit * (64 * dp + 128)}
+
+
 @functools.lru_cache(maxsize=None)
 def plan(bh: int, nq: int, nk: int, d: int) -> dict:
     """How the kernels run ``bh`` slices of (nq, nk, d): per kernel its tile
     rows, warps, grid (x, y, z) and dynamic shared memory, the dK/dV splits
-    and the bytes of their float32 scratch. Pure arithmetic on the shapes."""
+    and the bytes of their float32 scratch, and the bytes of the bf16 dS
+    scratch [bh, nq, nk rounded up to the dK/dV kernel's keys] that the dQ
+    GEMM reads at DSPLIT 3 (0 elsewhere). Pure arithmetic on the shapes."""
     dp = padded_dim(d)
     tiles = TILES[dp]
     out = {"dp": dp}
     for name, smem in (("fwd", fwd_smem), ("dq", dq_smem)):
-        bk, dsplit = tiles[name]  # two warpgroups of 64 rows, DSPLIT to a row
-        rows = 128 // dsplit
-        out[name] = {"rows": rows, "bk": bk, "dsplit": dsplit, "warps": MAX_WARPS,
-                     "grid": (_cdiv(nq, rows), bh, 1), "smem": smem(dp, rows, bk)}
+        bk, dsplit = tiles[name]
+        rows = block_rows(dsplit)
+        out[name] = {"rows": rows, "bk": bk, "dsplit": dsplit, "warps": block_warps(dsplit),
+                     "grid": (_cdiv(nq, rows), bh, 1), "smem": smem(dp, bk, dsplit)}
+    out["fwd"].update(_fwd_tail(bh, nq, nk, dp))
     bkv, bq, wc = tiles["dkdv"]
     splits = _splits(bh, nq, nk, d, dp)
     out["dkdv"] = {"rows": bkv, "bq": bq, "wc": wc, "warps": MAX_WARPS,
-                   "grid": (_cdiv(nk, bkv), bh, splits), "smem": dkdv_smem(dp, bkv, bq)}
+                   "grid": (_cdiv(nk, bkv), bh, splits), "smem": dkdv_smem(dp, bkv, bq, wc)}
     out["splits"] = splits
     out["scratch_bytes"] = 2 * splits * bh * nk * d * 4 if splits > 1 else 0
+    out["ds_bytes"] = 2 * bh * nq * _cdiv(nk, bkv) * bkv if tiles["dq"][1] > 2 else 0
     return out
 
 
@@ -411,10 +460,15 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     p = plan(b * h, nq, nk, d)
+    f = p["fwd"]
+    part = None
+    if f["part_bytes"]:  # float32 partials of the split tiles' key ranges
+        part = torch.empty(f["part_bytes"] // 4, dtype=torch.float32, device=q.device)
     with _current(q.device):
         err = _library().flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b * h, nq, nk, d, p["dp"], float(scale), torch.cuda.current_stream().cuda_stream)
+            None if part is None else part.data_ptr(), b * h, nq, nk, d, p["dp"], float(scale),
+            f["whole"] or 0, f["ksplit"], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
     flash_mha_fwd.launches += 1
@@ -442,15 +496,18 @@ def flash_mha_bwd(q, k, v, o, lse, do, scale: float):
     p = plan(b * h, nq, nk, d)
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    part = None
+    part = ds = None
     if p["splits"] > 1:  # float32 partial dK, dV of each query range
         part = torch.empty((2, p["splits"], b * h, nk, d), dtype=torch.float32, device=q.device)
+    if p["ds_bytes"]:  # dS, bf16, for the dQ GEMM
+        ds = torch.empty(p["ds_bytes"] // 2, dtype=torch.bfloat16, device=q.device)
     with _current(q.device):
         err = _library().flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if part is None else part[0].data_ptr(),
             None if part is None else part[1].data_ptr(),
+            None if ds is None else ds.data_ptr(),
             b * h, nq, nk, d, p["dp"], float(scale), p["splits"],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

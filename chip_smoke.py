@@ -35,7 +35,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    in bf16, with the backend that served it); K4's float32 pair
    (csrc/flash_attention_f32.cu, 3xTF32 on the tensor cores) in float32 at
    every distinct attention shape of MViT-L 32x312 and a ragged one above
-   head dim 576, and in bf16 at head dim 768, against the plain versions,
+   head dim 576, and in bf16 at head dim 800, against the plain versions,
    with its plan, its registers and spills (a spill fails) and the TF32 MMA
    count of its SASS (cuobjdump; none fails), SDPA in the same dtype as its
    library yardstick and both its bounds (3xTF32 on the tensor cores, and
@@ -80,7 +80,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    values a flipped uint8 step apart); and MViT-S as a classifier with the
    knobs of ROADMAP A 20 on (MVIT_KNOBS: plain and reversible), flash
    attention, bf16 on the card against float32 on the CPU, K4 once a
-   block by its route (the bf16 pair to head dim 576, the float32 pair
+   block by its route (the bf16 pair to head dim 768, the float32 pair
    above); and MViT_S_rev_masked.yaml's MaskMViT with MVIT.REV.RESPATH_FUSE
    concat_linear_ln (FUSE_INTER), whose predictions come out of
    fuse_inter's float32 projection and LayerNorm, the same way;
@@ -187,7 +187,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    x 2 views, the momentum encoder) with MODEL.ARCH mvit and
    MViT_S_rev_masked.yaml's MVIT block at 16 frames of 224^2, reversible,
    flash attention (its head dims 96-768, the reference's head schedule
-   not accumulating: K4 bf16 to 576, K4's float32 pair above), under MoCo
+   not accumulating: K4 bf16 at all of them), under MoCo
    (BYOL needs a
    predictor, which MViT's head has not: JAX's byol_loss asserts), 2
    warm-up and 3 timed steps and one profiled step, K4's forward and
@@ -270,8 +270,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    sync groups cut to the 2 ranks: first NCCL asked to run two ranks on the
    one card (its answer printed: it refuses a device shared by two ranks);
    (i) two ranks on the one card through the entry point under
-   ``torch.distributed.run`` with gloo, one epoch of 64 synthetic videos (2
-   iterations and a kNN probe batch a rank) and a resume to 2: finite
+   ``torch.distributed.run`` with gloo, one epoch of 32 synthetic videos (1
+   iteration and a kNN probe batch a rank) and a resume to 2: finite
    losses, equal stats and model and SSL digests on both ranks after each
    run, the resume from the saved state, K1/K2 (2, 1) a step and the
    probe's forward on each rank; (ii) on two gloo ranks, the fast
@@ -292,8 +292,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    TPU.PARTITION_MODE 'auto' with MESH_MODEL 2, (d) 'auto' at data 2 with
    TPU.FSDP, each from TRAIN.SEED's weights at MVIT.DROPPATH_RATE 0, its
    first step against one rank's plain step (loss and grad norm within
-   MP_LOSS_BOUND and MP_GNORM_BOUND), then MP_TIMED timed steps: step time,
-   peak, the parameter and moment bytes a rank stores, the whole state's
+   MP_LOSS_BOUND and MP_GNORM_BOUND; its time printed), then MP_TIMED timed
+   steps (none: the script's time limit): step time, peak, the parameter
+   and moment bytes a rank stores, the whole state's
    digest equal on both ranks, K4's launches equal ``k4_schedule`` of the
    layout (the ring launches none; a pipelined block once a tick), and
    every attention shape the layouts gave K4 (a pooled-KV block's q slice,
@@ -520,8 +521,9 @@ MVIT_KNOBS = [("plain", {"MVIT.MODE": "avg", "MVIT.SEPARATE_QKV": True, "MVIT.LA
 # the fused 'aa' aug, 16 clips x 2 views, the momentum encoder) with
 # MODEL.ARCH mvit, MViT_S_rev_masked.yaml's MVIT block (mvit_s_block) at 16
 # frames of 224^2, reversible, flash attention (head dims 96-768: the
-# reference's head schedule does not accumulate, so K4 bf16 to 576 and its
-# float32 pair at 768). CONTRASTIVE.TYPE moco: MViT's head carries no
+# reference's head schedule does not accumulate; K4 bf16 at all of them,
+# the two d-768 attentions on its width-768 kernels). CONTRASTIVE.TYPE
+# moco: MViT's head carries no
 # predictor, so BYOL raises in both packages (JAX's byol_loss asserts)
 MVIT_CON = {"MODEL.ARCH": "mvit", "CONTRASTIVE.TYPE": "moco", "DATA.NUM_FRAMES": 16, "DATA.TRAIN_CROP_SIZE": 224,
             "DATA.TEST_CROP_SIZE": 224, "MVIT.REV.ENABLE": True, "TPU.FLASH_ATTENTION": True}
@@ -580,10 +582,10 @@ MVIT_L_RUN_OVERRIDES = ONE_CARD + ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYN
 # bit-reproducible across processes)
 DP_RUN_DIR = "build/chip_smoke_dp"
 DP_RANKS = 2
-DP_RUN_VIDEOS = 64
+DP_RUN_VIDEOS = 32  # (i): 1 iteration a rank an epoch
 DP_OVERRIDES = ["DATA.DECODE_BACKEND", "synthetic", "DATA.SYNTHETIC_SIZE", str(DP_RUN_VIDEOS), "TRAIN.SAVE_FREQ", "1",
                 "CONTRASTIVE.KNN_EVAL_BATCHES", str(RUN_KNN_BATCHES)]
-DP_SINGLE_VIDEOS = 32  # (iii): 2 iterations of one rank
+DP_SINGLE_VIDEOS = 16  # (iii): 1 iteration of one rank
 DP_LR0 = ["SOLVER.BASE_LR", "0.0", "SOLVER.WARMUP_START_LR", "0.0", "SOLVER.COSINE_END_LR", "0.0"]
 DP_TIMEOUT_S = 420  # a torchrun job that outlives this is killed, and the phase fails
 # (ii)'s bounds: the bf16 BN output one bf16 ulp (2^-7) of its largest value
@@ -617,7 +619,7 @@ MP_PLAIN = {"TPU.MESH_SEQ": 2, "MVIT.SEQ_SHARD": False}
 MP_REFERENCES = {"plain": (MP_PLAIN, "first"), "plain_both": (MP_PLAIN, "both"),
                  "auto_data": ({"TPU.PARTITION_MODE": "auto"}, "own")}
 MP_REFERENCE = {"a": ("plain",), "b": ("plain",), "c": ("plain",), "d": ("plain_both", "auto_data")}
-MP_TIMED = 1  # steps after the compared first one
+MP_TIMED = 0  # timed steps after the compared first one (its own time is printed)
 MP_LR = 1e-3
 MP_TIMEOUT_S = 600
 # bounds of the first step's stats against a reference (relative, a loss to
@@ -731,7 +733,7 @@ def k4_schedule(mvit, remat: bool, forwards_without_grad: int, backward: bool = 
                 thw=None, pipe: int = 1, n_micro: int = 1) -> dict:
     """K4's launches a step of an MViT trained once a step, by kernel
     (``flash_mha_fwd``/``_bwd``, the bf16 pair, or the float32 pair
-    ``flash_f32_fwd``/``_bwd`` for a head dim above 576: ``route``), worked
+    ``flash_f32_fwd``/``_bwd`` for a head dim above 768: ``route``), worked
     out from the code: each attention launches the forward in its forward
     pass; the backward recomputes every reversible block's F (the
     reversible walk) and, under REMAT, every transition (its checkpoint);
@@ -973,11 +975,11 @@ def tf32_mma_counts(lib_path, nvcc):
     return counts
 
 
-def flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms, bf16_shapes=()):
+def flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms):
     """K4's float32 pair at every distinct attention shape of the masked
     path's encoder in float32 (2 views), each weighted by the blocks that run
-    it, then at (1,3,777,555,640) float32, (1,2,500,300,768) bf16 and
-    ``bf16_shapes`` in bf16 (path (c)'s head dim 768): its
+    it, then at (1,3,777,555,640) float32 and (1,2,500,300,800) bf16 (what
+    the bf16 kernels do not take): its
     plan, registers and spills (a spill in a float32 instance, which serves
     head dims up to 288, fails), the TF32 MMAs of its SASS (none fails),
     agreement with the plain versions (float32: 1e-4 of the largest entry;
@@ -1004,8 +1006,7 @@ def flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms, bf
     totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=[0.0, 0.0], max_abs_err=0.0)
               for name in ("flash_f32_fwd", "flash_f32_bwd")}
     cases = [(sh, torch.float32) for sh in sorted(uses, key=lambda sh: -uses[sh])]
-    cases += [((1, 3, 777, 555, 640), torch.float32), ((1, 2, 500, 300, 768), torch.bfloat16)]
-    cases += [(sh, torch.bfloat16) for sh in bf16_shapes]
+    cases += [((1, 3, 777, 555, 640), torch.float32), ((1, 2, 500, 300, 800), torch.bfloat16)]
     for shape, dtype in cases:
         b_, h_, nq, nk, d = shape
         check(fl.route(dtype, d) == "f32", f"flash {shape} {dtype} does not route to the float32 pair")
@@ -3374,6 +3375,7 @@ def main() -> None:
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, {nvcc_version}, "
           f"python {sys.version.split()[0]}, {torch.cuda.device_count()} device(s)")
 
+    print(f"[phase] 2 starts at {time.perf_counter() - t_start} s")
     # -- 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     built = build.build_all(verbose=True)
@@ -3381,6 +3383,7 @@ def main() -> None:
         print(f"[build] {src} -> {path.name} in {seconds:.3f} s")
     print(f"[build] all sources in {time.perf_counter() - t0:.3f} s (in parallel)")
 
+    print(f"[phase] 3 starts at {time.perf_counter() - t_start} s")
     # -- 3. kernel vs plain -----------------------------------------------------
     cfg = one_card_cfg(tconfig, BYOL_CONFIG)
     b, k, t = cfg.DATA.BATCHSIZE_PER_GPU, cfg.DATA.NUM_CLIP, cfg.DATA.NUM_FRAMES
@@ -3601,21 +3604,28 @@ def main() -> None:
     per_block = attention_shapes(mvcfg, mk)
     uses = {sh: per_block.count(sh) for sh in per_block}
     # and path (c)'s (phase 7h): each attention of ContrastiveModel over
-    # MViT-S, one view's clips a call; checked, not timed (its step is)
+    # MViT-S, one view's clips a call; checked, not timed (its step is),
+    # but for its two head-dim-768 shapes (the width-768 kernels), timed
+    # beside the float32 pair that ran them before
     con_shapes = path_c_shapes(tconfig)
-    con_bf16 = sorted({sh for sh in con_shapes if fl.route(torch.bfloat16, sh[4]) == "wgmma"} - set(uses))
-    con_f32 = sorted({sh for sh in con_shapes if fl.route(torch.bfloat16, sh[4]) != "wgmma"})
+    check(all(fl.route(torch.bfloat16, sh[4]) == "wgmma" for sh in con_shapes),
+          "a path (c) attention routes to the float32 pair")
+    con_wide = sorted({sh for sh in con_shapes if fl.padded_dim(sh[4]) == max(fl.TILES)})
+    con_bf16 = sorted(set(con_shapes) - set(uses) - set(con_wide))
     print(f"[kernel] flash: path (c)'s attention shapes {con_shapes}")
     totals = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=[0.0, 0.0], max_abs_err=0.0)
               for name in ("flash_mha_fwd", "flash_mha_bwd")}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     usage = fl.kernel_usage()  # ptxas -v of the build: registers and spills per kernel
-    for shape in sorted(uses, key=lambda sh: -uses[sh]) + [(2, 2, 1001, 77, 72)] + con_bf16:
+    for shape in sorted(uses, key=lambda sh: -uses[sh]) + [(2, 2, 1001, 77, 72)] + con_bf16 + con_wide:
         b_, h_, nq, nk, d = shape
         kplan = fl.plan(b_ * h_, nq, nk, d)
         per_sm = fl.occupancy(kplan)
+        wide = kplan["dq"]["dsplit"] > 2  # the forward's shared S, dQ the GEMM on dS
         grids = {"fwd": kplan["fwd"]["grid"], "bwd_pre": (math.ceil(b_ * h_ * nq / 8), 1, 1),
                  "dkdv": kplan["dkdv"]["grid"], "dq": kplan["dq"]["grid"]}
+        if kplan["fwd"]["part_bytes"]:
+            grids["combine"] = (64, kplan["fwd"]["grid"][0] - kplan["fwd"]["whole"], 1)
         if kplan["splits"] > 1:
             grids["reduce"] = (min(b_ * h_ * nk * d // 256 + 1, 132 * 8), 1, 1)
         for kname, grid in grids.items():
@@ -3623,18 +3633,22 @@ def main() -> None:
             resident = per_sm.get(kname)
             waves = f", {resident} a SM: {blocks / (sms * resident)} waves" if resident else ""
             kernel = {"fwd": "flash_fwd_kernel", "bwd_pre": "flash_bwd_pre_kernel",
-                      "dkdv": "flash_bwd_dkdv_kernel", "dq": "flash_bwd_dq_kernel",
-                      "reduce": "flash_bwd_reduce_kernel"}[kname]
-            use = usage[(kernel, kplan["dp"] if kname in per_sm else None)]
+                      "dkdv": "flash_bwd_dkdv_kernel",
+                      "dq": "flash_bwd_dq_gemm_kernel" if wide else "flash_bwd_dq_kernel",
+                      "combine": "flash_fwd_combine_kernel", "reduce": "flash_bwd_reduce_kernel"}[kname]
+            use = usage[(kernel, kplan["dp"] if kname in per_sm or kname == "combine" else None)]
             print(f"[kernel] flash {shape} {kname}: grid {grid}, {blocks} blocks{waves}; "
                   f"{kplan[kname]['warps'] if kname in per_sm else 8} warps, {use['registers']} "
                   f"registers, spill stores {use['spill_stores']} B, loads {use['spill_loads']} B"
                   + (f", {kplan[kname]['smem']} B shared" if kname in per_sm else ""))
-            if kplan["dp"] <= 288:
+            if kplan["dp"] <= 288 or wide:
                 check(use["spill_stores"] == use["spill_loads"] == 0,
                       f"flash kernel {kernel} spills registers at head dim {d}")
         print(f"[kernel] flash {shape}: width {kplan['dp']}, dK/dV splits {kplan['splits']} "
-              f"(scratch {kplan['scratch_bytes']} B)")
+              f"(scratch {kplan['scratch_bytes']} B)" + (
+                  f", forward tiles split over keys past {kplan['fwd']['whole']}: {kplan['fwd']['ksplit']} "
+                  f"ranges each ({kplan['fwd']['part_bytes']} B of partials), dS scratch "
+                  f"{kplan['ds_bytes']} B" if wide else ""))
         scale = d ** -0.5
         errs, (q, k_, v, do, o, lse, qr, kr, vr, ref) = k4_against_plain(fl, shape, dev, g)
         for key, err in errs.items():
@@ -3651,6 +3665,13 @@ def main() -> None:
         bwd_ms, bwd_plain_ms = in_turns(
             lambda: fl.flash_mha_bwd(q, k_, v, o, lse, do, scale),
             lambda: torch.autograd.grad(ref, (qr, kr, vr), do.float(), retain_graph=True), K4_REPS)
+        pair = ""
+        if shape in con_wide:  # the float32 pair on the same bf16 tensors: the route before width 768
+            f32_fwd_ms, _ = in_turns(lambda: fl.flash_f32_fwd(q, k_, v, scale),
+                                     lambda: fl.flash_mha_fwd(q, k_, v, scale))
+            f32_bwd_ms, _ = in_turns(lambda: fl.flash_f32_bwd(q, k_, v, o, lse, do, scale),
+                                     lambda: fl.flash_mha_bwd(q, k_, v, o, lse, do, scale))
+            pair = f"; the float32 pair on the same bf16 inputs: fwd {f32_fwd_ms} ms, bwd {f32_bwd_ms} ms"
         backend = sdpa_backend(q, k_, v, scale)
         ql, kl, vl = (t.clone().requires_grad_() for t in (q, k_, v))
         with sdpa_kernel([backend]):
@@ -3667,7 +3688,11 @@ def main() -> None:
               f"SDPA {lib_fwd_ms}, bound {fwd_bound[0]} {fwd_bound[1]}, {fwd_bound[0] / fwd_ms} of "
               f"it); bwd {bwd_ms} ms (plain {bwd_plain_ms}, SDPA {lib_bwd_ms}, bound {bwd_bound[0]} "
               f"{bwd_bound[1]}, {bwd_bound[0] / bwd_ms} of it); SDPA fwd+bwd "
-              f"{lib_fwd_ms + lib_bwd_ms} ms by {backend.name}")
+              f"{lib_fwd_ms + lib_bwd_ms} ms by {backend.name}{pair}")
+        if shape in con_wide:  # width 768 against SDPA and the float32 pair it replaced (reported)
+            print(f"[kernel] flash width 768 at {shape}: fwd {lib_fwd_ms / fwd_ms}x SDPA's speed, "
+                  f"{f32_fwd_ms / fwd_ms}x the float32 pair's; bwd {lib_bwd_ms / bwd_ms}x SDPA's, "
+                  f"{f32_bwd_ms / bwd_ms}x the pair's")
         for key, vals in (("flash_mha_fwd", (fwd_ms, fwd_plain_ms, lib_fwd_ms, fwd_bound)),
                           ("flash_mha_bwd", (bwd_ms, bwd_plain_ms, lib_bwd_ms, bwd_bound))):
             tot = totals[key]
@@ -3691,10 +3716,11 @@ def main() -> None:
     # K4's float32 pair (csrc/flash_attention_f32.cu): what the tensor-core
     # kernels do not take, routed by flash_mha_fwd/bwd, at every float32
     # shape of the masked path's encoder and two wide head dims
-    results.update(flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms, con_f32))
-    k4_checked = set(uses) | set(con_bf16) | set(con_f32)
+    results.update(flash_f32_table(fl, build, dev, g, uses, per_block, in_turns, alone, sms))
+    k4_checked = set(uses) | set(con_bf16) | set(con_wide)
     print(f"[kernel] card after the flash timings: {card_state()}")
 
+    print(f"[phase] 4 starts at {time.perf_counter() - t_start} s")
     # -- 4. small input: the card's bf16 forward against a CPU float32 one --------
     small = torch.from_numpy(
         np.random.default_rng(1).standard_normal((2, t, 64, 64, 3)).astype(np.float32))
@@ -3792,6 +3818,7 @@ def main() -> None:
     mvit_knobs_forward(tconfig, dev)
     fuse_inter_forward(tconfig, dev)
 
+    print(f"[phase] 5 starts at {time.perf_counter() - t_start} s")
     # -- 5. the BYOL path ---------------------------------------------------------
     model = build_model(cfg, dev, seed=0)
     params = dict(model.named_parameters())
@@ -3887,6 +3914,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     del clips
 
+    print(f"[phase] 6 starts at {time.perf_counter() - t_start} s")
     # -- 6. the speed path --------------------------------------------------------
     model = build_model(scfg, dev, seed=0)
     params = dict(model.named_parameters())
@@ -3939,6 +3967,7 @@ def main() -> None:
     del model, params, bundle, state, step, clips, stats
     torch.cuda.empty_cache()
 
+    print(f"[phase] 7 starts at {time.perf_counter() - t_start} s")
     # -- 7. the masked path -------------------------------------------------------
     model = build_model(mvcfg, dev, seed=0)
     params = dict(model.named_parameters())
@@ -4060,6 +4089,7 @@ def main() -> None:
     del model, params, bundle, state, step, clips, masks, stats
     torch.cuda.empty_cache()
 
+    print(f"[phase] 7b starts at {time.perf_counter() - t_start} s")
     # -- 7b. the AdViSe path: no kernel on the preset's own path -------------------
     acfg = one_card_cfg(tconfig, ADVISE_CONFIG)
     _, _, adv_launches, tower_same, _ = advise_steps(acfg, "AdViSe.yaml", WARMUP_STEPS, TIMED_STEPS, dev,
@@ -4091,6 +4121,7 @@ def main() -> None:
         check(task == "speed" or twins_moved, "AdViSe video_swin speed_byol: the twins did not move")
         check(not any(v_launches.values()), f"the AdViSe video_swin {task} step launched a kernel")
 
+    print(f"[phase] 7c starts at {time.perf_counter() - t_start} s")
     # -- 7c. the X3D path, 7d. the MoCo path, 7e. the Swin path, 7f. the MAE
     # path: no kernel -------------------------------------------------------------
     x3d_path(tconfig, dev)
@@ -4098,6 +4129,7 @@ def main() -> None:
     swin_path(tconfig, dev)
     mae_path(tconfig, dev)
 
+    print(f"[phase] 7g starts at {time.perf_counter() - t_start} s")
     # -- 7g. the rest of the contrastive engine and the solver: K1/K2 (and K3
     # on TRAIN.SEQUENTIAL) by each variant's schedule -------------------------
     for name, n in contrastive_path(tconfig, dev, byol_ms, byol_peak).items():
@@ -4105,6 +4137,7 @@ def main() -> None:
     launches["fused_simple_aug"] += speed_sequential(tconfig, dev, speed_ms, speed_peak)
     solver_chains(tconfig, dev)
 
+    print(f"[phase] 7h starts at {time.perf_counter() - t_start} s")
     # -- 7h. the op-exact RandAugment (path (a)) and ContrastiveModel over
     # MViT (path (c)): K1/K2 and K4 by their schedules -------------------------
     t_7h = time.perf_counter()
@@ -4114,6 +4147,7 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + n
     print(f"[7h] phase 7h {time.perf_counter() - t_7h} s")
 
+    print(f"[phase] 8 starts at {time.perf_counter() - t_start} s")
     # -- 8. the entry point ---------------------------------------------------------
     import shutil
     from pathlib import Path
@@ -4274,15 +4308,18 @@ def main() -> None:
         launches[name] += n
     print(f"[run] phase 8's remote-storage run {time.perf_counter() - t_remote} s")
 
+    print(f"[phase] 9 starts at {time.perf_counter() - t_start} s")
     # -- 9. MViT-L through the entry point -----------------------------------------
     t9 = time.perf_counter()
     mvit_l_entry(tconfig)
     print(f"[run] phase 9 {time.perf_counter() - t9} s")
 
+    print(f"[phase] 10 starts at {time.perf_counter() - t_start} s")
     # -- 10. data parallel: two gloo ranks on the card, SyncBN across them,
     # one NCCL rank ---------------------------------------------------------------
     dp_entries(tconfig)
 
+    print(f"[phase] 11 starts at {time.perf_counter() - t_start} s")
     # -- 11. the model-parallel layouts: two gloo ranks on the card ---------------
     mp_launches, mp_errs = mp_entries(k4_checked)
     for name, n in mp_launches.items():

@@ -25,7 +25,7 @@ from advise_tpu_torch.ops import flash_attention as fa
 torch.set_num_threads(1)
 
 SHAPES = [(256, 384, 48), (392, 98, 48), (130, 130, 48), (256, 128, 192),
-          (64, 40, 288), (48, 36, 576)]
+          (64, 40, 288), (48, 36, 576), (40, 30, 768)]
 
 
 def _inputs(nq, nk, d, b=2, h=2, seed=0):

@@ -115,32 +115,143 @@ def test_split_count_and_scratch_at_mvit_l_shapes(shape):
     assert p["dp"] >= d and p["dp"] % 16 == 0
 
 
+def _reg_cap(warps: int) -> int:
+    """Registers a thread may hold in a block of ``warps`` warps, one block
+    an SM: 65,536 over its threads in steps of 8, at most 255."""
+    return min(255, 65536 // (32 * warps) // 8 * 8)
+
+
 @pytest.mark.parametrize("dp", sorted(fa.TILES))
 def test_tiles_fit_and_split_the_warps(dp):
-    """Each template width's tiles: whole k-steps of 16, 8 dK/dV warps, and
-    shared memory within the 227 KB a block may use."""
+    """Each template width's tiles: whole k-steps of 16; the forward's and
+    dQ's warpgroups (two of 64 rows each, all of d, at DSPLIT 1; else
+    DSPLIT of them sharing 64 rows, each a whole number of 32-column atoms
+    of d, at most 256 columns, one wgmma, where S's contraction is shared
+    too) with their float32 O accumulators and 32 more registers within a
+    thread's share; 8 dK/dV warps, each with whole n-tiles of its S^T and
+    dP^T query columns or, under 8 a warp (16 keys a block), one n-tile over
+    an equal share of d, and the dQ GEMM on dS exactly there; shared memory
+    within the 227 KB a block may use."""
     t = fa.TILES[dp]
-    # the forward and dQ: two warpgroups, 128 / DSPLIT query rows; a
-    # warpgroup's columns (dp / DSPLIT) start on a whole 32-column atom
-    for name, smem in (("fwd", fa.fwd_smem), ("dq", fa.dq_smem)):
-        bk, dsplit = t[name]
-        assert bk % 16 == 0 and dsplit in (1, 2) and (dsplit == 1 or (dp // dsplit) % 32 == 0)
-        assert smem(dp, 128 // dsplit, bk) <= fa.SMEM_LIMIT
     assert t["fwd"][1] == t["dq"][1]
+    dsplit = t["fwd"][1]
+    rows, warps = fa.block_rows(dsplit), fa.block_warps(dsplit)
+    if dsplit == 1:
+        assert (rows, warps) == (128, 8)
+        cols = dp  # a warpgroup's O columns
+    else:
+        assert (rows, warps) == (64, 4 * max(2, dsplit)) and (dp // dsplit) % 32 == 0
+        cols = dp // dsplit
+        assert dsplit <= 2 or cols <= 256
+    assert cols // 2 + 32 <= _reg_cap(warps)  # 64 x cols float32 over a warpgroup's 128 threads
+    for name, smem in (("fwd", fa.fwd_smem), ("dq", fa.dq_smem)):
+        bk = t[name][0]
+        assert bk % 16 == 0 and (dsplit <= 2 or name == "fwd" or bk % 32 == 0)  # whole dS atoms
+        assert smem(dp, bk, dsplit) <= fa.SMEM_LIMIT
     bkv, bq, wc = t["dkdv"]
-    assert (bkv // 16) * wc == fa.MAX_WARPS and bq % 16 == 0 and (bq // wc) % 8 == 0
-    assert (dp // wc) % 8 == 0 and fa.dkdv_smem(dp, bkv, bq) <= fa.SMEM_LIMIT
+    assert (bkv // 16) * wc == fa.MAX_WARPS and bq % 16 == 0 and (dp // wc) % 8 == 0
+    assert dp // wc <= 192  # dK and dV: 2 x 16 keys x dp / wc float32 over a warp
+    qw = bq // wc
+    if qw >= 8:
+        assert qw % 8 == 0
+    else:
+        tiles = 2 * (bq // 8)  # S^T and dP^T n-tiles of the block's 16 keys
+        assert bkv == 16 and fa.MAX_WARPS % tiles == 0 and dp % (16 * (fa.MAX_WARPS // tiles)) == 0
+    assert (dsplit > 2) == (qw < 8)  # dS is written where dQ is its GEMM
+    assert fa.dkdv_smem(dp, bkv, bq, wc) <= fa.SMEM_LIMIT
+
+
+# path (c)'s head-dim-768 attentions (chip_smoke.py path_c_shapes: ContrastiveModel
+# over the reversible MViT-S, one view's 16 clips a call) and their plans
+PATH_C_768 = {
+    (16, 1568, 392, 768): {"fwd": (396, 25, 496), "splits": 1, "ds_bytes": 2 * 16 * 1568 * 400},
+    (16, 392, 392, 768): {"fwd": (112, 1, 112), "splits": 1, "ds_bytes": 2 * 16 * 392 * 400},
+}
+
+
+@pytest.mark.parametrize("shape", list(PATH_C_768))
+def test_plan_at_path_c_width_768_shapes(shape):
+    """Width 768: the forward's 64-row tiles whole on a 1-D grid up to the
+    last full wave of 132 blocks, the rest each split over key ranges (one
+    a 16-key tile at most) with float32 partials; dQ the GEMM on a bf16 dS
+    of the queries x the dK/dV kernel's 16-key tiles; the dK/dV grid and
+    splits; every kernel within a block's shared memory."""
+    bh, nq, nk, d = shape
+    want = PATH_C_768[shape]
+    p = fa.plan(bh, nq, nk, d)
+    f = p["fwd"]
+    assert p["dp"] == 768 and (f["rows"], f["bk"], f["dsplit"], f["warps"]) == (64, 16, 3, 12)
+    tiles = bh * math.ceil(nq / 64)
+    whole, ksplit, blocks = want["fwd"]
+    assert (f["whole"], f["ksplit"], f["grid"]) == (whole, ksplit, (blocks, 1, 1))
+    assert whole + (tiles - whole) * ksplit == blocks and (tiles <= SMS or whole % SMS == 0)
+    assert ksplit <= math.ceil(nk / 16)
+    assert f["part_bytes"] == 4 * (tiles - whole) * ksplit * (64 * 768 + 128)
+    assert p["dq"]["grid"] == (math.ceil(nq / 64), bh, 1) and p["dq"]["warps"] == 12
+    assert p["ds_bytes"] == want["ds_bytes"] == 2 * bh * nq * math.ceil(nk / 16) * 16
+    assert p["dkdv"]["grid"] == (math.ceil(nk / 16), bh, want["splits"]) and p["splits"] == want["splits"]
+    assert p["scratch_bytes"] == (2 * p["splits"] * bh * nk * d * 4 if p["splits"] > 1 else 0)
+    assert max(p[k]["smem"] for k in ("fwd", "dq", "dkdv")) <= fa.SMEM_LIMIT
+
+
+def split_forward(q, k, v, scale: float, whole: int, ksplit: int):
+    """fa.flash_fwd_plain on width 768's schedule: the 64-row query tiles
+    (slice-major) from ``whole`` on, each over ``ksplit`` contiguous ranges
+    of 16-key tiles, one float32 partial a range (O unnormalized, the row
+    max of the scaled scores and the row sum of 2^(s - max)), combined in
+    range order as the combine kernel does; the tiles before ``whole`` as
+    the unsplit forward."""
+    o, lse = fa.flash_fwd_plain(q, k, v, scale)
+    o, lse = o.float().clone(), lse.clone()
+    bh, nq, nk = q.shape[0] * q.shape[1], q.shape[2], k.shape[2]
+    qf, kf, vf = (t.float().reshape(bh, -1, t.shape[-1]) for t in (q, k, v))
+    of, lf = o.reshape(bh, nq, -1), lse.reshape(bh, nq)
+    tq, nkt = math.ceil(nq / 64), math.ceil(nk / 16)
+    for t in range(whole, bh * tq):
+        s, rows = t // tq, slice((t % tq) * 64, min(nq, (t % tq) * 64 + 64))
+        parts = []
+        for z in range(ksplit):
+            keys = slice(z * nkt // ksplit * 16, min(nk, (z + 1) * nkt // ksplit * 16))
+            x = torch.matmul(qf[s, rows], kf[s, keys].T) * scale * fa.LOG2E
+            m = x.max(dim=-1).values
+            p = torch.exp2(x - m[:, None])
+            parts.append((torch.matmul(p, vf[s, keys]), m, p.sum(dim=-1)))
+        m = torch.stack([pm for _, pm, _ in parts]).max(dim=0).values
+        w = [torch.exp2(pm - m) for _, pm, _ in parts]
+        total = sum(wz * pl for wz, (_, _, pl) in zip(w, parts))
+        of[s, rows] = sum(wz[:, None] * po for wz, (po, _, _) in zip(w, parts)) / total[:, None]
+        lf[s, rows] = m + torch.log2(total)
+    return o.to(q.dtype), lse
+
+
+@pytest.mark.parametrize("bh,nq,nk,seed", [(140, 64, 100, 0), (136, 40, 200, 1), (4, 1568, 392, 2)])
+def test_split_forward_equals_the_whole_one(bh, nq, nk, seed):
+    """The forward's split tiles, combined from their key ranges' float32
+    partials, give the unsplit forward's O and lse within float32 rounding
+    (1e-5 of the largest entry; lse 1e-5): the same sums in another order.
+    The plan's split where it has one (more than 132 tiles), else 4 ranges
+    of the last tile."""
+    d = 48  # the split's arithmetic does not depend on d; width 768's plan does
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(bh, nq, nk, d, seed))
+    f = fa.plan(bh, nq, nk, 768)["fwd"]
+    whole, ksplit = (f["whole"], f["ksplit"]) if f["ksplit"] > 1 else (bh * math.ceil(nq / 64) - 1, 4)
+    assert ksplit > 1 and whole < bh * math.ceil(nq / 64)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, d ** -0.5)
+    o, lse = split_forward(q, k, v, d ** -0.5, whole, ksplit)
+    assert float((o - want_o).abs().max()) <= 1e-5 * float(want_o.abs().max())
+    assert float((lse - want_lse).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("d,dp", [(1, 64), (36, 64), (64, 64), (72, 80), (96, 144), (144, 144),
-                                  (192, 192), (200, 288), (288, 288), (576, 576)])
+                                  (192, 192), (200, 288), (288, 288), (576, 576), (600, 768),
+                                  (768, 768)])
 def test_padded_dim(d, dp):
     assert fa.padded_dim(d) == dp
 
 
 def test_padded_dim_raises_above_the_widest_kernel():
     with pytest.raises(ValueError):
-        fa.padded_dim(577)
+        fa.padded_dim(769)
 
 
 @pytest.mark.parametrize("nq,bq,splits", [(1, 64, 1), (100, 64, 2), (1001, 64, 16), (6400, 32, 5),
@@ -195,7 +306,8 @@ class _SplitFlash(torch.autograd.Function):
         return (*split_backward(q, k, v, o, lse, do, ctx.scale, splits), None)
 
 
-@pytest.mark.parametrize("nq,nk,d", [(392, 98, 48), (256, 128, 192), (400, 40, 288), (300, 36, 576)])
+@pytest.mark.parametrize("nq,nk,d", [(392, 98, 48), (256, 128, 192), (400, 40, 288), (300, 36, 576),
+                                    (300, 36, 768)])
 def test_split_backward_matches_jax_flash(nq, nk, d):
     import jax
 

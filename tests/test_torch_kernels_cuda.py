@@ -279,6 +279,15 @@ FLASH_SHAPES = [  # (b, h, nq, nk, d); the dK/dV splits the plan gives in bracke
     (1, 2, 700, 50, 576),     # ragged [12]
     (1, 2, 40, 3000, 144),    # ragged, many key tiles [1]
     (2, 4, 200, 900, 576),    # ragged, many key tiles [1]
+    # width 768: three warpgroups share S (forward), dQ the GEMM on dS,
+    # dK/dV 16 keys a block with the S^T and dP^T n-tiles split over d
+    (1, 2, 100, 90, 768),     # [2]
+    (1, 1, 9, 20, 768),       # nq below one query tile, nk below one key tile [1]
+    (1, 2, 700, 50, 768),     # ragged [8]
+    (2, 4, 200, 900, 768),    # ragged, many key tiles [1]
+    (1, 2, 130, 70, 600),     # d 600 zero-padded to 768 [3]
+    (2, 1, 37, 45, 740),      # d % 8 != 0 (scalar loads) [2]
+    (2, 70, 64, 100, 768),    # 140 query tiles: the 8 past the first wave as 4 key ranges each [1]
 ]
 
 
@@ -341,8 +350,8 @@ F32_PAIR_CASES = [  # (b, h, nq, nk, d), dtype: what the tensor-core kernels do 
     ((2, 1, 97, 65, 576), torch.float32),
     ((1, 1, 97, 65, 600), torch.float32),     # d > 576, ragged tiles
     ((1, 1, 40, 33, 1100), torch.float32),    # d above 288: streamed chunks, 4 column parts
-    ((1, 2, 500, 300, 768), torch.bfloat16),  # bf16 above 576
-    ((1, 1, 70, 45, 600), torch.bfloat16),
+    ((1, 2, 500, 300, 800), torch.bfloat16),  # bf16 above 768
+    ((1, 1, 70, 45, 900), torch.bfloat16),
     # MViT-L 32x312's float32 shapes at one view: the resident tiers (d 72,
     # 144, 288) with the ring over thousands of keys and split query ranges
     # (nq >= 24336), and d 576 streamed in chunks over two column parts
@@ -357,7 +366,7 @@ F32_PAIR_CASES = [  # (b, h, nq, nk, d), dtype: what the tensor-core kernels do 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", F32_PAIR_CASES)
 def test_flash_f32_pair_matches_plain(cuda, shape, dtype):
-    """float32 q, k, v (any head dim) and bf16 above 576 go through
+    """float32 q, k, v (any head dim) and bf16 above 768 go through
     flash_mha to the float32 pair of csrc/flash_attention_f32.cu, never to
     the tensor-core kernels, and agree with the float32 dense chain (TF32
     off). In float32 every product is taken in 3xTF32 (its operands split
@@ -400,7 +409,7 @@ def test_flash_f32_pair_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("kernel", fl.F32_KERNELS)
 @pytest.mark.parametrize("d,bf16", [(8, False), (72, False), (100, False), (144, False), (200, False),
                                     (288, False), (289, False), (576, False), (600, False),
-                                    (1100, False), (600, True), (768, True)])
+                                    (1100, False), (600, True), (800, True)])
 def test_flash_f32_plan_matches_compiled(cuda, kernel, d, bf16):
     """f32_kernel_plan() is the source's make_plan: tiles, warps, column
     parts and shared memory."""

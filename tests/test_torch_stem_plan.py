@@ -284,14 +284,14 @@ def test_emulated_kernels_match_jax_pallas_and_s2d_conv():
 
 
 @pytest.mark.parametrize("dtype,d,kernel", [
-    (torch.bfloat16, 72, "wgmma"), (torch.bfloat16, 576, "wgmma"), (torch.bfloat16, 577, "f32"),
-    (torch.bfloat16, 768, "f32"), (torch.float32, 8, "f32"), (torch.float32, 288, "f32"),
-    (torch.float32, 576, "f32"), (torch.float32, 1100, "f32"),
+    (torch.bfloat16, 72, "wgmma"), (torch.bfloat16, 576, "wgmma"), (torch.bfloat16, 577, "wgmma"),
+    (torch.bfloat16, 768, "wgmma"), (torch.bfloat16, 769, "f32"), (torch.float32, 8, "f32"),
+    (torch.float32, 288, "f32"), (torch.float32, 576, "f32"), (torch.float32, 1100, "f32"),
     (torch.float16, 72, TypeError), (torch.float64, 72, TypeError), (torch.float16, 768, TypeError),
 ])
 def test_flash_route(dtype, d, kernel):
-    """bf16 up to head dim 576 takes the tensor-core kernels, float32 at any
-    head dim and bf16 above 576 the float32 pair; any other dtype raises."""
+    """bf16 up to head dim 768 takes the tensor-core kernels, float32 at any
+    head dim and bf16 above 768 the float32 pair; any other dtype raises."""
     if kernel is TypeError:
         with pytest.raises(TypeError):
             fl.route(dtype, d)
@@ -299,7 +299,7 @@ def test_flash_route(dtype, d, kernel):
         assert fl.route(dtype, d) == kernel
 
 
-@pytest.mark.parametrize("shape", [(4, 6400, 1600, 288), (4, 1600, 1600, 576), (2, 500, 300, 768),
+@pytest.mark.parametrize("shape", [(4, 6400, 1600, 288), (4, 1600, 1600, 576), (2, 500, 300, 800),
                                    (1, 40, 33, 1100), (3, 777, 555, 640), (1, 1, 1, 8)])
 def test_flash_f32_plan(shape):
     """The float32 pair's plan: a warp 16 rows (dK/dV: wc warps sharing 16
@@ -310,7 +310,7 @@ def test_flash_f32_plan(shape):
     grid with its query-range splits fills the card's SMs; shared memory
     within a block's limit."""
     bh, nq, nk, d = shape
-    bf16 = d == 768  # what a bf16 input above 576 takes
+    bf16 = d == 800  # what a bf16 input above 768 takes
     p = fl.f32_plan(bh, nq, nk, d, bf16)
     d8 = -(-d // 8) * 8
     for name, n in (("fwd", nq), ("dq", nq), ("dkdv", nk)):
@@ -334,7 +334,7 @@ def test_flash_f32_plan(shape):
     assert p["bwd_pre"]["grid"][0] * 8 >= bh * nq
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 600), (torch.bfloat16, 640)])
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 600), (torch.bfloat16, 800)])
 def test_flash_f32_pair_on_the_cpu_is_the_plain_version(dtype, d):
     """On the CPU the float32 pair's wrappers run the plain versions and
     count no launch; flash_mha takes them for what the tensor-core kernels
