@@ -59,6 +59,7 @@ from advise_tpu_torch.parallel.collectives import (
     world_size,
 )
 from advise_tpu_torch.parallel.mesh import BATCH_AXES, SYNC_AXIS, is_auto
+from advise_tpu_torch.utils.host_times import HOST_TIMES
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -533,7 +534,9 @@ def sequential_contrastive_grads(cfg, model: nn.Module, ssl: Dict[str, Any], vie
     masks (the generator's state after the keys, replayed), as JAX reuses
     one key. Then, in place, MoCo's enqueue and the kNN scatter of the LAST
     view's projection. Returns ({name: grad}, ssl, stats), the stat the
-    summed loss / (2V) (the reference's logging scale)."""
+    summed loss / (2V) (the reference's logging scale). Spans
+    (``utils/host_times.py``): ``step.forward`` around the keys and around
+    each view's loss, ``step.backward`` around each view's backward."""
     ctype = cfg.CONTRASTIVE.TYPE
     if ctype not in ("byol", "moco"):
         raise ValueError(f"CONTRASTIVE.SEQUENTIAL supports byol and moco only, not {ctype!r}")
@@ -541,10 +544,11 @@ def sequential_contrastive_grads(cfg, model: nn.Module, ssl: Dict[str, Any], vie
     if n < 2:
         raise ValueError("CONTRASTIVE.SEQUENTIAL needs >= 2 clips")
     t = cfg.CONTRASTIVE.T
-    keys = compute_keys(cfg, ssl, views, generator, infos)  # [V, B, dim]
+    with HOST_TIMES("step.forward"):
+        keys = compute_keys(cfg, ssl, views, generator, infos)  # [V, B, dim]
     params = dict(model.named_parameters())
 
-    def clip_grads(k_idx):
+    def clip_loss(k_idx):
         out = model(views[k_idx], views=1, generator=generator)
         q = l2_normalize(_proj(out))
         other = (torch.arange(n, device=q.device) != k_idx).to(torch.float32)
@@ -553,16 +557,21 @@ def sequential_contrastive_grads(cfg, model: nn.Module, ssl: Dict[str, Any], vie
                 raise ValueError("BYOL requires CONTRASTIVE.PREDICTOR_DEPTHS")
             pred = l2_normalize(out[1])
             sims = torch.einsum("bd,nbd->n", pred, keys) / pred.shape[0]
-            loss = torch.sum(-sims / t * other) / (n - 1)
-        else:
-            with torch.autocast(q.device.type, enabled=False):
-                qf = q.float()
-                queue_neg = qf @ ssl["queue_x"].T  # [B, QUEUE_LEN]
-                pos = torch.einsum("bd,nbd->nb", qf, keys.float())
-                logits = torch.cat([pos[..., None], queue_neg.expand(n, *queue_neg.shape)], dim=-1) / t
-                ce = -torch.log_softmax(logits, dim=-1)[..., 0]  # [V, B]
-                loss = torch.sum(torch.mean(ce, dim=-1) * other) / (n - 1)
-        return loss_grads(loss, params), (loss.detach(), q.detach())
+            return torch.sum(-sims / t * other) / (n - 1), q
+        with torch.autocast(q.device.type, enabled=False):
+            qf = q.float()
+            queue_neg = qf @ ssl["queue_x"].T  # [B, QUEUE_LEN]
+            pos = torch.einsum("bd,nbd->nb", qf, keys.float())
+            logits = torch.cat([pos[..., None], queue_neg.expand(n, *queue_neg.shape)], dim=-1) / t
+            ce = -torch.log_softmax(logits, dim=-1)[..., 0]  # [V, B]
+            return torch.sum(torch.mean(ce, dim=-1) * other) / (n - 1), q
+
+    def clip_grads(k_idx):
+        with HOST_TIMES("step.forward"):
+            loss, q = clip_loss(k_idx)
+        with HOST_TIMES("step.backward"):
+            grads = loss_grads(loss, params)
+        return grads, (loss.detach(), q.detach())
 
     grads, per_clip = per_clip_grads(n, generator, clip_grads)
     loss_sum = sum(loss for loss, _ in per_clip)

@@ -10,6 +10,7 @@ SummaryWriter or None (tensorboardX is optional, ``tools/run.py``).
 
 from __future__ import annotations
 
+import bisect
 import logging
 import time
 from collections import deque
@@ -159,15 +160,77 @@ class TrainingHelper:
 def device_events(prof) -> List[Tuple[str, float, float]]:
     """(name, start, end) in microseconds from the first of them of every
     device event (kernel, copy, set) a stopped ``torch.profiler`` window
-    recorded, read from its raw kineto events: building the profiler's
-    FunctionEvent list instead costs ~70 us of host time an event, over a
-    minute for one MViT-L step."""
-    from torch.autograd import DeviceType
-
-    raw = [(e.name(), e.start_ns(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA]
+    recorded, read from its raw kineto events (annotation ranges left out):
+    building the profiler's FunctionEvent list instead costs ~70 us of host
+    time an event, over a minute for one MViT-L step."""
+    raw = [(name, start, dur) for name, start, dur, _ in device_ops(prof)]
     base = min((start for _, start, _ in raw), default=0)  # integer ns: exact before the subtraction
     return [(name, (start - base) / 1e3, (start - base + dur) / 1e3) for name, start, dur in raw]
+
+
+def device_ops(prof) -> List[Tuple[str, int, int, int]]:
+    """(name, start ns, duration ns, correlation id) of every operation the
+    card ran in a stopped ``torch.profiler`` window; not the ranges kineto
+    draws on the card's timeline over what a ``record_function`` launched."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.duration_ns(), e.correlation_id())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+
+
+def launch_times(prof) -> Dict[int, int]:
+    """{correlation id: host ns} of each CUDA runtime or driver call of a
+    stopped ``torch.profiler`` window: when the host launched the device
+    operations of that correlation id."""
+    from torch.autograd import DeviceType
+
+    return {e.correlation_id(): e.start_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CPU and e.name().startswith(("cuda", "cu"))
+            and not e.name().startswith("cudnn")}
+
+
+def span_split(spans, ops: List[Tuple[str, int, int, int]], launched: Dict[int, int]) -> Dict[str, Dict[str, float]]:
+    """Each device operation of ``ops`` (:func:`device_ops`) charged to the
+    innermost span (``utils/host_times.py Span``) open when the host
+    launched it (``launched``, :func:`launch_times`), by time against the
+    spans of the threads that called the steps (those of the ``step``
+    spans): the backward's launches come from autograd's device thread while
+    the step's thread waits inside ``step.backward``. Per span name: ``busy_ms``,
+    the busy time of the device that its operations add to the union of
+    those before them (over all names it sums to the union); ``waited_ms``,
+    the idle gaps that end at one of its operations; ``launches``, its
+    operations. An operation launched outside every span, or whose launch
+    is not in the window, is charged to ``"outside"``. The root's own time
+    is under ``"step"``."""
+    threads = {s.thread for s in spans if s.name == "step"}
+    mine = sorted((i for i, s in enumerate(spans) if s.thread in threads), key=lambda i: spans[i].start_ns)
+    starts = [spans[i].start_ns for i in mine]
+    out: Dict[str, Dict[str, float]] = {}
+    cur_end = None
+    for _, start, dur, corr in sorted(ops, key=lambda op: op[1]):
+        at = launched.get(corr)
+        i = None
+        if at is not None:
+            j = bisect.bisect_right(starts, at) - 1
+            i = mine[j] if j >= 0 else None
+            # a span that holds the launch holds the last one to start before it (still open: no end)
+            while i is not None and spans[i].end_ns is not None and spans[i].end_ns < at:
+                i = spans[i].parent
+        row = out.setdefault("outside" if i is None else spans[i].name,
+                             {"busy_ms": 0.0, "waited_ms": 0.0, "launches": 0})
+        row["launches"] += 1
+        end = start + dur
+        if cur_end is None:
+            row["busy_ms"] += dur / 1e6
+            cur_end = end
+            continue
+        if start > cur_end:
+            row["waited_ms"] += (start - cur_end) / 1e6
+        if end > cur_end:
+            row["busy_ms"] += (end - max(start, cur_end)) / 1e6
+            cur_end = end
+    return out
 
 
 def busy_ms(spans: Iterable) -> float:

@@ -47,10 +47,20 @@ releases the whole parameters before the optimizer updates the slices
 (:func:`finish_step`), and the eval and kNN-probe forwards gather and
 release alike. JAX's auto step rejects TRAIN.SEQUENTIAL and
 CONTRASTIVE.SEQUENTIAL; so does this one.
+
+Every train step runs in the spans of ``utils/host_times.py HOST_TIMES``:
+``step`` around one call (its step id ``state.step``), and inside it
+``step.aug`` (the device aug), ``step.forward`` (the forward and the loss
+under autocast; one per clip on the sequential paths, and one for the
+momentum keys under CONTRASTIVE.SEQUENTIAL), ``step.backward`` (the autograd
+call, any recompute inside it), ``step.bn_commit`` and ``step.optimizer``
+(:func:`finish_step`). What none of them covers (the cast, the EMA updates,
+the FSDP gather) is the root's own time.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -77,6 +87,7 @@ from advise_tpu_torch.solver.optimizer import (
     apply_direction,
     global_grad_norm,
 )
+from advise_tpu_torch.utils.host_times import HOST_TIMES
 
 
 def average_over_world(grads: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor],
@@ -110,20 +121,53 @@ def finish_step(cfg, state: TrainState, bundle: OptimizerBundle, grads: Dict[str
     buffers averaged (:func:`average_over_world`); under 'auto' each FSDP
     gradient cut to its slice and every gathered parameter released; the
     global gradient norm, the optimizer's direction and the update of
-    ``state.model``'s parameters; the step counted."""
-    grads, stats = average_over_world(grads, stats, *models, grad_axes=grads_axes(cfg))
-    layout = layout_of(state.model)
-    if layout is not None:
-        grads = layout.shard_grads(grads)
-    for model in models:
-        if layout_of(model) is not None:
-            layout_of(model).release()
-    params = dict(state.model.named_parameters())
-    stats["grad_norm"] = global_grad_norm(grads, getattr(bundle.tx, "reduce_sq", None))
-    direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
-    apply_direction(params, direction, lr, bundle.lr_scales)
-    state.step += 1
+    ``state.model``'s parameters; the step counted. The span
+    ``step.optimizer``."""
+    with HOST_TIMES("step.optimizer"):
+        grads, stats = average_over_world(grads, stats, *models, grad_axes=grads_axes(cfg))
+        layout = layout_of(state.model)
+        if layout is not None:
+            grads = layout.shard_grads(grads)
+        for model in models:
+            if layout_of(model) is not None:
+                layout_of(model).release()
+        params = dict(state.model.named_parameters())
+        stats["grad_norm"] = global_grad_norm(grads, getattr(bundle.tx, "reduce_sq", None))
+        direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
+        apply_direction(params, direction, lr, bundle.lr_scales)
+        state.step += 1
     return stats
+
+
+def spanned(step: Callable) -> Callable:
+    """``step(state, ...)`` inside the root span ``step``, whose step id is
+    ``state.step`` before the call: the spans of one call share it
+    (``utils/host_times.py``)."""
+
+    @functools.wraps(step)
+    def run(state: TrainState, *args, **kwargs):
+        with HOST_TIMES("step", step=state.step):
+            return step(state, *args, **kwargs)
+
+    return run
+
+
+def augment(device_aug: Optional[Callable], clips_u8: torch.Tensor, generator: Optional[torch.Generator],
+            dtype: torch.dtype) -> torch.Tensor:
+    """The train steps' clips: ``device_aug`` in the span ``step.aug`` (the
+    clips as they are without it), cast to ``dtype``."""
+    if device_aug is None:
+        return clips_u8.to(dtype)
+    with HOST_TIMES("step.aug"):
+        clips = device_aug(clips_u8, generator)
+    return clips.to(dtype)
+
+
+def commit_bn(*models: nn.Module) -> None:
+    """:func:`commit_bn_stats` of each model, in the span ``step.bn_commit``."""
+    with HOST_TIMES("step.bn_commit"):
+        for model in models:
+            commit_bn_stats(model)
 
 
 def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
@@ -153,8 +197,7 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
         model = state.model
         model.train()
         gather_step(model, state.ssl.get("ema_model"))
-        clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
-        clips = clips.to(dtype)
+        clips = augment(device_aug, clips_u8, generator, dtype)
         views = clips.transpose(0, 1)  # [K, B, T, H, W, C], view-major
         ssl = state.ssl
         if "ema_model" in ssl:
@@ -168,17 +211,17 @@ def make_contrastive_train_step(cfg, bundle: OptimizerBundle,
             if sequential:
                 grads, ssl, stats = sequential_contrastive_grads(cfg, model, ssl, views, infos, generator)
             else:
-                loss, ssl, stats = algo(cfg, model, ssl, views, infos, generator)
+                with HOST_TIMES("step.forward"):
+                    loss, ssl, stats = algo(cfg, model, ssl, views, infos, generator)
         if not sequential:
-            grads = loss_grads(loss, params)
-        commit_bn_stats(model)
-        if "ema_model" in ssl:
-            commit_bn_stats(ssl["ema_model"])
+            with HOST_TIMES("step.backward"):
+                grads = loss_grads(loss, params)
+        ema = [ssl["ema_model"]] if "ema_model" in ssl else []
+        commit_bn(model, *ema)
         state.ssl = ssl
-        return finish_step(cfg, state, bundle, grads, stats, lr, model,
-                           *([ssl["ema_model"]] if "ema_model" in ssl else []))
+        return finish_step(cfg, state, bundle, grads, stats, lr, model, *ema)
 
-    return step
+    return spanned(step)
 
 
 def speed_task_loss(cfg, model: nn.Module, clips: torch.Tensor,
@@ -309,9 +352,10 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
 
     def loss_and_grads(model, clips, infos, generator):
         params = dict(model.named_parameters())
-        with torch.autocast(clips.device.type, dtype=dtype, enabled=autocast):
+        with HOST_TIMES("step.forward"), torch.autocast(clips.device.type, dtype=dtype, enabled=autocast):
             loss, stats = task_loss(cfg, model, clips, infos, generator)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with HOST_TIMES("step.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         return dict(zip(params, grads)), {name: v.detach() for name, v in stats.items()}
 
     def sequential_grads(model, clips, infos, generator):
@@ -330,16 +374,15 @@ def make_task_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Call
         model = state.model
         model.train()
         gather_step(model)
-        clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
-        clips = clips.to(dtype)
+        clips = augment(device_aug, clips_u8, generator, dtype)
         if cfg.TRAIN.SEQUENTIAL and clips.shape[1] > 1:
             grads, stats = sequential_grads(model, clips, infos, generator)
         else:
             grads, stats = loss_and_grads(model, clips, infos, generator)
-        commit_bn_stats(model)
+        commit_bn(model)
         return finish_step(cfg, state, bundle, grads, stats, lr, model)
 
-    return step
+    return spanned(step)
 
 
 # the AdViSe BYOL twins: state.ssl key -> the TemporalModel submodule they copy
@@ -442,17 +485,18 @@ def make_tmodeling_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional
         model = state.model
         model.train()
         gather_step(model)
-        clips = device_aug(clips_u8, generator) if device_aug is not None else clips_u8
-        clips = clips.to(dtype)
+        clips = augment(device_aug, clips_u8, generator, dtype)
         if use_byol:
             update_tmodeling_ema(cfg, state.ssl, model)
-        with torch.autocast(clips.device.type, dtype=dtype, enabled=dtype != torch.float32):
+        with HOST_TIMES("step.forward"), torch.autocast(clips.device.type, dtype=dtype,
+                                                        enabled=dtype != torch.float32):
             loss, stats = tmodeling_loss(cfg, model, state.ssl, clips, infos, generator)
-        grads = loss_grads(loss, dict(model.named_parameters()))
-        commit_bn_stats(model)
+        with HOST_TIMES("step.backward"):
+            grads = loss_grads(loss, dict(model.named_parameters()))
+        commit_bn(model)
         return finish_step(cfg, state, bundle, grads, {name: v.detach() for name, v in stats.items()}, lr, model)
 
-    return step
+    return spanned(step)
 
 
 def make_train_step(cfg, bundle: OptimizerBundle, device_aug: Optional[Callable]):

@@ -42,10 +42,11 @@ So a resumed run draws what the uninterrupted run would have drawn.
 
 TPU.PROFILE_DIR runs ``torch.profiler`` over the steps
 (PROFILE_START, PROFILE_START + PROFILE_STEPS] of the step counter, writes
-``trace.json`` there (rank r > 0: ``trace.rank{r}.json``) and logs the
-device's busy and idle shares of that
-window. With VIS_MASK.ENABLE (the MAE path) each epoch ends with the first
-batch of a fresh shuffle (``loader.take_one(epoch + 424243)``) through the
+``trace.json`` there (rank r > 0: ``trace.rank{r}.json``; the step's spans
+in it) and logs the device's busy and idle shares of that window and, for
+each span of the step, its device time, the idle time it made the device
+wait and its launches a step. With VIS_MASK.ENABLE (the MAE path) each
+epoch ends with the first batch of a fresh shuffle (``loader.take_one(epoch + 424243)``) through the
 model in eval mode, dumped by ``utils/visualization.py
 dump_mask_visualization`` under ``LOGDIR/vis_mask/vid/``. Under
 TPU.PARTITION_MODE 'auto' the state is split after any restore
@@ -78,7 +79,7 @@ from advise_tpu_torch.engine.checkpoint import (
     module_state,
     tensors_digest,
 )
-from advise_tpu_torch.engine.meters import TrainingHelper, busy_ms, device_events
+from advise_tpu_torch.engine.meters import TrainingHelper, busy_ms, device_events, device_ops, launch_times, span_split
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.engine.steps import make_knn_probe_step, make_train_step
 from advise_tpu_torch.models import build_model
@@ -178,7 +179,10 @@ def build_train_state(cfg, device) -> Tuple[TrainState, OptimizerBundle]:
 
 class ProfileWindow:
     """``torch.profiler`` over the steps (start, start + steps] of the
-    post-increment step counter, as the JAX trainer's ``_maybe_profile``."""
+    post-increment step counter, as the JAX trainer's ``_maybe_profile``,
+    with the step's spans recorded (``utils/host_times.py``; the trace shows
+    them as ``record_function`` ranges) and the device's time split by them
+    (``engine/meters.py span_split``)."""
 
     def __init__(self, cfg):
         self.dir = cfg.TPU.PROFILE_DIR
@@ -199,6 +203,7 @@ class ProfileWindow:
                 torch.cuda.synchronize()
             self.prof = profile(activities=activities)
             self.prof.start()
+            HOST_TIMES.start()
             self.t0, self.first = time.perf_counter(), step
             logger.info("profiler trace started -> %s", self.dir)
         elif self.prof is not None and step > self.end:
@@ -206,21 +211,30 @@ class ProfileWindow:
 
     def close(self, step: int) -> None:
         """Stop an open window after ``step``: write the trace, log and keep
-        the device's busy and idle shares of the window's wall time."""
+        the device's busy and idle shares of the window's wall time, and for
+        each span its device busy ms, waited ms and launches a step
+        (``spans``)."""
         if self.prof is None:
             return
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - self.t0) * 1e3
         self.prof.stop()
+        spans = HOST_TIMES.stop()
         os.makedirs(self.dir, exist_ok=True)
         rank = world()[0]
         self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json" if rank == 0 else f"trace.rank{rank}.json"))
         busy = busy_ms((start, end) for _, start, end in device_events(self.prof))
+        steps = step - self.first
+        split = span_split(spans, device_ops(self.prof), launch_times(self.prof))
+        per_step = {name: {k: v / max(steps, 1) for k, v in row.items()} for name, row in sorted(split.items())}
         self.result = {"wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-                       "steps": step - self.first}
-        logger.info("profiler trace stopped: %d steps, wall %.3f ms, device busy %.3f ms, "
-                    "idle share %.4f", self.result["steps"], wall_ms, busy, self.result["idle_share"])
+                       "steps": steps, "spans": per_step}
+        logger.info("profiler trace stopped: %d steps, wall %.3f ms, device busy %.3f ms, idle share %.4f; "
+                    "a step by span (device busy ms, waited ms, launches): %s", steps, wall_ms, busy,
+                    self.result["idle_share"], ", ".join(
+                        f"{name} {row['busy_ms']:.3f} / {row['waited_ms']:.3f} / {row['launches']:.1f}"
+                        for name, row in per_step.items()))
         self.prof = None
 
 

@@ -10,17 +10,17 @@ at full width and depth: one video x 2 views of uint8 clips, OnlyCrop, the
 reversible MViT-L with flash attention, masked MSE + NT-Xent, AdamW) with
 the same seeds.
 
-Without ``--variants`` it runs 2 warm-up steps, then:
-
-1. phases with barriers: the step's pieces run apart, each ended by
-   ``torch.cuda.synchronize()`` and timed on the host clock (median over
-   ``--steps`` steps): augmentation, forward + loss, backward, optimizer
-   (grad norm, AdamW direction, update);
-2. ``torch.profiler`` over ``--steps`` whole steps: the device time by
-   kernel (the top 25, and each group's time a step with its share of the
-   summed kernel time and of the busy time), K4's device time a step by
-   kernel, and the device busy share of the window (the union of kernel
-   intervals over the wall time).
+Without ``--variants`` it runs 2 warm-up steps, then ``torch.profiler``
+(the device's activity alone, so the host runs at its own pace) over
+``--steps`` whole steps with the step's spans recorded
+(``utils/host_times.py``): for each span (``step.aug``, ``step.forward``,
+``step.backward``, ``step.bn_commit``, ``step.optimizer`` and the root
+``step``'s own time) its device busy ms, the idle ms it made the device
+wait and its launches a step (``engine/meters.py span_split``); the device
+time by kernel (the top 25, and each group's time a step with its share of
+the summed kernel time and of the busy time), K4's device time a step by
+kernel, and the device busy share of the window (the union of kernel
+intervals over the wall time).
 
 With ``--variants`` (each a comma-separated list of KEY=VALUE config
 overrides, "" for the preset) it runs ``--steps`` steps of each variant from
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import argparse
 import ast
-import statistics
 import subprocess
 import time
 
@@ -129,62 +128,37 @@ def run_variants(variants, n_steps: int) -> None:
 
 def profile(n_steps: int) -> None:
     import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    from advise_tpu_torch.engine.steps import masked_task_loss
-    from advise_tpu_torch.models import compute_dtype
-    from advise_tpu_torch.solver.optimizer import apply_direction, global_grad_norm
+    from advise_tpu_torch.engine.meters import device_ops, launch_times, span_split
+    from advise_tpu_torch.utils.host_times import HOST_TIMES
 
-    cfg, model, bundle, state, aug, step, clips, masks, g, lr = masked_path("", 2 + 2 * n_steps)
-    params = dict(model.named_parameters())
-    dtype = compute_dtype(cfg)
+    cfg, model, bundle, state, aug, step, clips, masks, g, lr = masked_path("", 2 + n_steps)
     for i in range(2):
         step(state, clips, {"mask": masks[i]}, g, lr)
     torch.cuda.synchronize()
 
-    phases = {"aug": [], "forward + loss": [], "backward": [], "optimizer": []}
-    for i in range(n_steps):
-        marks = [time.perf_counter()]
-        model.train()
-        x = aug(clips, g).to(dtype)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        with torch.autocast("cuda", dtype=dtype):
-            loss, _ = masked_task_loss(cfg, model, x, {"mask": masks[2 + i]}, g)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        global_grad_norm(grads)
-        direction, state.opt_state = bundle.tx.update(grads, state.opt_state, params)
-        apply_direction(params, direction, lr, bundle.lr_scales)
-        del grads, direction
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        for name, a, z in zip(phases, marks, marks[1:]):
-            phases[name].append((z - a) * 1e3)
-    total = sum(statistics.median(v) for v in phases.values())
-    for name, v in phases.items():
-        med = statistics.median(v)
-        print(f"[phase] {name}: {med} ms median of {len(v)} ({100 * med / total} % of {total} ms)")
-
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    HOST_TIMES.start()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n_steps):
-            step(state, clips, {"mask": masks[2 + n_steps + i]}, g, lr)
+            step(state, clips, {"mask": masks[2 + i]}, g, lr)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = HOST_TIMES.stop()
+    kernels = device_ops(prof)
+    busy = busy_ms((start / 1e3, (start + dur) / 1e3) for _, start, dur, _ in kernels)
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for name, _, dur, _ in kernels:
+        by_name[name] = by_name.get(name, 0.0) + dur / 1e6
     device_ms = sum(by_name.values())
     print(f"[profile] {n_steps} steps: wall {wall_ms} ms, kernels {len(kernels)}, device busy "
           f"{busy} ms ({100 * busy / wall_ms} % of the wall; idle {100 - 100 * busy / wall_ms} %), "
           f"summed kernel time {device_ms} ms (overlapping kernels count each)")
+    split = span_split(spans, kernels, launch_times(prof))
+    for name, row in sorted(split.items(), key=lambda kv: -kv[1]["busy_ms"]):
+        print(f"[span] {name}: device busy {row['busy_ms'] / n_steps} ms, waited {row['waited_ms'] / n_steps} "
+              f"ms, {row['launches'] / n_steps} launches a step")
     groups = {"flash attention (K4)": K4_KERNELS, "GEMMs": ("gemm", "Gemm", "cutlass", "sm90_xmma"),
               "convolutions": ("conv", "Conv", "implicit"), "elementwise": ("elementwise", "Elementwise"),
               "reductions": ("reduce", "Reduce"), "layer norm": ("layer_norm", "LayerNorm")}

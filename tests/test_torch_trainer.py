@@ -296,6 +296,11 @@ def test_trainer_runs_the_speed_preset_and_matches_one_step(tmp_path):
     assert (record["start_epoch"], record["start_step"], len(record["iter_s"])) == (0, 0, 2)
     assert all(np.isfinite(v) for st in record["stats"] for v in st.values())
     assert (tmp_path / "checkpoints" / "Model_Epoch_0000" / ck.STATE_FILE).is_file()
+    # the step's spans, each once an iteration
+    host = record["host_s"]
+    assert {name: host[name][1] for name in host if name.startswith("step")} == {
+        name: 2 for name in ("step", "step.aug", "step.forward", "step.backward", "step.bn_commit",
+                             "step.optimizer")}
 
 
 def _tm_run_cfg(logdir, **overrides):
@@ -524,7 +529,8 @@ def test_compare_steps_infer_batch_on_cpu():
 def test_device_events_read_the_raw_profile():
     """``device_events`` keeps the device events of a stopped profiler window
     (none from a CPU-only window) as (name, start, end) in microseconds from
-    the first of them, exactly, whatever the clock's origin."""
+    the first of them, exactly, whatever the clock's origin; the ranges kineto
+    draws over the operations of a ``record_function`` are left out."""
     import types
 
     from torch.autograd import DeviceType
@@ -536,13 +542,15 @@ def test_device_events_read_the_raw_profile():
         torch.randn(8).sum()
     assert device_events(prof) == []
 
-    def event(name, kind, start, dur):
+    def event(name, kind, start, dur, annotation=False):
         return types.SimpleNamespace(name=lambda: name, device_type=lambda: kind, start_ns=lambda: start,
-                                     duration_ns=lambda: dur)
+                                     duration_ns=lambda: dur, is_user_annotation=lambda: annotation,
+                                     correlation_id=lambda: 0)
 
     t0 = 1_792_289_219_969_229_546  # a kineto timestamp: ns since the epoch
     raw = [event("k1", DeviceType.CUDA, t0 + 1_500, 2_000), event("cpu", DeviceType.CPU, t0, 10),
-           event("k0", DeviceType.CUDA, t0 + 1_000, 1_000)]
+           event("k0", DeviceType.CUDA, t0 + 1_000, 1_000),
+           event("step", DeviceType.CUDA, t0 + 500, 9_000, annotation=True)]
     fake = types.SimpleNamespace(profiler=types.SimpleNamespace(
         kineto_results=types.SimpleNamespace(events=lambda: raw)))
     assert device_events(fake) == [("k1", 0.5, 2.5), ("k0", 0.0, 1.0)]
