@@ -34,6 +34,19 @@ Two differences of form, both forced by PyTorch:
   the backward; a forward run there records nothing, so a recomputation
   never counts as a call; it issues its all-reduce again, in the same
   order on every rank, as JAX's remat does.
+
+In training the module runs one ``torch.autograd.Function`` on both devices
+(``ops/batch_norm.py``: its CUDA kernels on the card, their plain versions
+on the CPU): the statistics, their average over the sync group, the fold;
+the backward in closed form, ``dx = scale * r * (g - mean(g) - xh *
+mean(g * xh))`` with the two means averaged over the group as SyncBN's
+backward does (``pmean``'s backward did the same for the chain it
+replaced). It saves x as it came and the float32 statistics, no float32
+copy of x. The fold's w and b stay rounded to x's dtype; y is computed from
+them in float32 and rounded once. On the card an input (or a gradient)
+whose channel dim is not innermost in memory is first copied so
+(``ops/batch_norm.py channels_last``, counted); on the CPU y keeps x's
+layout.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from advise_tpu_torch.ops import batch_norm as bn
 from advise_tpu_torch.parallel.collectives import pmean, world_size
 from advise_tpu_torch.parallel.mesh import BATCH_AXES, bn_axis_names, is_auto
 
@@ -76,9 +90,8 @@ class SyncBatchNorm(nn.Module):
 
     def _fold(self, x, mean, var, shape):
         """The normalize + affine FMA; only the [C]-sized w/b round to x.dtype."""
-        w = torch.rsqrt(var + self.eps) * self.weight
-        b = -mean * w + self.bias
-        return x * w.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+        w, b = bn.fold(mean, var, self.weight, self.bias, self.eps, x.dtype)
+        return x * w.view(shape) + b.view(shape)
 
     def forward(self, x: torch.Tensor, views: int = 1) -> torch.Tensor:
         c = x.shape[1]
@@ -88,23 +101,47 @@ class SyncBatchNorm(nn.Module):
         splits = views * self.num_splits
         if x.shape[0] % splits:
             raise ValueError(f"batch {x.shape[0]} does not split into {splits}")
-        xs = x.reshape(splits, x.shape[0] // splits, *x.shape[1:])
-        red = (1,) + tuple(range(3, xs.ndim))
-        count = xs[0].numel() // c
-        # mean and mean of squares in float32, as the JAX module reduces them
-        xf = xs.float()
-        mean = torch.mean(xf, dim=red)
-        meansq = torch.mean(torch.square(xf), dim=red)
+        count = x.numel() // splits // c
         if self.sync_axes:
-            mean, meansq = pmean(torch.stack([mean, meansq]), self.sync_axes)
             count *= world_size(self.sync_axes)
-        var = meansq - torch.square(mean)
-        y = self._fold(xs, mean, var, (splits, 1, c) + tail).reshape(x.shape)
+        y, (mean, meansq) = _TrainNorm.apply(bn.channels_last(x), self.weight, self.bias, self.eps,
+                                             splits, self.sync_axes)
         if not _in_backward():
             with torch.no_grad():
+                var = meansq - torch.square(mean)
                 unbiased = var.mean(0) * (count / max(count - 1, 1))
-                self.pending.append((mean.mean(0).detach(), unbiased.detach()))
+                self.pending.append((mean.mean(0), unbiased))
         return y
+
+
+class _TrainNorm(torch.autograd.Function):
+    """A train-mode BN of x [N, C, ...], channel dim innermost in memory:
+    returns y and the float32 (mean, mean of squares) [2, splits, C] it
+    normalized with (averaged over ``sync_axes``; not differentiable)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, splits, sync_axes):
+        # mean and mean of squares in float32, as the JAX module reduces them
+        stats = bn.bn_stats(x, splits)
+        if sync_axes:
+            stats = pmean(stats, sync_axes)
+        y = bn.bn_apply(x, stats, weight, bias, eps)
+        ctx.save_for_backward(x, stats, weight)
+        ctx.eps, ctx.sync_axes = eps, sync_axes
+        ctx.mark_non_differentiable(stats)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, _):
+        x, stats, weight = ctx.saved_tensors
+        gy = bn.channels_last(gy)
+        means, totals = bn.bn_grad_stats(gy, x, stats, ctx.eps)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            if ctx.sync_axes:
+                means = pmean(means, ctx.sync_axes)
+            dx = bn.bn_dx(gy, x, stats, means, weight, ctx.eps)
+        return dx, totals[1].to(weight.dtype), totals[0].to(weight.dtype), None, None, None
 
 
 def _in_backward() -> bool:

@@ -37,6 +37,7 @@ SOURCES: Dict[str, Tuple[str, ...]] = {
     "flash_attention.cu": (),
     "flash_attention_f32.cu": (),
     "window_probe.cu": (),
+    "batch_norm.cu": (),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -55,13 +55,15 @@ logger = logging.getLogger(__name__)
 
 def counted_wrappers():
     """Every kernel wrapper that counts its launches (``fn.launches``)."""
+    from advise_tpu_torch.ops import batch_norm as bn
     from advise_tpu_torch.ops import flash_attention as fl
     from advise_tpu_torch.ops import fused_aug as fa
     from advise_tpu_torch.ops import stem_conv as sc
     from advise_tpu_torch.ops import window_probe as wp
 
     return [sc.stem_conv_fwd, sc.stem_conv_wgrad, fa.fused_simple_aug, fl.flash_mha_fwd,
-            fl.flash_mha_bwd, fl.flash_f32_fwd, fl.flash_f32_bwd, *wp.ENTRIES.values()]
+            fl.flash_mha_bwd, fl.flash_f32_fwd, fl.flash_f32_bwd, *wp.ENTRIES.values(),
+            *bn.COUNTED]
 
 
 def kernel_launches():

@@ -7,8 +7,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. environment: the card (nvidia-smi name and power limit), torch, CUDA and
    nvcc versions. No card, no run: there is no CPU fallback;
 2. build: every kernel source of advise_tpu_torch/csrc/ (the stem conv, the
-   fused simple aug, flash attention, the window probe), one nvcc each,
-   started together, each timed;
+   fused simple aug, flash attention, the window probe, batch norm), one
+   nvcc each, started together, each timed;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    same inputs (TF32 off): the stem kernels at the BYOL path's stem shape
    (both views, 32 clips), at one view's 16 clips (mem, and
@@ -93,7 +93,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. the speed path: the Slow-R50 speed-pretext step of
    configs/pretrain/SpeedPro_R50.yaml at full width on one card, uint8 clips
    through the 'simple' augmentation (the fused aug kernel), the lr from the
-   port's lr policy, 2 warm-up and 5 timed steps;
+   port's lr policy, 2 warm-up and 5 timed steps, SyncBatchNorm's kernels
+   launched exactly as its 54 BNs imply (statistics and fold 106 times a
+   step, 52 of them recomputed under REMAT; sums and dx 54 times); then the
+   BN kernels at each BN shape of the step against their plain versions on
+   the same inputs (the card tests' tolerances), timed on the card's clock
+   beside the plain versions and their byte bounds and summed over a step
+   (``bn_forward``, ``bn_backward`` in the kernels line);
 7. the masked path: the MViT-L MaskFeat + NT-Xent step of
    configs/pretrain/MViT_L_32x312_joint.yaml at full width and depth on one
    card (reversible, flash attention, AdamW with grad clipping), one video x
@@ -311,10 +317,15 @@ video_swin head at 384 wide (the preset's 512 does not build in the JAX
 package).
 
 Each path's kernel launch counts are reset just before its steps and read
-just after. The line before the last is nvidia-smi's name and power limit;
+just after. In the steps of phases 5-7 every train-mode call of a
+SyncBatchNorm of the model, or of its momentum encoder, is recorded, and
+the BN kernels must run once a call (the sums once a call with a backward,
+dx once a call whose input needs a gradient) with no layout copy; no
+entry-point run may copy a BN input or gradient to channels-last. The line before the last is nvidia-smi's name and power limit;
 the last is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import copy
 import gc
 import json
@@ -325,6 +336,7 @@ import subprocess
 import sys
 import time
 import warnings
+from collections import Counter
 
 BYOL_CONFIG = "configs/pretrain/SlowFast_R50_K400.yaml"
 SPEED_CONFIG = "configs/pretrain/SpeedPro_R50.yaml"
@@ -638,6 +650,7 @@ PROBE_LINES = {"lead_dyn": 76, "sub_dyn": 99, "sub_aligned": 123, "val_dslice": 
 K4_REPS = 10  # flash attention and SDPA calls back to back in a timing sample
 AUG_REPS = 10  # fused aug calls back to back in a timing sample
 SLEEP_CYCLES = 10_000_000  # ~5 ms at 1980 MHz: the card waits while the host queues a sample
+BN_REPS = 5  # BN kernel calls a queued sample (the stem's backward: ~0.74 ms each)
 GATHER_LAUNCHES = 100  # window_gather launches back to back in a timing sample
 AUG_ALL_ON = (1.0, 0.4, 0.4, 0.4, 0.2)  # every clip runs the chain
 # K3's edge shapes (those of tests/test_torch_kernels_cuda.py): (clips, crop,
@@ -1210,10 +1223,194 @@ def run_entry_point(extra, label, config=BYOL_CONFIG, out_dir=RUN_DIR, overrides
                                        "resuming", "mirror", "profiler trace stopped")):
             print(f"[run]   {line}")
     check(isinstance(record, dict) and "launches" in record, f"the entry point returned no run record ({label})")
+    check(record["launches"]["channels_last"] == 0, f"{label}: a BN input or gradient was copied to channels-last")
     record["seconds"] = seconds
     gc.collect()
     torch.cuda.empty_cache()
     return record
+
+
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_stats", "bn_dx")  # SyncBatchNorm's kernel wrappers
+
+
+def but_bn(launches: dict) -> dict:
+    """A run record's launch counts without SyncBatchNorm's kernels (they
+    run in every model that has a BN), its layout copies kept: what a
+    path's check that it reaches no other kernel and copies nothing reads."""
+    return {name: n for name, n in launches.items() if name not in BN_KERNELS}
+
+
+def run_models(run) -> list:
+    """The modules a step of ``run`` (``compare_steps.step_run``) calls: its
+    model and those its SSL state holds (a momentum encoder)."""
+    import torch
+
+    return [run.state.model] + [v for v in (run.state.ssl or {}).values() if isinstance(v, torch.nn.Module)]
+
+
+@contextlib.contextmanager
+def bn_on_kernels(label, steps, *models):
+    """Inside the block, every train-mode call of a SyncBatchNorm of
+    ``models`` is recorded in ``calls`` as (shape, dtype, splits,
+    recomputed inside a backward), and each whose output's gradient the
+    backward reached in ``backwards`` as (shape, dtype, splits, x needs a
+    gradient); after it, the BN kernels' launches must be once a call each
+    (the statistics and the fold), once a backward (the sums) and once a
+    backward whose input needs a gradient (dx), with no layout copy. Yields
+    the record."""
+    from types import SimpleNamespace
+
+    from advise_tpu_torch.models.layers.norm import SyncBatchNorm, _in_backward
+    from advise_tpu_torch.ops import batch_norm as bn
+
+    seen = SimpleNamespace(calls=[], backwards=[])
+
+    def hook(m, args, kwargs, y):
+        if m.training:
+            x = args[0]
+            views = args[1] if len(args) > 1 else kwargs.get("views", 1)
+            key = (tuple(x.shape), x.dtype, views * m.num_splits)
+            seen.calls.append(key + (_in_backward(),))
+            if y.requires_grad and not _in_backward():
+                y.register_hook(lambda g, rec=key + (x.requires_grad,): seen.backwards.append(rec))
+
+    norms = {id(m): m for model in models for m in model.modules() if isinstance(m, SyncBatchNorm)}
+    handles = [m.register_forward_hook(hook, with_kwargs=True) for m in norms.values()]
+    before = {fn.__name__: fn.launches for fn in bn.COUNTED}
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+    got = {fn.__name__: fn.launches - before[fn.__name__] for fn in bn.COUNTED}
+    n = len(seen.calls)
+    want = {"bn_stats": n, "bn_apply": n, "bn_grad_stats": len(seen.backwards),
+            "bn_dx": sum(c[3] for c in seen.backwards), "channels_last": 0}
+    print(f"[bn] {label}: a step {n / steps} train-mode BN calls of {len(norms)} BNs "
+          f"({sum(c[3] for c in seen.calls) / steps} recomputed inside the backward, {len(seen.backwards) / steps} "
+          f"backwards), kernel launches a step {({k: v / steps for k, v in got.items()})}, layout copies a step "
+          f"{got['channels_last'] / steps}")
+    check(got == want, f"{label}: SyncBatchNorm's kernels ran {got}, not once a call ({want})")
+
+
+def bn_kernel_rows(seen, steps, dev, results) -> None:
+    """SyncBatchNorm's kernels at each distinct train-mode BN shape of
+    ``seen`` (:func:`bn_on_kernels`' record of ``steps`` steps), channels-last,
+    on x ~ N(1, 2^2), g ~ N(0, 1) and a random scale and bias: each wrapper
+    held against its plain version on the card on the same inputs (the
+    tolerances of the card tests: the statistics within 1e-5, meansq
+    relative to itself and the mean to the root of meansq; y within one ulp
+    of x's type at its largest value; the backward's means and sums and dx
+    within 2^-7 of their largest entry); then the forward (statistics +
+    fold) and the backward (sums + dx) on the card's clock (calls queued
+    behind a sleep) beside their plain versions and their byte bounds (3
+    and 5 passes over x), summed over a step's calls into
+    ``results["bn_forward"]`` and ``results["bn_backward"]``."""
+    import torch
+
+    from advise_tpu_torch.ops import batch_norm as bn
+
+    eps = 1e-5
+    forwards = Counter(c[:3] for c in seen.calls)
+    backwards = Counter(c[:3] for c in seen.backwards)
+    fwd = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None, bound=(0.0, "bytes"))
+    bwd = dict(fwd)
+    g = torch.Generator(device=dev).manual_seed(23)
+    for (shape, dtype, splits), n_fwd in sorted(forwards.items(), key=lambda kv: -math.prod(kv[0][0])):
+        n_fwd, n_bwd = n_fwd / steps, backwards[(shape, dtype, splits)] / steps
+
+        def draw(scale, shift):
+            t = torch.randn(shape, generator=g, device=dev) * scale + shift
+            return (t.movedim(1, -1).contiguous().movedim(-1, 1) if len(shape) > 2 else t).to(dtype)
+
+        x, gy = draw(2.0, 1.0), draw(1.0, 0.0)
+        c = shape[1]
+        weight, bias = torch.randn(c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
+        stats, stats_p = bn.bn_stats(x, splits), bn.bn_stats_plain(x, splits)
+        stats_err = max(float(((stats[1] - stats_p[1]).abs() / stats_p[1]).max()),
+                        float(((stats[0] - stats_p[0]).abs() / stats_p[1].sqrt()).max()))
+        y, y_p = bn.bn_apply(x, stats, weight, bias, eps), bn.bn_apply_plain(x, stats, weight, bias, eps)
+        y_err = float((y.float() - y_p.float()).abs().max())
+        top = float(y_p.float().abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - (7 if dtype == torch.bfloat16 else 23))
+        (means, totals), (means_p, totals_p) = (bn.bn_grad_stats(gy, x, stats, eps),
+                                                bn.bn_grad_stats_plain(gy, x, stats, eps))
+        sums_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                       for a, b in ((means, means_p), (totals, totals_p)))
+        dx, dx_p = (bn.bn_dx(gy, x, stats, means, weight, eps),
+                    bn.bn_dx_plain(gy, x, stats, means, weight, eps))
+        dx_err = float((dx.float() - dx_p.float()).abs().max())
+        dx_top = float(dx_p.float().abs().max())
+        del y, y_p, dx, dx_p
+        check(stats_err <= 1e-5 and y_err <= ulp and sums_err <= 2 ** -7 and dx_err <= 2 ** -7 * dx_top,
+              f"BN kernels at {shape} {dtype} off their plain versions: statistics {stats_err}, y {y_err} "
+              f"(ulp {ulp}), sums {sums_err}, dx {dx_err} of {dx_top}")
+        nbytes = x.numel() * x.element_size()
+        t = {
+            "fwd": queued_ms(lambda: bn.bn_apply(x, bn.bn_stats(x, splits), weight, bias, eps), BN_REPS),
+            "fwd_plain": times_ms(lambda: bn.bn_apply_plain(x, bn.bn_stats_plain(x, splits), weight, bias, eps)),
+            "bwd": queued_ms(lambda: (bn.bn_grad_stats(gy, x, stats, eps),
+                                      bn.bn_dx(gy, x, stats, means, weight, eps)), BN_REPS),
+            "bwd_plain": times_ms(lambda: (bn.bn_grad_stats_plain(gy, x, stats, eps),
+                                           bn.bn_dx_plain(gy, x, stats, means, weight, eps))),
+        }
+        t = {k: statistics.median(v) for k, v in t.items()}
+        fb, bb = bound(3 * nbytes, 0, "bf16")[0], bound(5 * nbytes, 0, "bf16")[0]
+        p = bn.plan(x.numel() // c, c, splits, dtype, bn.VECTOR_BYTES)
+        print(f"[kernel] BN {shape} {str(dtype).split('.')[-1]} splits {splits}, {n_fwd} forwards and {n_bwd} "
+              f"backwards a step; plan vec {p['vec']} threads {p['threads']} grid {p['grid']}: forward "
+              f"{t['fwd']} ms (bound {fb}, plain {t['fwd_plain']}), backward {t['bwd']} ms (bound {bb}, plain "
+              f"{t['bwd_plain']}); errors: statistics {stats_err}, y {y_err} (ulp {ulp}), sums {sums_err}, dx "
+              f"{dx_err} of {dx_top}")
+        for row, n, key, b_ms, err in ((fwd, n_fwd, "fwd", fb, y_err), (bwd, n_bwd, "bwd", bb, dx_err)):
+            row["ms"] += n * t[key]
+            row["plain_ms"] += n * t[key + "_plain"]
+            row["bound"] = (row["bound"][0] + n * b_ms, "bytes")
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        del x, gy
+        torch.cuda.empty_cache()
+    for name, row in (("bn_forward", fwd), ("bn_backward", bwd)):
+        print(f"[kernel] {name} over a step's calls: {row['ms']} ms, plain {row['plain_ms']} ms, bound "
+              f"{row['bound'][0]} ms ({row['bound'][0] / row['ms']} of it), max_abs_err {row['max_abs_err']}")
+        results[name] = row
+
+
+def times_ms(fn, n=10, reps=1):
+    """Each sample: ``reps`` calls back to back between two CUDA events, per
+    call; ``n`` samples."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return out
+
+
+def queued_ms(fn, reps):
+    """The card's time a call: 10 samples of ``reps`` calls queued behind
+    torch.cuda._sleep, so that the card starts them only once the host has
+    queued them all."""
+    import torch
+
+    out = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return out
 
 
 def counted_kernels():
@@ -1512,7 +1709,9 @@ def x3d_steps(xcfg, label, warmup, timed, dev, profiled=False):
         print(f"[x3d] {label} step {i}: {vals} ({ms} ms)")
         check(all(math.isfinite(v) for v in vals.values()), f"X3D {label} step {i} is not finite")
 
-    median_ms, step_ms, peak, launches = time_steps(run, warmup, timed, counted_kernels(), after_step=after_step)
+    with bn_on_kernels(f"X3D {label}", warmup + timed, *run_models(run)):
+        median_ms, step_ms, peak, launches = time_steps(run, warmup, timed, counted_kernels(),
+                                                        after_step=after_step)
     check(run.state.step == warmup + timed, f"the X3D {label} state did not advance")
     check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), f"X3D {label} params not finite")
     total = sum(step_flops.values())
@@ -1571,10 +1770,11 @@ def moco_steps(mcfg, epoch, warmup, timed, extra, dev, tag="moco", profiled=Fals
             print(f"[{tag}] step {i}: {vals} ptr {ptrs[-1]} ({ms} ms)")
         check(all(math.isfinite(v) for v in vals.values()), f"{tag} step {i} is not finite")
 
-    _, step_ms, peak, launches = time_steps(
-        run, warmup, timed + extra, counted_kernels(),
-        infos_fn=lambda i: {"item_id": torch.arange(b, device=dev) + (i * b) % mcfg.CONTRASTIVE.LENGTH},
-        after_step=after_step)
+    with bn_on_kernels(tag, warmup + timed + extra, *run_models(run)):
+        _, step_ms, peak, launches = time_steps(
+            run, warmup, timed + extra, counted_kernels(),
+            infos_fn=lambda i: {"item_id": torch.arange(b, device=dev) + (i * b) % mcfg.CONTRASTIVE.LENGTH},
+            after_step=after_step)
     median_ms = statistics.median(step_ms[warmup:warmup + timed])
     want_ptrs = [(b * (i + 1)) % queue_len for i in range(len(ptrs))]
     print(f"[{tag}] median step {median_ms} ms over {timed} steps (all: {step_ms[:warmup + timed]}), "
@@ -1745,7 +1945,7 @@ def x3d_entry(tconfig) -> None:
     check(n_iter == X3D_RUN_VIDEOS // xcfg.DATA.BATCHSIZE_PER_GPU and x3d["start_step"] == 0,
           "X3D preset: wrong schedule")
     check(all(math.isfinite(v) for st in x3d["stats"] for v in st.values()), "X3D preset: a loss is not finite")
-    check(not any(x3d["launches"].values()), "the X3D run launched a kernel")
+    check(not any(but_bn(x3d["launches"]).values()), "the X3D run launched a kernel other than BN's")
     prof = x3d.get("profile")
     check(prof is not None, "the X3D run's profile window did not close")
     print(f"[run] X3D preset profile window ({prof['steps']} iteration): wall {prof['wall_ms']} ms, device "
@@ -1770,7 +1970,7 @@ def moco_entry(tconfig, label="MoCo cc", config=MOCO_CC_CONFIG, run_dir=MOCO_RUN
     m1, m2 = resumed_pair(f"{label} preset", config, run_dir, overrides, ["SOLVER.MAX_EPOCH", "1"],
                           ["SOLVER.MAX_EPOCH", "2"] + NO_SAVE, iters, 1)
     for rec in (m1, m2):
-        check(not any(rec["launches"].values()), f"the {label} run launched a kernel")
+        check(not any(but_bn(rec["launches"]).values()), f"the {label} run launched a kernel other than BN's")
     saved = torch.load(Path(run_dir) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE, map_location="cpu",
                        weights_only=False)
     saved_ssl = ssl_digest(saved["ssl"])
@@ -1805,7 +2005,8 @@ def advise_swin_entry(tconfig) -> None:
     check(n_iter == ADVISE_RUN_VIDEOS // acfg.DATA.BATCHSIZE_PER_GPU and adv["start_step"] == 0,
           "AdViSe video_swin: wrong schedule")
     check(all(math.isfinite(v) for st in adv["stats"] for v in st.values()), "AdViSe video_swin: not finite")
-    check(not any(adv["launches"].values()), "the AdViSe video_swin run launched a kernel")
+    check(not any(but_bn(adv["launches"]).values()),
+          "the AdViSe video_swin run launched a kernel other than BN's")
     saved = torch.load(Path(ADVISE_SWIN_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE,
                        map_location="cpu", weights_only=False)
     twin = saved["ssl"].get("ema_temporal", {})
@@ -1843,7 +2044,8 @@ def advise_steps(acfg, label, warmup, timed, dev, profiled=False):
         print(f"[advise] {label} step {i}: {vals} ({ms} ms)")
         check(all(math.isfinite(v) for v in vals.values()), f"AdViSe {label} step {i} is not finite")
 
-    median_ms, _, peak, launches = time_steps(run, warmup, timed, counted_kernels(), after_step=after_step)
+    with bn_on_kernels(f"AdViSe {label}", warmup + timed, *run_models(run)):
+        median_ms, _, peak, launches = time_steps(run, warmup, timed, counted_kernels(), after_step=after_step)
     check(state.step == warmup + timed, f"the AdViSe {label} state did not advance")
     check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), f"AdViSe {label} params not finite")
     tower_same = tensors_digest(model.spatial_encoder.state_dict()) == tower0
@@ -2005,7 +2207,7 @@ def mae_entry(tconfig) -> None:
     m1, m2 = resumed_pair("MAE preset", MAE_CONFIG, MAE_RUN_DIR, MAE_RUN_OVERRIDES, ["SOLVER.MAX_EPOCH", "2"],
                           ["SOLVER.MAX_EPOCH", "3"], iters, 2)
     for rec in (m1, m2):
-        check(not any(rec["launches"].values()), "the MAE run launched a kernel")
+        check(not any(but_bn(rec["launches"]).values()), "the MAE run launched a kernel other than BN's")
     saved = tensors_digest(torch.load(Path(MAE_RUN_DIR) / "checkpoints" / "Model_Epoch_0001" / STATE_FILE,
                                       map_location="cpu", weights_only=False)["model"])
     print(f"[run] MAE model sha256 of Model_Epoch_0001 {saved}")
@@ -2065,7 +2267,7 @@ def maskfeat_entries(tconfig) -> None:
         check(len(rec["iter_s"]) == MASKFEAT_RUN_VIDEOS // cfg.DATA.BATCHSIZE_PER_GPU and rec["start_step"] == 0,
               f"{label}: wrong schedule")
         check(all(math.isfinite(v) for st in rec["stats"] for v in st.values()), f"{label}: not finite")
-        check(not any(rec["launches"].values()), f"the {label} run launched a kernel")
+        check(not any(but_bn(rec["launches"]).values()), f"the {label} run launched a kernel other than BN's")
     inf = prb["action_infer"]
     views = pcfg.INFER.NUM_CLIPS * pcfg.INFER.NUM_CROPS
     print(f"[run] MaskFeat action_infer: {inf['total']} videos, {inf['views']} views in {inf['batches']} batches, "
@@ -2127,10 +2329,11 @@ def contrastive_path(tconfig, dev, byol_ms, byol_peak) -> dict:
             check(loss_name in vals, f"{label} step {i} reports no {loss_name}")
 
         times = torch.rand(b, generator=torch.Generator().manual_seed(5)).to(dev)
-        median_ms, step_ms, peak, launches = time_steps(
-            run, CON_WARMUP, CON_TIMED, counted_kernels(),
-            infos_fn=lambda i: {"item_id": torch.arange(b, device=dev) + i * b, "time_idx": times},
-            after_step=after_step)
+        with bn_on_kernels(label, CON_WARMUP + CON_TIMED, *run_models(run)):
+            median_ms, step_ms, peak, launches = time_steps(
+                run, CON_WARMUP, CON_TIMED, counted_kernels(),
+                infos_fn=lambda i: {"item_id": torch.arange(b, device=dev) + i * b, "time_idx": times},
+                after_step=after_step)
         got = (launches["stem_conv_fwd"], launches["stem_conv_wgrad"])
         want = (per_step[0] * n_steps, per_step[1] * n_steps)
         moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
@@ -2175,8 +2378,9 @@ def speed_sequential(tconfig, dev, speed_ms, speed_peak) -> int:
         print(f"[seq] TRAIN.SEQUENTIAL speed step {i}: {vals} ({ms} ms)")
         check(all(math.isfinite(v) for v in vals.values()), f"TRAIN.SEQUENTIAL step {i} is not finite")
 
-    median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
-                                                    after_step=after_step)
+    with bn_on_kernels("TRAIN.SEQUENTIAL speed", CON_WARMUP + CON_TIMED, *run_models(run)):
+        median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
+                                                        after_step=after_step)
     n_steps = CON_WARMUP + CON_TIMED
     print(f"[seq] TRAIN.SEQUENTIAL speed ({scfg.DATA.BATCHSIZE_PER_GPU} videos x {scfg.DATA.NUM_CLIP} clips, "
           f"one clip at a time): median step {median_ms} ms over {CON_TIMED} steps (all: {step_ms}), peak "
@@ -2501,8 +2705,9 @@ def ra_exact_path(tconfig, dev, byol_ms, byol_peak) -> dict:
         check(all(math.isfinite(v) for v in vals.values()), f"FUSED_RA False step {i} is not finite")
 
     n_steps = CON_WARMUP + CON_TIMED
-    median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
-                                                    after_step=after_step)
+    with bn_on_kernels("FUSED_RA False BYOL", n_steps, *run_models(run)):
+        median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
+                                                        after_step=after_step)
     got = (launches["stem_conv_fwd"], launches["stem_conv_wgrad"])
     print(f"[7h] FUSED_RA False BYOL step: median {median_ms} ms over {CON_TIMED} steps (all: {step_ms}), peak "
           f"allocated {peak} bytes; the batched BYOL step of phase 5 (this call): {byol_ms} ms, {byol_peak} "
@@ -2554,8 +2759,9 @@ def mvit_con_path(tconfig, dev, byol_ms, byol_peak, k4_checked) -> dict:
 
     attention.flash_mha = recorded
     try:
-        median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
-                                                        after_step=after_step)
+        with bn_on_kernels("MViT-S MoCo", CON_WARMUP + CON_TIMED, *run_models(run)):
+            median_ms, step_ms, peak, launches = time_steps(run, CON_WARMUP, CON_TIMED, counted_kernels(),
+                                                            after_step=after_step)
     finally:
         attention.flash_mha = flash_mha
     print(f"[7h] MViT-S MoCo: K4's attention shapes {sorted(seen)}, phase 3 checked each: {seen <= k4_checked}")
@@ -2647,7 +2853,7 @@ def host_aug_entries(tconfig) -> None:
           f"launches {x3d['launches']}, {x3d['seconds']} s with start-up; host stages {split}")
     check(len(x3d["iter_s"]) == 1 and all(math.isfinite(v) for v in x3d["stats"][0].values()),
           "X3D-M host aug: wrong schedule or not finite")
-    check(not any(x3d["launches"].values()), "X3D-M host aug: a kernel was launched")
+    check(not any(but_bn(x3d["launches"]).values()), "X3D-M host aug: a kernel other than BN's was launched")
 
 
 def mvit_entries(tconfig) -> None:
@@ -2678,7 +2884,8 @@ def mvit_entries(tconfig) -> None:
     m1, m2 = resumed_pair("MViT_S_rev_masked.yaml", MVIT_S_CONFIG, MVIT_S_RUN_DIR, MVIT_RUN_OVERRIDES,
                           ["SOLVER.MAX_EPOCH", "1"], ["SOLVER.MAX_EPOCH", "2"], s_iters, 1)
     for rec in (m1, m2):
-        check(not any(rec["launches"].values()), "MViT_S_rev_masked.yaml: a kernel was launched")
+        check(not any(but_bn(rec["launches"]).values()),
+              "MViT_S_rev_masked.yaml: a kernel other than BN's was launched")
 
 
 def remote_tree(url) -> dict:
@@ -2909,6 +3116,7 @@ def syncbn_rank() -> None:
     from advise_tpu_torch import config as tconfig
     from advise_tpu_torch.data import build_device_aug, build_loader
     from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.ops import batch_norm as bnk
     from advise_tpu_torch.parallel.collectives import all_gather_cat, world_size
     from advise_tpu_torch.parallel.mesh import distributed_init, world
 
@@ -2935,8 +3143,11 @@ def syncbn_rank() -> None:
     bn = stem.bn.train()
     x = seen["x"].clone().requires_grad_(True)
     g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(7 + rank), device=dev).to(x.dtype)
+    for fn in bnk.COUNTED:
+        fn.launches = 0
     y = bn(x)
     (y.float() * g.float()).sum().backward()
+    bn_launches = {fn.__name__: fn.launches for fn in bnk.COUNTED}
     bn.pending = []
     ref = copy.deepcopy(bn)
     ref.sync_axes = ()
@@ -2955,7 +3166,7 @@ def syncbn_rank() -> None:
     with open(f"{DP_RUN_DIR}/syncbn_rank{rank}.json", "w") as f:
         json.dump({"rank": rank, "world": n, "shape": list(x.shape), "dtype": str(x.dtype),
                    "sync_axes": list(stem.bn.sync_axes), "y_err": y_err, "dx_err": dx_err,
-                   "gather_grad_exact": exact}, f)
+                   "gather_grad_exact": exact, "bn_launches": bn_launches}, f)
 
 
 def dp_entries(tconfig) -> None:
@@ -3021,10 +3232,14 @@ def dp_entries(tconfig) -> None:
         print(f"[dp] (ii) rank {r}: the fast pathway's first BN input {res['shape']} {res['dtype']}, synced over "
               f"{res['sync_axes']} of {res['world']} ranks, against one BN over both ranks' rows: output "
               f"{res['y_err']} of its largest value (bound {SYNCBN_Y_BOUND}), input gradient {res['dx_err']} (bound "
-              f"{SYNCBN_DX_BOUND}); all_gather_cat's gradient exactly 2 w: {res['gather_grad_exact']}")
+              f"{SYNCBN_DX_BOUND}); all_gather_cat's gradient exactly 2 w: {res['gather_grad_exact']}; the synced "
+              f"BN's kernels {res['bn_launches']}")
         check(res["sync_axes"] == ["sync"] and res["world"] == DP_RANKS, "(ii): the BN was not synced over the ranks")
         check(res["y_err"] <= SYNCBN_Y_BOUND and res["dx_err"] <= SYNCBN_DX_BOUND, "(ii): SyncBN off its bound")
         check(res["gather_grad_exact"], "(ii): all_gather_cat's gradient is not the ranks' sum")
+        # g is drawn in NCDHW, so the gradient reaching the BN takes one layout copy
+        check(res["bn_launches"] == {"bn_stats": 1, "bn_apply": 1, "bn_grad_stats": 1, "bn_dx": 1,
+                                     "channels_last": 1}, "(ii): the synced BN did not run on its kernels")
 
     # (iii) one NCCL rank against the single-process run, both at lr 0
     single = DP_OVERRIDES[:3] + [str(DP_SINGLE_VIDEOS)] + DP_OVERRIDES[4:] + DP_LR0 + ["SOLVER.MAX_EPOCH", "1"] + NO_SAVE
@@ -3352,7 +3567,10 @@ def main() -> None:
     from advise_tpu_torch.engine.state import TrainState
     from advise_tpu_torch.engine.steps import make_train_step
     from advise_tpu_torch.models import build_model
+    from advise_tpu_torch.models.layers.norm import SyncBatchNorm
+    from advise_tpu_torch.models.layers.resnet import ResStage
     from advise_tpu_torch.data.masking import build_mask_generator
+    from advise_tpu_torch.ops import batch_norm as bnk
     from advise_tpu_torch.ops import build
     from advise_tpu_torch.ops import flash_attention as fl
     from advise_tpu_torch.ops import fused_aug as fa
@@ -3391,20 +3609,6 @@ def main() -> None:
     kt = 5  # the fast stem's temporal kernel (SLOWFAST_TEMP_KERNELS)
     g = torch.Generator(device=dev).manual_seed(0)
 
-    def times_ms(fn, n=10, reps=1):
-        # each sample: reps calls back to back between two events, per call
-        out = []
-        for _ in range(n):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end) / reps)
-        return out
-
     def in_turns(kernel, plain, reps=1):
         kernel()  # warm both
         plain()
@@ -3413,22 +3617,6 @@ def main() -> None:
         kk += times_ms(kernel, reps=reps)
         p += times_ms(plain)
         return statistics.median(kk), statistics.median(p)
-
-    def queued_ms(fn, reps):
-        # the card's time a call: reps calls queued behind torch.cuda._sleep,
-        # so the card starts them only once the host has queued them all
-        out = []
-        for _ in range(10):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SLEEP_CYCLES)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end) / reps)
-        return out
 
     def queued_in_turns(kernel, plain, reps):
         kernel()  # warm both
@@ -3844,14 +4032,15 @@ def main() -> None:
     fl.flash_mha_fwd.launches = 0
     fl.flash_mha_bwd.launches = 0
     step_ms = []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        stats = step(state, clips, infos, aug_gen, LR, EPOCH_EXACT)
-        loss, gnorm = float(stats["loss_byol"]), float(stats["grad_norm"])
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"[byol] step {i}: loss {loss} grad_norm {gnorm} ({step_ms[-1]} ms)")
-        check(math.isfinite(loss) and math.isfinite(gnorm), f"step {i} is not finite")
+    with bn_on_kernels("BYOL step", WARMUP_STEPS + TIMED_STEPS, model, state.ssl["ema_model"]):
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            t0 = time.perf_counter()
+            stats = step(state, clips, infos, aug_gen, LR, EPOCH_EXACT)
+            loss, gnorm = float(stats["loss_byol"]), float(stats["grad_norm"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"[byol] step {i}: loss {loss} grad_norm {gnorm} ({step_ms[-1]} ms)")
+            check(math.isfinite(loss) and math.isfinite(gnorm), f"step {i} is not finite")
     launches = {"stem_conv_fwd": sc.stem_conv_fwd.launches,
                 "stem_conv_wgrad": sc.stem_conv_wgrad.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -3941,15 +4130,18 @@ def main() -> None:
     sc.stem_conv_wgrad.launches = 0
     fa.fused_simple_aug.launches = 0
     step_ms = []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        stats = step(state, clips, infos, gen, lr)
-        vals = {name: float(v) for name, v in stats.items()}
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"[speed] step {i}: loss_spd {vals['loss_spd']} acc_spd {vals['acc_spd']} "
-              f"grad_norm {vals['grad_norm']} ({step_ms[-1]} ms)")
-        check(all(math.isfinite(v) for v in vals.values()), f"speed step {i} is not finite")
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    bn_before = {fn.__name__: fn.launches for fn in bnk.COUNTED}
+    with bn_on_kernels("speed step", n_steps, model) as bn_seen:
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            stats = step(state, clips, infos, gen, lr)
+            vals = {name: float(v) for name, v in stats.items()}
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            print(f"[speed] step {i}: loss_spd {vals['loss_spd']} acc_spd {vals['acc_spd']} "
+                  f"grad_norm {vals['grad_norm']} ({step_ms[-1]} ms)")
+            check(all(math.isfinite(v) for v in vals.values()), f"speed step {i} is not finite")
     launches["fused_simple_aug"] = fa.fused_simple_aug.launches
     speed_stem = (sc.stem_conv_fwd.launches, sc.stem_conv_wgrad.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -3963,9 +4155,20 @@ def main() -> None:
           f"stem kernels {speed_stem} (the slow stem is a plain conv)")
     check(launches["fused_simple_aug"] == WARMUP_STEPS + TIMED_STEPS,
           "fused_simple_aug was not launched once per speed step")
+    # every BN a step, and again those of the stages REMAT recomputes
+    n_bn = sum(isinstance(m, SyncBatchNorm) for m in model.modules())
+    n_remat = sum(isinstance(m, SyncBatchNorm) for st in model.modules()
+                  if isinstance(st, ResStage) and st.remat for m in st.modules())
+    bn_step = {fn.__name__: (fn.launches - bn_before[fn.__name__]) / n_steps for fn in bnk.COUNTED}
+    launches["bn_forward"] = bnk.bn_stats.launches - bn_before["bn_stats"]
+    launches["bn_backward"] = bnk.bn_grad_stats.launches - bn_before["bn_grad_stats"]
+    print(f"[speed] SyncBatchNorm's kernels a step: {bn_step}; {n_bn} BNs, {n_remat} of them recomputed")
+    check(bn_step == {"bn_stats": n_bn + n_remat, "bn_apply": n_bn + n_remat, "bn_grad_stats": n_bn, "bn_dx": n_bn,
+                      "channels_last": 0}, "a speed step's BNs did not run on their kernels once a call")
     speed_ms, speed_peak = median_ms, peak  # phase 7g reads TRAIN.SEQUENTIAL's peak against these
     del model, params, bundle, state, step, clips, stats
     torch.cuda.empty_cache()
+    bn_kernel_rows(bn_seen, n_steps, dev, results)
 
     print(f"[phase] 7 starts at {time.perf_counter() - t_start} s")
     # -- 7. the masked path -------------------------------------------------------
@@ -4234,7 +4437,8 @@ def main() -> None:
     check(Path(SPEED_RUN_DIR, "Metrics.csv").is_file(), "speed_val wrote no Metrics.csv")
 
     # the linear probe of the speed run's checkpoint, then multi-view
-    # inference: no kernel on either path (OnlyCrop, the inference crop)
+    # inference: no kernel but BN's on either path (OnlyCrop, the inference
+    # crop; the probe's BN trains in train mode)
     shutil.rmtree(PROBE_RUN_DIR, ignore_errors=True)
     prb = run_entry_point([], "linear probe + action_infer", PROBE_CONFIG, PROBE_RUN_DIR, PROBE_RUN_OVERRIDES)
     pcfg = one_card_cfg(tconfig, PROBE_CONFIG)
@@ -4253,7 +4457,7 @@ def main() -> None:
     check(all(math.isfinite(v) for st in prb["stats"] for v in st.values()), "probe: a loss is not finite")
     check(inf["total"] == PROBE_RUN_VIDEOS and inf["views"] == PROBE_RUN_VIDEOS * 30,
           "action_infer did not see every view of every video")
-    check(not any(prb["launches"].values()), "the probe run launched a kernel")
+    check(not any(but_bn(prb["launches"]).values()), "the probe run launched a kernel other than BN's")
     pretrained = torch.load(Path(SPEED_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE,
                             map_location="cpu", weights_only=False)["model"]
     probed = torch.load(Path(PROBE_RUN_DIR) / "checkpoints" / "Model_Epoch_0000" / STATE_FILE,
@@ -4356,6 +4560,10 @@ def main() -> None:
              "advise_tpu/ops/flash_attention.py:75"),
             ("flash_f32_bwd", "advise_tpu_torch/csrc/flash_attention_f32.cu",
              "advise_tpu/ops/flash_attention.py:75"),
+            ("bn_forward", "advise_tpu_torch/csrc/batch_norm.cu",
+             "none: XLA fuses advise_tpu/models/layers/norm.py's chain"),
+            ("bn_backward", "advise_tpu_torch/csrc/batch_norm.cu",
+             "none: XLA fuses advise_tpu/models/layers/norm.py's chain"),
             *((name, "advise_tpu_torch/csrc/window_probe.cu", f"scripts/probe_mosaic_aot.py:{line}")
               for name, line in PROBE_LINES.items()))
     ]}))

@@ -4,8 +4,9 @@ launch schedules (one launch, per batch chunk, wgrad-only), the fused
 simple aug (advise_tpu_torch/csrc/fused_aug.cu), flash attention, forward
 and backward (advise_tpu_torch/csrc/flash_attention.cu) with its float32
 pair in 3xTF32 (advise_tpu_torch/csrc/flash_attention_f32.cu), and the window
-gather of the nine Mosaic probes (advise_tpu_torch/csrc/window_probe.cu);
-and the AdViSe and X3D-M models' bf16 forwards on the card against the CPU.
+gather of the nine Mosaic probes (advise_tpu_torch/csrc/window_probe.cu),
+SyncBatchNorm's train mode (advise_tpu_torch/csrc/batch_norm.cu); and the
+AdViSe and X3D-M models' bf16 forwards on the card against the CPU.
 Every test here needs an NVIDIA card and nvcc, and skips without a card.
 
 This file imports no JAX, so a machine without it runs the file without the
@@ -27,7 +28,11 @@ dq, dk and dv are held to 2^-6 of their largest entries (chip_smoke.py
 phase 3 measured 2.0e-3 to 3.2e-3 of the largest output and 2.8e-3 to
 6.1e-3 of the largest gradient at MViT-L's shapes on the H100). The window
 gather moves and
-casts values (P1 adds two float32 values), so it is held EQUAL.
+casts values (P1 adds two float32 values), so it is held EQUAL. The batch
+norm kernels' tolerances are stated in their tests: float32 sums in a fixed
+order against float64 (1e-5), one rounding of y from the fold's rounded w
+and b (one ulp), and a closed-form backward against float64 autograd of the
+chain it replaced, through bf16 (2^-7 of the largest entry).
 """
 
 import math
@@ -527,3 +532,169 @@ def test_x3d_forward_on_the_card_matches_the_cpu(cuda):
             got = build_model(cfg, cuda, seed=0).eval()(x.to(cuda).bfloat16())
     assert tuple(got.shape) == tuple(want.shape) == (2, 4)
     assert float((got.float().cpu() - want).abs().max() / want.abs().max()) <= 5e-2
+
+
+# SyncBatchNorm's train mode (csrc/batch_norm.cu): (shape, views,
+# num_splits, dtype); the main path's channels-last shapes first
+BN_CASES = [
+    ((32, 64, 8, 112, 112), 1, 1, torch.bfloat16),  # the stem's BN
+    ((32, 256, 8, 56, 56), 1, 1, torch.bfloat16),   # res2
+    ((32, 64, 8, 56, 56), 1, 1, torch.bfloat16),
+    ((32, 2048, 8, 7, 7), 1, 1, torch.bfloat16),    # res5 c
+    ((32, 4096), 1, 1, torch.bfloat16),             # the heads' BN1d
+    ((64, 4096), 2, 1, torch.bfloat16),             # two views
+    ((16, 512, 8, 14, 14), 2, 2, torch.bfloat16),   # views 2 x num_splits 2
+    ((8, 54, 4, 28, 28), 1, 1, torch.bfloat16),     # X3D-M's 54 channels: 4-byte vectors
+    ((16, 256, 8, 14, 14), 1, 2, torch.float32),
+    ((6, 3, 5, 7, 9), 1, 1, torch.float32),         # odd C: scalar loads
+]
+
+
+def _bn_inputs(shape, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(scale=1.0, shift=0.0):
+        t = torch.randn(shape, generator=g, device=dev) * scale + shift
+        return (t.movedim(1, -1).contiguous().movedim(-1, 1) if len(shape) > 2 else t).to(dtype)
+
+    x, gy = draw(2.0, 1.0), draw()
+    c = shape[1]
+    return x, gy, torch.randn(c, generator=g, device=dev), torch.randn(c, generator=g, device=dev)
+
+
+def _bn_module(c, num_splits, weight, bias):
+    from advise_tpu_torch.models.layers.norm import SyncBatchNorm
+
+    m = SyncBatchNorm(c, num_splits=num_splits).to(weight.device)
+    with torch.no_grad():
+        m.weight.copy_(weight)
+        m.bias.copy_(bias)
+    return m
+
+
+def _bn_run(m, x, gy, views):
+    """y, dx, dscale, dbias of one train-mode call and its backward."""
+    xk = x.clone().requires_grad_(True)
+    m.weight.grad = m.bias.grad = None
+    y = m(xk, views=views)
+    y.backward(gy)
+    m.pending = []
+    return y.detach(), xk.grad, m.weight.grad.clone(), m.bias.grad.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,views,num_splits,dtype", BN_CASES)
+def test_batch_norm_kernels_match_plain(cuda, shape, views, num_splits, dtype):
+    """The statistics within 1e-5 of float64 sums (meansq relative to
+    itself; the mean relative to the root of meansq: a mean near 0 is a
+    cancelling sum whose error follows the size of its terms); y within one
+    ulp of x's type at the largest output of the float32 fold on the same
+    rounded w and b; dx, dscale and dbias within 2^-7 of their largest entry
+    against float64 autograd of the eager chain on the same values (g and x
+    pass through x's type, dx is rounded to it once). The wrappers count one
+    launch a call; no layout copy."""
+    from bn_chain import eager_bn
+
+    from advise_tpu_torch.ops import batch_norm as bn
+
+    x, gy, weight, bias = _bn_inputs(shape, dtype, cuda)
+    c, splits, eps = shape[1], views * num_splits, 1e-5
+    xs = x.double().movedim(1, -1).reshape(splits, -1, c)
+    mean64, meansq64 = xs.mean(1), (xs * xs).mean(1)
+    del xs
+    counts = [f.launches for f in (bn.bn_stats, bn.bn_apply, bn.bn_grad_stats, bn.bn_dx, bn.channels_last)]
+    stats = bn.bn_stats(x, splits)
+    assert stats.shape == (2, splits, c) and stats.dtype == torch.float32
+    assert float(((stats[1] - meansq64).abs() / meansq64).max()) <= 1e-5
+    assert float(((stats[0] - mean64).abs() / meansq64.sqrt()).max()) <= 1e-5
+
+    y = bn.bn_apply(x, stats, weight, bias, eps)
+    assert y.dtype == dtype and y.shape == x.shape and y.stride() == x.stride()
+    r = torch.reciprocal(torch.sqrt(stats[1] - stats[0] * stats[0] + eps))
+    w = r * weight
+    b = -stats[0] * w + bias
+    rows = x.movedim(1, -1).reshape(splits, -1, c).float()
+    want = rows * w.to(dtype).float()[:, None] + b.to(dtype).float()[:, None]
+    top = float(want.abs().max())
+    ulp = _bf16_ulp(top) if dtype == torch.bfloat16 else 2.0 ** (math.floor(math.log2(top)) - 23)
+    assert float((y.movedim(1, -1).reshape(splits, -1, c).float() - want).abs().max()) <= ulp
+    del rows, want
+
+    m = _bn_module(c, num_splits, weight, bias)
+    y2, dx, dscale, dbias = _bn_run(m, x, gy, views)
+    assert torch.equal(y2, y)
+    xr = x.double().requires_grad_(True)
+    wr, br = weight.double().requires_grad_(True), bias.double().requires_grad_(True)
+    y_ref, _, _ = eager_bn(xr, wr, br, eps, splits)
+    y_ref.backward(gy.double())
+    del y_ref
+    for got, ref in ((dx, xr.grad), (dscale, wr.grad), (dbias, br.grad)):
+        assert float((got.double() - ref).abs().max()) <= 2 ** -7 * float(ref.abs().max())
+    assert dx.dtype == dtype and dx.stride() == x.stride()
+    got = [f.launches - n for f, n in zip((bn.bn_stats, bn.bn_apply, bn.bn_grad_stats, bn.bn_dx,
+                                           bn.channels_last), counts)]
+    assert got == [2, 2, 1, 1, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,views,num_splits,dtype", [BN_CASES[0], BN_CASES[5], BN_CASES[6]])
+def test_batch_norm_kernels_repeat_bit_for_bit(cuda, shape, views, num_splits, dtype):
+    """Two calls on the same inputs: equal outputs and gradients, bit for
+    bit (fixed summation orders, no atomics)."""
+    x, gy, weight, bias = _bn_inputs(shape, dtype, cuda, seed=1)
+    m = _bn_module(shape[1], num_splits, weight, bias)
+    first = _bn_run(m, x, gy, views)
+    second = _bn_run(m, x, gy, views)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_batch_norm_under_checkpoint_gives_the_same_gradients(cuda):
+    """A stage of two BNs and a ReLU under checkpoint(use_reentrant=False),
+    as TPU.REMAT runs the models' stages, against the same stage without
+    it: equal outputs and gradients, bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    x, gy, weight, bias = _bn_inputs((16, 256, 8, 14, 14), torch.bfloat16, cuda, seed=2)
+    m1, m2 = _bn_module(256, 1, weight, bias), _bn_module(256, 1, bias, weight)
+
+    def stage(t):
+        return m2(torch.relu(m1(t)))
+
+    runs = []
+    for remat in (False, True):
+        xk = x.clone().requires_grad_(True)
+        y = checkpoint(stage, xk, use_reentrant=False) if remat else stage(xk)
+        y.backward(gy)
+        runs.append([y.detach(), xk.grad] + [p.grad.clone() for p in (*m1.parameters(), *m2.parameters())])
+        for p in (*m1.parameters(), *m2.parameters()):
+            p.grad = None
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_batch_norm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    from advise_tpu_torch.ops import batch_norm as bn
+
+    x, gy, weight, bias = _bn_inputs((4, 16, 3, 5, 5), torch.bfloat16, cuda)
+    stats = bn.bn_stats(x, 1)
+    with pytest.raises(TypeError):
+        bn.bn_stats(x.half(), 1)
+    with pytest.raises(TypeError):
+        bn.bn_stats(x.to(torch.int32), 1)
+    with pytest.raises(ValueError):
+        bn.bn_stats(x[0, 0, 0, 0], 1)  # ndim 1
+    with pytest.raises(ValueError):
+        bn.bn_stats(x.contiguous(), 1)  # NCDHW: the channel dim is not innermost
+    with pytest.raises(ValueError):
+        bn.bn_stats(x, 3)  # 4 clips do not split into 3
+    with pytest.raises(ValueError):
+        bn.bn_apply(x, stats, weight[:8], bias, 1e-5)
+    with pytest.raises(ValueError):
+        bn.bn_apply(x, stats.double(), weight, bias, 1e-5)
+    with pytest.raises(ValueError):
+        bn.bn_grad_stats(gy.float(), x, stats, 1e-5)
+    with pytest.raises(ValueError):
+        bn.bn_dx(gy, x, stats, stats[:, :, :8], weight, 1e-5)
