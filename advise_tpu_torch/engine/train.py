@@ -83,6 +83,7 @@ from advise_tpu_torch.engine.meters import TrainingHelper, busy_ms, device_event
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.engine.steps import make_knn_probe_step, make_train_step
 from advise_tpu_torch.models import build_model
+from advise_tpu_torch.models.layers.attention import ATTENTION_CALLS
 from advise_tpu_torch.parallel.auto_shard import describe_sharding, shard_train_state
 from advise_tpu_torch.parallel.collectives import check_same_on_every_rank, replica_index, world_size
 from advise_tpu_torch.parallel.mesh import distributed_init, is_auto, world
@@ -241,10 +242,12 @@ class ProfileWindow:
 def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]] = None) -> TrainState:
     """Train on ``device`` (the card unless the caller asks for the CPU).
     ``record``, when given, receives per-iteration lists ``iter_s`` (batch
-    ready to stats read back), ``wait_s`` (the wait for the batch) and the
-    step's stats, and at the start ``start_epoch``, ``start_step`` and
-    ``model_sha256`` (:func:`tensors_digest` of the model's parameters and
-    BN buffers after any resume), ``ssl_sha256`` (:func:`ssl_digest`) and
+    ready to stats read back), ``wait_s`` (the wait for the batch), the
+    step's stats and ``attention_calls`` (the step's calls of each
+    attention route, ``models/layers/attention.py ATTENTION_CALLS``), and
+    at the start ``start_epoch``, ``start_step`` and ``model_sha256``
+    (:func:`tensors_digest` of the model's parameters and BN buffers after
+    any resume), ``ssl_sha256`` (:func:`ssl_digest`) and
     ``best_start`` (the checkpoints' best criteria, inf before any), and at
     the end ``model_sha256_end``, ``ssl_sha256_end``, ``best_end`` and
     ``host_s``, the input pipeline's stages over the run
@@ -284,7 +287,7 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
     if record is not None:
         record.update(start_epoch=start_epoch, start_step=state.step, model_sha256=digest,
                       ssl_sha256=ssl_sha, best_start=ckpt.best, rank=rank, world=n_ranks,
-                      iter_s=[], wait_s=[], stats=[])
+                      iter_s=[], wait_s=[], stats=[], attention_calls=[])
 
     # TPU.DEVICE_AUG False: the loader's host aug made the clips (no K3)
     device_aug = build_device_aug(cfg, "train") if cfg.TPU.DEVICE_AUG else None
@@ -318,6 +321,7 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
                 lr = get_lr_at_epoch(cfg, epoch_exact)
             helper.rt["curr_lr"] = lr
             gen = seeded_generator(device, cfg.TRAIN.SEED, epoch, it, *rank_keys())
+            calls_before = dict(ATTENTION_CALLS)
             if contrastive:
                 shared = seeded_generator(device, cfg.TRAIN.SEED, epoch, it) if n_ranks > 1 else None
                 stats = step_fn(state, clips_d, infos_d, gen, lr, epoch_exact, shared)
@@ -328,6 +332,8 @@ def trainer(cfg, tb_logger=None, device="cuda", record: Optional[Dict[str, Any]]
                 record["iter_s"].append(time.perf_counter() - t_ready)
                 record["wait_s"].append(t_ready - t_prev)
                 record["stats"].append(stats)
+                record["attention_calls"].append({k: n - calls_before.get(k, 0) for k, n in ATTENTION_CALLS.items()
+                                                  if n != calls_before.get(k, 0)})
             helper.update_stats(stats)
             helper.iter_end(it)
             profile.after_step(state.step)

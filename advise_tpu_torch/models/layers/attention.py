@@ -46,10 +46,24 @@ Under bf16 autocast q, k and v are cast back to the compute dtype after
 their pools and LayerNorms (autocast runs ``layer_norm`` in float32, where
 Flax's ``LayerNorm(dtype=bf16)`` returns bf16), so the flash kernel sees
 bf16 as the JAX kernel does.
+
+The attention's core, from the pooled q, k and v through the residual
+pooling, runs in a span of ``utils/host_times.py HOST_TIMES`` named by its
+route (:attr:`MultiScaleAttention.route`): ``attn.k4``, ``attn.relpos``
+(the dense chain with relative position biases) or ``attn.dense``. The
+span covers the forward pass and a recomputation (REMAT) where they run,
+and the core's backward on autograd's thread: an identity autograd
+Function at each end of the core (:class:`_CoreEnd`, :class:`_CoreStart`)
+opens the span in its backward and closes it in the other's. Under a
+profiler each span is a ``record_function`` of its name.
+:data:`ATTENTION_CALLS` counts the core's calls by route: ``<route>`` in
+the forward pass, ``<route>.recompute`` inside a backward (REMAT),
+``<route>.backward``. Neither changes a value.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -80,8 +94,56 @@ from advise_tpu_torch.parallel.collectives import (
     world_size,
 )
 from advise_tpu_torch.parallel.ring_attention import ring_attention
+from advise_tpu_torch.utils.host_times import HOST_TIMES
 
 Thw = Tuple[int, int, int]
+ATTENTION_CALLS: collections.Counter = collections.Counter()  # process-wide, never reset here
+
+
+class _BackwardSpan:
+    """The route's span over the core's backward: opened by the core's end,
+    closed by its start, both on autograd's thread."""
+
+    def __init__(self, route: str):
+        self.route, self.cm = route, None
+
+    def open(self) -> None:
+        ATTENTION_CALLS[self.route + ".backward"] += 1
+        self.cm = HOST_TIMES(self.route)
+        self.cm.__enter__()
+
+    def close(self) -> None:
+        cm, self.cm = self.cm, None
+        if cm is not None:
+            cm.__exit__(None, None, None)
+
+
+class _CoreEnd(torch.autograd.Function):
+    """The identity on the core's output; its backward opens the span."""
+
+    @staticmethod
+    def forward(ctx, span: _BackwardSpan, out: torch.Tensor):
+        ctx.span = span
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.span.open()
+        return None, g
+
+
+class _CoreStart(torch.autograd.Function):
+    """The identity on the core's q, k and v; its backward closes the span."""
+
+    @staticmethod
+    def forward(ctx, span: _BackwardSpan, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        ctx.span = span
+        return q.view_as(q), k.view_as(k), v.view_as(v)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        ctx.span.close()
+        return None, gq, gk, gv
 
 
 def pool_tokens(x: torch.Tensor, thw: Sequence[int], kernel: Sequence[int],
@@ -133,11 +195,27 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
+_ON_DEVICE: dict = {}  # (what, sizes, device, dtype) -> a constant made on the host once
+
+
+def _on_device(what: str, sizes: Tuple[int, int], device, dtype, make) -> torch.Tensor:
+    """``make(*sizes)`` (a host tensor) on ``device``, copied there once per
+    key: a copy from pageable host memory each forward would wait for the
+    device's queue to drain, once per table in every block and
+    recomputation."""
+    key = (what, sizes, torch.device(device), dtype)
+    out = _ON_DEVICE.get(key)
+    if out is None:
+        out = _ON_DEVICE[key] = make(*sizes).to(device, dtype)
+    return out
+
+
 def rel_pos_table(rel_pos: torch.Tensor, d: int) -> torch.Tensor:
     """The table [L, head_dim] linearly resized to length ``d``."""
     if rel_pos.shape[0] == d:
         return rel_pos
-    w = torch.from_numpy(_resize_weights(rel_pos.shape[0], d)).to(rel_pos.device, rel_pos.dtype)
+    w = _on_device("resize", (rel_pos.shape[0], d), rel_pos.device, rel_pos.dtype,
+                   lambda n_in, n_out: torch.from_numpy(_resize_weights(n_in, n_out)))
     return w.t() @ rel_pos
 
 
@@ -148,6 +226,11 @@ def rel_dist(q_n: int, k_n: int) -> torch.Tensor:
     k_ratio = max(q_n / k_n, 1.0)
     dist = np.arange(q_n)[:, None] * q_ratio - np.arange(k_n)[None, :] * k_ratio
     return torch.from_numpy((dist + (k_n - 1) * k_ratio).astype(np.int64))
+
+
+def rel_index(q_n: int, k_n: int, device) -> torch.Tensor:
+    """:func:`rel_dist` on ``device``."""
+    return _on_device("dist", (q_n, k_n), device, torch.int64, rel_dist)
 
 
 def _add_block(attn: torch.Tensor, block: torch.Tensor, sp: int) -> torch.Tensor:
@@ -166,8 +249,8 @@ def add_rel_pos_spatial(attn: torch.Tensor, q: torch.Tensor, has_cls: bool, q_sh
     sp = 1 if has_cls else 0
     q_t, q_h, q_w = q_shape
     k_t, k_h, k_w = k_shape
-    rh = rel_pos_table(rel_h, 2 * max(q_h, k_h) - 1)[rel_dist(q_h, k_h).to(rel_h.device)]
-    rw = rel_pos_table(rel_w, 2 * max(q_w, k_w) - 1)[rel_dist(q_w, k_w).to(rel_w.device)]
+    rh = rel_pos_table(rel_h, 2 * max(q_h, k_h) - 1)[rel_index(q_h, k_h, rel_h.device)]
+    rw = rel_pos_table(rel_w, 2 * max(q_w, k_w) - 1)[rel_index(q_w, k_w, rel_w.device)]
     b, nh, _, dim = q.shape
     r_q = q[:, :, sp:].reshape(b, nh, q_t, q_h, q_w, dim)
     rel_h_q = torch.einsum("bythwc,hkc->bythwk", r_q, rh.to(r_q.dtype))
@@ -184,7 +267,7 @@ def add_rel_pos_temporal(attn: torch.Tensor, q: torch.Tensor, has_cls: bool, q_s
     sp = 1 if has_cls else 0
     q_t, q_h, q_w = q_shape
     k_t, k_h, k_w = k_shape
-    rt = rel_pos_table(rel_t, 2 * max(q_t, k_t) - 1)[rel_dist(q_t, k_t).to(rel_t.device)]
+    rt = rel_pos_table(rel_t, 2 * max(q_t, k_t) - 1)[rel_index(q_t, k_t, rel_t.device)]
     b, nh, _, dim = q.shape
     r_q = q[:, :, sp:].reshape(b, nh, q_t, q_h, q_w, dim)
     rel = torch.einsum("bythwc,tkc->bythwk", r_q, rt.to(r_q.dtype))
@@ -253,6 +336,8 @@ class MultiScaleAttention(nn.Module):
         self.residual_pooling = residual_pooling
         self.flash = (flash and not rel_pos_spatial and not rel_pos_temporal
                       and not (flash_native_dim_only and head_dim > 128 and head_dim % 128))
+        self.route = ("attn.k4" if self.flash else
+                      "attn.relpos" if rel_pos_spatial or rel_pos_temporal else "attn.dense")
         self.dtype = dtype
         if pool_first or separate_qkv:
             for name in ("q", "k", "v"):
@@ -343,6 +428,27 @@ class MultiScaleAttention(nn.Module):
 
         return bias
 
+    def _core(self, q, k, v, q_shape, k_shape):
+        """Attention of the pooled q, k and v, then ``+ q`` under residual
+        pooling, in the route's span (module docstring)."""
+        recompute = torch._C._current_graph_task_id() != -1
+        ATTENTION_CALLS[self.route + (".recompute" if recompute else "")] += 1
+        span = None
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            span = _BackwardSpan(self.route)
+        with HOST_TIMES(self.route):
+            if span is not None:
+                q, k, v = _CoreStart.apply(span, q, k, v)
+            out = self._seq_attention(q, k, v, q_shape, k_shape)
+            if out is None:
+                out = self._attend(q, k, v, q_shape, k_shape)
+            if self.residual_pooling:
+                if self.has_cls_embed:
+                    out = torch.cat([out[:, :, :1], out[:, :, 1:] + q[:, :, 1:]], dim=2)
+                else:
+                    out = out + q
+            return out if span is None else _CoreEnd.apply(span, out)
+
     def forward(self, x: torch.Tensor, thw: Sequence[int], x_res: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         """``x_res``: a residual stream to pool through the SAME pool_q conv and
@@ -384,14 +490,7 @@ class MultiScaleAttention(nn.Module):
                 for name, t in (("q", q), ("k", k), ("v", v)))
         if self.dtype is not None:
             q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
-        out = self._seq_attention(q, k, v, q_shape, k_shape)
-        if out is None:
-            out = self._attend(q, k, v, q_shape, k_shape)
-        if self.residual_pooling:
-            if self.has_cls_embed:
-                out = torch.cat([out[:, :, :1], out[:, :, 1:] + q[:, :, 1:]], dim=2)
-            else:
-                out = out + q
+        out = self._core(q, k, v, q_shape, k_shape)
         out = out.transpose(1, 2).reshape(b, out.shape[2], -1)
         if tp is None:
             out = self.proj(out)

@@ -259,29 +259,45 @@ class Adam:
     def _adam(self, g: Tensors, state):
         count = state["count"] + 1
         b1, b2 = self.b1, self.b2
-        mu = {n: (1 - b1) * v + b1 * state["mu"][n] for n, v in g.items()}
-        nu = {n: (1 - b2) * (v * v) + b2 * state["nu"][n] for n, v in g.items()}
+        names = list(g)
+        v = [g[n] for n in names]
+        mu = torch._foreach_add(torch._foreach_mul(v, 1 - b1),
+                                torch._foreach_mul([state["mu"][n] for n in names], b1))
+        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(v, v), 1 - b2),
+                                torch._foreach_mul([state["nu"][n] for n in names], b2))
         c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
         c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        direction = {n: (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + self.eps) for n in g}
-        return direction, {"mu": mu, "nu": nu, "count": count}
+        den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, c2)), self.eps)
+        direction = torch._foreach_div(torch._foreach_div(mu, c1), den)
+        return dict(zip(names, direction)), {"mu": dict(zip(names, mu)), "nu": dict(zip(names, nu)), "count": count}
+
+    def _plus_decay(self, g: Tensors, params: Tensors) -> Tensors:
+        """g + wd * param, each leaf with its own wd."""
+        names = list(g)
+        decay = torch._foreach_mul([params[n] for n in names], [self.wds[n] for n in names])
+        return dict(zip(names, torch._foreach_add([g[n] for n in names], decay)))
 
     @torch.no_grad()
     def update(self, grads: Tensors, state, params: Tensors):
+        """Each step of the chain runs over all leaves at once (``torch._foreach_*``:
+        the same elementwise operations in the same order as leaf by leaf, a few
+        launches instead of ~14 a leaf)."""
         g = dict(grads)
         if self.clip_norm > 0:
             norm = global_grad_norm(g, self.reduce_sq)
             keep = norm < self.clip_norm
-            g = {n: torch.where(keep, v, v / norm.to(v.dtype) * self.clip_norm) for n, v in g.items()}
+            names = list(g)
+            scaled = torch._foreach_mul(torch._foreach_div([g[n] for n in names], norm), self.clip_norm)
+            g = {n: torch.where(keep, g[n], s) for n, s in zip(names, scaled)}
         if not self.decoupled:
-            g = {n: v + self.wds[n] * params[n] for n, v in g.items()}
+            g = self._plus_decay(g, params)
             if self.lars:
                 g = trust_ratio(g, params, self.reduce_sq)
             return self._adam(g, state)
         direction, state = self._adam(g, state)
         if self.lars:
             direction = trust_ratio(direction, params, self.reduce_sq)
-        return {n: d + self.wds[n] * params[n] for n, d in direction.items()}, state
+        return self._plus_decay(direction, params), state
 
 
 class OptimizerBundle(NamedTuple):

@@ -25,7 +25,10 @@ model's sha256 at the start and the end, per-iteration time, wait and stats, the
 profile window's idle share), one entry per eval phase under its name
 (wall seconds, batches and their median time, clips or views and their
 rate, the loader's wait, the result, the phase's peak allocated memory),
-each kernel's launch count and the peak allocated memory on the card;
+each kernel's launch count, the attention's calls by route over the
+process (``attention_calls_total``, ``models/layers/attention.py
+ATTENTION_CALLS``; the trainer's ``attention_calls`` has them step by
+step) and the peak allocated memory on the card;
 ``main`` returns the same record. In a world of more than one, rank 0
 logs it and every rank r also writes its own to
 ``DIR/run_record.rank{r}.json``. The launch counts are the process's:
@@ -47,6 +50,7 @@ from advise_tpu_torch.engine.inference import inference
 from advise_tpu_torch.engine.state import TrainState
 from advise_tpu_torch.engine.train import trainer
 from advise_tpu_torch.engine.validate import validation
+from advise_tpu_torch.models.layers.attention import ATTENTION_CALLS
 from advise_tpu_torch.parallel.mesh import distributed_init, world
 from advise_tpu_torch.utils.logging import get_commit_sha, setup_logger
 
@@ -124,7 +128,8 @@ def main(argv=None) -> dict:
         peak = max(peak, torch.cuda.max_memory_allocated(device))
         if phase != "train":
             record[phase]["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
-    record.update(launches=kernel_launches(), peak_allocated_bytes=peak,
+    record.update(launches=kernel_launches(), attention_calls_total=dict(ATTENTION_CALLS),
+                  peak_allocated_bytes=peak,
                   device=torch.cuda.get_device_name(device))
     logger.info("run record: %s", json.dumps(record))
     if n_ranks > 1:

@@ -127,7 +127,9 @@ def _run(kind, steps, record, seed=0):
 def test_each_step_kind_records_its_spans(kind):
     """Two steps record two roots ``step`` (ids 0 and 1), each with its
     children in order, nested inside it on its thread with its id; the
-    sequential paths have one forward and backward a clip."""
+    sequential paths have one forward and backward a clip. The masked
+    step's attention cores add their spans (``attn.*``) inside its forward
+    and backward."""
     _, children = KINDS[kind]
     _, _, spans = _run(kind, 2, record=True)
     roots = [i for i, s in enumerate(spans) if s.name == "step"]
@@ -138,7 +140,10 @@ def test_each_step_kind_records_its_spans(kind):
         mine = [s for s in spans if s.parent == r]
         assert [s.name for s in mine] == children
         inside = [s for s in spans if s.step == root.step]
-        assert len(inside) == len(children) + 1
+        cores = [s for s in inside if s.name.startswith("attn.")]
+        assert bool(cores) == (kind == "masked")
+        assert all(spans[s.parent].name in (FWD, BWD) for s in cores)
+        assert len(inside) == len(children) + 1 + len(cores)
         for s in inside:
             assert s.thread == root.thread == threading.get_ident()
             assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
